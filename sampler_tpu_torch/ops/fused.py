@@ -1,0 +1,342 @@
+"""Fused affine color step (counterpart of sampler_tpu/ops/fused.py).
+
+For an all-boolean tier whose factors have arity <= 2, the conditional
+log-odds of variable b is affine in its neighbours' values:
+
+    delta[b] = logit(v_b=1) - logit(v_b=0)
+             = base[b] + sum_d beta[b,d] * v[nbr[b,d]]
+
+with compile-time coefficients (affine_pairwise, copied from the JAX
+package) folded with the weights once per weights value (fold_affine).
+fused_color_draw then computes delta and draws ``u < sigmoid(delta)`` for a
+whole color in one CUDA kernel (csrc/fused_color_draw.cu), or in its plain
+PyTorch version on the CPU.  The uniform u comes from the same counter hash
+(portable_bits) that the JAX kernel uses in interpret mode, so the three
+implementations draw the same bits for the same seed words.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import format_spec as fs
+from ._build import check_tensor, launch
+
+
+# --------------------------------------------------------------------------
+# compile-time affine analysis (numpy, copied from the JAX package)
+# --------------------------------------------------------------------------
+
+def _phi_np(nlit, head, n, ftype, present=None):
+    """Vectorized numpy twin of engine._phi_from_counts (float32).
+
+    ``present``: iterable of factor-function ids actually in the graph —
+    only those variants are evaluated (compile-time cost is proportional to
+    the functions used, not all ten)."""
+    if present is None:
+        present = fs.ALL_FACTOR_FUNCS
+    present = set(int(t) for t in present)
+    f32 = np.float32
+
+    def lin_stat():
+        nbody = nlit - head.astype(np.int32)
+        n_body = np.maximum(n - 1, 0)
+        lin = np.where(head, n_body, n_body - nbody).astype(f32)
+        return np.where(n == 1, head.astype(f32), lin)
+
+    def variant(t):
+        if t in (fs.FUNC_AND, fs.FUNC_AND_CATEGORICAL,
+                 fs.FUNC_IMPLY_NATURAL):
+            return nlit == n
+        if t == fs.FUNC_OR:
+            return nlit > 0
+        if t == fs.FUNC_EQUAL:
+            return (nlit == 0) | (nlit == n)
+        if t == fs.FUNC_ISTRUE:
+            return head
+        if t == fs.FUNC_IMPLY_MLN:
+            nbody = nlit - head.astype(np.int32)
+            return np.where(nbody < np.maximum(n - 1, 0), f32(1.0),
+                            head.astype(f32))
+        if t == fs.FUNC_LINEAR:
+            return lin_stat()
+        if t == fs.FUNC_RATIO:
+            return np.log1p(lin_stat())
+        if t == fs.FUNC_LOGICAL:
+            return lin_stat() > 0
+        raise ValueError(f"unknown factor function type {t}")
+
+    present = sorted(present)
+    if len(present) == 1:
+        return np.asarray(variant(present[0]), f32)
+    out = np.zeros(np.shape(nlit), f32)
+    for t in present:
+        np.copyto(out, variant(t), where=(ftype == t))
+    return out
+
+
+def affine_pairwise(cs_pos, cs_mask, cs_ismine, cs_hmask, cs_type,
+                    present=None):
+    """Per-incidence affine coefficients (a, b) of delta-phi in the single
+    neighbor value v:  phi(own=1, v) - phi(own=0, v) = a + b*v.
+
+    All inputs [..., D, A] with A <= 2 (own-last slot permutation).
+    Returns float32 (a, b) of shape [..., D].  Handles n_own == arity
+    (repeated-variable / unary factors: b == 0) and padded records
+    (mask all-False: a == b == 0 since every phi is constant there).
+    """
+
+    def phi(k, v):
+        val = np.where(cs_ismine, k, v)
+        lits = ((val == 1) == cs_pos) & cs_mask
+        nlit = lits.sum(-1, dtype=np.int32)
+        n = cs_mask.sum(-1, dtype=np.int32)
+        head = (lits & cs_hmask).any(-1)
+        return _phi_np(nlit, head, n, cs_type, present)
+
+    d0 = phi(1, 0) - phi(0, 0)
+    d1 = phi(1, 1) - phi(0, 1)
+    return d0.astype(np.float32), (d1 - d0).astype(np.float32)
+
+
+
+def affine_cat(cs_pos, cs_mask, cs_ismine, cs_hmask, cs_type, present=None):
+    """K-candidate (categorical) affine analysis for arity<=2 tiers where
+    every real incident factor has exactly ONE own slot (own-last slot A-1;
+    neighbor slot 0).
+
+    Literals are binary even for categorical variables — lit = (value ==
+    eqpred) == ispos — so phi is a 4-point table T[olit, nlit] of
+    compile-time constants, and the candidate-k log-potential of one
+    incidence reduces (dropping k-independent terms, which cancel in the
+    softmax) to
+
+        wf * (a + b * e) * [k == eq_own],   e = [v_nbr == eq_nbr],
+
+    with a = sgn_o*((T10-T00) + D*(1-pos_n)),  b = sgn_o*D*(2*pos_n-1),
+    D = T11-T10-T01+T00, sgn_o = 2*pos_own-1.  Arity-1 incidences fall out
+    automatically (neighbor slot masked -> T01==T00, T11==T10 -> b == 0).
+
+    Returns float32 (a, b) of shape [..., D] (pre-weight coefficients;
+    fold_affine_cat multiplies by wf at weights-change time).
+    TPU-native replacement for the categorical branch of the reference's
+    sample_single_variable inner loop (SURVEY.md §3.2, §2b).
+    """
+
+    def phi(o, ln):
+        lits = np.where(cs_ismine, o, ln) & cs_mask
+        nlit = lits.sum(-1, dtype=np.int32)
+        n = cs_mask.sum(-1, dtype=np.int32)
+        head = (lits & cs_hmask).any(-1)
+        return _phi_np(nlit, head, n, cs_type, present)
+
+    t00 = phi(False, False)
+    t01 = phi(False, True)
+    t10 = phi(True, False)
+    t11 = phi(True, True)
+    pos_o = cs_pos[..., -1]
+    pos_n = cs_pos[..., 0]
+    dd = t11 - t10 - t01 + t00
+    sgn_o = np.where(pos_o, np.float32(1.0), np.float32(-1.0))
+    a = sgn_o * ((t10 - t00) + dd * (~pos_n))
+    b = sgn_o * dd * np.where(pos_n, np.float32(1.0), np.float32(-1.0))
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+
+# --------------------------------------------------------------------------
+# weight folds (once per weights value, outside the sweep loop)
+# --------------------------------------------------------------------------
+
+def _row_sum(x: torch.Tensor, D: int) -> torch.Tensor:
+    """Per-row sum of a flat d-minor stream, added in the order d = 0..D-1
+    (the JAX fold's order)."""
+    x = x.reshape(-1, D)
+    acc = x[:, 0]
+    for d in range(1, D):
+        acc = acc + x[:, d]
+    return acc
+
+
+def fold_affine(ts, ti, C: int, weights: torch.Tensor) -> tuple:
+    """(beta [C, ntiles, D*TB] d-major within a tile, base [C, ntiles, TB])
+    for one affine2 tier: beta = wf * ab_b, base = sum_d wf * ab_a, with
+    wf = weights[cs_wid] * cs_feat."""
+    from ..compile import tier_geom
+    from .weights import expand_wf
+
+    B, D, _ = tier_geom(ts, ti, C)
+    TB = ti.band_tb
+    nt = B // TB
+    wf = expand_wf(weights, ts.cs_wid, ts.cs_feat)
+    beta = ((wf * ts.ab_b).reshape(C, nt, TB, D).transpose(2, 3)
+            .reshape(C, nt, D * TB))
+    base = _row_sum(wf * ts.ab_a, D).reshape(C, nt, TB)
+    return beta, base
+
+
+def fold_deltam(ts, ti, C: int, weights: torch.Tensor) -> tuple:
+    """Weight-folded multilinear delta coefficients for one deltam tier:
+    (base [C*B], b1 [C*B*D], b2, bx), flat; b2 and bx are None on pairwise
+    tiers, whose coefficients are the affine streams ab_a / ab_b."""
+    from ..compile import tier_geom
+    from .weights import expand_wf
+
+    B, D, _ = tier_geom(ts, ti, C)
+    wf = expand_wf(weights, ts.cs_wid, ts.cs_feat)
+    pairwise = ts.dm_b2.numel() == C
+    a_src = ts.ab_a if ts.dm_a.numel() == C else ts.dm_a
+    b1_src = ts.ab_b if ts.dm_b1.numel() == C else ts.dm_b1
+    base = _row_sum(wf * a_src, D)
+    b1 = wf * b1_src
+    if pairwise:
+        return base, b1, None, None
+    return base, b1, wf * ts.dm_b2, wf * ts.dm_x
+
+
+# --------------------------------------------------------------------------
+# the counter hash (bit for bit the JAX package's _portable_bits)
+# --------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+KNUTH = 0x9E3779B1
+PLAIN_CHUNK_TILES = 256
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32 on uint32 values held in int64 (masked after every
+    multiply: the wrapped int64 product keeps the right low 32 bits)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & M32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & M32
+    return x ^ (x >> 16)
+
+
+def u32(x, device=None) -> torch.Tensor:
+    """An int or int32 tensor as its uint32 value, held in int64."""
+    return torch.as_tensor(x, device=device).to(torch.int64) & M32
+
+
+def hash_bits(cnt: torch.Tensor, s0: torch.Tensor,
+              s1: torch.Tensor) -> torch.Tensor:
+    """Two lowbias32 rounds with a seed word injected before each; all
+    arguments uint32 values in int64, broadcast together."""
+    return _mix(_mix(cnt ^ s0) ^ s1)
+
+
+def portable_bits(shape, s0, s1, device=None) -> torch.Tensor:
+    """Counter hash over ``shape = (rows, cols)`` with counter
+    ``row*cols + col``: uint32 values held in int64.  ``s0`` / ``s1`` are
+    ints or int32 tensors (a tensor ``s1`` of shape [n, 1, 1] gives n
+    planes)."""
+    rows, cols = shape
+    cnt = (torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+           * cols + torch.arange(cols, dtype=torch.int64, device=device))
+    return hash_bits(cnt, u32(s0, device), u32(s1, device))
+
+
+def tile_seed(s1, t) -> torch.Tensor:
+    """Second seed word of tile t: s1 ^ (t * 0x9E3779B1), wrapping."""
+    return u32(s1) ^ ((u32(t) * KNUTH) & M32)
+
+
+def uniform24(bits: torch.Tensor) -> torch.Tensor:
+    """24-bit uniform in (0, 1) from hash bits: the JAX kernel's u."""
+    return (((bits >> 8) & 0xFFFFFF).to(torch.float32) * (2.0 ** -24)
+            + (2.0 ** -25))
+
+
+# --------------------------------------------------------------------------
+# the fused color step
+# --------------------------------------------------------------------------
+
+def fused_color_draw_plain(values, nbr_dmaj, starts, beta, base, c: int,
+                           seed, W: int, TB: int, D: int,
+                           return_delta: bool = False):
+    """Plain PyTorch version of :func:`fused_color_draw`, over chunks of
+    PLAIN_CHUNK_TILES tiles so its temporaries stay bounded (~0.3 GB at
+    D=5, TB=128, 512 chains)."""
+    nt = starts.shape[0]
+    NC = values.shape[1]
+    dev = values.device
+    out = torch.empty((nt * TB, NC), dtype=values.dtype, device=dev)
+    delta_all = (torch.empty((nt * TB, NC), dtype=torch.float32, device=dev)
+                 if return_delta else None)
+    s0, s1 = u32(seed[0]), u32(seed[1])
+    cnt = (torch.arange(TB, dtype=torch.int64, device=dev)[:, None] * NC
+           + torch.arange(NC, dtype=torch.int64, device=dev))
+    for t0 in range(0, nt, PLAIN_CHUNK_TILES):
+        t1 = min(nt, t0 + PLAIN_CHUNK_TILES)
+        n = t1 - t0
+        idx = nbr_dmaj[c, t0:t1].reshape(n, D, TB)
+        local = idx - starts[t0:t1].reshape(n, 1, 1)
+        inside = ((local >= 0) & (local < W))[..., None]
+        v = values.index_select(0, idx.reshape(-1)).reshape(n, D, TB, NC)
+        terms = torch.where(inside, beta[c, t0:t1].reshape(n, D, TB, 1)
+                            * v.to(torch.float32), 0.0)
+        acc = terms[:, 0]
+        for d in range(1, D):
+            acc = acc + terms[:, d]
+        delta = acc + base[c, t0:t1].reshape(n, TB, 1)
+        tt = torch.arange(t0, t1, dtype=torch.int64, device=dev)
+        u = uniform24(hash_bits(cnt, s0, tile_seed(s1, tt).reshape(n, 1, 1)))
+        rows = slice(t0 * TB, t1 * TB)
+        out[rows] = (u < torch.sigmoid(delta)).to(values.dtype).reshape(
+            n * TB, NC)
+        if return_delta:
+            delta_all[rows] = delta.reshape(n * TB, NC)
+    return (out, delta_all) if return_delta else out
+
+
+def fused_color_draw(values, nbr_dmaj, starts, beta, base, c: int, seed,
+                     W: int, TB: int, D: int, return_delta: bool = False):
+    """Draw color ``c`` of an affine2 tier.
+
+    values int8 [P, NC]; nbr_dmaj int32 [C, >= ntiles, D*TB] (all colors,
+    global positions, d-major within a tile); starts int32 [ntiles] (this
+    color's window starts); beta f32 like nbr_dmaj; base f32
+    [C, >= ntiles, TB]; seed int32 [2] (a tensor on values' device).
+    Returns int8 [ntiles*TB, NC], and with ``return_delta`` also the f32
+    log-odds delta of the same shape.
+
+    A CPU tensor goes to the plain version; a CUDA tensor to the kernel
+    (the launch adds one to ``fused_color_draw.launches``)."""
+    if values.device.type == "cpu":
+        return fused_color_draw_plain(values, nbr_dmaj, starts, beta, base,
+                                      c, seed, W, TB, D, return_delta)
+    if values.device.type != "cuda":
+        raise ValueError(f"fused_color_draw: no kernel for {values.device}")
+    dev = values.device
+    check_tensor(values, "values", torch.int8, dev, 2)
+    check_tensor(nbr_dmaj, "nbr_dmaj", torch.int32, dev, 3)
+    check_tensor(beta, "beta", torch.float32, dev, 3)
+    check_tensor(base, "base", torch.float32, dev, 3)
+    check_tensor(starts, "starts", torch.int32, dev, 1)
+    check_tensor(seed, "seed", torch.int32, dev, 1)
+    nt = starts.shape[0]
+    P, NC = values.shape
+    C = nbr_dmaj.shape[0]
+    if (nbr_dmaj.shape[2] != D * TB or nbr_dmaj.shape[1] < nt
+            or beta.shape != nbr_dmaj.shape or base.shape[0] != C
+            or base.shape[1] < nt or base.shape[2] != TB
+            or not 0 <= c < C or seed.shape[0] != 2 or not 0 < W <= P):
+        raise ValueError(
+            f"fused_color_draw: nbr {tuple(nbr_dmaj.shape)}, beta "
+            f"{tuple(beta.shape)}, base {tuple(base.shape)}, starts "
+            f"{tuple(starts.shape)}, c={c}, D={D}, TB={TB}, W={W}, P={P}")
+    out = torch.empty((nt * TB, NC), dtype=torch.int8, device=dev)
+    delta = (torch.empty((nt * TB, NC), dtype=torch.float32, device=dev)
+             if return_delta else None)
+    with torch.cuda.device(dev):
+        launch("fused_color_draw_launch", values.data_ptr(), NC,
+               nbr_dmaj[c].data_ptr(), beta[c].data_ptr(),
+               base[c].data_ptr(), starts.data_ptr(), seed.data_ptr(),
+               nt, TB, D, W, out.data_ptr(),
+               None if delta is None else delta.data_ptr(),
+               torch.cuda.current_stream(dev).cuda_stream)
+    fused_color_draw.launches += 1
+    return (out, delta) if return_delta else out
+
+
+fused_color_draw.launches = 0

@@ -1,0 +1,194 @@
+"""The port's multi-chain inference against the JAX package and the oracle.
+
+  * color_delta_bool and color_delta_multilin give the JAX package's
+    log-odds (within 1e-5) on the same streams and world;
+  * infer_mc on the CPU, fused and unfused, matches exact enumeration
+    (|Δp| < 0.01) on the biased coin, an Ising chain, every boolean factor
+    function with evidence, and an evidence-clamped banded grid;
+  * what the slice does not cover raises NotImplementedError.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sampler_tpu import fixtures as jfx
+from sampler_tpu.compile import compile_graph as jax_compile
+from sampler_tpu.compile import to_device as jax_to_device
+from sampler_tpu.engine import multichain as jmc
+from sampler_tpu_torch import FactorGraph, fixtures, oracle
+from sampler_tpu_torch import format_spec as fs
+from sampler_tpu_torch.benchgraphs import big_ising_grid
+from sampler_tpu_torch.compile import compile_graph, to_device
+from sampler_tpu_torch.convert import from_jax
+from sampler_tpu_torch.engine import multichain as tmc
+
+TOL = 0.01
+N_CHAINS = 64
+UNFUSED = ("plain", "off")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These shapes are tiny: torch's intra-op threads only contend with
+    the other test workers (measured 5x slower under xdist without)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _evidence_grid(n_query=12, seed=1):
+    """16x16 Ising grid that bands (band_tile=8), with all but n_query
+    variables clamped so the oracle stays enumerable."""
+    g, colors = big_ising_grid(16, 16, w_pair=0.35, w_bias=0.2)
+    rng = np.random.default_rng(seed)
+    query = rng.choice(g.n_vars, n_query, replace=False)
+    g.var_role[:] = fs.ROLE_EVIDENCE
+    g.var_role[query] = fs.ROLE_QUERY
+    g.var_init[:] = rng.integers(0, 2, g.n_vars)
+    return g, colors
+
+
+def _arity3_chain(n=40, seed=0):
+    """Boolean chain of arity-1/2/3 factors over every function type that
+    admits arity 3, negated literals included."""
+    rng = np.random.default_rng(seed)
+    funcs3 = [fs.FUNC_AND, fs.FUNC_OR, fs.FUNC_EQUAL, fs.FUNC_IMPLY_MLN,
+              fs.FUNC_IMPLY_NATURAL, fs.FUNC_LINEAR, fs.FUNC_RATIO,
+              fs.FUNC_LOGICAL]
+    factors = [(fs.FUNC_ISTRUE, 0, 1.0, [(v, True)]) for v in range(n)]
+    for i in range(n - 2):
+        ar = 2 + (i % 2)
+        mem = [(i + j, bool((i + j) % 3 != 0)) for j in range(ar)]
+        factors.append((int(funcs3[i % len(funcs3)]), 1 + i % 2, 1.0, mem))
+    g = FactorGraph.build(var_card=[2] * n, weights=[0.4, 0.3, -0.25],
+                          factors=factors)
+    g.var_role[:] = rng.random(n) < 0.4
+    g.var_init[:] = rng.integers(0, 2, n)
+    return g, None
+
+
+DELTA_GRAPHS = {
+    "evidence_grid": (_evidence_grid, dict(band_tile=8, band_min_block=1)),
+    "arity3_chain": (_arity3_chain, {}),
+    "all_functions": (lambda: (jfx.all_functions_graph(), None), {}),
+}
+
+
+@pytest.mark.parametrize("name,band", [
+    ("evidence_grid", "plain"), ("evidence_grid", "off"),
+    ("arity3_chain", "off"), ("all_functions", "off")])
+def test_color_deltas_match_jax(name, band):
+    make, kw = DELTA_GRAPHS[name]
+    g, colors = make()
+    jdg, jinfo = jax_compile(g, colors=colors, **kw)
+    jdgd = jax_to_device(jdg)
+    tdg, tinfo = from_jax(jdg, jinfo)
+    tdg = to_device(tdg, "cpu")
+    modes = (band, "off")
+    jw = jnp.asarray(jdg.w_init)
+    jfold = jmc.prepare_fold(jdgd, jw, jinfo, ("off", "off"))
+    tfold = tmc.prepare_fold(tdg, tdg.w_init, tinfo, modes)
+    P = jdg.var_card.shape[0]
+    vals = np.random.default_rng(4).integers(0, 2, (P, 5)).astype(np.int8)
+    tv = torch.from_numpy(vals)
+    n_multilin = 0
+    for t, ti in enumerate(tinfo.tiers):
+        for c in range(tinfo.n_colors):
+            ref = jmc.color_delta_bool(jdgd.tiers[t], jinfo.tiers[t],
+                                       jnp.asarray(vals), jw, c, jinfo,
+                                       ("off", "off"))
+            out = tmc.color_delta_bool(tdg.tiers[t], ti, tv, tdg.w_init, c,
+                                       tinfo, modes)
+            np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                                       atol=1e-5)
+            if ti.deltam:
+                n_multilin += 1
+                ref = jmc.color_delta_multilin(
+                    jdgd.tiers[t], jinfo.tiers[t], jnp.asarray(vals), c,
+                    jinfo, jfold[t], ("off", "off"))
+                out = tmc.color_delta_multilin(tdg.tiers[t], ti, tv, c, tinfo,
+                                               tfold[t], modes)
+                np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                           rtol=0, atol=1e-5)
+    assert n_multilin > 0
+
+
+PARITY_GRAPHS = {
+    "biased_coin": (lambda: (fixtures.biased_coin(1.5), None), {}, 2000),
+    "ising_chain": (lambda: (fixtures.ising_chain(8, w_pair=0.6,
+                                                  w_bias=0.25), None), {},
+                    2000),
+    "all_functions": (lambda: (fixtures.all_functions_graph(), None), {},
+                      1500),
+    "evidence_grid": (_evidence_grid, dict(band_tile=8, band_min_block=1),
+                      2000),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARITY_GRAPHS))
+@pytest.mark.parametrize("fused", [True, False])
+def test_infer_mc_matches_oracle(name, fused):
+    make, kw, n_sweeps = PARITY_GRAPHS[name]
+    g, colors = make()
+    dg, info = compile_graph(g, colors=colors, **kw)
+    modes = tmc.resolve_modes(info, "cpu") if fused else UNFUSED
+    if name == "evidence_grid":
+        assert info.affine2 and modes == (("plain", "plain") if fused
+                                          else UNFUSED)
+    d = to_device(dg, "cpu")
+    gen = torch.Generator().manual_seed(11)
+    marg, values = tmc.infer_mc(d, d.w_init, gen, 200, n_sweeps, info,
+                                N_CHAINS, modes=modes, device="cpu")
+    assert values.shape == (dg.var_card.shape[0], N_CHAINS)
+    exact = oracle.exact_marginals(g, clamp_evidence=True)
+    free = g.var_role == fs.ROLE_QUERY
+    err = np.abs(marg[:, :2] - exact)[free].max()
+    assert err < TOL, f"max |Δp| = {err:.4f}"
+
+
+def test_fused_path_counts_no_kernel_launch_on_cpu():
+    from sampler_tpu_torch.ops.banded import banded_gather
+    from sampler_tpu_torch.ops.fused import fused_color_draw
+
+    g, colors = _evidence_grid()
+    dg, info = compile_graph(g, colors=colors, band_tile=8, band_min_block=1)
+    d = to_device(dg, "cpu")
+    before = (fused_color_draw.launches, banded_gather.launches)
+    tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(0), 2, 3, info, 4,
+                 device="cpu")
+    assert (fused_color_draw.launches, banded_gather.launches) == before
+
+
+def test_cuda_mode_on_cpu_raises():
+    g, colors = _evidence_grid()
+    dg, info = compile_graph(g, colors=colors, band_tile=8, band_min_block=1)
+    d = to_device(dg, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        tmc.infer_mc(d, d.w_init, torch.Generator(), 1, 1, info, 4,
+                     modes=("cuda", "cuda"), device="cpu")
+
+
+@pytest.mark.parametrize("make", [
+    lambda: fixtures.categorical_graph(n=5, card=3),
+    lambda: fixtures.sparse_categorical_graph(),
+    lambda: fixtures.mixed_graph(),
+], ids=["categorical", "sparse_categorical", "mixed"])
+def test_outside_slice_raises(make):
+    dg, info = compile_graph(make())
+    d = to_device(dg, "cpu")
+    with pytest.raises(NotImplementedError):
+        tmc.infer_mc(d, d.w_init, torch.Generator(), 1, 1, info, 4,
+                     device="cpu")
+
+
+def test_hub_graph_raises():
+    """A star whose centre has more incident factors than hub_cap needs
+    the hub tier, which is not ported."""
+    n = 12
+    factors = [(fs.FUNC_EQUAL, 0, 1.0, [(0, True), (v, True)])
+               for v in range(1, n)]
+    g = FactorGraph.build(var_card=[2] * n, weights=[0.3], factors=factors)
+    with pytest.raises(NotImplementedError, match="hub"):
+        compile_graph(g, hub_cap=4)
