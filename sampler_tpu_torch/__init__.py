@@ -8,7 +8,9 @@ reference that the tests hold the port to.
 
 Ported so far: multi-chain marginal inference on all-boolean graphs
 (``engine.multichain.infer_mc``), with the ``fused_color_draw`` and
-``banded_gather`` kernels.
+``banded_gather`` kernels, and multi-chain weight learning on the same
+graphs (``engine.multichain.learn_mc``), with the ``grad_pair_tile``
+kernel.
 """
 from .graph import FactorGraph
 from .compile import compile_graph, to_device, DeviceGraph, CompileInfo

@@ -977,6 +977,17 @@ def flatten_streams(dg: DeviceGraph) -> DeviceGraph:
         **{f: getattr(dg, f).reshape(-1) for f in FLAT_TOP_FIELDS})
 
 
+def factor_records(dg: DeviceGraph) -> tuple:
+    """(f_vids, f_ispos, f_eqpred, f_mask) in their logical [F', A] shapes,
+    whatever the storage layout (flat on device, 2-D on host)."""
+    Fp = dg.f_type.shape[0]
+
+    def r2(a):
+        return a if a.ndim == 2 else a.reshape(Fp, -1)
+
+    return (r2(dg.f_vids), r2(dg.f_ispos), r2(dg.f_eqpred), r2(dg.f_mask))
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises when it names CUDA and no card
     is present (the port never drifts to the CPU on its own)."""

@@ -6,14 +6,20 @@ holds one position's value in every chain.  A sweep visits the colors in
 order; a color step draws every variable of that color in every chain at
 once (chromatic Gibbs) and writes the new values into ``values`` in place.
 
-This slice runs marginal inference on all-boolean graphs:
+This port runs marginal inference and weight learning on all-boolean
+graphs:
 
   * affine2 tiers (pairwise boolean, banded) with the fused mode on draw a
     whole color in ``ops.fused.fused_color_draw`` (one CUDA kernel);
   * the other tiers, and every tier with the fused mode off, compute the
     log-odds with ``color_delta_multilin`` (deltam tiers) or
     ``color_delta_bool``, gathering neighbour values with
-    ``ops.banded.banded_gather`` (banded tiers) or ``index_select``.
+    ``ops.banded.banded_gather`` (banded tiers) or ``index_select``;
+  * ``learn_mc`` runs contrastive SGD over an evidence and a free world of
+    NC chains each; its gradient (``mc_weight_gradient_cs``) goes through
+    ``ops.grad.grad_pair_tile`` (one CUDA kernel a color) on affine2 tiers
+    with the band mode on, and through the chunked cs-stream route
+    (``_phi_streams``) elsewhere.
 
 ``modes = (band, fused)``, each "cuda" (the kernel), "plain" (its plain
 PyTorch version) or "off"; the default is "cuda" on a CUDA device and
@@ -24,7 +30,8 @@ kernels) raises NotImplementedError naming the missing piece.
 
 Randomness comes from one explicit ``torch.Generator`` on the run's device:
 the initial worlds, the uniforms of the unfused draw, and two int32 seed
-words per (sweep, color, tier) for the fused kernel's counter hash.
+words per (sweep, color, tier) for the fused kernel's counter hash.  In
+learning the one generator drives both worlds' sweeps in turn.
 
 Unlike the JAX package, the port runs the chain count it is asked for: the
 TPU rounds chains up to its 128 lanes (effective_chains, demote_modes), and
@@ -36,11 +43,13 @@ import numpy as np
 import torch
 
 from .. import format_spec as fs
-from ..compile import resolve_device, tier_geom
+from ..compile import factor_records, resolve_device, tier_geom
 from ..ops.banded import banded_gather, banded_gather_plain
 from ..ops.fused import (fold_affine, fold_deltam, fused_color_draw,
                          fused_color_draw_plain)
-from ..ops.weights import expand_wf
+from ..ops.grad import GRAD_W_MAX, grad_pair_tile, grad_pair_tile_plain
+from ..ops.weights import expand_wf, segment_reduce
+from .learn import apply_update
 
 MECHANISMS = ("cuda", "plain", "off")
 
@@ -178,6 +187,24 @@ def _phi_from_counts(nlit, head, n, f_type, present):
     return out
 
 
+def _eval_phi_ax2(lits, mask, f_type, f_arity, present):
+    """φ with the arity axis at -2 (chain axis trailing).
+
+    lits [.., A, NC] bool; mask broadcastable to lits; f_type / f_arity
+    of rank lits.ndim - 1 (every lits axis but A, with broadcast-1 dims
+    where needed, e.g. [F, 1] for lits [F, A, NC]); the head literal is
+    slot arity - 1.  Returns float32 [.., NC]."""
+    lits = lits & mask
+    nlit = lits.sum(dim=-2, dtype=torch.int32)
+    head = None
+    if _need_head(present):
+        iota_a = torch.arange(lits.shape[-2], device=lits.device)[:, None]
+        hmask = iota_a == (f_arity.to(torch.int64) - 1)[..., None]
+        head = (lits & hmask).any(dim=-2)
+    return _phi_from_counts(nlit, head, f_arity.to(torch.int32), f_type,
+                            present)
+
+
 def _tc(arr: torch.Tensor, c: int, shape) -> torch.Tensor:
     """Color-``c`` slice of a flat tier stream (compile.to_device) in its
     logical ``shape``."""
@@ -187,9 +214,10 @@ def _tc(arr: torch.Tensor, c: int, shape) -> torch.Tensor:
     return arr[c * n:(c + 1) * n].view(shape)
 
 
-def _gather_nbr(ts, ti, values, nbr, c, modes) -> torch.Tensor:
-    """values at the [B, D, A1] neighbour positions ``nbr`` of color c:
-    the banded gather on banded tiers, index_select elsewhere."""
+def _gather_nbr(ts, ti, values, nbr, c, modes, r0: int = 0) -> torch.Tensor:
+    """values at the [B, D, A1] neighbour positions ``nbr`` of color c,
+    rows ``r0 ..`` of the tier: the banded gather on banded tiers,
+    index_select elsewhere."""
     B, D, A1 = nbr.shape
     NC = values.shape[-1]
     band = tier_modes(ti, modes)[0]
@@ -197,9 +225,9 @@ def _gather_nbr(ts, ti, values, nbr, c, modes) -> torch.Tensor:
         vals = values.index_select(0, nbr.reshape(-1))
     else:
         gather = banded_gather if band == "cuda" else banded_gather_plain
-        ntiles = B // ti.band_tb
+        t0, ntiles = r0 // ti.band_tb, B // ti.band_tb
         vals = gather(values, nbr.reshape(ntiles, ti.band_tb * D * A1),
-                      ts.bd_start[c], ti.band_w)
+                      ts.bd_start[c, t0:t0 + ntiles], ti.band_w)
     return vals.reshape(B, D, A1, NC)
 
 
@@ -412,3 +440,220 @@ def infer_mc(dg, weights, generator, n_burn: int, n_sweeps: int, info,
     marg = cnt[dg.pos_of_vid.cpu().numpy()].astype(np.float32) \
         / np.float32(n_sweeps * n_chains)
     return marg, values
+
+
+# --------------------------------------------------------------------------
+# weight learning
+# --------------------------------------------------------------------------
+
+def mc_factor_phis(dg, values, info) -> torch.Tensor:
+    """φ for every factor in every chain: [F', NC] (values [P, NC])."""
+    f_vids, f_ispos, f_eqpred, f_mask = factor_records(dg)
+    NC = values.shape[-1]
+    vals = values.index_select(0, f_vids.reshape(-1)) \
+        .reshape(f_vids.shape + (NC,))
+    eq = f_eqpred[..., None].to(values.dtype)
+    lits = (vals == eq) == f_ispos[..., None]
+    return _eval_phi_ax2(lits, f_mask[..., None], dg.f_type[:, None],
+                         dg.f_arity[:, None], info.present_funcs)
+
+
+def _mc_weight_gradient_factors(dg, v_ev, v_free, learn_non_evidence: bool,
+                                info) -> torch.Tensor:
+    """Weight gradient [W] averaged over the chain axis of [P, NC] worlds,
+    factor by factor: the reference the cs-stream routes are held to."""
+    if info.has_sparse_cw:
+        raise NotImplementedError(
+            "the gradient of sparse per-combination weights "
+            "(sparse_comb_wids) is not ported yet")
+    diff = dg.f_feat[:, None] * (mc_factor_phis(dg, v_ev, info)
+                                 - mc_factor_phis(dg, v_free, info))
+    if not learn_non_evidence:
+        f_vids, _, _, f_mask = factor_records(dg)
+        role = dg.var_role.index_select(0, f_vids.reshape(-1)) \
+            .reshape(f_vids.shape)
+        touches_ev = ((role == fs.ROLE_EVIDENCE) & f_mask).any(dim=-1)
+        diff = torch.where(touches_ev[:, None], diff, 0.0)
+    return segment_reduce(diff.mean(dim=1), dg.f_wid, dg.w_init.shape[0])
+
+
+def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes):
+    """φ [rc, D, NC] of rows ``r0 .. r0+rc`` of one boolean tier's color
+    ``c`` at the current ``values``, with the variable's own value
+    ``ownv`` [rc, NC] as the candidate.  Neighbour values come through the
+    same gather as the draw (``_gather_nbr``).  Counts-based: the slot axis
+    is reduced at once, so no [rc, D, A, NC] literal tensor is made."""
+    C = ts.bd_start.shape[0]
+    _, D, A = tier_geom(ts, ti, C)
+    A1 = A - 1
+    NC = values.shape[-1]
+
+    def rows(arr, *tail):
+        n = 1
+        for x in tail:
+            n *= x
+        B = arr.numel() // (C * n)
+        base = (c * B + r0) * n
+        return arr[base:base + rc * n].view((rc,) + tail)
+
+    pos = rows(ts.cs_pos, D, A)
+    ismine = rows(ts.cs_ismine, D, A)
+    msk = rows(ts.cs_mask, D, A)
+    hmask = rows(ts.cs_hmask, D, A)
+    if A1 > 0:
+        vals = _gather_nbr(ts, ti, values, rows(ts.cs_nbr, D, A1), c, modes,
+                           r0)
+        nbr_lit = (vals == 1) == pos[..., :A1, None]
+        nbrm = (msk & ~ismine)[..., :A1, None]
+        nl = (nbr_lit & nbrm).sum(dim=-2, dtype=torch.int32)
+    else:
+        nbr_lit = None
+        nl = torch.zeros((rc, D, NC), dtype=torch.int32, device=values.device)
+    ownm = ismine & msk
+    o1 = (ownm & pos).sum(dim=-1, dtype=torch.int32)            # [rc, D]
+    o0 = ownm.sum(dim=-1, dtype=torch.int32) - o1
+    v1 = (ownv == 1)[:, None, :]                                # [rc, 1, NC]
+    nown = torch.where(v1, o1[..., None], o0[..., None])
+    head = None
+    if _need_head(present):
+        head_own = (hmask & ismine).any(dim=-1)[..., None]
+        headpos = (hmask & ismine & pos).any(dim=-1)[..., None]
+        if nbr_lit is not None:
+            hl = (nbr_lit & (hmask & ~ismine)[..., :A1, None]).any(dim=-2)
+        else:
+            hl = torch.zeros(nl.shape, dtype=torch.bool, device=nl.device)
+        head = torch.where(head_own, torch.where(v1, headpos, ~headpos), hl)
+    n = rows(ts.cs_arity, D).to(torch.int32)[..., None]
+    typ = rows(ts.cs_type, D)[..., None]
+    return _phi_from_counts(nl + nown, head, n, typ, present)
+
+
+def _grad_row_chunk(ti, B: int, D: int, A: int, NC: int) -> int:
+    """Rows per gradient sub-block: bounds the [rows, D, A, NC]
+    temporaries to ~64 Mi elements however large the color block is.
+    Banded gathers need the chunk tile-aligned."""
+    target = 1 << 26
+    step = ti.band_tb if ti.band_w else 1
+    rc = max(1, target // max(D * A * NC, 1))
+    rc = min(max(step, (rc // step) * step), B)
+    while rc > step and B % rc:
+        rc -= step
+    return rc if rc > 0 and B % rc == 0 else B
+
+
+def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
+                          modes=("off", "off"),
+                          row_chunk: int | None = None) -> torch.Tensor:
+    """Weight gradient [W] on the cs streams: each factor counted once via
+    its compile-time owner record (cs_gowner, or cs_gtouch unless
+    ``learn_non_evidence``), averaged over the NC chains.
+
+    An affine2 tier with W <= GRAD_W_MAX and its band mode on ("cuda" or
+    "plain") and no ``row_chunk`` goes through ``grad_pair_tile`` (the
+    kernel, or its plain version), one call a color.  Every other tier
+    runs the chunked route: both worlds side by side on the chain axis,
+    rows in chunks of ``row_chunk`` (default ``_grad_row_chunk``), φ from
+    ``_phi_streams`` and a segment sum per weight."""
+    check_slice(info, modes)
+    W = dg.w_init.shape[0]
+    NC = v_ev.shape[-1]
+    gB = info.block_size
+    C = info.n_colors
+    grad = torch.zeros(W, dtype=torch.float32, device=v_ev.device)
+    v_both = None
+    for ts, ti in zip(dg.tiers, info.tiers):
+        Bl, D, A = tier_geom(ts, ti, C)
+        band = tier_modes(ti, modes)[0]
+        if (ti.affine2 and W <= GRAD_W_MAX and band != "off"
+                and row_chunk is None):
+            kernel = grad_pair_tile if band == "cuda" else grad_pair_tile_plain
+            coef = ts.gd_cown if learn_non_evidence else ts.gd_ctch
+            for c in range(C):
+                parts = kernel(v_ev, v_free, ts.bd_nbr, ts.bd_start[c],
+                               ts.gd_wid, coef, ts.gd_ao, ts.gd_an,
+                               ts.gd_ax, c, c * gB + ti.off, ti.band_w,
+                               ti.band_tb, D, W)
+                grad = grad + (parts.sum(dim=0, dtype=torch.float64)
+                               / NC).to(torch.float32)
+            continue
+        if v_both is None:
+            # one gather a chunk serves both worlds
+            v_both = torch.cat([v_ev, v_free], dim=-1)
+        rc = min(row_chunk or _grad_row_chunk(ti, Bl, D, A, 2 * NC), Bl)
+        if Bl % rc or (ti.band_w and band != "off" and rc % ti.band_tb):
+            raise ValueError(f"row_chunk {rc} must divide tier block {Bl}"
+                             " (and be a multiple of its band tile)")
+        present = ti.present_funcs or info.present_funcs
+        gsrc = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
+        for c in range(C):
+            for r0 in range(0, Bl, rc):
+                start = c * gB + ti.off + r0
+                phi = _phi_streams(v_both, v_both[start:start + rc], ts, ti,
+                                   c, r0, rc, present, modes)
+                sl = slice((c * Bl + r0) * D, (c * Bl + r0 + rc) * D)
+                diff = (phi[..., :NC] - phi[..., NC:]).mean(dim=-1) \
+                    * ts.cs_feat[sl].view(rc, D)
+                diff = torch.where(gsrc[sl].view(rc, D), diff, 0.0)
+                grad = grad + segment_reduce(diff, ts.cs_wid[sl], W)
+    return grad
+
+
+def mc_weight_gradient(dg, v_ev, v_free, learn_non_evidence: bool, info,
+                       modes=None) -> torch.Tensor:
+    """The cs-stream gradient when modes are given; the per-factor route
+    (the modes-free reference) when they are None."""
+    if modes is not None:
+        return mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence,
+                                     info, modes)
+    return _mc_weight_gradient_factors(dg, v_ev, v_free, learn_non_evidence,
+                                       info)
+
+
+def _learn_mc_from(dg, weights, v_ev, v_free, alpha, generator, cfg, info,
+                   modes=None, device="cuda") -> tuple:
+    """Multi-chain contrastive SGD from explicit worlds and step size: per
+    epoch the weights are refolded, both worlds take
+    ``cfg.n_sweeps_per_epoch`` sweeps in turn (the evidence world with
+    evidence clamped, the free world with none), and the chain-averaged
+    gradient updates the weights.  ``v_ev`` and ``v_free`` are not
+    modified.  Returns (weights, v_ev, v_free, alpha), so a run resumes at
+    epoch granularity by passing the last three back in with the same
+    generator."""
+    modes, w = _setup(dg, v_ev, weights, device, info, modes)
+    if not _on(v_free, v_ev.device):
+        raise ValueError(f"v_free is on {v_free.device}, v_ev on "
+                         f"{v_ev.device}")
+    v_ev, v_free = v_ev.clone(), v_free.clone()
+    alpha = np.float32(alpha)
+    diminish = np.float32(cfg.diminish)
+    for _ in range(cfg.n_epochs):
+        folded = prepare_fold(dg, w, info, modes)
+        for _ in range(cfg.n_sweeps_per_epoch):
+            sweep_mc(dg, v_ev, w, generator, False, info, folded, modes)
+            sweep_mc(dg, v_free, w, generator, True, info, folded, modes)
+        grad = mc_weight_gradient(dg, v_ev, v_free, cfg.learn_non_evidence,
+                                  info, modes)
+        w = apply_update(w, grad, dg.w_fixed, float(alpha),
+                         cfg.regularization, cfg.reg_param)
+        alpha = alpha * diminish
+    return w, v_ev, v_free, float(alpha)
+
+
+def learn_mc(dg, weights, generator, cfg, info, n_chains: int, modes=None,
+             v_ev=None, v_free=None, alpha=None, device="cuda") -> tuple:
+    """Multi-chain learning; returns (weights [W] float32, v_ev, v_free).
+
+    Fresh worlds of ``n_chains`` chains come from ``generator`` (evidence
+    world first); pass (v_ev, v_free, alpha) to continue a checkpointed
+    run instead.  With the default ``device="cuda"`` and no card present
+    this raises; pass ``device="cpu"`` for the plain versions."""
+    modes = _setup(dg, v_ev, weights, device, info, modes)[0]
+    if v_ev is None:
+        v_ev = init_values_mc(dg, generator, n_chains, info)
+    if v_free is None:
+        v_free = init_values_mc(dg, generator, n_chains, info)
+    if alpha is None:
+        alpha = cfg.stepsize
+    w, v_ev, v_free, _ = _learn_mc_from(dg, weights, v_ev, v_free, alpha,
+                                        generator, cfg, info, modes, device)
+    return w, v_ev, v_free

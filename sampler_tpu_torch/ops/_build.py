@@ -2,13 +2,14 @@
 
 Every kernel source in ``sampler_tpu_torch/csrc/`` has a plain C launcher
 (``extern "C"``, pointers and ints only, returning the ``cudaError_t`` of
-the launch).  At first use all sources are compiled in ONE ``nvcc`` call
+the launch).  At first use every source is compiled by its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the objects
 into ``sampler_tpu_torch/_build/libsampler_kernels_<sha>.so`` (the sha
-covers the sources and the flags, so an edited source rebuilds) and the
+covers the sources and the flags, so an edited source rebuilds); the
 library is loaded with ``ctypes``.  There is no PyTorch C++ extension, so a
 build takes seconds, and no lock file, so an interrupted build cannot block
-the next one: the library is written under a temporary name and renamed
-into place.
+the next one: objects and the library are written under names of this
+process and the library is renamed into place.
 """
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fused_color_draw.cu", "banded_gather.cu")
+SOURCES = ("fused_color_draw.cu", "banded_gather.cu", "grad_pair_tile.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 300
 
 _P = ctypes.c_void_p
@@ -35,6 +36,8 @@ LAUNCHERS = {
     "fused_color_draw_launch": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _P, _P, _P),
     "banded_gather_launch": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
+    "grad_pair_tile_launch": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 
@@ -60,6 +63,25 @@ def library_path() -> str:
                         f"libsampler_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(procs) -> str:
+    """Wait for every (name, Popen) and return their joined output; raise
+    with the output of the first that failed."""
+    outputs, failed = [], None
+    for name, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        outputs.append(out + err)
+        if proc.returncode != 0 and failed is None:
+            failed = (name, proc.returncode, out + err)
+    if failed is not None:
+        raise RuntimeError(f"nvcc failed on {failed[0]} ({failed[1]}):\n"
+                           f"{failed[2]}")
+    return "".join(outputs)
+
+
 @functools.lru_cache(maxsize=None)
 def build() -> tuple:
     """Compile (when the library for these sources is missing) and load.
@@ -70,20 +92,28 @@ def build() -> tuple:
     seconds, report = 0.0, []
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in SOURCES)]
+        nvcc = _nvcc()
+        tag = f"{os.getpid()}.tmp"
+        objs = [os.path.join(BUILD_DIR, f"{s[:-3]}.{tag}.o") for s in SOURCES]
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=NVCC_TIMEOUT_S, check=True)
-        except subprocess.CalledProcessError as e:
-            raise RuntimeError(f"nvcc failed ({e.returncode}):\n{e.stdout}"
-                               f"\n{e.stderr}") from e
+            text = _run([(src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                 os.path.join(CSRC, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                for src, obj in zip(SOURCES, objs)])
+            tmp = f"{path}.{tag}"
+            _run([("link", subprocess.Popen(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                 "-o", tmp, *objs],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         seconds = time.perf_counter() - t0
         os.replace(tmp, path)
-        report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-                  if "ptxas" in ln]
+        report = [ln.strip() for ln in text.splitlines() if "ptxas" in ln]
     lib = ctypes.CDLL(path)
     for name, argtypes in LAUNCHERS.items():
         fn = getattr(lib, name)

@@ -16,6 +16,7 @@ MODULES = [
     "sampler_tpu_torch.oracle", "sampler_tpu_torch.ops.banded",
     "sampler_tpu_torch.ops.fused", "sampler_tpu_torch.ops.weights",
     "sampler_tpu_torch.ops._build", "sampler_tpu_torch.engine.multichain",
+    "sampler_tpu_torch.engine.learn", "sampler_tpu_torch.ops.grad",
 ]
 
 
@@ -60,6 +61,29 @@ def test_infer_mc_without_device_raises_without_card():
         "d = to_device(dg, 'cpu')\n"
         "try:\n"
         "    infer_mc(d, d.w_init, torch.Generator(), 1, 1, info, 4)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    if proc.stdout.startswith("card"):
+        pytest.skip("a CUDA device is present")
+    assert proc.stdout.startswith("raised no CUDA device"), proc.stdout
+
+
+def test_learn_mc_without_device_raises_without_card():
+    code = (
+        "import torch\n"
+        "from sampler_tpu_torch import compile_graph, fixtures\n"
+        "from sampler_tpu_torch.compile import to_device\n"
+        "from sampler_tpu_torch.engine.learn import LearnConfig\n"
+        "from sampler_tpu_torch.engine.multichain import learn_mc\n"
+        "if torch.cuda.is_available():\n"
+        "    print('card'); raise SystemExit(0)\n"
+        "dg, info = compile_graph(fixtures.labeled_coin_graph(20))\n"
+        "d = to_device(dg, 'cpu')\n"
+        "try:\n"
+        "    learn_mc(d, d.w_init, torch.Generator(), LearnConfig(n_epochs=1),"
+        " info, 4)\n"
         "except RuntimeError as e:\n"
         "    print('raised', e)\n")
     proc = _run(code)
