@@ -24,9 +24,25 @@ Phases (each prints one line with its result and elapsed seconds):
              gradient; kernel time and bound
   6 learn    learn_mc on the learning flagship (10 epochs of 2 sweeps, the
              main learning path): launches, rate, peak memory and where an
-             epoch's time goes; then the kernel and chunked gradient routes
-             learn the same weights on a 16x16 grid, and a labelled coin
-             reaches its log-odds
+             epoch's time goes; the bytes init_values_mc allocates and the
+             run's peak, each with the unchunked int32 draw it had before
+             and with the chunked draw; then the kernel and chunked gradient
+             routes learn the same weights on a 16x16 grid, and a labelled
+             coin reaches its log-odds
+  7 dm kernels  fused_dm_draw and banded_gather_multi against their plain
+             versions at the triple flagship's shapes (big_triple_grid(512,
+             512): 3 colors, band_k 2, arity 3; 1024 random chains, every
+             color; the gather also on shifted, clipped and past-P window
+             starts), and on small graphs with band_k 1 and with arity 2, at
+             1024 and at 37 chains; kernel times and bounds
+  8 oracle dm  infer_mc on three small fusedm graphs (triple grids with
+             band_k 1 and 2, a 3-colored Ising grid), fused and unfused,
+             against exact enumeration (|dp| < 0.01)
+  9 triple   infer_mc on the triple flagship at 1024 chains, fused (the
+             default modes, the main path of this class) and unfused
+             (fused off): launches, rates, peak memory and where a fused
+             sweep's time goes; then one learn_mc epoch on the labelled
+             triple flagship at 256 chains a world, by part
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failed check ends the run nonzero.
 The script imports neither JAX nor the JAX package.
@@ -47,6 +63,11 @@ BURN, SWEEPS = 3, 20
 LEARN_CHAINS = 256            # chains a world (bench.py's learning default)
 LEARN_EPOCHS, LEARN_SWEEPS = 10, 2
 GRAD_RTOL = 1e-5              # relative to the largest |value| compared
+TRI_GRID = 512                # bench.py's arity-3 class
+TRI_CHAINS = 1024
+DM_ORACLE_CHAINS = 1024
+DM_ORACLE_BURN, DM_ORACLE_SWEEPS = 100, 1000
+DRAW_GAP = 1e-5               # a kernel draw may differ only this near p
 
 
 def require(cond, msg: str) -> None:
@@ -88,18 +109,105 @@ def rows_read(nbr, starts, W: int) -> int:
     return int(torch.unique(nbr[inside]).numel())
 
 
-def labelled_flagship(grid: int):
-    """bench.py's learning graph: the grid with every other variable
-    evidence, labelled ``arange % card``."""
+def rows_read_multi(rnbr, starts, W: int, P: int) -> int:
+    """Distinct values rows a multi-window gather reads (this run's
+    data)."""
+    import torch
+
+    from sampler_tpu_torch.ops.banded import _multi_rows
+
+    row, valid = _multi_rows(rnbr, starts, W, P)
+    return int(torch.unique(row[valid]).numel())
+
+
+def label_half(g):
+    """bench.py's learning labels (bench_learning): every other variable
+    evidence, labelled ``arange % card``; returns ``g``."""
     import numpy as np
 
-    from sampler_tpu_torch.benchgraphs import big_ising_grid
-
-    g, colors = big_ising_grid(grid, grid)
     g.var_role[::2] = 1
     g.var_init[::2] = (np.arange((g.n_vars + 1) // 2)
                        % np.asarray(g.var_card)[::2]).astype(np.int32)
-    return g, colors
+    return g
+
+
+def labelled_flagship(grid: int):
+    """bench.py's learning graph: the grid with every other variable
+    evidence, labelled ``arange % card``."""
+    from sampler_tpu_torch.benchgraphs import big_ising_grid
+
+    g, colors = big_ising_grid(grid, grid)
+    return label_half(g), colors
+
+
+def check_draws(out, ref, delta, seed, TB: int, NC: int) -> int:
+    """Require that kernel draws ``out`` and plain draws ``ref`` differ
+    only where the uniform lies within DRAW_GAP of sigmoid(delta); returns
+    the number that differ."""
+    import torch
+
+    from sampler_tpu_torch.ops.fused import (hash_bits, tile_seed, u32,
+                                             uniform24)
+
+    diff = out != ref
+    if bool(diff.any()):
+        rows, chains = diff.nonzero(as_tuple=True)
+        t = rows // TB
+        u = uniform24(hash_bits((rows % TB) * NC + chains, u32(seed[0]),
+                                tile_seed(seed[1], t)))
+        gap = float((u - torch.sigmoid(delta[diff])).abs().max())
+        require(gap < DRAW_GAP, f"a differing draw has |u - p| = {gap}")
+    return int(diff.sum())
+
+
+def epoch_parts(d, w, info, modes, v_ev, v_free, cfg, gen,
+                reps: int = 3) -> dict:
+    """Where a learning epoch's time goes: the epoch body of
+    _learn_mc_from, with CUDA events between its parts (mean of
+    ``reps``); the worlds are updated in place."""
+    import torch
+
+    from sampler_tpu_torch.engine.learn import apply_update
+    from sampler_tpu_torch.engine.multichain import (mc_weight_gradient,
+                                                     prepare_fold, sweep_mc)
+
+    parts = dict(fold=0.0, sweeps=0.0, gradient=0.0, update=0.0)
+    for _ in range(reps):
+        ev_t = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev_t[0].record()
+        folded = prepare_fold(d, w, info, modes)
+        ev_t[1].record()
+        for _ in range(cfg.n_sweeps_per_epoch):
+            sweep_mc(d, v_ev, w, gen, False, info, folded, modes)
+            sweep_mc(d, v_free, w, gen, True, info, folded, modes)
+        ev_t[2].record()
+        grad = mc_weight_gradient(d, v_ev, v_free, False, info, modes)
+        ev_t[3].record()
+        apply_update(w, grad, d.w_fixed, cfg.stepsize, cfg.regularization,
+                     cfg.reg_param)
+        ev_t[4].record()
+        ev_t[4].synchronize()
+        for i, name in enumerate(parts):
+            parts[name] += ev_t[i].elapsed_time(ev_t[i + 1]) / reps
+    return dict(parts, epoch=sum(parts.values()))
+
+
+def init_values_unchunked(dg, generator, n_chains: int, info,
+                          random_init: bool = True):
+    """init_values_mc as it was before its draw was chunked: one int32
+    [P, NC] randint and its modulo.  Kept here only to measure what the
+    chunked draw saves."""
+    import torch
+
+    P = dg.var_card.shape[0]
+    dt = torch.int8
+    base = dg.var_init.to(dt)[:, None].expand(P, n_chains)
+    if not random_init:
+        return base.contiguous()
+    r = torch.randint(0, 1 << 30, (P, n_chains), generator=generator,
+                      device=dg.var_card.device, dtype=torch.int32)
+    rand_vals = (r % dg.var_card.clamp(min=1)[:, None]).to(dt)
+    return torch.where((dg.var_role == 0)[:, None], rand_vals, base)
 
 
 def grad_phase(dev) -> tuple:
@@ -217,10 +325,9 @@ def learn_phase(dev, g, d, info) -> dict:
     from sampler_tpu_torch import format_spec as fs
     from sampler_tpu_torch.benchgraphs import big_ising_grid
     from sampler_tpu_torch.compile import compile_graph, to_device
-    from sampler_tpu_torch.engine.learn import LearnConfig, apply_update
-    from sampler_tpu_torch.engine.multichain import (
-        init_values_mc, learn_mc, mc_weight_gradient, prepare_fold,
-        sweep_mc)
+    from sampler_tpu_torch.engine import multichain
+    from sampler_tpu_torch.engine.learn import LearnConfig
+    from sampler_tpu_torch.engine.multichain import init_values_mc, learn_mc
     from sampler_tpu_torch.ops.banded import banded_gather
     from sampler_tpu_torch.ops.fused import fused_color_draw
     from sampler_tpu_torch.ops.grad import grad_pair_tile
@@ -237,6 +344,28 @@ def learn_phase(dev, g, d, info) -> dict:
     learn_mc(d, d.w_init, torch.Generator(device=dev).manual_seed(1),
              dataclasses.replace(cfg, n_epochs=1), info, chains, modes,
              device=dev)
+    # what init_values_mc allocates (its output included), and the run's
+    # peak, with the draw as it was before it was chunked and as it is
+    gen0 = torch.Generator(device=dev).manual_seed(2)
+    init_bytes = {}
+    for label, fn in (("unchunked", init_values_unchunked),
+                      ("chunked", init_values_mc)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        v = fn(d, gen0, chains, info)
+        torch.cuda.synchronize()
+        init_bytes[label] = torch.cuda.max_memory_allocated() - before
+        del v
+    torch.cuda.reset_peak_memory_stats()
+    multichain.init_values_mc = init_values_unchunked
+    try:
+        learn_mc(d, d.w_init, torch.Generator(device=dev).manual_seed(2),
+                 cfg, info, chains, modes, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        multichain.init_values_mc = init_values_mc
+    peak_unchunked = torch.cuda.max_memory_allocated()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
@@ -271,33 +400,17 @@ def learn_phase(dev, g, d, info) -> dict:
                       if isinstance(t, torch.Tensor))
     run = dict(wall_s=wall, learning_sweeps_per_s=sweeps / wall,
                learning_updates_per_s=g.n_vars * sweeps * 2 * chains / wall,
-               peak_memory_bytes=peak, device_graph_bytes=graph_bytes,
-               world_bytes=v_ev.numel(), launches=launches,
-               weights=w.tolist(), w_init=d.w_init.tolist())
-
-    # where an epoch's time goes: the epoch body of _learn_mc_from, with
-    # CUDA events between its parts
-    gen = torch.Generator(device=dev).manual_seed(3)
-    parts = dict(fold=0.0, sweeps=0.0, gradient=0.0, update=0.0)
-    reps = 3
-    for _ in range(reps):
-        ev_t = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev_t[0].record()
-        folded = prepare_fold(d, w, info, modes)
-        ev_t[1].record()
-        for _ in range(cfg.n_sweeps_per_epoch):
-            sweep_mc(d, v_ev, w, gen, False, info, folded, modes)
-            sweep_mc(d, v_free, w, gen, True, info, folded, modes)
-        ev_t[2].record()
-        grad = mc_weight_gradient(d, v_ev, v_free, False, info, modes)
-        ev_t[3].record()
-        apply_update(w, grad, d.w_fixed, cfg.stepsize, cfg.regularization,
-                     cfg.reg_param)
-        ev_t[4].record()
-        ev_t[4].synchronize()
-        for i, name in enumerate(parts):
-            parts[name] += ev_t[i].elapsed_time(ev_t[i + 1]) / reps
-    run["epoch_breakdown_ms"] = dict(parts, epoch=sum(parts.values()))
+               peak_memory_bytes=peak,
+               peak_memory_bytes_unchunked_init=peak_unchunked,
+               init_values_mc_bytes=init_bytes,
+               device_graph_bytes=graph_bytes, world_bytes=v_ev.numel(),
+               launches=launches, weights=w.tolist(),
+               w_init=d.w_init.tolist())
+    require(init_bytes["chunked"] < 0.5 * init_bytes["unchunked"],
+            f"init_values_mc bytes {init_bytes}")
+    run["epoch_breakdown_ms"] = epoch_parts(
+        d, w, info, modes, v_ev, v_free, cfg,
+        torch.Generator(device=dev).manual_seed(3))
     del v_ev, v_free
 
     # the kernel route and the chunked index_select route learn the same
@@ -347,6 +460,368 @@ def learn_phase(dev, g, d, info) -> dict:
     return launches
 
 
+def kernel_bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S,
+                 **extra) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops, **extra)
+
+
+def triple_flagship(dev, labelled: bool = False):
+    """bench.py's arity-3 class on the card: (graph, device graph, info,
+    numpy compile seconds)."""
+    from sampler_tpu_torch.benchgraphs import big_triple_grid
+    from sampler_tpu_torch.compile import compile_graph, to_device
+
+    g, colors = big_triple_grid(TRI_GRID, TRI_GRID)
+    if labelled:
+        label_half(g)
+    tc = time.perf_counter()
+    dg, info = compile_graph(g, colors=colors)
+    compile_s = time.perf_counter() - tc
+    ti = info.tiers[0]
+    require(len(info.tiers) == 1 and ti.fusedm and ti.band_k == 2
+            and ti.arity == 3 and not ti.affine2,
+            f"triple flagship tiers {info.tiers}")
+    return g, to_device(dg, dev), info, compile_s
+
+
+def dm_case(dev, d, info, NC: int, seed_val: int) -> dict:
+    """Both multi-window kernels against their plain versions on every
+    color of ``d``'s one fusedm tier, on a random world of NC chains."""
+    import torch
+
+    from sampler_tpu_torch.ops.banded import (banded_gather_multi,
+                                              banded_gather_multi_plain)
+    from sampler_tpu_torch.ops.fused import (fold_deltam_tiles,
+                                             fused_dm_draw,
+                                             fused_dm_draw_plain)
+
+    ts, ti = d.tiers[0], info.tiers[0]
+    C, P = info.n_colors, d.var_card.shape[0]
+    TB, W, K = ti.band_tb, ti.band_w, ti.band_k
+    gen = torch.Generator(device=dev).manual_seed(seed_val)
+    values = torch.randint(0, 2, (P, NC), generator=gen, device=dev,
+                           dtype=torch.int8)
+    fold = fold_deltam_tiles(ts, ti, C, d.w_init)
+    seed = torch.tensor([seed_val, -7 * seed_val - 1], dtype=torch.int32,
+                        device=dev)
+    err, n_diff, n_draws, gathers = 0.0, 0, 0, 0
+    for c in range(C):
+        args = (values, ts.bd_dmnbr, ts.bd_start[c], *fold, c, seed, W, TB,
+                ti.degree, ti.arity - 1, K)
+        out, delta = fused_dm_draw(*args, return_delta=True)
+        ref, ref_delta = fused_dm_draw_plain(*args, return_delta=True)
+        err = max(err, float((delta - ref_delta).abs().max()))
+        n_diff += check_draws(out, ref, delta, seed, TB, NC)
+        n_draws += out.numel()
+        del out, delta, ref, ref_delta
+        if K < 2:
+            continue
+        starts = ts.bd_start[c]
+        # the planner's starts; every start moved off the 256 grid and
+        # clipped to P - W; the last window run past P (rows >= P read 0)
+        past = starts.clone()
+        past[:, -1] = P - W // 2
+        for st in (starts, torch.clamp(starts + 100, max=P - W), past):
+            got = banded_gather_multi(values, ts.bd_rnbr[c], st, W)
+            require(torch.equal(got, banded_gather_multi_plain(
+                values, ts.bd_rnbr[c], st, W)),
+                f"banded_gather_multi differs from its plain version "
+                f"(c={c}, NC={NC})")
+            gathers += 1
+            del got
+    require(err < 1e-5, f"fused_dm_draw delta error {err} (NC={NC})")
+    require(n_diff <= 1e-4 * n_draws,
+            f"{n_diff} of {n_draws} fused_dm_draw draws differ (NC={NC})")
+    return dict(NC=NC, band_k=K, arity=ti.arity, delta_max_abs_err=err,
+                draws_differing=n_diff, draws=n_draws,
+                gathers_compared_exact=gathers)
+
+
+def dm_kernels_phase(dev) -> tuple:
+    """Phase 7.  Returns (graph, device graph, info, kernel numbers)."""
+    import numpy as np
+    import torch
+
+    from sampler_tpu_torch.benchgraphs import big_ising_grid, big_triple_grid
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.ops.banded import (_multi_rows,
+                                              banded_gather_multi,
+                                              banded_gather_multi_plain)
+    from sampler_tpu_torch.ops.fused import (fold_deltam_tiles,
+                                             fused_dm_draw,
+                                             fused_dm_draw_plain)
+
+    t7 = time.perf_counter()
+    g, d, info, compile_s = triple_flagship(dev)
+    cases = {"triple_flagship": dm_case(dev, d, info, TRI_CHAINS, 1)}
+    # band_k 1 (global indices), and arity 2 (no b2/bx terms), at 1024
+    # chains (16 a thread) and at 37 (one a thread)
+    gs, colors_s = big_triple_grid(16, 16)
+    dgs, infos = compile_graph(gs, colors=colors_s, band_tile=8,
+                               band_min_block=1)
+    gi, _ = big_ising_grid(32, 32)
+    r, c = np.divmod(np.arange(gi.n_vars), 32)
+    dgi, infoi = compile_graph(gi, colors=((r + c) % 3).astype(np.int32),
+                               band_tile=8, band_min_block=1, band_wmax=512)
+    require(infos.tiers[0].band_k == 1 and infos.fusedm
+            and infoi.tiers[0].arity == 2 and infoi.tiers[0].band_k == 2
+            and infoi.fusedm, "small fusedm graphs")
+    for name, dgx, infox in (("triple16_k1", dgs, infos),
+                             ("ising3_a2", dgi, infoi)):
+        dx = to_device(dgx, dev)
+        for NC in (1024, 37):
+            cases[f"{name}_nc{NC}"] = dm_case(dev, dx, infox, NC, 2)
+
+    ts, ti = d.tiers[0], info.tiers[0]
+    C, P, B = info.n_colors, d.var_card.shape[0], ti.block
+    D, A1, TB, W, K = (ti.degree, ti.arity - 1, ti.band_tb, ti.band_w,
+                       ti.band_k)
+    nt = B // TB
+    R = TB * D * A1
+    gen = torch.Generator(device=dev).manual_seed(3)
+    values = torch.randint(0, 2, (P, TRI_CHAINS), generator=gen, device=dev,
+                           dtype=torch.int8)
+    fold = fold_deltam_tiles(ts, ti, C, d.w_init)
+    seed = torch.tensor([12345, -67890], dtype=torch.int32, device=dev)
+    fargs = (values, ts.bd_dmnbr, ts.bd_start[0], *fold, 0, seed, W, TB, D,
+             A1, K)
+    gargs = (values, ts.bd_rnbr[0], ts.bd_start[0], W)
+    cs_nbr0 = ts.cs_nbr[:B * D * A1]
+    kern = {
+        "fused_dm_draw": dict(
+            ms=time_ms(lambda: fused_dm_draw(*fargs), iters=50),
+            plain_ms=time_ms(lambda: fused_dm_draw_plain(*fargs), iters=3,
+                             warmup=1),
+            library_ms=None),
+        "banded_gather_multi": dict(
+            ms=time_ms(lambda: banded_gather_multi(*gargs), iters=50),
+            plain_ms=time_ms(lambda: banded_gather_multi_plain(*gargs),
+                             iters=5, warmup=1),
+            library_ms=time_ms(lambda: values.index_select(0, cs_nbr0),
+                               iters=50)),
+    }
+    # bounds of one launch (color 0): the distinct values rows it reads,
+    # its index, coefficient and start streams, its output.  The draw does
+    # per (row, chain) 7 operations a record (3 multiplies and 3 adds of
+    # the multilinear terms, the add into delta; 2 a record on arity 2),
+    # the sigmoid (4), the hash and the uniform (about 24 integer
+    # operations), counted at the f32 rate; the gather does none.
+    dm = ts.bd_dmnbr[0, :nt]
+    n_rows = rows_read_multi(dm, ts.bd_start[0], W, P)
+    f_bytes = (n_rows * TRI_CHAINS + dm.numel() * 4
+               + (1 + 2 * (A1 - 1)) * nt * D * TB * 4 + nt * TB * 4
+               + ts.bd_start[0].numel() * 4 + 8 + nt * TB * TRI_CHAINS)
+    per_rec = 7 if A1 == 2 else 2
+    f_ops = nt * TB * TRI_CHAINS * (per_rec * D + 4 + 24)
+    rn = ts.bd_rnbr[0]
+    g_bytes = (rows_read_multi(rn, ts.bd_start[0], W, P) * TRI_CHAINS
+               + rn.numel() * 4 + ts.bd_start[0].numel() * 4
+               + rn.numel() * TRI_CHAINS)
+    kern["fused_dm_draw"].update(kernel_bound(f_bytes, f_ops,
+                                              rows_read=n_rows))
+    kern["banded_gather_multi"].update(kernel_bound(g_bytes, 0))
+    kern["fused_dm_draw"]["max_abs_err"] = max(
+        case["delta_max_abs_err"] for case in cases.values())
+    kern["banded_gather_multi"]["max_abs_err"] = 0.0    # required exact
+    in_window = int(_multi_rows(rn, ts.bd_start[0], W, P)[1].sum())
+    del values, fargs, gargs
+    report("7 dm kernels", t7, compile_graph_s=round(compile_s, 3), P=P,
+           colors=C, block=B, ntiles=nt, TB=TB, D=D, A1=A1, W=W, K=K, R=R,
+           gather_slots_in_window=in_window, cases=cases, kernels=kern)
+    return g, d, info, kern
+
+
+def oracle_dm_phase(dev) -> dict:
+    """Phase 8.  Returns the launches of each graph's two runs."""
+    import numpy as np
+    import torch
+
+    from sampler_tpu_torch import format_spec as fs
+    from sampler_tpu_torch import oracle
+    from sampler_tpu_torch.benchgraphs import big_ising_grid, big_triple_grid
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.engine.multichain import infer_mc, resolve_modes
+    from sampler_tpu_torch.ops.banded import (banded_gather,
+                                              banded_gather_multi)
+    from sampler_tpu_torch.ops.fused import fused_dm_draw
+
+    t8 = time.perf_counter()
+
+    def evidence(g, colors, n_query, seed):
+        rng = np.random.default_rng(seed)
+        query = rng.choice(g.n_vars, n_query, replace=False)
+        g.var_role[:] = fs.ROLE_EVIDENCE
+        g.var_role[query] = fs.ROLE_QUERY
+        g.var_init[:] = rng.integers(0, 2, g.n_vars)
+        return g, colors, query
+
+    gi, _ = big_ising_grid(32, 32, w_pair=0.35, w_bias=0.2)
+    r, c = np.divmod(np.arange(gi.n_vars), 32)
+    mw = dict(band_tile=8, band_min_block=1, band_wmax=512)
+    graphs = {
+        "triple16_k1": (evidence(*big_triple_grid(16, 16), 14, 1),
+                        dict(band_tile=8, band_min_block=1), 1),
+        "triple32_k2": (evidence(*big_triple_grid(32, 32), 12, 7), mw, 2),
+        "ising3_k2": (evidence(gi, ((r + c) % 3).astype(np.int32), 12, 3),
+                      mw, 2),
+    }
+    out = {}
+    for name, ((g, colors, query), kw, band_k) in graphs.items():
+        dg, info = compile_graph(g, colors=colors, **kw)
+        require(info.fusedm and info.tiers[0].band_k == band_k,
+                f"{name}: tiers {info.tiers}")
+        require(resolve_modes(info, dev) == ("cuda", "cuda"),
+                f"{name}: default modes {resolve_modes(info, dev)}")
+        exact = oracle.exact_marginals(g, clamp_evidence=True)
+        d = to_device(dg, dev)
+        res = {}
+        counters = (fused_dm_draw, banded_gather_multi, banded_gather)
+        for label, modes, counter in (
+                ("fused", None, fused_dm_draw),
+                ("unfused", ("cuda", "off"),
+                 banded_gather_multi if band_k >= 2 else banded_gather)):
+            for fn in counters:
+                fn.launches = 0
+            marg, _ = infer_mc(d, d.w_init,
+                               torch.Generator(device=dev).manual_seed(3),
+                               DM_ORACLE_BURN, DM_ORACLE_SWEEPS, info,
+                               DM_ORACLE_CHAINS, modes=modes, device=dev)
+            dp = float(abs(marg[query, :2] - exact[query]).max())
+            require(dp < 0.01, f"{name} {label}: |dp| = {dp}")
+            launches = {fn.__name__: fn.launches for fn in counters}
+            require(counter.launches == sum(launches.values())
+                    == info.n_colors * (DM_ORACLE_BURN + DM_ORACLE_SWEEPS),
+                    f"{name} {label}: launches {launches}")
+            res[label] = dict(max_abs_dp=dp, launches=launches)
+        out[name] = res
+    report("8 oracle dm", t8, chains=DM_ORACLE_CHAINS, burn=DM_ORACLE_BURN,
+           sweeps=DM_ORACLE_SWEEPS, graphs=out)
+    return out
+
+
+def triple_phase(dev, card: str, g, d, info, kern) -> None:
+    """Phase 9: the triple flagship's main path, fused and unfused, then
+    one learning epoch on its labelled twin.  Fills in the launches of
+    ``kern``'s two entries."""
+    import torch
+
+    from sampler_tpu_torch.engine.learn import LearnConfig
+    from sampler_tpu_torch.engine.multichain import (infer_mc,
+                                                     init_values_mc,
+                                                     learn_mc, prepare_fold,
+                                                     resolve_modes, sweep_mc)
+    from sampler_tpu_torch.ops.banded import banded_gather_multi
+    from sampler_tpu_torch.ops.fused import fused_dm_draw
+
+    t9 = time.perf_counter()
+    C, P = info.n_colors, d.var_card.shape[0]
+    ti = info.tiers[0]
+    require(resolve_modes(info, dev) == ("cuda", "cuda"),
+            f"default modes {resolve_modes(info, dev)}")
+    runs = {}
+    for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):
+        fused_dm_draw.launches = 0
+        banded_gather_multi.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = time.perf_counter()
+        marg, vals = infer_mc(d, d.w_init,
+                              torch.Generator(device=dev).manual_seed(7),
+                              BURN, SWEEPS, info, TRI_CHAINS, modes=modes,
+                              device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tr
+        require(marg.shape == (g.n_vars, 2), f"marginals {marg.shape}")
+        require(bool((marg >= 0).all() and (marg <= 1).all()),
+                "marginals outside [0, 1]")
+        require(float(abs(marg.sum(1) - 1).max()) < 1e-5,
+                "marginal rows do not sum to 1")
+        require(bool(((vals == 0) | (vals == 1)).all()), "non-boolean world")
+        runs[label] = dict(
+            wall_s=wall,
+            variable_updates_per_s=g.n_vars * TRI_CHAINS * (BURN + SWEEPS)
+            / wall,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            launches={"fused_dm_draw": fused_dm_draw.launches,
+                      "banded_gather_multi": banded_gather_multi.launches},
+            mean_p1=float(marg[:, 1].mean()))
+        del vals
+    require(runs["fused"]["launches"] == {
+        "fused_dm_draw": C * (BURN + SWEEPS), "banded_gather_multi": 0},
+        f"fused path launches {runs['fused']['launches']}")
+    require(runs["unfused"]["launches"] == {
+        "fused_dm_draw": 0, "banded_gather_multi": C * (BURN + SWEEPS)},
+        f"unfused path launches {runs['unfused']['launches']}")
+    dp = abs(runs["fused"]["mean_p1"] - runs["unfused"]["mean_p1"])
+    require(dp < 0.01, f"fused and unfused mean marginals differ by {dp}")
+    kern["fused_dm_draw"]["launches"] = \
+        runs["fused"]["launches"]["fused_dm_draw"]
+    kern["banded_gather_multi"]["launches"] = \
+        runs["unfused"]["launches"]["banded_gather_multi"]
+
+    # where a fused sweep's time goes (CUDA events; after the counted runs)
+    modes = resolve_modes(info, dev)
+    folded = prepare_fold(d, d.w_init, info, modes)
+    gen_b = torch.Generator(device=dev).manual_seed(9)
+    world = init_values_mc(d, gen_b, TRI_CHAINS, info)
+    counts = torch.zeros((2, P), dtype=torch.int32, device=dev)
+    block, drawn = world[:ti.block], torch.zeros_like(world[:ti.block])
+    ts = d.tiers[0]
+
+    def tally():
+        for k in range(2):
+            counts[k] += (world == k).sum(dim=1, dtype=torch.int32)
+
+    sweep_ms = time_ms(lambda: sweep_mc(d, world, d.w_init, gen_b, False,
+                                        info, folded, modes), iters=10)
+    parts = {"fused_dm_draw_x3": C * kern["fused_dm_draw"]["ms"],
+             "block_write_x3": C * time_ms(lambda: block.copy_(torch.where(
+                 ts.cm_resample[0][:, None], drawn, block)))}
+    parts["rest"] = sweep_ms - sum(parts.values())
+    breakdown = dict(sweep_ms=sweep_ms, parts_ms=parts,
+                     tally_ms=time_ms(tally))
+    del world, counts, block, drawn, folded
+
+    # one learning epoch on the labelled flagship, 256 chains a world
+    gl, dl, infol, compile_l = triple_flagship(dev, labelled=True)
+    cfg = LearnConfig(n_epochs=1, n_sweeps_per_epoch=LEARN_SWEEPS,
+                      stepsize=0.01, diminish=0.99, regularization="l2",
+                      reg_param=0.01)
+    w, v_ev, v_free = learn_mc(dl, dl.w_init,
+                               torch.Generator(device=dev).manual_seed(4),
+                               cfg, infol, LEARN_CHAINS, device=dev)
+    require(bool(torch.isfinite(w).all()), f"weights {w.tolist()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_dm_draw.launches = 0
+    banded_gather_multi.launches = 0
+    epoch = epoch_parts(dl, w, infol, resolve_modes(infol, dev), v_ev,
+                        v_free, cfg,
+                        torch.Generator(device=dev).manual_seed(5), reps=1)
+    learn = dict(chains=LEARN_CHAINS, compile_graph_s=round(compile_l, 3),
+                 epoch_breakdown_ms=epoch,
+                 learning_updates_per_s=gl.n_vars * LEARN_SWEEPS * 2
+                 * LEARN_CHAINS / (epoch["epoch"] / 1e3),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 launches={"fused_dm_draw": fused_dm_draw.launches,
+                           "banded_gather_multi": banded_gather_multi
+                           .launches},
+                 weights=w.tolist())
+    require(learn["launches"]["fused_dm_draw"] == 2 * C * LEARN_SWEEPS
+            and learn["launches"]["banded_gather_multi"] > 0,
+            f"learning epoch launches {learn['launches']}")
+    del dl, v_ev, v_free
+    report("9 triple", t9, card=card, grid=f"{TRI_GRID}x{TRI_GRID}",
+           chains=TRI_CHAINS, burn=BURN, sweeps=SWEEPS, runs=runs,
+           fused_sweep_breakdown=breakdown, learning_epoch=learn)
+
+
 def main() -> int:
     import torch
 
@@ -376,9 +851,7 @@ def main() -> int:
     from sampler_tpu_torch.ops.banded import (banded_gather,
                                               banded_gather_plain)
     from sampler_tpu_torch.ops.fused import (fold_affine, fused_color_draw,
-                                             fused_color_draw_plain,
-                                             hash_bits, tile_seed, u32,
-                                             uniform24)
+                                             fused_color_draw_plain)
 
     # ---- 1: build ---------------------------------------------------------
     t1 = time.perf_counter()
@@ -432,17 +905,9 @@ def main() -> int:
         out, delta = fused_color_draw(*args, return_delta=True)
         ref, ref_delta = fused_color_draw_plain(*args, return_delta=True)
         fused_err = max(fused_err, float((delta - ref_delta).abs().max()))
-        diff = out != ref
-        n_diff += int(diff.sum())
-        n_draws += diff.numel()
-        if bool(diff.any()):
-            rows, chains = diff.nonzero(as_tuple=True)
-            t = rows // TB
-            u = uniform24(hash_bits((rows % TB) * CHAINS + chains,
-                                    u32(seed[0]), tile_seed(seed[1], t)))
-            gap = float((u - torch.sigmoid(delta[diff])).abs().max())
-            require(gap < 1e-5, f"a differing draw has |u - p| = {gap}")
-        del out, delta, ref, ref_delta, diff
+        n_diff += check_draws(out, ref, delta, seed, TB, CHAINS)
+        n_draws += out.numel()
+        del out, delta, ref, ref_delta
     require(fused_err < 1e-5, f"fused delta error {fused_err}")
     require(n_diff <= 1e-4 * n_draws, f"{n_diff} of {n_draws} draws differ")
     report("2 kernels", t2, compile_graph_s=round(compile_s, 3), P=P,
@@ -511,13 +976,8 @@ def main() -> int:
     f_ops = nt * TB * CHAINS * (2 * D + 4 + 24)
     g_bytes = (rows_read(nbr0, starts0, W) * CHAINS + nbr0.numel() * 4
                + nt * 4 + nbr0.numel() * CHAINS)
-    for name, nbytes, ops in (("fused_color_draw", f_bytes, f_ops),
-                              ("banded_gather", g_bytes, 0)):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
-        kern[name].update(bound_ms=max(t_bytes, t_ops),
-                          bound_by="bytes" if t_bytes >= t_ops
-                          else "operations", bytes=nbytes, ops=ops)
+    kern["fused_color_draw"].update(kernel_bound(f_bytes, f_ops))
+    kern["banded_gather"].update(kernel_bound(g_bytes, 0))
     del values, gather_in, fargs
 
     runs = {}
@@ -591,13 +1051,25 @@ def main() -> int:
     kern["grad_pair_tile"]["launches"] = learn_launches["grad_pair_tile"]
     del d
 
+    # ---- 7, 8, 9: the arity-3 / multi-window class -----------------------
+    g, d, info, dm_kern = dm_kernels_phase(dev)
+    kern.update(dm_kern)
+    oracle_dm_phase(dev)
+    triple_phase(dev, card, g, d, info, kern)
+    del d
+
     sources = {"fused_color_draw": ("sampler_tpu_torch/csrc/"
                                     "fused_color_draw.cu",
                                     "sampler_tpu/ops/fused.py:365"),
                "banded_gather": ("sampler_tpu_torch/csrc/banded_gather.cu",
                                  "sampler_tpu/ops/banded.py:261"),
                "grad_pair_tile": ("sampler_tpu_torch/csrc/grad_pair_tile.cu",
-                                  "sampler_tpu/ops/grad.py:42")}
+                                  "sampler_tpu/ops/grad.py:42"),
+               "fused_dm_draw": ("sampler_tpu_torch/csrc/fused_dm_draw.cu",
+                                 "sampler_tpu/ops/fused.py:649"),
+               "banded_gather_multi": ("sampler_tpu_torch/csrc/"
+                                       "banded_gather_multi.cu",
+                                       "sampler_tpu/ops/banded.py:329")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": k["launches"],

@@ -7,26 +7,33 @@ order; a color step draws every variable of that color in every chain at
 once (chromatic Gibbs) and writes the new values into ``values`` in place.
 
 This port runs marginal inference and weight learning on all-boolean
-graphs:
+graphs, single-window and multi-window banded alike:
 
-  * affine2 tiers (pairwise boolean, banded) with the fused mode on draw a
-    whole color in ``ops.fused.fused_color_draw`` (one CUDA kernel);
+  * affine2 tiers (pairwise boolean, one window a tile) with the fused
+    mode on draw a whole color in ``ops.fused.fused_color_draw`` (one CUDA
+    kernel);
+  * fusedm tiers (banded boolean of arity <= 3 that affine2 does not
+    take: arity 3, or band_k >= 2 windows a tile, as on any graph of more
+    than 2 colors) with the fused mode on draw a whole color in
+    ``ops.fused.fused_dm_draw`` (one CUDA kernel);
   * the other tiers, and every tier with the fused mode off, compute the
     log-odds with ``color_delta_multilin`` (deltam tiers) or
     ``color_delta_bool``, gathering neighbour values with
-    ``ops.banded.banded_gather`` (banded tiers) or ``index_select``;
+    ``ops.banded.banded_gather`` (band_k 1), ``banded_gather_multi``
+    (band_k >= 2) or ``index_select`` (band off);
   * ``learn_mc`` runs contrastive SGD over an evidence and a free world of
     NC chains each; its gradient (``mc_weight_gradient_cs``) goes through
     ``ops.grad.grad_pair_tile`` (one CUDA kernel a color) on affine2 tiers
     with the band mode on, and through the chunked cs-stream route
-    (``_phi_streams``) elsewhere.
+    (``_phi_streams``, with the same gathers as the draw) elsewhere.
 
 ``modes = (band, fused)``, each "cuda" (the kernel), "plain" (its plain
 PyTorch version) or "off"; the default is "cuda" on a CUDA device and
-"plain" on the CPU, gated by what the compiled graph supports.  What lies
-outside the slice (categorical variables, sparse per-combination weights,
-hub tiers, multi-window banding, the multilinear and categorical fused
-kernels) raises NotImplementedError naming the missing piece.
+"plain" on the CPU, gated by what the compiled graph supports, as the JAX
+package's resolve_band / resolve_fused gate them.  What lies outside the
+slice (categorical variables and the fused_cat_draw kernel, sparse
+per-combination weights, hub tiers) raises NotImplementedError naming the
+missing piece.
 
 Randomness comes from one explicit ``torch.Generator`` on the run's device:
 the initial worlds, the uniforms of the unfused draw, and two int32 seed
@@ -44,9 +51,11 @@ import torch
 
 from .. import format_spec as fs
 from ..compile import factor_records, resolve_device, tier_geom
-from ..ops.banded import banded_gather, banded_gather_plain
-from ..ops.fused import (fold_affine, fold_deltam, fused_color_draw,
-                         fused_color_draw_plain)
+from ..ops.banded import (banded_gather, banded_gather_multi,
+                          banded_gather_multi_plain, banded_gather_plain)
+from ..ops.fused import (fold_affine, fold_deltam, fold_deltam_tiles,
+                         fused_color_draw, fused_color_draw_plain,
+                         fused_dm_draw, fused_dm_draw_plain)
 from ..ops.grad import GRAD_W_MAX, grad_pair_tile, grad_pair_tile_plain
 from ..ops.weights import expand_wf, segment_reduce
 from .learn import apply_update
@@ -55,10 +64,13 @@ MECHANISMS = ("cuda", "plain", "off")
 
 
 def resolve_modes(info, device) -> tuple:
-    """Default (band, fused) mechanisms for this graph on ``device``."""
+    """Default (band, fused) mechanisms for this graph on ``device``: band
+    on where the graph has a banding plan and int8-sized values, fused
+    following band where a tier has a fused plan (JAX resolve_band and
+    resolve_fused in their "auto" setting)."""
     mech = "cuda" if torch.device(device).type == "cuda" else "plain"
-    band = mech if info.band_w > 0 else "off"
-    fused = band if info.affine2 else "off"
+    band = mech if info.band_w > 0 and info.max_card <= 127 else "off"
+    fused = band if (info.affine2 or info.affinek or info.fusedm) else "off"
     return band, fused
 
 
@@ -97,15 +109,10 @@ def check_slice(info, modes) -> None:
         raise NotImplementedError("the hub tier (hub_color_draw) is not "
                                   "ported yet")
     for ti in info.tiers:
-        band, fused = tier_modes(ti, modes)
-        if band != "off" and ti.band_k >= 2:
+        if tier_modes(ti, modes)[1] != "off" and ti.affinek:
             raise NotImplementedError(
-                "multi-window banded gather (banded_gather_pallas_multi) is "
-                "not ported yet; pass modes with band 'off'")
-        if fused != "off" and (ti.fusedm or ti.affinek):
-            raise NotImplementedError(
-                "the fused_dm_draw / fused_cat_draw kernels are not ported "
-                "yet; pass modes with fused 'off'")
+                "the fused_cat_draw kernel is not ported yet; pass modes "
+                "with fused 'off'")
 
 
 def _on(t: torch.Tensor, dev: torch.device) -> bool:
@@ -127,19 +134,33 @@ def _setup(dg, values, weights, device, info, modes) -> tuple:
     return modes, w
 
 
+INIT_CHUNK_ELEMS = 1 << 22      # (position, chain) pairs drawn at a time
+
+
 def init_values_mc(dg, generator, n_chains: int, info,
                    random_init: bool = True) -> torch.Tensor:
-    """Initial worlds [P, NC]: evidence at labels, query random per
-    chain."""
+    """Initial worlds [P, NC]: evidence at labels, query uniform over
+    var_card per chain.  The int32 draws and their modulo are made a
+    block of rows at a time into the int8 worlds, so no int32 [P, NC]
+    temporary exists (the JAX package jits its version for the same
+    reason)."""
     P = dg.var_card.shape[0]
     dt = torch.int8                  # boolean worlds (check_slice)
-    base = dg.var_init.to(dt)[:, None].expand(P, n_chains)
+    out = dg.var_init.to(dt)[:, None].expand(P, n_chains).contiguous()
     if not random_init:
-        return base.contiguous()
-    r = torch.randint(0, 1 << 30, (P, n_chains), generator=generator,
-                      device=dg.var_card.device, dtype=torch.int32)
-    rand_vals = (r % dg.var_card.clamp(min=1)[:, None]).to(dt)
-    return torch.where((dg.var_role == 0)[:, None], rand_vals, base)
+        return out
+    card = dg.var_card.clamp(min=1)
+    query = dg.var_role == 0
+    step = max(1, INIT_CHUNK_ELEMS // max(n_chains, 1))
+    for r0 in range(0, P, step):
+        r1 = min(P, r0 + step)
+        r = torch.randint(0, 1 << 30, (r1 - r0, n_chains),
+                          generator=generator, device=out.device,
+                          dtype=torch.int32)
+        rand_vals = (r % card[r0:r1, None]).to(dt)
+        blk = out[r0:r1]
+        blk.copy_(torch.where(query[r0:r1, None], rand_vals, blk))
+    return out
 
 
 def _need_head(present) -> bool:
@@ -216,18 +237,25 @@ def _tc(arr: torch.Tensor, c: int, shape) -> torch.Tensor:
 
 def _gather_nbr(ts, ti, values, nbr, c, modes, r0: int = 0) -> torch.Tensor:
     """values at the [B, D, A1] neighbour positions ``nbr`` of color c,
-    rows ``r0 ..`` of the tier: the banded gather on banded tiers,
+    rows ``r0 ..`` of the tier: the banded gather on banded tiers (the
+    multi-window one over the remapped bd_rnbr when band_k >= 2),
     index_select elsewhere."""
     B, D, A1 = nbr.shape
     NC = values.shape[-1]
     band = tier_modes(ti, modes)[0]
     if band == "off":
-        vals = values.index_select(0, nbr.reshape(-1))
+        return values.index_select(0, nbr.reshape(-1)).reshape(B, D, A1, NC)
+    t0, ntiles = r0 // ti.band_tb, B // ti.band_tb
+    tiles = slice(t0, t0 + ntiles)
+    if ti.band_k >= 2:
+        gather = (banded_gather_multi if band == "cuda"
+                  else banded_gather_multi_plain)
+        vals = gather(values, ts.bd_rnbr[c, tiles], ts.bd_start[c, tiles],
+                      ti.band_w)
     else:
         gather = banded_gather if band == "cuda" else banded_gather_plain
-        t0, ntiles = r0 // ti.band_tb, B // ti.band_tb
         vals = gather(values, nbr.reshape(ntiles, ti.band_tb * D * A1),
-                      ts.bd_start[c, t0:t0 + ntiles], ti.band_w)
+                      ts.bd_start[c, tiles], ti.band_w)
     return vals.reshape(B, D, A1, NC)
 
 
@@ -308,10 +336,14 @@ def color_delta_multilin(ts, ti, values, c, info, folded_t, modes):
 
 def prepare_fold(dg, weights, info, modes):
     """Per-tier folded coefficient streams (None for tiers no folded path
-    covers), or None when nothing folds: fold_affine for affine2 tiers with
-    the fused mode on, fold_deltam for the other deltam tiers.  Called once
-    per weights value, outside the sweep loop."""
-    use_fused = modes[1] != "off" and info.affine2
+    covers), or None when nothing folds: with the fused mode on,
+    fold_affine for affine2 tiers and fold_deltam_tiles (the kernel's tile
+    layout) for fusedm tiers; fold_deltam for the other deltam tiers.
+    color_draw_tier routes a tier to a fused draw under the same
+    condition, so a layout never reaches the wrong path.  Called once per
+    weights value, outside the sweep loop."""
+    use_fused = modes[1] != "off" and (info.affine2 or info.affinek
+                                       or info.fusedm)
     if not (use_fused or any(ti.deltam for ti in info.tiers)):
         return None
     w = weights.to(torch.float32)
@@ -320,6 +352,8 @@ def prepare_fold(dg, weights, info, modes):
     def fold_one(ts, ti):
         if ti.affine2 and use_fused:
             return fold_affine(ts, ti, C, w)
+        if ti.fusedm and use_fused:
+            return fold_deltam_tiles(ts, ti, C, w)
         if ti.deltam:
             return fold_deltam(ts, ti, C, w)
         return None
@@ -334,16 +368,22 @@ def color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
         raise NotImplementedError("the hub tier (hub_color_draw) is not "
                                   "ported yet")
     if folded_t is not None and tier_modes(ti, modes)[1] != "off":
-        if not ti.affine2:
-            raise NotImplementedError(
-                "the fused_dm_draw / fused_cat_draw kernels are not ported "
-                "yet")
+        if not (ti.affine2 or ti.fusedm):
+            raise NotImplementedError("the fused_cat_draw kernel is not "
+                                      "ported yet")
         seed = torch.randint(-(1 << 31), 1 << 31, (2,), generator=generator,
                              device=values.device, dtype=torch.int32)
-        draw = fused_color_draw if modes[1] == "cuda" \
-            else fused_color_draw_plain
-        return draw(values, ts.bd_nbr, ts.bd_start[c], folded_t[0],
-                    folded_t[1], c, seed, ti.band_w, ti.band_tb, ti.degree)
+        cuda = modes[1] == "cuda"
+        if ti.affine2:
+            draw = fused_color_draw if cuda else fused_color_draw_plain
+            return draw(values, ts.bd_nbr, ts.bd_start[c], folded_t[0],
+                        folded_t[1], c, seed, ti.band_w, ti.band_tb,
+                        ti.degree)
+        base, b1, b2, bx = folded_t          # fold_deltam_tiles layout
+        draw = fused_dm_draw if cuda else fused_dm_draw_plain
+        return draw(values, ts.bd_dmnbr, ts.bd_start[c], base, b1, b2, bx,
+                    c, seed, ti.band_w, ti.band_tb, ti.degree, ti.arity - 1,
+                    ti.band_k)
     if not (info.all_boolean and info.max_card == 2):
         raise NotImplementedError("categorical variables (color_logits_mc) "
                                   "are not ported yet")

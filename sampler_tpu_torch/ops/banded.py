@@ -4,14 +4,16 @@ Two layers:
   * plan_banding / plan_banding_multi — compile-time (numpy) window
     analysis per color tile, copied from the JAX package: the neighbour
     positions read by a tile of TB variables fall inside one window of W
-    consecutive positions, starting at ``starts[t]``;
-  * banded_gather — the gather of one color's neighbour rows, with a CUDA
-    kernel (csrc/banded_gather.cu) and its plain PyTorch version.
+    consecutive positions, starting at ``starts[t]`` (or, multi-window,
+    inside K such windows starting at ``starts[t, k]``);
+  * banded_gather / banded_gather_multi — the gather of one color's
+    neighbour rows, each with a CUDA kernel (csrc/banded_gather.cu,
+    csrc/banded_gather_multi.cu) and its plain PyTorch version.
 
 An index outside its tile's window reads 0: that is how padded slots (the
-dummy position P-1) read the dummy row's value without a mask.  The
-planner clips the last windows to P - W, so starts are not always
-START_ALIGN-aligned and neither version assumes they are.
+dummy position P-1, or the multi-window sentinel K*W) read 0 without a
+mask.  The planner clips the last windows to P - W, so starts are not
+always START_ALIGN-aligned and no version assumes they are.
 """
 from __future__ import annotations
 
@@ -250,3 +252,65 @@ def banded_gather(values: torch.Tensor, nbr: torch.Tensor,
 
 
 banded_gather.launches = 0
+
+
+def _multi_rows(rnbr: torch.Tensor, starts: torch.Tensor, W: int,
+                P: int) -> tuple:
+    """(global row int64 [ntiles*R], valid bool [ntiles*R]) of remapped
+    multi-window indices: ``i = rnbr[t, r]`` reads row
+    ``starts[t, i // W] + i % W`` when ``0 <= i < K*W`` and that row lies
+    in [0, P); anything else (the sentinel K*W) reads 0."""
+    K = starts.shape[1]
+    i = rnbr.to(torch.int64)
+    valid = (i >= 0) & (i < K * W)
+    k = torch.where(valid, i // W, 0)
+    row = starts.to(torch.int64).gather(1, k) + i % W
+    valid &= (row >= 0) & (row < P)
+    return torch.where(valid, row, 0).reshape(-1), valid.reshape(-1)
+
+
+def banded_gather_multi_plain(values: torch.Tensor, rnbr: torch.Tensor,
+                              starts: torch.Tensor, W: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`banded_gather_multi`."""
+    row, valid = _multi_rows(rnbr, starts, W, values.shape[0])
+    out = values.index_select(0, row)
+    return out.masked_fill_(~valid[:, None], 0)
+
+
+def banded_gather_multi(values: torch.Tensor, rnbr: torch.Tensor,
+                        starts: torch.Tensor, W: int) -> torch.Tensor:
+    """Multi-window banded gather.  values int8 [P, NC]; rnbr int32
+    [ntiles, R] indices remapped into the concatenated window space
+    [0, K*W) (compile's bd_rnbr, the sentinel K*W for a padded slot);
+    starts int32 [ntiles, K] window starts.  Returns int8 [ntiles*R, NC]
+    with ``out[t*R + r] = values[starts[t, i // W] + i % W]`` for
+    ``i = rnbr[t, r] < K*W`` and 0 for the sentinel or a row at or past P.
+
+    A CPU tensor goes to the plain version; a CUDA tensor to the kernel
+    (the launch adds one to ``banded_gather_multi.launches``)."""
+    if values.device.type == "cpu":
+        return banded_gather_multi_plain(values, rnbr, starts, W)
+    if values.device.type != "cuda":
+        raise ValueError(f"banded_gather_multi: no kernel for "
+                         f"{values.device}")
+    dev = values.device
+    check_tensor(values, "values", torch.int8, dev, 2)
+    check_tensor(rnbr, "rnbr", torch.int32, dev, 2)
+    check_tensor(starts, "starts", torch.int32, dev, 2)
+    ntiles, R = rnbr.shape
+    P, NC = values.shape
+    K = starts.shape[1]
+    if starts.shape[0] != ntiles or K < 1 or not 0 < W <= P:
+        raise ValueError(f"banded_gather_multi: starts "
+                         f"{tuple(starts.shape)} for {ntiles} tiles, W={W}, "
+                         f"P={P}")
+    out = torch.empty((ntiles * R, NC), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        launch("banded_gather_multi_launch", values.data_ptr(), NC, P,
+               rnbr.data_ptr(), starts.data_ptr(), ntiles, R, K, W,
+               out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    banded_gather_multi.launches += 1
+    return out
+
+
+banded_gather_multi.launches = 0

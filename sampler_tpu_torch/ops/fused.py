@@ -1,4 +1,4 @@
-"""Fused affine color step (counterpart of sampler_tpu/ops/fused.py).
+"""Fused color steps (counterpart of sampler_tpu/ops/fused.py).
 
 For an all-boolean tier whose factors have arity <= 2, the conditional
 log-odds of variable b is affine in its neighbours' values:
@@ -10,9 +10,22 @@ with compile-time coefficients (affine_pairwise, copied from the JAX
 package) folded with the weights once per weights value (fold_affine).
 fused_color_draw then computes delta and draws ``u < sigmoid(delta)`` for a
 whole color in one CUDA kernel (csrc/fused_color_draw.cu), or in its plain
-PyTorch version on the CPU.  The uniform u comes from the same counter hash
-(portable_bits) that the JAX kernel uses in interpret mode, so the three
-implementations draw the same bits for the same seed words.
+PyTorch version on the CPU.
+
+For the banded boolean tiers that form cannot take (arity 3, whose cross
+term makes delta multilinear, and multi-window tiers, band_k >= 2) the
+log-odds is
+
+    delta[b] = base[b] + sum_d (b1·n1 + b2·n2 + bx·n1·n2)
+
+over the one or two neighbour values n1, n2 of each incident factor, with
+coefficients folded by fold_deltam_tiles; fused_dm_draw computes it and
+draws in one CUDA kernel (csrc/fused_dm_draw.cu) or its plain version.
+
+The uniform u of both draws comes from the same counter hash
+(portable_bits) that the JAX kernels use in interpret mode, so the kernel,
+its plain version and the JAX kernel draw the same bits for the same seed
+words.
 """
 from __future__ import annotations
 
@@ -21,6 +34,7 @@ import torch
 
 from .. import format_spec as fs
 from ._build import check_tensor, launch
+from .banded import _multi_rows
 
 
 # --------------------------------------------------------------------------
@@ -158,6 +172,13 @@ def _row_sum(x: torch.Tensor, D: int) -> torch.Tensor:
     return acc
 
 
+def _tile_rows(x: torch.Tensor, C: int, nt: int, TB: int,
+               D: int) -> torch.Tensor:
+    """[C, nt, D*TB] kernel rows, d-major within a tile, from a flat
+    d-minor record stream."""
+    return x.reshape(C, nt, TB, D).transpose(2, 3).reshape(C, nt, D * TB)
+
+
 def fold_affine(ts, ti, C: int, weights: torch.Tensor) -> tuple:
     """(beta [C, ntiles, D*TB] d-major within a tile, base [C, ntiles, TB])
     for one affine2 tier: beta = wf * ab_b, base = sum_d wf * ab_a, with
@@ -169,8 +190,7 @@ def fold_affine(ts, ti, C: int, weights: torch.Tensor) -> tuple:
     TB = ti.band_tb
     nt = B // TB
     wf = expand_wf(weights, ts.cs_wid, ts.cs_feat)
-    beta = ((wf * ts.ab_b).reshape(C, nt, TB, D).transpose(2, 3)
-            .reshape(C, nt, D * TB))
+    beta = _tile_rows(wf * ts.ab_b, C, nt, TB, D)
     base = _row_sum(wf * ts.ab_a, D).reshape(C, nt, TB)
     return beta, base
 
@@ -192,6 +212,27 @@ def fold_deltam(ts, ti, C: int, weights: torch.Tensor) -> tuple:
     if pairwise:
         return base, b1, None, None
     return base, b1, wf * ts.dm_b2, wf * ts.dm_x
+
+
+def fold_deltam_tiles(ts, ti, C: int, weights: torch.Tensor) -> tuple:
+    """fold_deltam's coefficients in fused_dm_draw's tile layout, for one
+    fusedm tier: (base [C, nt, TB], b1 [C, nt, D*TB] d-major within a
+    tile, b2, bx like b1 — or None on pairwise tiers)."""
+    from ..compile import tier_geom
+    from .weights import expand_wf
+
+    B, D, _ = tier_geom(ts, ti, C)
+    TB = ti.band_tb
+    nt = B // TB
+    wf = expand_wf(weights, ts.cs_wid, ts.cs_feat)
+    a_src = ts.ab_a if ts.dm_a.numel() == C else ts.dm_a
+    b1_src = ts.ab_b if ts.dm_b1.numel() == C else ts.dm_b1
+    base = _row_sum(wf * a_src, D).reshape(C, nt, TB)
+    b1 = _tile_rows(wf * b1_src, C, nt, TB, D)
+    if ts.dm_b2.numel() == C:            # pairwise: no cross terms
+        return base, b1, None, None
+    return (base, b1, _tile_rows(wf * ts.dm_b2, C, nt, TB, D),
+            _tile_rows(wf * ts.dm_x, C, nt, TB, D))
 
 
 # --------------------------------------------------------------------------
@@ -340,3 +381,149 @@ def fused_color_draw(values, nbr_dmaj, starts, beta, base, c: int, seed,
 
 
 fused_color_draw.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the fused multilinear color step
+# --------------------------------------------------------------------------
+
+PLAIN_CHUNK_ELEMS = 1 << 24     # (row, chain) pairs a plain chunk computes
+
+
+def _dm_rows(dm_nbr, starts, c: int, t0: int, t1: int, W: int, TB: int,
+             D: int, A1: int, Kw: int, P: int) -> tuple:
+    """(row int64, valid bool), each [n, A1, D, TB], of tiles t0..t1 of
+    color c: the values row each neighbour slot reads, and whether it reads
+    one (else 0)."""
+    n = t1 - t0
+    idx = dm_nbr[c, t0:t1]
+    if Kw >= 2:
+        row, valid = _multi_rows(idx, starts[t0:t1], W, P)
+        return row.reshape(n, A1, D, TB), valid.reshape(n, A1, D, TB)
+    idx = idx.reshape(n, A1, D, TB).to(torch.int64)
+    local = idx - starts[t0:t1].reshape(n, 1, 1, 1)
+    valid = (local >= 0) & (local < W) & (idx >= 0) & (idx < P)
+    return torch.where(valid, idx, 0), valid
+
+
+def fused_dm_draw_plain(values, dm_nbr, starts, base, b1, b2, bx, c: int,
+                        seed, W: int, TB: int, D: int, A1: int, Kw: int,
+                        return_delta: bool = False):
+    """Plain PyTorch version of :func:`fused_dm_draw`, over chunks of tiles
+    whose [tiles, TB, NC] planes hold about PLAIN_CHUNK_ELEMS values, so
+    its temporaries stay bounded (~0.4 GB) whatever the chain count."""
+    nt = starts.shape[0]
+    P, NC = values.shape
+    dev = values.device
+    f32 = torch.float32
+    out = torch.empty((nt * TB, NC), dtype=values.dtype, device=dev)
+    delta_all = (torch.empty((nt * TB, NC), dtype=f32, device=dev)
+                 if return_delta else None)
+    s0, s1 = u32(seed[0]), u32(seed[1])
+    cnt = (torch.arange(TB, dtype=torch.int64, device=dev)[:, None] * NC
+           + torch.arange(NC, dtype=torch.int64, device=dev))
+    chunk = max(1, PLAIN_CHUNK_ELEMS // (TB * NC))
+    for t0 in range(0, nt, chunk):
+        t1 = min(nt, t0 + chunk)
+        n = t1 - t0
+        row, valid = _dm_rows(dm_nbr, starts, c, t0, t1, W, TB, D, A1, Kw,
+                              P)
+
+        def nval(a, d):
+            v = values.index_select(0, row[:, a, d].reshape(-1))
+            v = v.reshape(n, TB, NC).to(f32)
+            return v.masked_fill_(~valid[:, a, d, :, None], 0.0)
+
+        def coef(x, d):
+            return x[c, t0:t1].reshape(n, D, TB)[:, d, :, None]
+
+        delta = None
+        for d in range(D):
+            n1 = nval(0, d)
+            contrib = coef(b1, d) * n1
+            if A1 == 2:
+                n2 = nval(1, d)
+                contrib = (contrib + coef(b2, d) * n2
+                           + coef(bx, d) * (n1 * n2))
+            delta = contrib if delta is None else delta + contrib
+        delta = delta + base[c, t0:t1].reshape(n, TB, 1)
+        tt = torch.arange(t0, t1, dtype=torch.int64, device=dev)
+        u = uniform24(hash_bits(cnt, s0, tile_seed(s1, tt).reshape(n, 1, 1)))
+        rows = slice(t0 * TB, t1 * TB)
+        out[rows] = (u < torch.sigmoid(delta)).to(values.dtype).reshape(
+            n * TB, NC)
+        if return_delta:
+            delta_all[rows] = delta.reshape(n * TB, NC)
+    return (out, delta_all) if return_delta else out
+
+
+def fused_dm_draw(values, dm_nbr, starts, base, b1, b2, bx, c: int, seed,
+                  W: int, TB: int, D: int, A1: int, Kw: int,
+                  return_delta: bool = False):
+    """Draw color ``c`` of a fusedm tier (boolean, arity <= 3, banded).
+
+    values int8 [P, NC]; dm_nbr int32 [C, >= ntiles, A1*D*TB] (all colors,
+    compile's bd_dmnbr: slot-major, then d-major, then the TB rows of a
+    tile); starts int32 [ntiles] (Kw == 1: global window starts, dm_nbr
+    holds global positions and a position outside [start, start + W)
+    reads 0) or [ntiles, Kw] (Kw >= 2: dm_nbr holds indices remapped into
+    the Kw windows laid end to end, the sentinel Kw*W reads 0); base f32
+    [C, >= ntiles, TB]; b1, b2, bx f32 [C, >= ntiles, D*TB] from
+    fold_deltam_tiles (b2, bx only when A1 == 2); seed int32 [2] (a tensor
+    on values' device).  Slot 0 of a record is n1, slot 1 is n2, and
+
+        delta = base + sum_d (b1*n1 + b2*n2 + bx*n1*n2),
+
+    summed in that order; the draw is ``u < sigmoid(delta)`` with u from
+    the counter hash of fused_color_draw.  Returns int8 [ntiles*TB, NC],
+    and with ``return_delta`` also the f32 delta of the same shape.
+
+    A CPU tensor goes to the plain version; a CUDA tensor to the kernel
+    (the launch adds one to ``fused_dm_draw.launches``)."""
+    if values.device.type == "cpu":
+        return fused_dm_draw_plain(values, dm_nbr, starts, base, b1, b2, bx,
+                                   c, seed, W, TB, D, A1, Kw, return_delta)
+    if values.device.type != "cuda":
+        raise ValueError(f"fused_dm_draw: no kernel for {values.device}")
+    dev = values.device
+    check_tensor(values, "values", torch.int8, dev, 2)
+    check_tensor(dm_nbr, "dm_nbr", torch.int32, dev, 3)
+    check_tensor(starts, "starts", torch.int32, dev, 1 if Kw == 1 else 2)
+    check_tensor(base, "base", torch.float32, dev, 3)
+    coefs = (b1, b2, bx) if A1 == 2 else (b1,)
+    for name, x in zip(("b1", "b2", "bx"), coefs):
+        check_tensor(x, name, torch.float32, dev, 3)
+    check_tensor(seed, "seed", torch.int32, dev, 1)
+    nt = starts.shape[0]
+    P, NC = values.shape
+    C = dm_nbr.shape[0]
+    R = D * TB
+    if (A1 not in (1, 2) or Kw < 1 or dm_nbr.shape[1] < nt
+            or dm_nbr.shape[2] != A1 * R
+            or any(x.shape[0] != C or x.shape[1] < nt or x.shape[2] != R
+                   for x in coefs)
+            or base.shape[0] != C or base.shape[1] < nt
+            or base.shape[2] != TB or (Kw >= 2 and starts.shape[1] != Kw)
+            or not 0 <= c < C or seed.shape[0] != 2 or not 0 < W <= P):
+        raise ValueError(
+            f"fused_dm_draw: dm_nbr {tuple(dm_nbr.shape)}, coefficients "
+            f"{[tuple(x.shape) for x in coefs]}, base {tuple(base.shape)}, "
+            f"starts {tuple(starts.shape)}, c={c}, W={W}, TB={TB}, D={D}, "
+            f"A1={A1}, Kw={Kw}, P={P}")
+    out = torch.empty((nt * TB, NC), dtype=torch.int8, device=dev)
+    delta = (torch.empty((nt * TB, NC), dtype=torch.float32, device=dev)
+             if return_delta else None)
+    b2c, bxc = (b2[c].data_ptr(), bx[c].data_ptr()) if A1 == 2 else (None,
+                                                                     None)
+    with torch.cuda.device(dev):
+        launch("fused_dm_draw_launch", values.data_ptr(), NC, P,
+               dm_nbr[c].data_ptr(), b1[c].data_ptr(), b2c, bxc,
+               base[c].data_ptr(), starts.data_ptr(), seed.data_ptr(), nt,
+               TB, D, A1, W, Kw, out.data_ptr(),
+               None if delta is None else delta.data_ptr(),
+               torch.cuda.current_stream(dev).cuda_stream)
+    fused_dm_draw.launches += 1
+    return (out, delta) if return_delta else out
+
+
+fused_dm_draw.launches = 0

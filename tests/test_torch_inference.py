@@ -5,6 +5,10 @@
   * infer_mc on the CPU, fused and unfused, matches exact enumeration
     (|Δp| < 0.01) on the biased coin, an Ising chain, every boolean factor
     function with evidence, and an evidence-clamped banded grid;
+  * with its default modes it also runs the fusedm graphs (arity 3 and
+    multi-window: evidence-clamped triple grids with band_k 1 and 2, and a
+    3-colored Ising grid) and matches exact enumeration within 0.01 on
+    the fused and the unfused route at the same budget;
   * what the slice does not cover raises NotImplementedError.
 """
 import jax.numpy as jnp
@@ -18,7 +22,7 @@ from sampler_tpu.compile import to_device as jax_to_device
 from sampler_tpu.engine import multichain as jmc
 from sampler_tpu_torch import FactorGraph, fixtures, oracle
 from sampler_tpu_torch import format_spec as fs
-from sampler_tpu_torch.benchgraphs import big_ising_grid
+from sampler_tpu_torch.benchgraphs import big_ising_grid, big_triple_grid
 from sampler_tpu_torch.compile import compile_graph, to_device
 from sampler_tpu_torch.convert import from_jax
 from sampler_tpu_torch.engine import multichain as tmc
@@ -38,15 +42,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _evidence_grid(n_query=12, seed=1):
-    """16x16 Ising grid that bands (band_tile=8), with all but n_query
-    variables clamped so the oracle stays enumerable."""
-    g, colors = big_ising_grid(16, 16, w_pair=0.35, w_bias=0.2)
+def _evidence(g, n_query, seed):
+    """Clamp all but ``n_query`` random variables of ``g`` to random
+    labels, so the oracle stays enumerable."""
     rng = np.random.default_rng(seed)
     query = rng.choice(g.n_vars, n_query, replace=False)
     g.var_role[:] = fs.ROLE_EVIDENCE
     g.var_role[query] = fs.ROLE_QUERY
     g.var_init[:] = rng.integers(0, 2, g.n_vars)
+
+
+def _evidence_grid(n_query=12, seed=1):
+    """16x16 Ising grid that bands (band_tile=8), with all but n_query
+    variables clamped."""
+    g, colors = big_ising_grid(16, 16, w_pair=0.35, w_bias=0.2)
+    _evidence(g, n_query, seed)
     return g, colors
 
 
@@ -69,8 +79,27 @@ def _arity3_chain(n=40, seed=0):
     return g, None
 
 
+def _triple_grid(rows, cols, n_query=14, seed=1):
+    g, colors = big_triple_grid(rows, cols)
+    _evidence(g, n_query, seed)
+    return g, colors
+
+
+def _ising_3color(n_query=12, seed=3):
+    """32x32 Ising grid colored (r + c) % 3: pairwise, but 3 colors, so
+    its tiles need two windows (band_k 2) and the fusedm path."""
+    g, _ = big_ising_grid(32, 32, w_pair=0.35, w_bias=0.2)
+    _evidence(g, n_query, seed)
+    r, c = np.divmod(np.arange(g.n_vars), 32)
+    return g, ((r + c) % 3).astype(np.int32)
+
+
+MW = dict(band_tile=8, band_min_block=1, band_wmax=512)
+
 DELTA_GRAPHS = {
     "evidence_grid": (_evidence_grid, dict(band_tile=8, band_min_block=1)),
+    "triple_grid_mw": (lambda: _triple_grid(32, 32, seed=7), MW),
+    "ising_3color": (_ising_3color, MW),
     "arity3_chain": (_arity3_chain, {}),
     "all_functions": (lambda: (jfx.all_functions_graph(), None), {}),
 }
@@ -78,7 +107,8 @@ DELTA_GRAPHS = {
 
 @pytest.mark.parametrize("name,band", [
     ("evidence_grid", "plain"), ("evidence_grid", "off"),
-    ("arity3_chain", "off"), ("all_functions", "off")])
+    ("arity3_chain", "off"), ("all_functions", "off"),
+    ("triple_grid_mw", "plain"), ("ising_3color", "plain")])
 def test_color_deltas_match_jax(name, band):
     make, kw = DELTA_GRAPHS[name]
     g, colors = make()
@@ -146,6 +176,92 @@ def test_infer_mc_matches_oracle(name, fused):
     free = g.var_role == fs.ROLE_QUERY
     err = np.abs(marg[:, :2] - exact)[free].max()
     assert err < TOL, f"max |Δp| = {err:.4f}"
+
+
+# name -> (graph maker, compile kwargs, band_k, arity)
+FUSEDM_GRAPHS = {
+    "triple16_k1": (lambda: _triple_grid(16, 16),
+                    dict(band_tile=8, band_min_block=1), 1, 3),
+    "triple32_k2": (lambda: _triple_grid(32, 32, n_query=12, seed=7), MW, 2,
+                    3),
+    "ising3_k2": (_ising_3color, MW, 2, 2),
+}
+FUSEDM_SWEEPS = 1200
+
+
+@pytest.mark.parametrize("name", sorted(FUSEDM_GRAPHS))
+@pytest.mark.parametrize("fused", [True, False])
+def test_infer_mc_fusedm_matches_oracle(name, fused):
+    make, kw, band_k, arity = FUSEDM_GRAPHS[name]
+    g, colors = make()
+    dg, info = compile_graph(g, colors=colors, **kw)
+    ti = info.tiers[0]
+    assert len(info.tiers) == 1 and ti.fusedm and not ti.affine2
+    assert (ti.band_k, ti.arity) == (band_k, arity)
+    assert tmc.resolve_modes(info, "cpu") == ("plain", "plain")
+    d = to_device(dg, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    marg, values = tmc.infer_mc(d, d.w_init, gen, 200, FUSEDM_SWEEPS, info,
+                                N_CHAINS, modes=None if fused else UNFUSED,
+                                device="cpu")
+    assert values.shape == (dg.var_card.shape[0], N_CHAINS)
+    exact = oracle.exact_marginals(g, clamp_evidence=True)
+    free = g.var_role == fs.ROLE_QUERY
+    err = np.abs(marg[:, :2] - exact)[free].max()
+    assert err < TOL, f"max |Δp| = {err:.4f}"
+
+
+def test_fusedm_routes_count_no_kernel_launch_on_cpu(monkeypatch):
+    """The default modes draw through fused_dm_draw's plain version, the
+    unfused modes gather through banded_gather_multi's; the CPU counts no
+    launch."""
+    from sampler_tpu_torch.ops.banded import banded_gather_multi
+    from sampler_tpu_torch.ops.fused import fused_dm_draw
+
+    make, kw, _, _ = FUSEDM_GRAPHS["triple32_k2"]
+    g, colors = make()
+    dg, info = compile_graph(g, colors=colors, **kw)
+    d = to_device(dg, "cpu")
+    calls = {"draw": 0, "gather": 0}
+    for name, key in (("fused_dm_draw_plain", "draw"),
+                      ("banded_gather_multi_plain", "gather")):
+        orig = getattr(tmc, name)
+
+        def counted(*a, _orig=orig, _key=key, **k):
+            calls[_key] += 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(tmc, name, counted)
+    before = (fused_dm_draw.launches, banded_gather_multi.launches)
+    C = info.n_colors
+    tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(0), 1, 2, info, 4,
+                 device="cpu")
+    assert calls == {"draw": 3 * C, "gather": 0}
+    tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(0), 1, 2, info, 4,
+                 modes=UNFUSED, device="cpu")
+    assert calls == {"draw": 3 * C, "gather": 3 * C}
+    assert (fused_dm_draw.launches, banded_gather_multi.launches) == before
+
+
+def test_init_values_mc_rows_and_rates(monkeypatch):
+    """Evidence rows keep their labels in every chain, query rows are
+    uniform over var_card, and the chunked draw covers every row."""
+    g, colors = _evidence_grid(n_query=200, seed=2)
+    dg, info = compile_graph(g, colors=colors)
+    d = to_device(dg, "cpu")
+    monkeypatch.setattr(tmc, "INIT_CHUNK_ELEMS", 3 * 256 + 5)  # ragged
+    v = tmc.init_values_mc(d, torch.Generator().manual_seed(1), 256, info)
+    assert v.dtype == torch.int8 and v.shape == (dg.var_card.shape[0], 256)
+    role = torch.from_numpy(np.asarray(dg.var_role))
+    card = torch.from_numpy(np.asarray(dg.var_card))
+    ev = role == fs.ROLE_EVIDENCE
+    labels = torch.from_numpy(np.asarray(dg.var_init)).to(torch.int8)
+    assert bool((v[ev] == labels[ev, None]).all())
+    q = (role == fs.ROLE_QUERY) & (card == 2)
+    assert int(q.sum()) == 200
+    assert abs(float(v[q].double().mean()) - 0.5) < 0.01
+    # every query row, the last block's included, was drawn
+    assert bool((v[q].double().mean(dim=1) > 0.3).all())
 
 
 def test_fused_path_counts_no_kernel_launch_on_cpu():

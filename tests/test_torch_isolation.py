@@ -91,3 +91,24 @@ def test_learn_mc_without_device_raises_without_card():
     if proc.stdout.startswith("card"):
         pytest.skip("a CUDA device is present")
     assert proc.stdout.startswith("raised no CUDA device"), proc.stdout
+
+
+def test_every_kernel_source_is_built_and_bound():
+    """Each CUDA source of the port is compiled by ops/_build.py, each
+    launcher it binds is defined with a plain C interface in one of them,
+    and no source names the JAX package."""
+    from sampler_tpu_torch.ops import _build
+
+    found = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
+    assert found == sorted(_build.SOURCES)
+    text = {}
+    for name in found:
+        with open(os.path.join(_build.CSRC, name)) as f:
+            text[name] = f.read()
+    for launcher in _build.LAUNCHERS:
+        hits = [n for n, src in text.items()
+                if re.search(rf'extern "C" int {launcher}\(', src)]
+        assert len(hits) == 1, (launcher, hits)
+    for name, src in text.items():
+        assert "sm_90a" in src and "Replaces: sampler_tpu/ops/" in src, name
+        assert not re.search(r"#include\s*[<\"](torch|ATen|jax)", src), name

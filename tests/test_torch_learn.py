@@ -9,7 +9,12 @@ package and closed-form fixed points.
   * on one generator seed the kernel route of the gradient and the
     chunked index_select route learn the same weights (the sweeps are the
     same draws; the gradients differ only in float order);
-  * ten epochs of _learn_mc_from equal two chained five-epoch calls.
+  * ten epochs of _learn_mc_from equal two chained five-epoch calls;
+  * on an evidence-clamped triple grid (fusedm, arity 3) learning through
+    the fused draw and through the unfused draw reaches the same weights
+    (mirrors tests/test_fused_dm.py's fold-refresh test), and on
+    multi-window graphs (band_k 2) the chunked gradient through the
+    multi-window gather equals the per-factor gradient and the JAX one.
 """
 import dataclasses
 
@@ -18,11 +23,15 @@ import numpy as np
 import pytest
 import torch
 
+from sampler_tpu.compile import compile_graph as jax_compile
+from sampler_tpu.compile import to_device as jax_to_device
+from sampler_tpu.engine import multichain as jmc
 from sampler_tpu.engine.learn import apply_update as jax_apply_update
 from sampler_tpu_torch import FactorGraph, compile_graph, fixtures
 from sampler_tpu_torch import format_spec as fs
-from sampler_tpu_torch.benchgraphs import big_ising_grid
+from sampler_tpu_torch.benchgraphs import big_ising_grid, big_triple_grid
 from sampler_tpu_torch.compile import to_device
+from sampler_tpu_torch.convert import from_jax
 from sampler_tpu_torch.engine.learn import LearnConfig, apply_update
 from sampler_tpu_torch.engine import multichain as tmc
 
@@ -176,3 +185,78 @@ def test_learn_mc_leaves_given_worlds_alone():
     assert bool((e[ev] == labels[ev]).all())
     assert bool((f[ev] != labels[ev]).any())
     assert torch.isfinite(w).all()
+
+
+def _evidence_triple_grid(seed=5):
+    """tests/test_fused_dm.py's learning graph: the 16x16 triple grid with
+    every variable labelled and the weights starting at 0."""
+    g, colors = big_triple_grid(16, 16)
+    g.var_role[:] = fs.ROLE_EVIDENCE
+    g.var_init[:] = np.random.default_rng(seed).integers(0, 2, g.n_vars)
+    g.w_init[:] = 0.0
+    return g, colors
+
+
+def test_fusedm_learning_fused_and_unfused_agree():
+    g, colors = _evidence_triple_grid()
+    dg, info = compile_graph(g, colors=colors, band_tile=8, band_min_block=1)
+    assert info.fusedm and info.tiers[0].arity == 3
+    d = to_device(dg, "cpu")
+    cfg = LearnConfig(n_epochs=150, stepsize=1e-3, diminish=0.99,
+                      regularization="none")
+    out = {}
+    for label, modes in (("fused", ("plain", "plain")),
+                         ("unfused", ("plain", "off"))):
+        w, _, _ = tmc.learn_mc(d, d.w_init, torch.Generator().manual_seed(0),
+                               cfg, info, 8, modes=modes, device="cpu")
+        out[label] = w.numpy()
+    np.testing.assert_allclose(out["fused"], out["unfused"], atol=0.15)
+    assert np.abs(out["fused"][:g.n_weights]).max() > 0.05   # they moved
+
+
+def _mw_triple(seed=3):
+    g, colors = big_triple_grid(32, 32)
+    rng = np.random.default_rng(seed)
+    g.var_role[:] = rng.random(g.n_vars) < 0.5
+    g.var_init[:] = rng.integers(0, 2, g.n_vars)
+    return g, colors
+
+
+def _mw_ising(seed=4):
+    g, _ = big_ising_grid(32, 32, w_pair=0.35, w_bias=0.2)
+    rng = np.random.default_rng(seed)
+    g.var_role[:] = rng.random(g.n_vars) < 0.5
+    g.var_init[:] = rng.integers(0, 2, g.n_vars)
+    r, c = np.divmod(np.arange(g.n_vars), 32)
+    return g, ((r + c) % 3).astype(np.int32)
+
+
+@pytest.mark.parametrize("make", [_mw_triple, _mw_ising],
+                         ids=["triple_grid", "ising_3color"])
+@pytest.mark.parametrize("lne", [False, True])
+def test_multi_window_chunked_gradient_matches_factors(make, lne):
+    g, colors = make()
+    jdg, jinfo = jax_compile(g, colors=colors, band_tile=8, band_min_block=1,
+                             band_wmax=512)
+    ti = jinfo.tiers[0]
+    assert ti.band_k == 2 and ti.fusedm
+    tdg, tinfo = from_jax(jdg, jinfo)
+    d = to_device(tdg, "cpu")
+    P = jdg.var_card.shape[0]
+    rng = np.random.default_rng(9)
+    v_ev, v_free = (rng.integers(0, 2, (P, 6)).astype(np.int8)
+                    for _ in range(2))
+    tv_ev, tv_free = torch.from_numpy(v_ev), torch.from_numpy(v_free)
+    factors = tmc._mc_weight_gradient_factors(d, tv_ev, tv_free, lne, tinfo)
+    for row_chunk in (None, 2 * ti.band_tb):
+        got = tmc.mc_weight_gradient_cs(d, tv_ev, tv_free, lne, tinfo,
+                                        ("plain", "plain"),
+                                        row_chunk=row_chunk)
+        np.testing.assert_allclose(got.numpy(), factors.numpy(), rtol=0,
+                                   atol=1e-4)
+    ref = jmc._mc_weight_gradient_factors(jax_to_device(jdg),
+                                          jnp.asarray(v_ev),
+                                          jnp.asarray(v_free), lne, jinfo)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-4)
+    assert np.abs(factors.numpy()).max() > 1.0
