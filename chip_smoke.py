@@ -43,6 +43,25 @@ Phases (each prints one line with its result and elapsed seconds):
              (fused off): launches, rates, peak memory and where a fused
              sweep's time goes; then one learn_mc epoch on the labelled
              triple flagship at 256 chains a world, by part
+ 10 cat kernel  fused_cat_draw against its plain version at the Potts
+             flagship's shapes (big_potts_grid(512, 512, card=4): 2 colors,
+             one affinek tier; 512 random chains, both colors): logits
+             exactly equal, draws differing only where the top two scores
+             lie within CAT_GAP; again at 37 chains, on a card-20 grid and
+             on a grid with mixed cardinalities (every draw below its
+             variable's card); kernel time, plain time and a bound with
+             three terms (bytes, f32 operations, logs at the SFU rate)
+ 11 oracle cat  infer_mc, fused and unfused, against exact enumeration
+             (|dp| < 0.01) on a 16x16 evidence-clamped card-3 Potts grid
+             (fused_cat_draw), fixtures.categorical_graph and mixed_graph
+             (the unbanded candidate path) and a card-200 graph (int32
+             worlds, band off)
+ 12 potts    infer_mc on the Potts flagship at 512 chains, fused (the
+             default modes, the main path of this class) and unfused:
+             launches, rates, peak memory and a fused sweep by part; then
+             learn_mc on the labelled flagship (bench.py's categorical
+             learning configuration: 512 chains a world, 10 epochs of 2
+             sweeps): launches, rate, peak memory and an epoch by part
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failed check ends the run nonzero.
 The script imports neither JAX nor the JAX package.
@@ -68,6 +87,11 @@ TRI_CHAINS = 1024
 DM_ORACLE_CHAINS = 1024
 DM_ORACLE_BURN, DM_ORACLE_SWEEPS = 100, 1000
 DRAW_GAP = 1e-5               # a kernel draw may differ only this near p
+CAT_GRID, CAT_CARD = 512, 4   # bench.py's categorical class
+CAT_CHAINS = 512
+CAT_GAP = 1e-5                # ... or where its top two scores are this near
+CAT_ORACLE_CHAINS = 1024
+SFU_PER_CLOCK_PER_SM = 16     # Hopper's special-function units (log2)
 
 
 def require(cond, msg: str) -> None:
@@ -216,7 +240,7 @@ def grad_phase(dev) -> tuple:
 
     from sampler_tpu_torch.compile import compile_graph, to_device
     from sampler_tpu_torch.engine.multichain import (
-        _grad_row_chunk, _mc_weight_gradient_factors, init_values_mc,
+        _mc_weight_gradient_factors, _row_chunk, init_values_mc,
         mc_weight_gradient_cs)
     from sampler_tpu_torch.ops.banded import banded_gather
     from sampler_tpu_torch.ops.grad import (GRAD_W_MAX, grad_pair_tile,
@@ -259,7 +283,7 @@ def grad_phase(dev) -> tuple:
                     f"grad_pair_tile color {c}: |err| {e} of {scale}")
             err, rel = max(err, e), max(rel, e / scale)
             del got, ref
-    row_chunk = _grad_row_chunk(ti, ti.block, D, ti.arity, 2 * chains)
+    row_chunk = _row_chunk(ti, ti.block, D, ti.arity, 2 * chains)
     routes = {}
     for lne in (False, True):
         banded_gather.launches = 0
@@ -822,6 +846,376 @@ def triple_phase(dev, card: str, g, d, info, kern) -> None:
            fused_sweep_breakdown=breakdown, learning_epoch=learn)
 
 
+def potts_flagship(dev, labelled: bool = False, grid: int | None = None,
+                   card: int = CAT_CARD, mixed: bool = False):
+    """bench.py's categorical class on the card (CAT_GRID unless ``grid``
+    is given; ``mixed`` demotes every third variable to card 2): (graph,
+    device graph, info, numpy compile seconds)."""
+    from sampler_tpu_torch.benchgraphs import big_potts_grid
+    from sampler_tpu_torch.compile import compile_graph, to_device
+
+    grid = grid or CAT_GRID
+    g, colors = big_potts_grid(grid, grid, card=card)
+    if mixed:
+        g.var_card[::3] = 2
+        g.e_eqpred[:] = g.e_eqpred % g.var_card[g.e_vid]
+    if labelled:
+        label_half(g)
+    tc = time.perf_counter()
+    dg, info = compile_graph(g, colors=colors)
+    compile_s = time.perf_counter() - tc
+    ti = info.tiers[0]
+    require(len(info.tiers) == 1 and ti.affinek and not ti.affine2
+            and ti.band_k == 1 and info.max_card == card,
+            f"Potts {grid}x{grid} card {card} tiers {info.tiers}")
+    return g, to_device(dg, dev), info, compile_s
+
+
+def cat_scores(logits, rows, chains, seed, TB: int, NC: int):
+    """The plain draw's Gumbel scores [n, K] at (rows, chains)."""
+    import torch
+
+    from sampler_tpu_torch.ops.fused import (KNUTH, M32, hash_bits,
+                                             tile_seed, u32, uniform24)
+
+    K = logits.shape[1]
+    k = torch.arange(K, device=logits.device)[None, :]
+    kseed = (tile_seed(seed[1], rows // TB)[:, None]
+             ^ ((KNUTH * (k + 1)) & M32))
+    u = uniform24(hash_bits(((rows % TB) * NC + chains)[:, None],
+                            u32(seed[0]), kseed))
+    return logits[rows, :, chains] - torch.log(-torch.log(u))
+
+
+def cat_case(dev, d, info, NC: int, seed_val: int) -> dict:
+    """fused_cat_draw against its plain version on every color of ``d``'s
+    one affinek tier, on a random world of NC chains."""
+    import torch
+
+    from sampler_tpu_torch.ops.fused import (fold_affine_cat, fused_cat_draw,
+                                             fused_cat_draw_plain)
+
+    ts, ti = d.tiers[0], info.tiers[0]
+    C, P, K = info.n_colors, d.var_card.shape[0], info.max_card
+    TB, gB = ti.band_tb, info.block_size
+    gen = torch.Generator(device=dev).manual_seed(seed_val)
+    values = (torch.randint(0, 1 << 20, (P, NC), generator=gen, device=dev)
+              % d.var_card.clamp(min=1)[:, None]).to(torch.int8)
+    fold = fold_affine_cat(ts, ti, C, d.w_init)
+    seed = torch.tensor([seed_val, -7 * seed_val - 1], dtype=torch.int32,
+                        device=dev)
+    err, n_diff, n_draws, max_gap = 0.0, 0, 0, 0.0
+    for c in range(C):
+        args = (values, ts.bd_nbr, ts.bd_start[c], ts.bd_eqo, ts.bd_eqn,
+                *fold, c, seed, ti.band_w, TB, ti.degree, K)
+        out, logits = fused_cat_draw(*args, return_logits=True)
+        ref, ref_logits = fused_cat_draw_plain(*args, return_logits=True)
+        err = max(err, float((logits - ref_logits).abs().max()))
+        diff = out != ref
+        if bool(diff.any()):
+            rows, chains = diff.nonzero(as_tuple=True)
+            top2 = cat_scores(ref_logits, rows, chains, seed, TB,
+                              NC).topk(2, dim=1).values
+            max_gap = max(max_gap, float((top2[:, 0] - top2[:, 1]).max()))
+            require(max_gap < CAT_GAP,
+                    f"a differing categorical draw has a score gap {max_gap}")
+        card = d.var_card[c * gB + ti.off:c * gB + ti.off + out.shape[0]]
+        require(bool(((out >= 0) & (out < card[:, None])).all()),
+                f"a draw at or above its variable's card (c={c}, NC={NC})")
+        n_diff += int(diff.sum())
+        n_draws += out.numel()
+        del out, logits, ref, ref_logits
+    require(err == 0.0, f"fused_cat_draw logits differ by {err} (NC={NC})")
+    require(n_diff <= 1e-4 * n_draws,
+            f"{n_diff} of {n_draws} fused_cat_draw draws differ (NC={NC})")
+    return dict(NC=NC, K=K, logits_max_abs_err=err, draws_differing=n_diff,
+                draws=n_draws, max_score_gap_of_differing=max_gap)
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def cat_kernel_phase(dev) -> tuple:
+    """Phase 10.  Returns (graph, device graph, info, kernel numbers)."""
+    import torch
+
+    from sampler_tpu_torch.ops.fused import (fold_affine_cat, fused_cat_draw,
+                                             fused_cat_draw_plain)
+
+    t10 = time.perf_counter()
+    g, d, info, compile_s = potts_flagship(dev)
+    cases = {"potts_flagship": cat_case(dev, d, info, CAT_CHAINS, 1),
+             "potts_flagship_nc37": cat_case(dev, d, info, 37, 2)}
+    for name, kw in (("card20_grid128", dict(grid=128, card=20)),
+                     ("mixed_grid128", dict(grid=128, mixed=True))):
+        _, dx, infox, _ = potts_flagship(dev, **kw)
+        for NC in (CAT_CHAINS, 37):
+            cases[f"{name}_nc{NC}"] = cat_case(dev, dx, infox, NC, 3)
+        del dx
+
+    ts, ti = d.tiers[0], info.tiers[0]
+    C, P, K = info.n_colors, d.var_card.shape[0], info.max_card
+    D, TB, W = ti.degree, ti.band_tb, ti.band_w
+    nt = ti.block // TB
+    gen = torch.Generator(device=dev).manual_seed(3)
+    values = torch.randint(0, K, (P, CAT_CHAINS), generator=gen, device=dev,
+                           dtype=torch.int8)
+    fold = fold_affine_cat(ts, ti, C, d.w_init)
+    seed = torch.tensor([12345, -67890], dtype=torch.int32, device=dev)
+    args = (values, ts.bd_nbr, ts.bd_start[0], ts.bd_eqo, ts.bd_eqn, *fold,
+            0, seed, W, TB, D, K)
+    k = dict(ms=time_ms(lambda: fused_cat_draw(*args), iters=50),
+             plain_ms=time_ms(lambda: fused_cat_draw_plain(*args), iters=3,
+                              warmup=1),
+             library_ms=None,
+             max_abs_err=max(c["logits_max_abs_err"]
+                             for c in cases.values()))
+    # bound of one launch (color 0), three terms.  Bytes: the distinct
+    # in-window neighbour rows it reads, five 4-byte record streams (nbr,
+    # eqo, eqn, av, bv), kmask, starts and seed, its int8 output.  f32
+    # operations, per (row, chain): 3 a record (compare, multiply, add),
+    # and per candidate D adds, the kmask add, the hash and the uniform
+    # (about 16 integer operations) and the score's subtract and compare.
+    # Logs: 2 a candidate, at the special-function units' rate.
+    nbr0 = ts.bd_nbr[0, :nt].reshape(nt, D, TB)
+    n_rows = rows_read(nbr0, ts.bd_start[0], W)
+    nbytes = (n_rows * CAT_CHAINS + 5 * nt * D * TB * 4 + nt * TB * K * 4
+              + nt * 4 + 8 + nt * TB * CAT_CHAINS)
+    pairs = nt * TB * CAT_CHAINS
+    f_ops = pairs * (3 * D + K * (D + 19))
+    logs = 2 * K * pairs
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_hz()
+    sfu_per_s = SFU_PER_CLOCK_PER_SM * n_sm * clock
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32 operations": f_ops / F32_OPS_PER_S * 1e3,
+             "logs (SFU)": logs / sfu_per_s * 1e3}
+    binding = max(terms, key=terms.get)
+    k.update(bound_ms=terms[binding],
+             bound_by="bytes" if binding == "bytes" else "operations",
+             binding_term=binding, bound_terms_ms=terms, bytes=nbytes,
+             f32_ops=f_ops, logs=logs, rows_read=n_rows, sm_count=n_sm,
+             sm_clock_max_hz=clock, sfu_logs_per_s=sfu_per_s)
+    del values, args, fold
+    report("10 cat kernel", t10, compile_graph_s=round(compile_s, 3), P=P,
+           colors=C, block=ti.block, ntiles=nt, TB=TB, D=D, W=W, K=K,
+           cases=cases, kernel=k)
+    return g, d, info, k
+
+
+def oracle_cat_phase(dev) -> dict:
+    """Phase 11.  Returns each graph's |dp| and launches."""
+    import numpy as np
+    import torch
+
+    from sampler_tpu_torch import FactorGraph, fixtures, oracle
+    from sampler_tpu_torch import format_spec as fs
+    from sampler_tpu_torch.benchgraphs import big_potts_grid
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.engine.multichain import infer_mc, values_dtype
+    from sampler_tpu_torch.ops.banded import banded_gather
+    from sampler_tpu_torch.ops.fused import fused_cat_draw
+
+    t11 = time.perf_counter()
+    gp, colors = big_potts_grid(16, 16, card=3, seed=5)
+    rng = np.random.default_rng(5)
+    query = rng.choice(gp.n_vars, 8, replace=False)
+    gp.var_role[:] = fs.ROLE_EVIDENCE
+    gp.var_role[query] = fs.ROLE_QUERY
+    gp.var_init[:] = rng.integers(0, 3, gp.n_vars)
+    g200 = FactorGraph.build(var_card=[200] * 3, weights=[1.2, 0.8], factors=[
+        (fs.FUNC_AND_CATEGORICAL, 0, 1.0, [(0, True, 7)]),
+        (fs.FUNC_EQUAL, 1, 1.0, [(0, True, 3), (1, True, 3)]),
+        (fs.FUNC_EQUAL, 1, 1.0, [(1, True, 150), (2, True, 150)])])
+    g200.var_dtype[:] = fs.DTYPE_CATEGORICAL
+    g200.var_role[2] = fs.ROLE_EVIDENCE
+    g200.var_init[2] = 150
+    graphs = {
+        "potts16_card3": (gp, colors, dict(band_tile=8, band_min_block=1)),
+        "categorical": (fixtures.categorical_graph(), None, {}),
+        "mixed": (fixtures.mixed_graph(), None, {}),
+        "card200": (g200, None, {}),
+    }
+    out = {}
+    for name, (g, colors, kw) in graphs.items():
+        dg, info = compile_graph(g, colors=colors, **kw)
+        require(info.affinek == (name == "potts16_card3"),
+                f"{name}: tiers {info.tiers}")
+        exact = oracle.exact_marginals(g, clamp_evidence=True)
+        free = g.var_role == fs.ROLE_QUERY
+        d = to_device(dg, dev)
+        res = dict(values_dtype=str(values_dtype(info)))
+        sweeps = info.n_colors * (DM_ORACLE_BURN + DM_ORACLE_SWEEPS)
+        for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):
+            fused_cat_draw.launches = 0
+            banded_gather.launches = 0
+            marg, vals = infer_mc(d, d.w_init,
+                                  torch.Generator(device=dev).manual_seed(3),
+                                  DM_ORACLE_BURN, DM_ORACLE_SWEEPS, info,
+                                  CAT_ORACLE_CHAINS, modes=modes, device=dev)
+            require(vals.dtype == values_dtype(info), f"{name}: {vals.dtype}")
+            require(bool((vals < d.var_card[:, None]).all()),
+                    f"{name}: a value at or above its card")
+            dp = float(abs(marg[:, :exact.shape[1]] - exact)[free].max())
+            require(dp < 0.01, f"{name} {label}: |dp| = {dp}")
+            launches = {"fused_cat_draw": fused_cat_draw.launches,
+                        "banded_gather": banded_gather.launches}
+            if not info.affinek:
+                want = {"fused_cat_draw": 0, "banded_gather": 0}
+            elif label == "fused":
+                want = {"fused_cat_draw": sweeps, "banded_gather": 0}
+            else:
+                want = {"fused_cat_draw": 0, "banded_gather": sweeps}
+            require(launches == want, f"{name} {label}: launches {launches}")
+            res[label] = dict(max_abs_dp=dp, launches=launches)
+        out[name] = res
+    report("11 oracle cat", t11, chains=CAT_ORACLE_CHAINS,
+           burn=DM_ORACLE_BURN, sweeps=DM_ORACLE_SWEEPS, graphs=out)
+    return out
+
+
+def potts_phase(dev, card: str, g, d, info, kern) -> None:
+    """Phase 12: the Potts flagship's main path, fused and unfused, then
+    learn_mc on its labelled twin.  Fills in the launches of ``kern``."""
+    import dataclasses
+
+    import torch
+
+    from sampler_tpu_torch import format_spec as fs
+    from sampler_tpu_torch.engine.learn import LearnConfig
+    from sampler_tpu_torch.engine.multichain import (_row_chunk, infer_mc,
+                                                     init_values_mc, learn_mc,
+                                                     prepare_fold,
+                                                     resolve_modes, sweep_mc,
+                                                     tally)
+    from sampler_tpu_torch.ops.banded import banded_gather
+    from sampler_tpu_torch.ops.fused import fused_cat_draw
+
+    t12 = time.perf_counter()
+    C, P, K = info.n_colors, d.var_card.shape[0], info.max_card
+    ti = info.tiers[0]
+    require(resolve_modes(info, dev) == ("cuda", "cuda"),
+            f"default modes {resolve_modes(info, dev)}")
+    # the unfused draw's row blocks a color (color_draw_categorical)
+    blocks = ti.block // _row_chunk(ti, ti.block, ti.degree,
+                                         K * ti.arity, CAT_CHAINS)
+    runs = {}
+    for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):
+        fused_cat_draw.launches = 0
+        banded_gather.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = time.perf_counter()
+        marg, vals = infer_mc(d, d.w_init,
+                              torch.Generator(device=dev).manual_seed(7),
+                              BURN, SWEEPS, info, CAT_CHAINS, modes=modes,
+                              device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tr
+        require(marg.shape == (g.n_vars, K), f"marginals {marg.shape}")
+        require(bool((marg >= 0).all() and (marg <= 1).all()),
+                "marginals outside [0, 1]")
+        require(float(abs(marg.sum(1) - 1).max()) < 1e-5,
+                "marginal rows do not sum to 1")
+        require(bool(((vals >= 0) & (vals < K)).all()), "a value outside K")
+        runs[label] = dict(
+            wall_s=wall,
+            variable_updates_per_s=g.n_vars * CAT_CHAINS * (BURN + SWEEPS)
+            / wall,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            launches={"fused_cat_draw": fused_cat_draw.launches,
+                      "banded_gather": banded_gather.launches},
+            mean_p=marg.mean(axis=0).tolist())
+        del vals
+    sweeps = C * (BURN + SWEEPS)
+    require(runs["fused"]["launches"] == {
+        "fused_cat_draw": sweeps, "banded_gather": 0},
+        f"fused path launches {runs['fused']['launches']}")
+    require(runs["unfused"]["launches"] == {
+        "fused_cat_draw": 0, "banded_gather": sweeps * blocks},
+        f"unfused path launches {runs['unfused']['launches']}")
+    dp = max(abs(a - b) for a, b in zip(runs["fused"]["mean_p"],
+                                        runs["unfused"]["mean_p"]))
+    require(dp < 0.01, f"fused and unfused mean marginals differ by {dp}")
+    kern["launches"] = runs["fused"]["launches"]["fused_cat_draw"]
+
+    # where a fused sweep's time goes (CUDA events; after the counted runs)
+    modes = resolve_modes(info, dev)
+    folded = prepare_fold(d, d.w_init, info, modes)
+    gen_b = torch.Generator(device=dev).manual_seed(9)
+    world = init_values_mc(d, gen_b, CAT_CHAINS, info)
+    counts = torch.zeros((K, P), dtype=torch.int32, device=dev)
+    block, drawn = world[:ti.block], torch.zeros_like(world[:ti.block])
+    ts = d.tiers[0]
+    sweep_ms = time_ms(lambda: sweep_mc(d, world, d.w_init, gen_b, False,
+                                        info, folded, modes), iters=10)
+    parts = {f"fused_cat_draw_x{C}": C * kern["ms"],
+             f"block_write_x{C}": C * time_ms(lambda: block.copy_(
+                 torch.where(ts.cm_resample[0][:, None], drawn, block)))}
+    parts["rest"] = sweep_ms - sum(parts.values())
+    breakdown = dict(sweep_ms=sweep_ms, parts_ms=parts,
+                     tally_ms=time_ms(lambda: tally(counts, world)))
+    del world, counts, block, drawn, folded
+
+    # learning: bench.py's categorical learning configuration
+    gl, dl, infol, compile_l = potts_flagship(dev, labelled=True)
+    cfg = LearnConfig(n_epochs=LEARN_EPOCHS, n_sweeps_per_epoch=LEARN_SWEEPS,
+                      stepsize=0.01, diminish=0.99, regularization="l2",
+                      reg_param=0.01)
+    til = infol.tiers[0]
+    grad_blocks = til.block // _row_chunk(til, til.block, til.degree,
+                                               til.arity, 2 * CAT_CHAINS)
+    learn_mc(dl, dl.w_init, torch.Generator(device=dev).manual_seed(1),
+             dataclasses.replace(cfg, n_epochs=1), infol, CAT_CHAINS,
+             device=dev)                            # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_cat_draw.launches = 0
+    banded_gather.launches = 0
+    tr = time.perf_counter()
+    w, v_ev, v_free = learn_mc(dl, dl.w_init,
+                               torch.Generator(device=dev).manual_seed(2),
+                               cfg, infol, CAT_CHAINS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tr
+    launches = {"fused_cat_draw": fused_cat_draw.launches,
+                "banded_gather": banded_gather.launches}
+    n_sw = cfg.n_epochs * cfg.n_sweeps_per_epoch
+    require(launches == {"fused_cat_draw": 2 * C * n_sw,
+                         "banded_gather": C * cfg.n_epochs * grad_blocks},
+            f"learning launches {launches}")
+    nw = gl.n_weights
+    require(bool(torch.isfinite(w).all()), f"weights {w.tolist()}")
+    require(bool((w[:nw] != dl.w_init[:nw]).all()),
+            f"weights did not move: {w.tolist()}")
+    ev = (dl.var_role == fs.ROLE_EVIDENCE) & (dl.var_card > 1)
+    require(bool((v_ev[ev] == dl.var_init.to(v_ev.dtype)[ev, None]).all()),
+            "the evidence world lost a label")
+    learn = dict(chains=CAT_CHAINS, epochs=cfg.n_epochs,
+                 sweeps_per_epoch=cfg.n_sweeps_per_epoch,
+                 compile_graph_s=round(compile_l, 3), wall_s=wall,
+                 learning_sweeps_per_s=n_sw / wall,
+                 learning_updates_per_s=gl.n_vars * n_sw * 2 * CAT_CHAINS
+                 / wall,
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 launches=launches, gradient_row_blocks_a_color=grad_blocks,
+                 weights=w.tolist(), w_init=dl.w_init.tolist())
+    learn["epoch_breakdown_ms"] = epoch_parts(
+        dl, w, infol, resolve_modes(infol, dev), v_ev, v_free, cfg,
+        torch.Generator(device=dev).manual_seed(3))
+    del dl, v_ev, v_free
+    report("12 potts", t12, card=card, grid=f"{CAT_GRID}x{CAT_GRID}",
+           K=K, chains=CAT_CHAINS, burn=BURN, sweeps=SWEEPS,
+           unfused_row_blocks_a_color=blocks, runs=runs,
+           fused_sweep_breakdown=breakdown, learning=learn)
+
+
 def main() -> int:
     import torch
 
@@ -1058,6 +1452,12 @@ def main() -> int:
     triple_phase(dev, card, g, d, info, kern)
     del d
 
+    # ---- 10, 11, 12: the categorical class ------------------------------
+    g, d, info, kern["fused_cat_draw"] = cat_kernel_phase(dev)
+    oracle_cat_phase(dev)
+    potts_phase(dev, card, g, d, info, kern["fused_cat_draw"])
+    del d
+
     sources = {"fused_color_draw": ("sampler_tpu_torch/csrc/"
                                     "fused_color_draw.cu",
                                     "sampler_tpu/ops/fused.py:365"),
@@ -1069,7 +1469,9 @@ def main() -> int:
                                  "sampler_tpu/ops/fused.py:649"),
                "banded_gather_multi": ("sampler_tpu_torch/csrc/"
                                        "banded_gather_multi.cu",
-                                       "sampler_tpu/ops/banded.py:329")}
+                                       "sampler_tpu/ops/banded.py:329"),
+               "fused_cat_draw": ("sampler_tpu_torch/csrc/fused_cat_draw.cu",
+                                  "sampler_tpu/ops/fused.py:506")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": k["launches"],

@@ -1,13 +1,15 @@
 """Chains-last multi-chain Gibbs engine on PyTorch (counterpart of
 sampler_tpu/engine/multichain.py).
 
-The assignment of all chains is one int8 tensor ``values[P, NC]``: a row
+The assignment of all chains is one tensor ``values[P, NC]`` (int8 while
+every cardinality is at most 127, else int32: ``values_dtype``): a row
 holds one position's value in every chain.  A sweep visits the colors in
 order; a color step draws every variable of that color in every chain at
 once (chromatic Gibbs) and writes the new values into ``values`` in place.
 
-This port runs marginal inference and weight learning on all-boolean
-graphs, single-window and multi-window banded alike:
+This port runs marginal inference and weight learning on boolean,
+categorical and mixed graphs with dense weights, single-window and
+multi-window banded alike:
 
   * affine2 tiers (pairwise boolean, one window a tile) with the fused
     mode on draw a whole color in ``ops.fused.fused_color_draw`` (one CUDA
@@ -16,9 +18,14 @@ graphs, single-window and multi-window banded alike:
     take: arity 3, or band_k >= 2 windows a tile, as on any graph of more
     than 2 colors) with the fused mode on draw a whole color in
     ``ops.fused.fused_dm_draw`` (one CUDA kernel);
+  * affinek tiers (categorical or mixed, arity <= 2, one own slot a
+    factor, one window a tile, 2 <= K <= 32) with the fused mode on draw a
+    whole color in ``ops.fused.fused_cat_draw`` (one CUDA kernel);
   * the other tiers, and every tier with the fused mode off, compute the
     log-odds with ``color_delta_multilin`` (deltam tiers) or
-    ``color_delta_bool``, gathering neighbour values with
+    ``color_delta_bool`` on all-boolean graphs, and the K candidates'
+    log-potentials with ``color_logits_mc`` (a Gumbel-argmax draw, a block
+    of rows at a time) on the others, gathering neighbour values with
     ``ops.banded.banded_gather`` (band_k 1), ``banded_gather_multi``
     (band_k >= 2) or ``index_select`` (band off);
   * ``learn_mc`` runs contrastive SGD over an evidence and a free world of
@@ -31,14 +38,14 @@ graphs, single-window and multi-window banded alike:
 PyTorch version) or "off"; the default is "cuda" on a CUDA device and
 "plain" on the CPU, gated by what the compiled graph supports, as the JAX
 package's resolve_band / resolve_fused gate them.  What lies outside the
-slice (categorical variables and the fused_cat_draw kernel, sparse
-per-combination weights, hub tiers) raises NotImplementedError naming the
-missing piece.
+slice (sparse per-combination weights, hub tiers) raises
+NotImplementedError naming the missing piece.
 
 Randomness comes from one explicit ``torch.Generator`` on the run's device:
-the initial worlds, the uniforms of the unfused draw, and two int32 seed
-words per (sweep, color, tier) for the fused kernel's counter hash.  In
-learning the one generator drives both worlds' sweeps in turn.
+the initial worlds, the uniforms and Gumbel noise of the unfused draws, and
+two int32 seed words per (sweep, color, tier) for the fused kernels'
+counter hash.  In learning the one generator drives both worlds' sweeps in
+turn.
 
 Unlike the JAX package, the port runs the chain count it is asked for: the
 TPU rounds chains up to its 128 lanes (effective_chains, demote_modes), and
@@ -53,14 +60,21 @@ from .. import format_spec as fs
 from ..compile import factor_records, resolve_device, tier_geom
 from ..ops.banded import (banded_gather, banded_gather_multi,
                           banded_gather_multi_plain, banded_gather_plain)
-from ..ops.fused import (fold_affine, fold_deltam, fold_deltam_tiles,
-                         fused_color_draw, fused_color_draw_plain,
-                         fused_dm_draw, fused_dm_draw_plain)
+from ..ops.fused import (fold_affine, fold_affine_cat, fold_deltam,
+                         fold_deltam_tiles, fused_cat_draw,
+                         fused_cat_draw_plain, fused_color_draw,
+                         fused_color_draw_plain, fused_dm_draw,
+                         fused_dm_draw_plain)
 from ..ops.grad import GRAD_W_MAX, grad_pair_tile, grad_pair_tile_plain
 from ..ops.weights import expand_wf, segment_reduce
 from .learn import apply_update
 
 MECHANISMS = ("cuda", "plain", "off")
+
+
+def values_dtype(info) -> torch.dtype:
+    """The worlds' dtype: int8 while every cardinality fits, else int32."""
+    return torch.int8 if info.max_card <= 127 else torch.int32
 
 
 def resolve_modes(info, device) -> tuple:
@@ -101,18 +115,9 @@ def check_slice(info, modes) -> None:
         raise NotImplementedError(
             "sparse per-combination weights (color_logits_mc's sparse "
             "branch) are not ported yet")
-    if not info.all_boolean or info.max_card > 2:
-        raise NotImplementedError(
-            "categorical variables (color_logits_mc, and the fused_cat_draw "
-            "kernel) are not ported yet")
     if info.has_hub:
         raise NotImplementedError("the hub tier (hub_color_draw) is not "
                                   "ported yet")
-    for ti in info.tiers:
-        if tier_modes(ti, modes)[1] != "off" and ti.affinek:
-            raise NotImplementedError(
-                "the fused_cat_draw kernel is not ported yet; pass modes "
-                "with fused 'off'")
 
 
 def _on(t: torch.Tensor, dev: torch.device) -> bool:
@@ -139,13 +144,13 @@ INIT_CHUNK_ELEMS = 1 << 22      # (position, chain) pairs drawn at a time
 
 def init_values_mc(dg, generator, n_chains: int, info,
                    random_init: bool = True) -> torch.Tensor:
-    """Initial worlds [P, NC]: evidence at labels, query uniform over
-    var_card per chain.  The int32 draws and their modulo are made a
-    block of rows at a time into the int8 worlds, so no int32 [P, NC]
-    temporary exists (the JAX package jits its version for the same
-    reason)."""
+    """Initial worlds [P, NC] of ``values_dtype(info)``: evidence at
+    labels, query uniform over var_card per chain.  The int32 draws and
+    their modulo are made a block of rows at a time into the worlds, so no
+    int32 [P, NC] temporary exists beside int8 worlds (the JAX package
+    jits its version for the same reason)."""
     P = dg.var_card.shape[0]
-    dt = torch.int8                  # boolean worlds (check_slice)
+    dt = values_dtype(info)
     out = dg.var_init.to(dt)[:, None].expand(P, n_chains).contiguous()
     if not random_init:
         return out
@@ -208,19 +213,23 @@ def _phi_from_counts(nlit, head, n, f_type, present):
     return out
 
 
-def _eval_phi_ax2(lits, mask, f_type, f_arity, present):
+def _eval_phi_ax2(lits, mask, f_type, f_arity, present, hmask=None):
     """φ with the arity axis at -2 (chain axis trailing).
 
     lits [.., A, NC] bool; mask broadcastable to lits; f_type / f_arity
     of rank lits.ndim - 1 (every lits axis but A, with broadcast-1 dims
-    where needed, e.g. [F, 1] for lits [F, A, NC]); the head literal is
-    slot arity - 1.  Returns float32 [.., NC]."""
+    where needed, e.g. [F, 1] for lits [F, A, NC]).  ``hmask``, bool
+    broadcastable to lits, marks the head slot; it is needed where the A
+    axis is permuted own-last (the cs streams).  None takes slot
+    arity - 1, the factor records' order.  Returns float32 [.., NC]."""
     lits = lits & mask
     nlit = lits.sum(dim=-2, dtype=torch.int32)
     head = None
     if _need_head(present):
-        iota_a = torch.arange(lits.shape[-2], device=lits.device)[:, None]
-        hmask = iota_a == (f_arity.to(torch.int64) - 1)[..., None]
+        if hmask is None:
+            iota_a = torch.arange(lits.shape[-2],
+                                  device=lits.device)[:, None]
+            hmask = iota_a == (f_arity.to(torch.int64) - 1)[..., None]
         head = (lits & hmask).any(dim=-2)
     return _phi_from_counts(nlit, head, f_arity.to(torch.int32), f_type,
                             present)
@@ -259,20 +268,32 @@ def _gather_nbr(ts, ti, values, nbr, c, modes, r0: int = 0) -> torch.Tensor:
     return vals.reshape(B, D, A1, NC)
 
 
-def _nbr_lits(ts, ti, values, c, info, modes):
-    """Gather + literal-ize the NEIGHBOR slots of boolean tier ``ts``,
-    color ``c``: (nbr_lit [B, D, A-1, NC] bool, pos [B, D, A]).  Only the
-    leading A-1 (own-last-permuted) slots are gathered: the own slots'
-    literals come from the candidate."""
+def _nbr_lits(ts, ti, values, c, info, modes, r0: int = 0,
+              rc: int | None = None):
+    """Gather + literal-ize the NEIGHBOR slots of tier ``ts``, color ``c``,
+    rows ``r0 .. r0+rc`` (all rows by default): (nbr_lit [rc, D, A-1, NC]
+    bool, pos [rc, D, A], eq [rc, D, A] or None on all-boolean graphs, the
+    raw gathered values [rc, D, A-1, NC] or None on unary tiers).  Only
+    the leading A-1 (own-last-permuted) slots are gathered: the own slots'
+    literals come from the candidate.  A literal is ``value == 1`` on
+    all-boolean graphs and ``value == eq`` elsewhere, each compared with
+    the slot's sign ``pos``."""
     B, D, A = tier_geom(ts, ti, info.n_colors)
+    rc = B - r0 if rc is None else rc
+    rows = slice(r0, r0 + rc)
     A1 = A - 1
-    pos = _tc(ts.cs_pos, c, (B, D, A))
+    pos = _tc(ts.cs_pos, c, (B, D, A))[rows]
+    eq = None if info.all_boolean else _tc(ts.cs_eq, c, (B, D, A))[rows]
     if A1 == 0:                       # unary-only tier: nothing to gather
-        return (torch.zeros((B, D, 0, values.shape[-1]), dtype=torch.bool,
-                            device=values.device), pos)
-    vals = _gather_nbr(ts, ti, values, _tc(ts.cs_nbr, c, (B, D, A1)), c,
-                       modes)
-    return (vals == 1) == pos[..., :A1, None], pos
+        return (torch.zeros((rc, D, 0, values.shape[-1]), dtype=torch.bool,
+                            device=values.device), pos, eq, None)
+    vals = _gather_nbr(ts, ti, values, _tc(ts.cs_nbr, c, (B, D, A1))[rows],
+                       c, modes, r0)
+    if eq is None:
+        return (vals == 1) == pos[..., :A1, None], pos, eq, vals
+    nbr_lit = (vals == eq[..., :A1, None].to(values.dtype)) \
+        == pos[..., :A1, None]
+    return nbr_lit, pos, eq, vals
 
 
 def color_delta_bool(ts, ti, values, weights, c, info, modes=("off", "off")):
@@ -282,7 +303,7 @@ def color_delta_bool(ts, ti, values, weights, c, info, modes=("off", "off")):
     literal counts (k=1 → own literal == ispos; k=0 → == ¬ispos), so
     φ(1) − φ(0) needs one [B, D, NC] evaluation."""
     B, D, A = tier_geom(ts, ti, info.n_colors)
-    nbr_lit, pos = _nbr_lits(ts, ti, values, c, info, modes)
+    nbr_lit, pos, _, _ = _nbr_lits(ts, ti, values, c, info, modes)
     msk = _tc(ts.cs_mask, c, (B, D, A))
     ismine = _tc(ts.cs_ismine, c, (B, D, A))
     A1 = nbr_lit.shape[-2]
@@ -334,11 +355,92 @@ def color_delta_multilin(ts, ti, values, c, info, folded_t, modes):
     return base + contrib.sum(dim=1)                            # [B, NC]
 
 
+def color_logits_mc(dg, ts, ti, values, weights, c, info,
+                    modes=("off", "off"), r0: int = 0,
+                    rc: int | None = None) -> torch.Tensor:
+    """Conditional log-potentials [rc, K, NC] of the candidates
+    k = 0 .. K-1 for rows ``r0 .. r0+rc`` (all rows by default) of tier
+    ``ts``, color ``c``: Σ_d wf·φ with the candidate at the own slots and
+    the gathered neighbour values at the others (dense weights; the
+    caller masks k >= card with cm_kmask).  Its [rc, D, K, A, NC] literal
+    and [rc, D, K, NC] φ temporaries scale with ``rc``."""
+    K = info.max_card
+    B, D, A = tier_geom(ts, ti, info.n_colors)
+    rc = B - r0 if rc is None else rc
+    rows = slice(r0, r0 + rc)
+    A1 = A - 1
+    NC = values.shape[-1]
+    nbr_lit, pos, eq, _ = _nbr_lits(ts, ti, values, c, info, modes, r0, rc)
+    ks = torch.arange(K, device=values.device)[None, None, :, None]
+    cand = ks == 1 if eq is None else ks == eq[:, :, None, :]
+    cand_lit = cand == pos[:, :, None, :]                       # [rc,D,K,A]
+    is_mine = _tc(ts.cs_ismine, c, (B, D, A))[rows]
+    # candidate at own slots, gathered literal at neighbour slots; slot
+    # A-1 is always own (own-last permutation)
+    lit_head = torch.where(is_mine[:, :, None, :A1, None],
+                           cand_lit[:, :, :, :A1, None],
+                           nbr_lit[:, :, None, :, :])
+    lit_last = cand_lit[:, :, :, A1:, None].expand(rc, D, K, 1, NC)
+    lit_k = torch.cat([lit_head, lit_last], dim=-2)            # [rc,D,K,A,NC]
+    present = ti.present_funcs or info.present_funcs
+    phi = _eval_phi_ax2(
+        lit_k, _tc(ts.cs_mask, c, (B, D, A))[rows][:, :, None, :, None],
+        _tc(ts.cs_type, c, (B, D))[rows][:, :, None, None],
+        _tc(ts.cs_arity, c, (B, D))[rows][:, :, None, None], present,
+        hmask=_tc(ts.cs_hmask, c, (B, D, A))[rows][:, :, None, :, None])
+    wf = expand_wf(weights, _tc(ts.cs_wid, c, (B, D))[rows],
+                   _tc(ts.cs_feat, c, (B, D))[rows])[:, :, None, None]
+    return (wf * phi).sum(dim=1)                                # [rc, K, NC]
+
+
+def _row_chunk(ti, B: int, D: int, A: int, NC: int) -> int:
+    """Rows per sub-block of the chunked gradient and of the unfused
+    categorical draw: bounds their [rows, D, A, NC] temporaries (A is K·A
+    for the draw's candidates) to ~64 Mi elements however large the color
+    block is.  Banded gathers need the chunk tile-aligned."""
+    target = 1 << 26
+    step = ti.band_tb if ti.band_w else 1
+    rc = max(1, target // max(D * A * NC, 1))
+    rc = min(max(step, (rc // step) * step), B)
+    while rc > step and B % rc:
+        rc -= step
+    return rc if rc > 0 and B % rc == 0 else B
+
+
+def _gumbel(shape, generator, device) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log u) from ``generator``, with u a
+    24-bit uniform strictly inside (0, 1), so no log(0) occurs."""
+    r = torch.randint(0, 1 << 24, shape, generator=generator, device=device,
+                      dtype=torch.int32)
+    u = (r.to(torch.float32) + 0.5) * (2.0 ** -24)
+    return -torch.log(-torch.log(u))
+
+
+def color_draw_categorical(dg, ts, ti, values, weights, generator, c, info,
+                           modes=("off", "off")) -> torch.Tensor:
+    """Unfused categorical draw of one tier, color ``c``: Gumbel-argmax
+    over color_logits_mc + cm_kmask, a block of rows at a time so the
+    logits' temporaries stay bounded (~64 Mi literals a block)."""
+    B, D, A = tier_geom(ts, ti, info.n_colors)
+    K = info.max_card
+    NC = values.shape[-1]
+    kmask = _tc(ts.cm_kmask, c, (B, K))
+    out = torch.empty((B, NC), dtype=values.dtype, device=values.device)
+    rc = _row_chunk(ti, B, D, K * A, NC)
+    for r0 in range(0, B, rc):
+        logits = color_logits_mc(dg, ts, ti, values, weights, c, info, modes,
+                                 r0, rc) + kmask[r0:r0 + rc, :, None]
+        logits += _gumbel(logits.shape, generator, values.device)
+        out[r0:r0 + rc] = logits.argmax(dim=1).to(values.dtype)
+    return out
+
+
 def prepare_fold(dg, weights, info, modes):
     """Per-tier folded coefficient streams (None for tiers no folded path
     covers), or None when nothing folds: with the fused mode on,
-    fold_affine for affine2 tiers and fold_deltam_tiles (the kernel's tile
-    layout) for fusedm tiers; fold_deltam for the other deltam tiers.
+    fold_affine for affine2 tiers, fold_affine_cat for affinek tiers and
+    fold_deltam_tiles (the kernel's tile layout) for fusedm tiers;
+    fold_deltam for the other deltam tiers.
     color_draw_tier routes a tier to a fused draw under the same
     condition, so a layout never reaches the wrong path.  Called once per
     weights value, outside the sweep loop."""
@@ -352,6 +454,8 @@ def prepare_fold(dg, weights, info, modes):
     def fold_one(ts, ti):
         if ti.affine2 and use_fused:
             return fold_affine(ts, ti, C, w)
+        if ti.affinek and use_fused:
+            return fold_affine_cat(ts, ti, C, w)
         if ti.fusedm and use_fused:
             return fold_deltam_tiles(ts, ti, C, w)
         if ti.deltam:
@@ -368,9 +472,6 @@ def color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
         raise NotImplementedError("the hub tier (hub_color_draw) is not "
                                   "ported yet")
     if folded_t is not None and tier_modes(ti, modes)[1] != "off":
-        if not (ti.affine2 or ti.fusedm):
-            raise NotImplementedError("the fused_cat_draw kernel is not "
-                                      "ported yet")
         seed = torch.randint(-(1 << 31), 1 << 31, (2,), generator=generator,
                              device=values.device, dtype=torch.int32)
         cuda = modes[1] == "cuda"
@@ -379,14 +480,20 @@ def color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
             return draw(values, ts.bd_nbr, ts.bd_start[c], folded_t[0],
                         folded_t[1], c, seed, ti.band_w, ti.band_tb,
                         ti.degree)
+        if ti.affinek:
+            av, bv, kmask = folded_t         # fold_affine_cat layout
+            draw = fused_cat_draw if cuda else fused_cat_draw_plain
+            return draw(values, ts.bd_nbr, ts.bd_start[c], ts.bd_eqo,
+                        ts.bd_eqn, av, bv, kmask, c, seed, ti.band_w,
+                        ti.band_tb, ti.degree, info.max_card)
         base, b1, b2, bx = folded_t          # fold_deltam_tiles layout
         draw = fused_dm_draw if cuda else fused_dm_draw_plain
         return draw(values, ts.bd_dmnbr, ts.bd_start[c], base, b1, b2, bx,
                     c, seed, ti.band_w, ti.band_tb, ti.degree, ti.arity - 1,
                     ti.band_k)
     if not (info.all_boolean and info.max_card == 2):
-        raise NotImplementedError("categorical variables (color_logits_mc) "
-                                  "are not ported yet")
+        return color_draw_categorical(dg, ts, ti, values, weights, generator,
+                                      c, info, modes)
     if ti.deltam and folded_t is not None:
         delta = color_delta_multilin(ts, ti, values, c, info, folded_t,
                                      modes)
@@ -439,6 +546,28 @@ def run_sweeps_mc(dg, values, weights, generator, n_sweeps: int,
     return values
 
 
+def tally(counts: torch.Tensor, values: torch.Tensor) -> None:
+    """Add each position's count of every value k over the chains to
+    ``counts`` [K, P] int32, in place.  Up to 16 values, one comparison a
+    value in the worlds' dtype; above, one bincount a block of rows (the
+    JAX package switches to a one-hot there too), whose int64 temporaries
+    stay near INIT_CHUNK_ELEMS entries."""
+    K = counts.shape[0]
+    if K <= 16:
+        for k in range(K):
+            counts[k] += (values == k).sum(dim=1, dtype=torch.int32)
+        return
+    P, NC = values.shape
+    step = max(1, INIT_CHUNK_ELEMS // max(NC, K))
+    for r0 in range(0, P, step):
+        blk = values[r0:r0 + step]
+        n = blk.shape[0]
+        idx = blk.to(torch.int64) * n + torch.arange(
+            n, device=values.device)[:, None]
+        counts[:, r0:r0 + n] += torch.bincount(
+            idx.reshape(-1), minlength=K * n).view(K, n).to(torch.int32)
+
+
 def run_inference_mc(dg, values, weights, generator, n_sweeps: int,
                      sample_evidence: bool, info, modes=None,
                      device="cuda") -> tuple:
@@ -453,8 +582,7 @@ def run_inference_mc(dg, values, weights, generator, n_sweeps: int,
     for _ in range(n_sweeps):
         sweep_mc(dg, values, w, generator, sample_evidence, info, folded,
                  modes)
-        for k in range(K):
-            counts[k] += (values == k).sum(dim=1, dtype=torch.int32)
+        tally(counts, values)
     return values, counts.reshape(-1)
 
 
@@ -517,12 +645,15 @@ def _mc_weight_gradient_factors(dg, v_ev, v_free, learn_non_evidence: bool,
     return segment_reduce(diff.mean(dim=1), dg.f_wid, dg.w_init.shape[0])
 
 
-def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes):
-    """φ [rc, D, NC] of rows ``r0 .. r0+rc`` of one boolean tier's color
-    ``c`` at the current ``values``, with the variable's own value
-    ``ownv`` [rc, NC] as the candidate.  Neighbour values come through the
-    same gather as the draw (``_gather_nbr``).  Counts-based: the slot axis
-    is reduced at once, so no [rc, D, A, NC] literal tensor is made."""
+def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes,
+                 all_boolean: bool = True):
+    """φ [rc, D, NC] of rows ``r0 .. r0+rc`` of one tier's color ``c`` at
+    the current ``values``, with the variable's own value ``ownv``
+    [rc, NC] as the candidate.  Neighbour values come through the same
+    gather as the draw (``_gather_nbr``).  On all-boolean graphs it is
+    counts-based: the slot axis is reduced at once, so no [rc, D, A, NC]
+    literal tensor is made; elsewhere a literal is ``value == cs_eq`` and
+    that tensor is made (the caller's row chunk bounds it)."""
     C = ts.bd_start.shape[0]
     _, D, A = tier_geom(ts, ti, C)
     A1 = A - 1
@@ -540,6 +671,22 @@ def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes):
     ismine = rows(ts.cs_ismine, D, A)
     msk = rows(ts.cs_mask, D, A)
     hmask = rows(ts.cs_hmask, D, A)
+    n = rows(ts.cs_arity, D).to(torch.int32)[..., None]
+    typ = rows(ts.cs_type, D)[..., None]
+    if not all_boolean:
+        eq = rows(ts.cs_eq, D, A).to(values.dtype)
+        own_lit = (ownv[:, None, None, :] == eq[..., None]) == pos[..., None]
+        if A1 > 0:
+            vals = _gather_nbr(ts, ti, values, rows(ts.cs_nbr, D, A1), c,
+                               modes, r0)
+            nbr_lit = (vals == eq[..., :A1, None]) == pos[..., :A1, None]
+            lit_head = torch.where(ismine[..., :A1, None],
+                                   own_lit[..., :A1, :], nbr_lit)
+            lit = torch.cat([lit_head, own_lit[..., A1:, :]], dim=-2)
+        else:
+            lit = own_lit
+        return _eval_phi_ax2(lit, msk[..., None], typ, n, present,
+                             hmask=hmask[..., None])          # [rc, D, NC]
     if A1 > 0:
         vals = _gather_nbr(ts, ti, values, rows(ts.cs_nbr, D, A1), c, modes,
                            r0)
@@ -563,22 +710,7 @@ def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes):
         else:
             hl = torch.zeros(nl.shape, dtype=torch.bool, device=nl.device)
         head = torch.where(head_own, torch.where(v1, headpos, ~headpos), hl)
-    n = rows(ts.cs_arity, D).to(torch.int32)[..., None]
-    typ = rows(ts.cs_type, D)[..., None]
     return _phi_from_counts(nl + nown, head, n, typ, present)
-
-
-def _grad_row_chunk(ti, B: int, D: int, A: int, NC: int) -> int:
-    """Rows per gradient sub-block: bounds the [rows, D, A, NC]
-    temporaries to ~64 Mi elements however large the color block is.
-    Banded gathers need the chunk tile-aligned."""
-    target = 1 << 26
-    step = ti.band_tb if ti.band_w else 1
-    rc = max(1, target // max(D * A * NC, 1))
-    rc = min(max(step, (rc // step) * step), B)
-    while rc > step and B % rc:
-        rc -= step
-    return rc if rc > 0 and B % rc == 0 else B
 
 
 def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
@@ -592,7 +724,7 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
     "plain") and no ``row_chunk`` goes through ``grad_pair_tile`` (the
     kernel, or its plain version), one call a color.  Every other tier
     runs the chunked route: both worlds side by side on the chain axis,
-    rows in chunks of ``row_chunk`` (default ``_grad_row_chunk``), φ from
+    rows in chunks of ``row_chunk`` (default ``_row_chunk``), φ from
     ``_phi_streams`` and a segment sum per weight."""
     check_slice(info, modes)
     W = dg.w_init.shape[0]
@@ -619,7 +751,7 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
         if v_both is None:
             # one gather a chunk serves both worlds
             v_both = torch.cat([v_ev, v_free], dim=-1)
-        rc = min(row_chunk or _grad_row_chunk(ti, Bl, D, A, 2 * NC), Bl)
+        rc = min(row_chunk or _row_chunk(ti, Bl, D, A, 2 * NC), Bl)
         if Bl % rc or (ti.band_w and band != "off" and rc % ti.band_tb):
             raise ValueError(f"row_chunk {rc} must divide tier block {Bl}"
                              " (and be a multiple of its band tile)")
@@ -629,7 +761,8 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
             for r0 in range(0, Bl, rc):
                 start = c * gB + ti.off + r0
                 phi = _phi_streams(v_both, v_both[start:start + rc], ts, ti,
-                                   c, r0, rc, present, modes)
+                                   c, r0, rc, present, modes,
+                                   info.all_boolean)
                 sl = slice((c * Bl + r0) * D, (c * Bl + r0 + rc) * D)
                 diff = (phi[..., :NC] - phi[..., NC:]).mean(dim=-1) \
                     * ts.cs_feat[sl].view(rc, D)

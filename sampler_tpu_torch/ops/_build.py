@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("fused_color_draw.cu", "banded_gather.cu", "grad_pair_tile.cu",
-           "banded_gather_multi.cu", "fused_dm_draw.cu")
+           "banded_gather_multi.cu", "fused_dm_draw.cu", "fused_cat_draw.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 300
@@ -43,6 +43,8 @@ LAUNCHERS = {
                                    _P),
     "fused_dm_draw_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _P, _P, _P),
+    "fused_cat_draw_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _P, _P, _P),
 }
 
 

@@ -22,7 +22,17 @@ over the one or two neighbour values n1, n2 of each incident factor, with
 coefficients folded by fold_deltam_tiles; fused_dm_draw computes it and
 draws in one CUDA kernel (csrc/fused_dm_draw.cu) or its plain version.
 
-The uniform u of both draws comes from the same counter hash
+For a categorical or mixed tier of arity <= 2 in which every factor has
+one own slot (affinek), the log-potential of candidate k is
+
+    l_k[b] = sum_d [eqo[b,d] == k] * (av[b,d] + bv[b,d] * e[b,d]) + kmask[b,k]
+
+with e = [v[nbr[b,d]] == eqn[b,d]] and (av, bv) the candidate coefficients
+of affine_cat folded with the weights by fold_affine_cat; fused_cat_draw
+computes every l_k and draws by Gumbel-argmax in one CUDA kernel
+(csrc/fused_cat_draw.cu) or its plain version.
+
+The uniforms of all three draws come from the same counter hash
 (portable_bits) that the JAX kernels use in interpret mode, so the kernel,
 its plain version and the JAX kernel draw the same bits for the same seed
 words.
@@ -193,6 +203,23 @@ def fold_affine(ts, ti, C: int, weights: torch.Tensor) -> tuple:
     beta = _tile_rows(wf * ts.ab_b, C, nt, TB, D)
     base = _row_sum(wf * ts.ab_a, D).reshape(C, nt, TB)
     return beta, base
+
+
+def fold_affine_cat(ts, ti, C: int, weights: torch.Tensor) -> tuple:
+    """(av, bv [C, ntiles, D*TB] d-major within a tile, kmask
+    [C, ntiles, TB, K]) for one affinek tier: av = wf * cs_cka,
+    bv = wf * cs_ckb with wf = weights[cs_wid] * cs_feat, and cm_kmask
+    (0, or -1e30 for k >= card) in the kernel's tile layout."""
+    from ..compile import tier_geom
+    from .weights import expand_wf
+
+    B, D, _ = tier_geom(ts, ti, C)
+    TB = ti.band_tb
+    nt = B // TB
+    wf = expand_wf(weights, ts.cs_wid, ts.cs_feat)
+    av = _tile_rows(wf * ts.cs_cka, C, nt, TB, D)
+    bv = _tile_rows(wf * ts.cs_ckb, C, nt, TB, D)
+    return av, bv, ts.cm_kmask.reshape(C, nt, TB, -1)
 
 
 def fold_deltam(ts, ti, C: int, weights: torch.Tensor) -> tuple:
@@ -527,3 +554,142 @@ def fused_dm_draw(values, dm_nbr, starts, base, b1, b2, bx, c: int, seed,
 
 
 fused_dm_draw.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the K-candidate (categorical) color step
+# --------------------------------------------------------------------------
+
+def fused_cat_draw_plain(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
+                         c: int, seed, W: int, TB: int, D: int, K: int,
+                         return_logits: bool = False):
+    """Plain PyTorch version of :func:`fused_cat_draw`, over chunks of
+    tiles whose D [tiles, TB, NC] contribution planes hold about
+    PLAIN_CHUNK_ELEMS values, so its temporaries stay bounded (~0.4 GB)
+    whatever the chain count."""
+    nt = starts.shape[0]
+    P, NC = values.shape
+    dev = values.device
+    f32 = torch.float32
+    out = torch.empty((nt * TB, NC), dtype=values.dtype, device=dev)
+    logits_all = (torch.empty((nt * TB, K, NC), dtype=f32, device=dev)
+                  if return_logits else None)
+    s0, s1 = u32(seed[0]), u32(seed[1])
+    cnt = (torch.arange(TB, dtype=torch.int64, device=dev)[:, None] * NC
+           + torch.arange(NC, dtype=torch.int64, device=dev))
+    chunk = max(1, PLAIN_CHUNK_ELEMS // (TB * NC * D))
+    for t0 in range(0, nt, chunk):
+        t1 = min(nt, t0 + chunk)
+        n = t1 - t0
+
+        def tile(x):
+            return x[c, t0:t1].reshape(n, D, TB)
+
+        idx = tile(nbr_dmaj).to(torch.int64)
+        local = idx - starts[t0:t1].reshape(n, 1, 1)
+        valid = (local >= 0) & (local < W) & (idx >= 0) & (idx < P)
+        row = torch.where(valid, idx, 0)
+        eqo_t, eqn_t, av_t, bv_t = (tile(x) for x in (eqo, eqn, av, bv))
+        contrib = []                     # av + bv * e, one [n, TB, NC] a d
+        for d in range(D):
+            v = values.index_select(0, row[:, d].reshape(-1))
+            v = v.reshape(n, TB, NC).masked_fill_(~valid[:, d, :, None], 0)
+            e = (v.to(torch.int32) == eqn_t[:, d, :, None]).to(f32)
+            contrib.append(av_t[:, d, :, None] + bv_t[:, d, :, None] * e)
+        tseed = tile_seed(s1, torch.arange(t0, t1, dtype=torch.int64,
+                                           device=dev))
+        best = best_k = None
+        for k in range(K):
+            lk = None
+            for d in range(D):
+                term = torch.where(eqo_t[:, d, :, None] == k, contrib[d],
+                                   0.0)
+                lk = term if lk is None else lk + term
+            lk = lk + kmask[c, t0:t1, :, k, None]
+            kseed = tseed ^ ((KNUTH * (k + 1)) & M32)
+            u = uniform24(hash_bits(cnt, s0, kseed.reshape(n, 1, 1)))
+            score = lk - torch.log(-torch.log(u))
+            if best is None:
+                best = score
+                best_k = torch.zeros(score.shape, dtype=torch.int64,
+                                     device=dev)
+            else:
+                take = score > best
+                best = torch.where(take, score, best)
+                best_k = torch.where(take, k, best_k)
+            if return_logits:
+                logits_all[t0 * TB:t1 * TB, k] = lk.reshape(n * TB, NC)
+        out[t0 * TB:t1 * TB] = best_k.reshape(n * TB, NC).to(values.dtype)
+    return (out, logits_all) if return_logits else out
+
+
+def fused_cat_draw(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
+                   c: int, seed, W: int, TB: int, D: int, K: int,
+                   return_logits: bool = False):
+    """Draw color ``c`` of an affinek tier among K candidates.
+
+    values int8 [P, NC]; nbr_dmaj int32 [C, >= ntiles, D*TB] (all colors,
+    compile's bd_nbr: global positions, d-major within a tile; a position
+    outside [start, start + W), or at or past P, reads 0); starts int32
+    [ntiles] (this color's window starts); eqo, eqn int32 like nbr_dmaj
+    (bd_eqo, bd_eqn: the own slot's and the neighbour slot's equality
+    predicates); av, bv f32 like nbr_dmaj and kmask f32 [C, >= ntiles, TB,
+    K] from fold_affine_cat; seed int32 [2] (a tensor on values' device).
+    With e = [gathered == eqn],
+
+        l_k = sum_d [eqo == k] * (av + bv * e) + kmask[:, k],
+
+    summed in the order d = 0 .. D-1 (a zero term where eqo != k), then
+    kmask.  The draw is the Gumbel-argmax of l_k - log(-log u_k), u_k from
+    the counter hash with second seed word
+    seed[1] ^ t*0x9E3779B1 ^ (k+1)*0x9E3779B1; a later candidate wins only
+    with a strictly larger score.  Returns int8 [ntiles*TB, NC], and with
+    ``return_logits`` also the f32 l_k as [ntiles*TB, K, NC].
+
+    A CPU tensor goes to the plain version; a CUDA tensor to the kernel
+    (the launch adds one to ``fused_cat_draw.launches``)."""
+    if values.device.type == "cpu":
+        return fused_cat_draw_plain(values, nbr_dmaj, starts, eqo, eqn, av,
+                                    bv, kmask, c, seed, W, TB, D, K,
+                                    return_logits)
+    if values.device.type != "cuda":
+        raise ValueError(f"fused_cat_draw: no kernel for {values.device}")
+    dev = values.device
+    check_tensor(values, "values", torch.int8, dev, 2)
+    check_tensor(starts, "starts", torch.int32, dev, 1)
+    for name, x in (("nbr_dmaj", nbr_dmaj), ("eqo", eqo), ("eqn", eqn)):
+        check_tensor(x, name, torch.int32, dev, 3)
+    for name, x in (("av", av), ("bv", bv)):
+        check_tensor(x, name, torch.float32, dev, 3)
+    check_tensor(kmask, "kmask", torch.float32, dev, 4)
+    check_tensor(seed, "seed", torch.int32, dev, 1)
+    nt = starts.shape[0]
+    P, NC = values.shape
+    C = nbr_dmaj.shape[0]
+    R = D * TB
+    if (any(x.shape[0] != C or x.shape[1] < nt or x.shape[2] != R
+            for x in (nbr_dmaj, eqo, eqn, av, bv))
+            or kmask.shape[0] != C or kmask.shape[1] < nt
+            or tuple(kmask.shape[2:]) != (TB, K) or not 2 <= K <= 127
+            or not 0 <= c < C or seed.shape[0] != 2 or not 0 < W <= P):
+        raise ValueError(
+            f"fused_cat_draw: nbr {tuple(nbr_dmaj.shape)}, eqo "
+            f"{tuple(eqo.shape)}, eqn {tuple(eqn.shape)}, av "
+            f"{tuple(av.shape)}, bv {tuple(bv.shape)}, kmask "
+            f"{tuple(kmask.shape)}, starts {tuple(starts.shape)}, c={c}, "
+            f"W={W}, TB={TB}, D={D}, K={K}, P={P}")
+    out = torch.empty((nt * TB, NC), dtype=torch.int8, device=dev)
+    logits = (torch.empty((nt * TB, K, NC), dtype=torch.float32, device=dev)
+              if return_logits else None)
+    with torch.cuda.device(dev):
+        launch("fused_cat_draw_launch", values.data_ptr(), NC, P,
+               nbr_dmaj[c].data_ptr(), eqo[c].data_ptr(), eqn[c].data_ptr(),
+               av[c].data_ptr(), bv[c].data_ptr(), kmask[c].data_ptr(),
+               starts.data_ptr(), seed.data_ptr(), nt, TB, D, K, W,
+               out.data_ptr(), None if logits is None else logits.data_ptr(),
+               torch.cuda.current_stream(dev).cuda_stream)
+    fused_cat_draw.launches += 1
+    return (out, logits) if return_logits else out
+
+
+fused_cat_draw.launches = 0

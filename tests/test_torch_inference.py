@@ -9,6 +9,10 @@
     multi-window: evidence-clamped triple grids with band_k 1 and 2, and a
     3-colored Ising grid) and matches exact enumeration within 0.01 on
     the fused and the unfused route at the same budget;
+  * color_logits_mc gives the JAX package's candidate log-potentials
+    (within 1e-5) on categorical, mixed, Potts and card-200 graphs, and
+    infer_mc matches exact enumeration on the first, second and last of
+    them, with int32 worlds and the band off at card 200;
   * what the slice does not cover raises NotImplementedError.
 """
 import jax.numpy as jnp
@@ -17,9 +21,11 @@ import pytest
 import torch
 
 from sampler_tpu import fixtures as jfx
+from sampler_tpu.benchgraphs import big_potts_grid as jax_potts_grid
 from sampler_tpu.compile import compile_graph as jax_compile
 from sampler_tpu.compile import to_device as jax_to_device
 from sampler_tpu.engine import multichain as jmc
+from sampler_tpu.graph import FactorGraph as JaxFactorGraph
 from sampler_tpu_torch import FactorGraph, fixtures, oracle
 from sampler_tpu_torch import format_spec as fs
 from sampler_tpu_torch.benchgraphs import big_ising_grid, big_triple_grid
@@ -287,14 +293,12 @@ def test_cuda_mode_on_cpu_raises():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: fixtures.categorical_graph(n=5, card=3),
     lambda: fixtures.sparse_categorical_graph(),
-    lambda: fixtures.mixed_graph(),
-], ids=["categorical", "sparse_categorical", "mixed"])
+], ids=["sparse_categorical"])
 def test_outside_slice_raises(make):
     dg, info = compile_graph(make())
     d = to_device(dg, "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="sparse"):
         tmc.infer_mc(d, d.w_init, torch.Generator(), 1, 1, info, 4,
                      device="cpu")
 
@@ -308,3 +312,139 @@ def test_hub_graph_raises():
     g = FactorGraph.build(var_card=[2] * n, weights=[0.3], factors=factors)
     with pytest.raises(NotImplementedError, match="hub"):
         compile_graph(g, hub_cap=4)
+
+
+def _big_card_graph(graph_cls, card=200):
+    """tests/test_large_card.py's graph: 3 variables of cardinality 200, a
+    biased unary on v0 and EQUAL couplings, v2 clamped to 150."""
+    factors = [
+        (fs.FUNC_AND_CATEGORICAL, 0, 1.0, [(0, True, 7)]),
+        (fs.FUNC_EQUAL, 1, 1.0, [(0, True, 3), (1, True, 3)]),
+        (fs.FUNC_EQUAL, 1, 1.0, [(1, True, 150), (2, True, 150)]),
+    ]
+    g = graph_cls.build(var_card=[card] * 3, weights=[1.2, 0.8],
+                        factors=factors)
+    g.var_dtype[:] = fs.DTYPE_CATEGORICAL
+    g.var_role[2] = fs.ROLE_EVIDENCE
+    g.var_init[2] = 150
+    return g, None
+
+
+def _potts_evidence(make, card=3, n_query=8, seed=5):
+    """tests/test_fused_cat.py's 16x16 oracle grid."""
+    g, colors = make(16, 16, card=card, seed=seed)
+    rng = np.random.default_rng(seed)
+    query = rng.choice(g.n_vars, n_query, replace=False)
+    g.var_role[:] = fs.ROLE_EVIDENCE
+    g.var_role[query] = fs.ROLE_QUERY
+    g.var_init[:] = rng.integers(0, card, g.n_vars)
+    return g, colors
+
+
+# name -> (graph maker given the JAX package's fixtures, benchgraphs and
+# FactorGraph, compile kwargs)
+CAT_GRAPHS = {
+    "categorical": (lambda fx, bg, fg: (fx.categorical_graph(n=5, card=3),
+                                        None), {}),
+    "mixed": (lambda fx, bg, fg: (fx.mixed_graph(), None), {}),
+    "potts_grid": (lambda fx, bg, fg: _potts_evidence(bg),
+                   dict(band_tile=8, band_min_block=1)),
+    "card200": (lambda fx, bg, fg: _big_card_graph(fg), {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CAT_GRAPHS))
+def test_color_logits_match_jax(name):
+    make, kw = CAT_GRAPHS[name]
+    g, colors = make(jfx, jax_potts_grid, JaxFactorGraph)
+    jdg, jinfo = jax_compile(g, colors=colors, **kw)
+    jdgd = jax_to_device(jdg)
+    tdg, tinfo = from_jax(jdg, jinfo)
+    tdg = to_device(tdg, "cpu")
+    assert not tinfo.all_boolean
+    modes = (tmc.resolve_modes(tinfo, "cpu")[0], "off")
+    assert modes[0] == ("plain" if name == "potts_grid" else "off")
+    card = np.asarray(jdg.var_card)
+    vals = (np.random.default_rng(6).integers(0, 1 << 20, (card.shape[0], 5))
+            % np.maximum(card, 1)[:, None])
+    dt = tmc.values_dtype(tinfo)
+    assert (dt == torch.int32) == (name == "card200")
+    tv = torch.from_numpy(vals).to(dt)
+    jv = jnp.asarray(tv.numpy())
+    jw = jnp.asarray(jdg.w_init)
+    for t, ti in enumerate(tinfo.tiers):
+        for c in range(tinfo.n_colors):
+            ref = jmc.color_logits_mc(jdgd, jdgd.tiers[t], jinfo.tiers[t], jv,
+                                      jw, c, jinfo, ("off", "off"))
+            out = tmc.color_logits_mc(tdg, tdg.tiers[t], ti, tv, tdg.w_init,
+                                      c, tinfo, modes)
+            assert out.shape == ref.shape == (ti.block, tinfo.max_card, 5)
+            np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                                       atol=1e-5)
+            # a row range gives the same rows
+            half = ti.block // 2
+            part = tmc.color_logits_mc(tdg, tdg.tiers[t], ti, tv, tdg.w_init,
+                                       c, tinfo, modes, half,
+                                       ti.block - half)
+            assert torch.equal(part, out[half:])
+
+
+# name -> (graph maker, sweeps); the burn-in is 200 sweeps
+CAT_PARITY = {
+    "categorical": (lambda: (fixtures.categorical_graph(n=5, card=3), None),
+                    1500),
+    "mixed": (lambda: (fixtures.mixed_graph(), None), 1500),
+    "card200": (lambda: _big_card_graph(FactorGraph), 800),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CAT_PARITY))
+@pytest.mark.parametrize("fused", [True, False])
+def test_infer_mc_categorical_matches_oracle(name, fused):
+    """The general candidate path on the CPU (these graphs do not band,
+    so the default modes and fused off take it alike)."""
+    make, n_sweeps = CAT_PARITY[name]
+    g, colors = make()
+    dg, info = compile_graph(g, colors=colors)
+    modes = tmc.resolve_modes(info, "cpu") if fused else UNFUSED
+    assert not info.affinek
+    d = to_device(dg, "cpu")
+    marg, values = tmc.infer_mc(d, d.w_init,
+                                torch.Generator().manual_seed(2), 200,
+                                n_sweeps, info, N_CHAINS, modes=modes,
+                                device="cpu")
+    K = info.max_card
+    assert marg.shape == (g.n_vars, K)
+    assert values.dtype == (torch.int32 if K > 127 else torch.int8)
+    card = d.var_card[:, None]
+    assert bool((values >= 0).all() and (values < card).all())
+    np.testing.assert_allclose(marg.sum(axis=1), 1.0, atol=1e-5)
+    exact = oracle.exact_marginals(g, clamp_evidence=True)
+    free = g.var_role == fs.ROLE_QUERY
+    err = np.abs(marg[:, :exact.shape[1]] - exact)[free].max()
+    assert err < TOL, f"max |Δp| = {err:.4f}"
+
+
+def test_card200_worlds_are_int32_and_band_off():
+    g, _ = _big_card_graph(FactorGraph)
+    dg, info = compile_graph(g)
+    assert info.max_card == 200
+    assert tmc.values_dtype(info) == torch.int32
+    assert tmc.resolve_modes(info, "cpu") == ("off", "off")
+    d = to_device(dg, "cpu")
+    v = tmc.init_values_mc(d, torch.Generator().manual_seed(0), 512, info)
+    assert v.dtype == torch.int32
+    pos = d.pos_of_vid
+    assert int(v[pos[:2]].max()) > 127 and bool((v[pos[2]] == 150).all())
+
+
+@pytest.mark.parametrize("K,NC", [(3, 5), (16, 7), (17, 3), (200, 9)])
+def test_tally_counts_every_value(monkeypatch, K, NC):
+    monkeypatch.setattr(tmc, "INIT_CHUNK_ELEMS", 40)        # many blocks
+    gen = torch.Generator().manual_seed(K)
+    v = torch.randint(0, K, (53, NC), generator=gen,
+                      dtype=torch.int8 if K <= 127 else torch.int32)
+    counts = torch.ones((K, 53), dtype=torch.int32)
+    tmc.tally(counts, v)
+    ref = torch.stack([(v == k).sum(dim=1) for k in range(K)]).to(torch.int32)
+    assert torch.equal(counts, ref + 1)

@@ -112,3 +112,51 @@ def test_every_kernel_source_is_built_and_bound():
     for name, src in text.items():
         assert "sm_90a" in src and "Replaces: sampler_tpu/ops/" in src, name
         assert not re.search(r"#include\s*[<\"](torch|ATen|jax)", src), name
+
+
+def test_categorical_entry_points_raise_without_card():
+    """The categorical slice's functions import without JAX, and infer_mc
+    on a categorical graph with the default device raises without a
+    card."""
+    code = (
+        "import sys, torch\n"
+        "from sampler_tpu_torch import compile_graph, fixtures\n"
+        "from sampler_tpu_torch.compile import to_device\n"
+        "from sampler_tpu_torch.engine.multichain import (\n"
+        "    color_draw_categorical, color_logits_mc, infer_mc, tally,\n"
+        "    values_dtype)\n"
+        "from sampler_tpu_torch.ops.fused import (fold_affine_cat,\n"
+        "    fused_cat_draw, fused_cat_draw_plain)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'sampler_tpu.'))"
+        " for m in sys.modules)\n"
+        "if torch.cuda.is_available():\n"
+        "    print('card'); raise SystemExit(0)\n"
+        "dg, info = compile_graph(fixtures.categorical_graph())\n"
+        "d = to_device(dg, 'cpu')\n"
+        "try:\n"
+        "    infer_mc(d, d.w_init, torch.Generator(), 1, 1, info, 4)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    if proc.stdout.startswith("card"):
+        pytest.skip("a CUDA device is present")
+    assert proc.stdout.startswith("raised no CUDA device"), proc.stdout
+
+
+def test_launcher_signatures_match_their_argtypes():
+    """Every launcher's C signature has as many parameters as ctypes is
+    told it has (a missing pointer would shift every later argument), and
+    the categorical kernel is among them."""
+    from sampler_tpu_torch.ops import _build
+
+    assert "fused_cat_draw.cu" in _build.SOURCES
+    assert "fused_cat_draw_launch" in _build.LAUNCHERS
+    text = ""
+    for name in _build.SOURCES:
+        with open(os.path.join(_build.CSRC, name)) as f:
+            text += f.read()
+    for launcher, argtypes in _build.LAUNCHERS.items():
+        m = re.search(rf'extern "C" int {launcher}\(([^)]*)\)', text)
+        assert m, launcher
+        assert len(m.group(1).split(",")) == len(argtypes), launcher

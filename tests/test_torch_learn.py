@@ -14,7 +14,12 @@ package and closed-form fixed points.
     the fused draw and through the unfused draw reaches the same weights
     (mirrors tests/test_fused_dm.py's fold-refresh test), and on
     multi-window graphs (band_k 2) the chunked gradient through the
-    multi-window gather equals the per-factor gradient and the JAX one.
+    multi-window gather equals the per-factor gradient and the JAX one;
+  * on categorical, mixed, Potts and card-200 graphs the chunked
+    cs-stream gradient (its categorical branch) and the per-factor gradient
+    equal JAX mc_weight_gradient_cs within 1e-4, and learn_mc on an
+    evidence Potts grid refolds fold_affine_cat every epoch and moves the
+    weights (mirrors tests/test_fused_cat.py's learning test).
 """
 import dataclasses
 
@@ -26,10 +31,14 @@ import torch
 from sampler_tpu.compile import compile_graph as jax_compile
 from sampler_tpu.compile import to_device as jax_to_device
 from sampler_tpu.engine import multichain as jmc
+from sampler_tpu import fixtures as jfx
+from sampler_tpu.benchgraphs import big_potts_grid as jax_potts_grid
 from sampler_tpu.engine.learn import apply_update as jax_apply_update
+from sampler_tpu.graph import FactorGraph as JaxFactorGraph
 from sampler_tpu_torch import FactorGraph, compile_graph, fixtures
 from sampler_tpu_torch import format_spec as fs
-from sampler_tpu_torch.benchgraphs import big_ising_grid, big_triple_grid
+from sampler_tpu_torch.benchgraphs import (big_ising_grid, big_potts_grid,
+                                           big_triple_grid)
 from sampler_tpu_torch.compile import to_device
 from sampler_tpu_torch.convert import from_jax
 from sampler_tpu_torch.engine.learn import LearnConfig, apply_update
@@ -260,3 +269,100 @@ def test_multi_window_chunked_gradient_matches_factors(make, lne):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-4)
     assert np.abs(factors.numpy()).max() > 1.0
+
+
+def _potts_grid(make, card=3, seed=11, frac=0.5):
+    """A 16x16 Potts grid that bands (band_tile=8) with about ``frac`` of
+    its variables labelled."""
+    g, colors = make(16, 16, card=card, seed=seed)
+    rng = np.random.default_rng(seed)
+    g.var_role[:] = rng.random(g.n_vars) < frac
+    g.var_init[:] = rng.integers(0, card, g.n_vars)
+    return g, colors
+
+
+def _card200(graph_cls):
+    factors = [
+        (fs.FUNC_AND_CATEGORICAL, 0, 1.0, [(0, True, 7)]),
+        (fs.FUNC_EQUAL, 1, 1.0, [(0, True, 3), (1, True, 3)]),
+        (fs.FUNC_EQUAL, 1, 1.0, [(1, True, 150), (2, True, 150)]),
+    ]
+    g = graph_cls.build(var_card=[200] * 3, weights=[1.2, 0.8],
+                        factors=factors)
+    g.var_dtype[:] = fs.DTYPE_CATEGORICAL
+    g.var_role[2] = fs.ROLE_EVIDENCE
+    g.var_init[2] = 150
+    return g, None
+
+
+# name -> (graph maker given the JAX package's fixtures, benchgraphs and
+# FactorGraph, compile kwargs)
+CAT_GRAPHS = {
+    "categorical": (lambda fx, bg, fg: (fx.categorical_graph(), None), {}),
+    "mixed": (lambda fx, bg, fg: (fx.mixed_graph(), None), {}),
+    "potts_grid": (lambda fx, bg, fg: _potts_grid(bg),
+                   dict(band_tile=8, band_min_block=1)),
+    "card200": (lambda fx, bg, fg: _card200(fg), {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CAT_GRAPHS))
+@pytest.mark.parametrize("lne", [False, True])
+def test_categorical_gradient_matches_jax(name, lne):
+    make, kw = CAT_GRAPHS[name]
+    g, colors = make(jfx, jax_potts_grid, JaxFactorGraph)
+    jdg, jinfo = jax_compile(g, colors=colors, **kw)
+    tdg, tinfo = from_jax(jdg, jinfo)
+    d = to_device(tdg, "cpu")
+    assert not tinfo.all_boolean
+    card = np.maximum(np.asarray(jdg.var_card), 1)[:, None]
+    rng = np.random.default_rng(12)
+    dt = tmc.values_dtype(tinfo)
+    # card 200: values from the predicates' own categories, so that the
+    # literals vary between the worlds
+    pick = (np.array([0, 3, 7, 150]) if name == "card200"
+            else np.arange(1 << 10))
+    v_ev, v_free = (torch.from_numpy(
+        pick[rng.integers(0, pick.size, (card.size, 6))] % card).to(dt)
+        for _ in range(2))
+    ref = jmc.mc_weight_gradient_cs(jax_to_device(jdg),
+                                    jnp.asarray(v_ev.numpy()),
+                                    jnp.asarray(v_free.numpy()), lne, jinfo,
+                                    ("off", "off"))
+    modes = tmc.resolve_modes(tinfo, "cpu")
+    ti = tinfo.tiers[0]
+    chunks = [None, 2 * ti.band_tb] if ti.band_w else [None, 1]
+    for row_chunk in chunks:
+        got = tmc.mc_weight_gradient_cs(d, v_ev, v_free, lne, tinfo, modes,
+                                        row_chunk=row_chunk)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-4)
+    factors = tmc._mc_weight_gradient_factors(d, v_ev, v_free, lne, tinfo)
+    np.testing.assert_allclose(factors.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-4)
+    if lne:                  # without it only factors at evidence count
+        assert np.abs(np.asarray(ref)).max() > 0.05
+
+
+def test_potts_learning_refolds_and_moves(monkeypatch):
+    """tests/test_fused_cat.py's learning grid through the fused draw's
+    plain version: one fold_affine_cat an epoch, weights that move and stay
+    finite, labels kept in the evidence world."""
+    g, colors = _potts_grid(big_potts_grid, frac=1.0)
+    dg, info = compile_graph(g, colors=colors, band_tile=8, band_min_block=1)
+    assert info.affinek
+    d = to_device(dg, "cpu")
+    folds = []
+    orig = tmc.fold_affine_cat
+    monkeypatch.setattr(tmc, "fold_affine_cat",
+                        lambda *a: folds.append(1) or orig(*a))
+    cfg = LearnConfig(n_epochs=12, n_sweeps_per_epoch=3, stepsize=0.08,
+                      diminish=0.97)
+    w, v_ev, _ = tmc.learn_mc(d, d.w_init, torch.Generator().manual_seed(0),
+                              cfg, info, 4, device="cpu")
+    assert len(folds) == cfg.n_epochs
+    assert np.isfinite(w.numpy()).all()
+    assert np.abs(w.numpy() - d.w_init.numpy()).max() > 1e-3
+    labels = d.var_init.to(v_ev.dtype)[:, None]
+    ev = (d.var_role == fs.ROLE_EVIDENCE) & (d.var_card > 1)
+    assert bool((v_ev[ev] == labels[ev]).all())
