@@ -10,13 +10,20 @@ Phases (each prints one line with its result and elapsed seconds):
              exits nonzero when no CUDA device is present
   1 build    nvcc builds every kernel in sampler_tpu_torch/csrc into
              sampler_tpu_torch/_build/ (ptxas register/shared-memory lines)
-  2 kernels  each kernel against its plain PyTorch version at the flagship
-             shapes (1024x1024 Ising grid, 512 chains, random worlds)
+  2 kernels  fused_color_draw and banded_gather against their plain PyTorch
+             versions at the flagship shapes (1024x1024 Ising grid, 512
+             random chains, both colors), on the planner's window starts
+             and on starts shifted off the 256 grid and clipped to P - W;
+             again at 48 chains (the 16-byte variants) and 37 (the byte
+             variants), and on a 128x128 grid of degree 9 (past the draw's
+             unrolled D = 1..8) at 512 and 37 chains
   3 oracle   infer_mc on an evidence-clamped 16x16 grid, fused and unfused,
              against exact enumeration (|dp| < 0.01)
   4 flagship infer_mc on the 1024x1024 grid with 512 chains, fused (the main
-             path) and unfused; kernel times, bounds, rates, peak memory,
-             and where a fused sweep's time goes
+             path) and unfused; kernel times (beside their times before
+             the 16-byte redesign), bounds, achieved TB/s, the draw's
+             SASS issue bound, rates, peak memory, and where a fused
+             sweep's time goes
   5 grad     the learning flagship (the 1024x1024 grid, every other
              variable labelled evidence, 256 chains a world): grad_pair_tile
              against its plain version, and the whole kernel-route gradient
@@ -24,7 +31,8 @@ Phases (each prints one line with its result and elapsed seconds):
              gradient; kernel time and bound
   6 learn    learn_mc on the learning flagship (10 epochs of 2 sweeps, the
              main learning path): launches, rate, peak memory and where an
-             epoch's time goes; the bytes init_values_mc allocates and the
+             epoch's time goes (with one fused_color_draw launch at this
+             width); the bytes init_values_mc allocates and the
              run's peak, each with the unchunked int32 draw it had before
              and with the chunked draw; then the kernel and chunked gradient
              routes learn the same weights on a 16x16 grid, and a labelled
@@ -61,7 +69,9 @@ Phases (each prints one line with its result and elapsed seconds):
              launches, rates, peak memory and a fused sweep by part; then
              learn_mc on the labelled flagship (bench.py's categorical
              learning configuration: 512 chains a world, 10 epochs of 2
-             sweeps): launches, rate, peak memory and an epoch by part
+             sweeps): launches, rate, peak memory and an epoch by part;
+             one banded_gather launch at the chunked gradient's shapes,
+             and its launches' share of an epoch
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failed check ends the run nonzero.
 The script imports neither JAX nor the JAX package.
@@ -92,6 +102,12 @@ CAT_CHAINS = 512
 CAT_GAP = 1e-5                # ... or where its top two scores are this near
 CAT_ORACLE_CHAINS = 1024
 SFU_PER_CLOCK_PER_SM = 16     # Hopper's special-function units (log2)
+# the two kernels' times before their 16-byte redesign, when they moved
+# one byte a thread (PERF.md §6, this script's phase 4 on an NVIDIA H100
+# 80GB HBM3, 700 W): printed beside this run's for reference only
+BYTE_A_THREAD_MS = {"fused_color_draw": 4.488, "banded_gather": 5.240}
+WIDE_GRID = 128               # the Ising grid with every pair factor twice:
+WIDE_COPIES = 2               # degree 9, past the kernel's unrolled D = 1..8
 
 
 def require(cond, msg: str) -> None:
@@ -182,6 +198,86 @@ def check_draws(out, ref, delta, seed, TB: int, NC: int) -> int:
         gap = float((u - torch.sigmoid(delta[diff])).abs().max())
         require(gap < DRAW_GAP, f"a differing draw has |u - p| = {gap}")
     return int(diff.sum())
+
+
+def wide_grid(rows: int, cols: int, copies: int):
+    """big_ising_grid with every pair factor ``copies`` times, each copy
+    with a weight of its own: (graph, colors).  Still two colors and one
+    affine2 tier, of degree 4 * copies + 1."""
+    import dataclasses
+
+    import numpy as np
+
+    from sampler_tpu_torch.benchgraphs import big_ising_grid
+
+    g, colors = big_ising_grid(rows, cols)
+    arity = np.diff(g.f_ptr)
+    pair = np.nonzero(arity == 2)[0]
+    pair_e = g.e_vid[g.f_ptr[pair][:, None] + np.arange(2)].reshape(-1)
+    n_extra = copies - 1
+    arity = np.concatenate([arity, np.full(n_extra * len(pair), 2)])
+    f_ptr = np.zeros(len(arity) + 1, np.int64)
+    np.cumsum(arity, out=f_ptr[1:])
+    e_vid = np.concatenate([g.e_vid] + [pair_e] * n_extra).astype(np.int32)
+    w = np.concatenate([g.w_init, 0.1 * np.arange(1, copies)])
+    return dataclasses.replace(
+        g, w_init=w, w_fixed=np.zeros(len(w), bool),
+        f_type=np.concatenate([g.f_type] + [g.f_type[pair]] * n_extra),
+        f_wid=np.concatenate([g.f_wid] + [np.full(len(pair), 1 + k, np.int32)
+                                          for k in range(1, copies)]),
+        f_feat=np.concatenate([g.f_feat] + [g.f_feat[pair]] * n_extra),
+        f_ptr=f_ptr, e_vid=e_vid, e_ispos=np.ones(len(e_vid), bool),
+        e_eqpred=np.ones(len(e_vid), np.int32)), colors
+
+
+def ising_case(d, info, values, seed) -> dict:
+    """banded_gather and fused_color_draw against their plain versions on
+    every color of ``d``'s one affine2 tier, on the world ``values``, at
+    the planner's window starts and at the same starts moved off the 256
+    grid and clipped to P - W: the gather exactly equal, the draw's delta
+    within 1e-5 and its draws differing only within DRAW_GAP of p."""
+    import torch
+
+    from sampler_tpu_torch.ops.banded import (banded_gather,
+                                              banded_gather_plain)
+    from sampler_tpu_torch.ops.fused import (fold_affine, fused_color_draw,
+                                             fused_color_draw_plain)
+
+    ts, ti = d.tiers[0], info.tiers[0]
+    C, B, D, TB, W = info.n_colors, ti.block, ti.degree, ti.band_tb, ti.band_w
+    A1 = ti.arity - 1
+    nt = B // TB
+    P, NC = values.shape
+    beta, base = fold_affine(ts, ti, C, d.w_init)
+    err, n_diff, n_draws, unaligned, clipped = 0.0, 0, 0, 0, 0
+    for c in range(C):
+        nbr = ts.cs_nbr[c * B * D * A1:(c + 1) * B * D * A1].view(
+            nt, TB * D * A1)
+        starts = ts.bd_start[c]
+        shifted = torch.clamp(starts + 100, max=P - W)
+        unaligned += int((starts % 256 != 0).sum())
+        clipped += int((shifted == P - W).sum())
+        for st in (starts, shifted):
+            out = banded_gather(values, nbr, st, W)
+            require(torch.equal(out, banded_gather_plain(values, nbr, st, W)),
+                    f"banded_gather differs from its plain version (c={c}, "
+                    f"NC={NC}, D={D})")
+            del out
+            args = (values, ts.bd_nbr, st, beta, base, c, seed, W, TB, D)
+            out, delta = fused_color_draw(*args, return_delta=True)
+            ref, ref_delta = fused_color_draw_plain(*args, return_delta=True)
+            err = max(err, float((delta - ref_delta).abs().max()))
+            n_diff += check_draws(out, ref, delta, seed, TB, NC)
+            n_draws += out.numel()
+            del out, delta, ref, ref_delta
+    require(err < 1e-5, f"fused delta error {err} (NC={NC}, D={D})")
+    require(n_diff <= 1e-4 * n_draws,
+            f"{n_diff} of {n_draws} draws differ (NC={NC}, D={D})")
+    return dict(NC=NC, D=D, P=P, banded_gather="exact",
+                starts_unaligned=unaligned,
+                shifted_starts_clipped_to_P_minus_W=clipped,
+                fused_delta_max_abs_err=err, fused_draws_differing=n_diff,
+                fused_draws=n_draws)
 
 
 def epoch_parts(d, w, info, modes, v_ev, v_free, cfg, gen,
@@ -353,7 +449,7 @@ def learn_phase(dev, g, d, info) -> dict:
     from sampler_tpu_torch.engine.learn import LearnConfig
     from sampler_tpu_torch.engine.multichain import init_values_mc, learn_mc
     from sampler_tpu_torch.ops.banded import banded_gather
-    from sampler_tpu_torch.ops.fused import fused_color_draw
+    from sampler_tpu_torch.ops.fused import fold_affine, fused_color_draw
     from sampler_tpu_torch.ops.grad import grad_pair_tile
 
     t6 = time.perf_counter()
@@ -435,6 +531,17 @@ def learn_phase(dev, g, d, info) -> dict:
     run["epoch_breakdown_ms"] = epoch_parts(
         d, w, info, modes, v_ev, v_free, cfg,
         torch.Generator(device=dev).manual_seed(3))
+    # the sweeps' share that is draws: one launch at this width, times the
+    # 2 * C * sweeps an epoch
+    ts, ti = d.tiers[0], info.tiers[0]
+    beta, base = fold_affine(ts, ti, C, w)
+    seed = torch.tensor([5, 6], dtype=torch.int32, device=dev)
+    draw_ms = time_ms(lambda: fused_color_draw(
+        v_free, ts.bd_nbr, ts.bd_start[0], beta, base, 0, seed, ti.band_w,
+        ti.band_tb, ti.degree), iters=20)
+    run["fused_color_draw_ms"] = dict(
+        a_launch=draw_ms,
+        an_epoch=draw_ms * 2 * C * cfg.n_sweeps_per_epoch)
     del v_ev, v_free
 
     # the kernel route and the chunked index_select route learn the same
@@ -941,6 +1048,27 @@ def sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
+def sass_instructions(library: str, fragment: str):
+    """Instructions in the SASS of the one kernel of ``library`` whose
+    mangled name contains ``fragment`` (cuobjdump beside nvcc), or None
+    where cuobjdump is missing."""
+    import os
+    import re
+
+    from sampler_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found = [f for f in re.split(r"\n\s+Function : ", sass)[1:]
+             if fragment in f.split("\n", 1)[0]]
+    require(len(found) == 1, f"{len(found)} kernels named like {fragment}")
+    return sum(1 for line in found[0].splitlines()
+               if re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line))
+
+
 def cat_kernel_phase(dev) -> tuple:
     """Phase 10.  Returns (graph, device graph, info, kernel numbers)."""
     import torch
@@ -1094,7 +1222,8 @@ def potts_phase(dev, card: str, g, d, info, kern) -> None:
                                                      prepare_fold,
                                                      resolve_modes, sweep_mc,
                                                      tally)
-    from sampler_tpu_torch.ops.banded import banded_gather
+    from sampler_tpu_torch.ops.banded import (banded_gather,
+                                              banded_gather_plain)
     from sampler_tpu_torch.ops.fused import fused_cat_draw
 
     t12 = time.perf_counter()
@@ -1209,7 +1338,26 @@ def potts_phase(dev, card: str, g, d, info, kern) -> None:
     learn["epoch_breakdown_ms"] = epoch_parts(
         dl, w, infol, resolve_modes(infol, dev), v_ev, v_free, cfg,
         torch.Generator(device=dev).manual_seed(3))
-    del dl, v_ev, v_free
+    # one banded_gather launch at the chunked gradient's shapes (both
+    # worlds side by side, the first row block of color 0), and the share
+    # of an epoch that its C * grad_blocks launches take
+    tsl, rc = dl.tiers[0], til.block // grad_blocks
+    nbr = tsl.cs_nbr[:rc * til.degree * (til.arity - 1)].view(
+        rc // til.band_tb, -1)
+    st = tsl.bd_start[0, :rc // til.band_tb]
+    v_both = torch.cat([v_ev, v_free], dim=-1)
+    require(torch.equal(banded_gather(v_both, nbr, st, til.band_w),
+                        banded_gather_plain(v_both, nbr, st, til.band_w)),
+            "banded_gather differs from its plain version (Potts gradient)")
+    gather_ms = time_ms(lambda: banded_gather(v_both, nbr, st, til.band_w),
+                        iters=50)
+    learn["gradient_gather"] = dict(
+        ms=gather_ms, gathered_rows=nbr.numel(), NC=v_both.shape[1],
+        launches_an_epoch=C * grad_blocks,
+        ms_an_epoch=gather_ms * C * grad_blocks,
+        share_of_epoch=gather_ms * C * grad_blocks
+        / learn["epoch_breakdown_ms"]["epoch"])
+    del dl, v_ev, v_free, v_both
     report("12 potts", t12, card=card, grid=f"{CAT_GRID}x{CAT_GRID}",
            K=K, chains=CAT_CHAINS, burn=BURN, sweeps=SWEEPS,
            unfused_row_blocks_a_color=blocks, runs=runs,
@@ -1275,41 +1423,33 @@ def main() -> int:
                            dtype=torch.int8)
     beta, base = fold_affine(ts, ti, C, d.w_init)
 
-    gather_in = []
-    for c in range(C):
-        nbr = ts.cs_nbr[c * B * D * A1:(c + 1) * B * D * A1].view(
-            nt, TB * D * A1)
-        starts = ts.bd_start[c]
-        # the planner's own starts, then the same tiles with every start
-        # moved off the 256 grid and clipped to P - W
-        shifted = torch.clamp(starts + 100, max=P - W)
-        for st in (starts, shifted):
-            out = banded_gather(values, nbr, st, W)
-            require(torch.equal(out, banded_gather_plain(values, nbr, st, W)),
-                    f"banded_gather differs from its plain version (c={c})")
-        gather_in.append((nbr, starts, shifted))
-    unaligned = sum(int((s % 256 != 0).sum()) for _, s, _ in gather_in)
-    clipped = sum(int((s == P - W).sum()) for _, _, s in gather_in)
-
     seed = torch.tensor([12345, -67890], dtype=torch.int32, device=dev)
-    fused_err, n_diff, n_draws = 0.0, 0, 0
-    for c in range(C):
-        args = (values, ts.bd_nbr, ts.bd_start[c], beta, base, c, seed, W,
-                TB, D)
-        out, delta = fused_color_draw(*args, return_delta=True)
-        ref, ref_delta = fused_color_draw_plain(*args, return_delta=True)
-        fused_err = max(fused_err, float((delta - ref_delta).abs().max()))
-        n_diff += check_draws(out, ref, delta, seed, TB, CHAINS)
-        n_draws += out.numel()
-        del out, delta, ref, ref_delta
-    require(fused_err < 1e-5, f"fused delta error {fused_err}")
-    require(n_diff <= 1e-4 * n_draws, f"{n_diff} of {n_draws} draws differ")
+    # the flagship's world (the 16-byte variants), then 48 chains (16-byte
+    # variants at a width not the flagship's) and 37 (the byte variants)
+    cases = [ising_case(d, info, values, seed)]
+    for nc in (48, 37):
+        vals = torch.randint(0, 2, (P, nc), generator=gen, device=dev,
+                             dtype=torch.int8)
+        cases.append(ising_case(d, info, vals, seed))
+        del vals
+    # a tier of degree past the unrolled D = 1..8 (the generic variant)
+    gw, colors_w = wide_grid(WIDE_GRID, WIDE_GRID, WIDE_COPIES)
+    dgw, infow = compile_graph(gw, colors=colors_w)
+    tiw = infow.tiers[0]
+    require(len(infow.tiers) == 1 and tiw.affine2 and tiw.band_k == 1
+            and tiw.degree > 8, f"wide grid tiers {infow.tiers}")
+    dw = to_device(dgw, dev)
+    for nc in (CHAINS, 37):
+        vals = torch.randint(0, 2, (dw.var_card.shape[0], nc), generator=gen,
+                             device=dev, dtype=torch.int8)
+        cases.append(ising_case(dw, infow, vals, seed))
+        del vals
+    del dw, dgw
+    fused_err = max(k["fused_delta_max_abs_err"] for k in cases)
     report("2 kernels", t2, compile_graph_s=round(compile_s, 3), P=P,
            ntiles=nt, TB=TB, D=D, W=W, NC=CHAINS, R=TB * D * A1,
-           banded_gather="exact", starts_unaligned=unaligned,
-           starts_clipped_to_P_minus_W=clipped,
-           fused_delta_max_abs_err=fused_err, fused_draws_differing=n_diff,
-           fused_draws=n_draws)
+           banded_gather="exact", fused_delta_max_abs_err=fused_err,
+           cases=cases)
 
     # ---- 3: oracle parity on the card --------------------------------------
     t3 = time.perf_counter()
@@ -1342,7 +1482,8 @@ def main() -> int:
 
     # ---- 4: flagship --------------------------------------------------------
     t4 = time.perf_counter()
-    nbr0, starts0, _ = gather_in[0]
+    nbr0 = ts.cs_nbr[:B * D * A1].view(nt, TB * D * A1)
+    starts0 = ts.bd_start[0]
     fargs = (values, ts.bd_nbr, ts.bd_start[0], beta, base, 0, seed, W, TB,
              D)
     kern = {
@@ -1372,7 +1513,21 @@ def main() -> int:
                + nt * 4 + nbr0.numel() * CHAINS)
     kern["fused_color_draw"].update(kernel_bound(f_bytes, f_ops))
     kern["banded_gather"].update(kernel_bound(g_bytes, 0))
-    del values, gather_in, fargs
+    for name, k in kern.items():
+        k.update(achieved_TB_s=k["bytes"] / k["ms"] * 1e-9,
+                 byte_a_thread_ms=BYTE_A_THREAD_MS[name])
+    # what the draw's instructions alone take: its flagship variant's SASS
+    # (16 chains a thread, D unrolled), all issued at 4 warp instructions
+    # a clock an SM at the card's maximum SM clock
+    sass = sass_instructions(_build.library_path(),
+                             f"fused_color_draw_kernelILi16ELi{D}E")
+    if sass is not None:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        kern["fused_color_draw"].update(
+            sass_instructions_a_thread=sass,
+            issue_bound_ms=nt * TB * CHAINS / 16 * sass
+            / (4 * 32 * n_sm * sm_clock_hz()) * 1e3)
+    del values, fargs
 
     runs = {}
     for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):

@@ -61,6 +61,22 @@ def test_plain_equals_pallas_interpret(seed):
     np.testing.assert_array_equal(out, _reference(vals, nbr, starts, W))
 
 
+@pytest.mark.parametrize("NC,R", [(16, 256), (37, 250), (48, 255)])
+def test_plain_equals_pallas_interpret_chain_counts(NC, R):
+    """The chain counts the kernel's variants split on (16 and 48 take its
+    16-byte rows, 37 its byte rows) and R not a multiple of the kernel's
+    four rows a thread, against the Pallas kernel in interpret mode."""
+    vals, nbr, starts, W = _instance(10 + NC, NC=NC, R=R)
+    jax_out = np.asarray(banded_gather_pallas(
+        jnp.asarray(vals), jnp.asarray(nbr), jnp.asarray(starts), W,
+        interpret=True))
+    out = banded_gather_plain(torch.from_numpy(vals), torch.from_numpy(nbr),
+                              torch.from_numpy(starts), W).numpy()
+    assert out.shape == (nbr.size, NC)
+    np.testing.assert_array_equal(out, jax_out)
+    np.testing.assert_array_equal(out, _reference(vals, nbr, starts, W))
+
+
 def test_wrapper_on_cpu_is_plain_and_counts_no_launch():
     vals, nbr, starts, W = _instance(3)
     before = banded_gather.launches
@@ -104,6 +120,37 @@ def test_kernel_equals_plain_on_card(cuda_device, seed):
     vals, nbr, starts, W = _instance(seed, NC=160)
     args = (torch.from_numpy(vals).to(cuda_device),
             torch.from_numpy(nbr).to(cuda_device),
+            torch.from_numpy(starts).to(cuda_device), W)
+    before = banded_gather.launches
+    out = banded_gather(*args)
+    torch.cuda.synchronize()
+    assert banded_gather.launches == before + 1
+    assert torch.equal(out, banded_gather_plain(*args))
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` whose data starts one byte past a 16-byte boundary,
+    so the kernel cannot take its 16-byte rows."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NC,R,misaligned", [
+    (16, 256, False), (48, 250, False), (512, 640, False), (37, 255, False),
+    (48, 256, True)])
+def test_kernel_variants_equal_plain_on_card(cuda_device, NC, R, misaligned):
+    """Each variant of the kernel: 16-byte rows (16, 48 and 512 chains),
+    byte rows (37 chains, or a values pointer off the 16-byte grid), and R
+    not a multiple of the four rows a thread."""
+    vals, nbr, starts, W = _instance(20 + NC, NC=NC, R=R)
+    v = torch.from_numpy(vals).to(cuda_device)
+    if misaligned:
+        v = _misaligned(v)
+    args = (v, torch.from_numpy(nbr).to(cuda_device),
             torch.from_numpy(starts).to(cuda_device), W)
     before = banded_gather.launches
     out = banded_gather(*args)

@@ -115,6 +115,78 @@ def test_plain_draw_matches_jax_interpret(seed_words):
     assert n_diff <= 1e-3 * n_all
 
 
+def _streams(seed, D, NC, P=1000, ntiles=8, TB=8, W=256, C=2):
+    """Random streams of C colors: window starts on the 256 grid, every
+    other one clipped to P - W; neighbours around the window (some
+    outside it) with 5% at the dummy slot P - 1; random weights and a
+    random boolean world."""
+    rng = np.random.default_rng(seed)
+    starts = (rng.integers(0, P - W, (C, ntiles)) // 256 * 256)
+    starts[:, ::2] = P - W
+    off = rng.integers(-32, W + 32, (C, ntiles, D, TB))
+    nbr = np.clip(starts[:, :, None, None] + off, 0, P - 1)
+    nbr = np.where(rng.random(nbr.shape) < 0.05, P - 1, nbr)
+    return dict(
+        values=rng.integers(0, 2, (P, NC)).astype(np.int8),
+        nbr=nbr.reshape(C, ntiles, D * TB).astype(np.int32),
+        starts=starts.astype(np.int32),
+        beta=rng.normal(0.0, 0.7, (C, ntiles, D * TB)).astype(np.float32),
+        base=rng.normal(0.0, 0.5, (C, ntiles, TB)).astype(np.float32),
+        W=W, TB=TB, D=D)
+
+
+def _delta_reference(s, c):
+    """delta [ntiles*TB, NC] of color c in float64, from the definition."""
+    ntiles, TB, D = s["starts"].shape[1], s["TB"], s["D"]
+    nbr = s["nbr"][c].reshape(ntiles, D, TB)
+    local = nbr - s["starts"][c][:, None, None]
+    inside = (local >= 0) & (local < s["W"])
+    v = s["values"][nbr].astype(np.float64)            # [nt, D, TB, NC]
+    beta = s["beta"][c].reshape(ntiles, D, TB, 1).astype(np.float64)
+    terms = np.where(inside[..., None], beta * v, 0.0)
+    delta = terms.sum(axis=1) + s["base"][c][..., None]
+    return delta.reshape(ntiles * TB, -1)
+
+
+@pytest.mark.parametrize("D,NC", [(d, 16) for d in range(1, 10)]
+                         + [(5, 37), (5, 48)])
+def test_plain_draw_matches_jax_interpret_shapes(D, NC):
+    """D from 1 to one past the kernel's unrolled 1..8 and the chain counts
+    its variants split on (16 and 48: 16-byte rows; 37: byte rows), on
+    random streams with clipped window starts: the plain delta matches
+    the definition within 1e-5, and its draws match JAX's interpret-mode
+    kernel except where u lies within 1e-4 of sigmoid(delta)."""
+    s = _streams(100 + 10 * D + NC, D, NC)
+    seed_words = (1000 + D, -77 * NC)
+    t = {k: torch.from_numpy(v) for k, v in s.items()
+         if isinstance(v, np.ndarray)}
+    n_diff = n_all = 0
+    for c in range(s["starts"].shape[0]):
+        ref = np.asarray(jax_fused_draw(
+            jnp.asarray(s["values"]), jnp.asarray(s["nbr"]),
+            jnp.asarray(s["starts"][c]), jnp.asarray(s["beta"]),
+            jnp.asarray(s["base"]), c, jnp.asarray(seed_words, jnp.int32),
+            s["W"], s["TB"], D, interpret=True))
+        out, delta = fused_color_draw_plain(
+            t["values"], t["nbr"], t["starts"][c], t["beta"], t["base"], c,
+            torch.tensor(seed_words, dtype=torch.int32), s["W"], s["TB"], D,
+            return_delta=True)
+        assert out.shape == (s["starts"].shape[1] * s["TB"], NC)
+        np.testing.assert_allclose(delta.numpy(), _delta_reference(s, c),
+                                   rtol=0, atol=1e-5)
+        diff = out.numpy() != ref
+        if diff.any():
+            rows, chains = np.nonzero(diff)
+            tt = torch.from_numpy(rows // s["TB"])
+            cnt = torch.from_numpy((rows % s["TB"]) * NC + chains)
+            u = uniform24(_bits(cnt, seed_words, tt))
+            p = torch.sigmoid(delta[torch.from_numpy(diff)])
+            assert (torch.abs(u - p) < 1e-4).all()
+        n_diff += int(diff.sum())
+        n_all += diff.size
+    assert n_diff <= 1e-3 * n_all
+
+
 def _bits(cnt, seed_words, t):
     """The kernel's hash bits at counters ``cnt`` of tiles ``t``."""
     return hash_bits(cnt.to(torch.int64), u32(seed_words[0]),
@@ -200,3 +272,48 @@ def test_kernel_matches_plain_on_card(cuda_device):
         torch.cuda.synchronize()
         assert float((delta - ref_delta).abs().max()) < 1e-5
         assert int((out != ref).sum()) <= 1e-4 * out.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,NC,misaligned", [
+    (1, 16, False), (5, 48, False), (5, 512, False), (8, 64, False),
+    (9, 48, False), (12, 512, False), (5, 37, False), (9, 37, False),
+    (5, 48, True)])
+@pytest.mark.parametrize("return_delta", [False, True])
+def test_kernel_variants_match_plain_on_card(cuda_device, D, NC, misaligned,
+                                             return_delta):
+    """Each variant of the kernel against its plain version: 16-byte rows
+    (16, 48, 64 and 512 chains) and byte rows (37 chains, or a values
+    pointer off the 16-byte grid), D unrolled (1..8) and generic (9, 12),
+    with and without the delta output.  The delta is exact (both round
+    each product and sum on their own, in the same order); a draw may
+    differ only where u lies within 1e-5 of p."""
+    s = _streams(200 + 10 * D + NC, D, NC)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in s.items()
+         if isinstance(v, np.ndarray)}
+    if misaligned:
+        flat = torch.empty(t["values"].numel() + 1, dtype=torch.int8,
+                           device=cuda_device)
+        t["values"] = flat[1:].view(t["values"].shape)
+        t["values"].copy_(torch.from_numpy(s["values"]))
+        assert t["values"].data_ptr() % 16 != 0
+    seed = torch.tensor([D, -NC], dtype=torch.int32, device=cuda_device)
+    for c in range(s["starts"].shape[0]):
+        args = (t["values"], t["nbr"], t["starts"][c], t["beta"], t["base"],
+                c, seed, s["W"], s["TB"], D)
+        before = fused_color_draw.launches
+        got = fused_color_draw(*args, return_delta=return_delta)
+        torch.cuda.synchronize()
+        assert fused_color_draw.launches == before + 1
+        ref, ref_delta = fused_color_draw_plain(*args, return_delta=True)
+        out = got[0] if return_delta else got
+        if return_delta:
+            assert torch.equal(got[1], ref_delta)
+        diff = out != ref
+        if bool(diff.any()):
+            rows, chains = diff.nonzero(as_tuple=True)
+            u = uniform24(hash_bits((rows % s["TB"]) * NC + chains,
+                                    u32(seed[0]),
+                                    tile_seed(seed[1], rows // s["TB"])))
+            assert bool(((u - torch.sigmoid(ref_delta[diff])).abs()
+                         < 1e-5).all())
