@@ -41,8 +41,13 @@ Phases (each prints one line with its result and elapsed seconds):
              versions at the triple flagship's shapes (big_triple_grid(512,
              512): 3 colors, band_k 2, arity 3; 1024 random chains, every
              color; the gather also on shifted, clipped and past-P window
-             starts), and on small graphs with band_k 1 and with arity 2, at
-             1024 and at 37 chains; kernel times and bounds
+             starts), and on small graphs with band_k 1 and with arity 2;
+             every variant of the draw: 1024, 512 and 48 chains (16-byte
+             rows; a warp's table of sums at 512 and 1024), 37 chains and
+             48 one byte off the 16-byte grid (byte rows), and on random
+             streams D = 1..9 and 12, Kw 1..3, W a power of two and not;
+             kernel times (beside the time before the redesign), bounds,
+             the SASS issue bound
   8 oracle dm  infer_mc on three small fusedm graphs (triple grids with
              band_k 1 and 2, a 3-colored Ising grid), fused and unfused,
              against exact enumeration (|dp| < 0.01)
@@ -55,10 +60,13 @@ Phases (each prints one line with its result and elapsed seconds):
              flagship's shapes (big_potts_grid(512, 512, card=4): 2 colors,
              one affinek tier; 512 random chains, both colors): logits
              exactly equal, draws differing only where the top two scores
-             lie within CAT_GAP; again at 37 chains, on a card-20 grid and
-             on a grid with mixed cardinalities (every draw below its
-             variable's card); kernel time, plain time and a bound with
-             three terms (bytes, f32 operations, logs at the SFU rate)
+             lie within CAT_GAP; again at 48 and 37 chains and 48 one byte
+             off the 16-byte grid, on a card-20 grid (K looped) and on a
+             grid with mixed cardinalities (every draw below its
+             variable's card), and on random streams D = 1..9 and 12, K =
+             2..9 and 20; kernel time (beside the time before the
+             redesign), plain time, a bound with three terms (bytes, f32
+             operations, logs at the SFU rate) and the SASS issue bound
  11 oracle cat  infer_mc, fused and unfused, against exact enumeration
              (|dp| < 0.01) on a 16x16 evidence-clamped card-3 Potts grid
              (fused_cat_draw), fixtures.categorical_graph and mixed_graph
@@ -106,6 +114,11 @@ SFU_PER_CLOCK_PER_SM = 16     # Hopper's special-function units (log2)
 # one byte a thread (PERF.md §6, this script's phase 4 on an NVIDIA H100
 # 80GB HBM3, 700 W): printed beside this run's for reference only
 BYTE_A_THREAD_MS = {"fused_color_draw": 4.488, "banded_gather": 5.240}
+# the two kernels' times before their redesign for Hopper (records read
+# once, neighbours and candidates unrolled), when they looped over the
+# candidates / loaded a row after its index (PERF.md §6, this script's
+# phases 10 and 7 on an NVIDIA H100 80GB HBM3, 700 W): for reference only
+PRE_REDESIGN_MS = {"fused_cat_draw": 1.417, "fused_dm_draw": 0.522}
 WIDE_GRID = 128               # the Ising grid with every pair factor twice:
 WIDE_COPIES = 2               # degree 9, past the kernel's unrolled D = 1..8
 
@@ -198,6 +211,19 @@ def check_draws(out, ref, delta, seed, TB: int, NC: int) -> int:
         gap = float((u - torch.sigmoid(delta[diff])).abs().max())
         require(gap < DRAW_GAP, f"a differing draw has |u - p| = {gap}")
     return int(diff.sum())
+
+
+def off_grid(values):
+    """A copy of ``values`` whose data lies one byte off the 16-byte grid
+    (the kernels then take their byte variants)."""
+    import torch
+
+    flat = torch.empty(values.numel() + 1, dtype=values.dtype,
+                       device=values.device)
+    moved = flat[1:].view(values.shape)
+    moved.copy_(values)
+    require(moved.data_ptr() % 16 != 0, "off-grid copy is aligned")
+    return moved
 
 
 def wide_grid(rows: int, cols: int, copies: int):
@@ -621,9 +647,11 @@ def triple_flagship(dev, labelled: bool = False):
     return g, to_device(dg, dev), info, compile_s
 
 
-def dm_case(dev, d, info, NC: int, seed_val: int) -> dict:
+def dm_case(dev, d, info, NC: int, seed_val: int,
+            misaligned: bool = False) -> dict:
     """Both multi-window kernels against their plain versions on every
-    color of ``d``'s one fusedm tier, on a random world of NC chains."""
+    color of ``d``'s one fusedm tier, on a random world of NC chains (one
+    byte off the 16-byte grid where ``misaligned``)."""
     import torch
 
     from sampler_tpu_torch.ops.banded import (banded_gather_multi,
@@ -638,6 +666,8 @@ def dm_case(dev, d, info, NC: int, seed_val: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed_val)
     values = torch.randint(0, 2, (P, NC), generator=gen, device=dev,
                            dtype=torch.int8)
+    if misaligned:
+        values = off_grid(values)
     fold = fold_deltam_tiles(ts, ti, C, d.w_init)
     seed = torch.tensor([seed_val, -7 * seed_val - 1], dtype=torch.int32,
                         device=dev)
@@ -669,9 +699,79 @@ def dm_case(dev, d, info, NC: int, seed_val: int) -> dict:
     require(err < 1e-5, f"fused_dm_draw delta error {err} (NC={NC})")
     require(n_diff <= 1e-4 * n_draws,
             f"{n_diff} of {n_draws} fused_dm_draw draws differ (NC={NC})")
-    return dict(NC=NC, band_k=K, arity=ti.arity, delta_max_abs_err=err,
+    return dict(NC=NC, misaligned=misaligned, D=ti.degree, band_k=K,
+                W=W, arity=ti.arity, delta_max_abs_err=err,
                 draws_differing=n_diff, draws=n_draws,
                 gathers_compared_exact=gathers)
+
+
+def dm_streams(dev, D: int, A1: int, Kw: int, W: int, NC: int, seed: int,
+               P: int = 1000, ntiles: int = 8, TB: int = 8, C: int = 2):
+    """Random streams of a fusedm tier of C colors, at shapes the kernel's
+    variants split on: Kw == 1, global positions around each window (some
+    outside it, some at or past P); Kw >= 2, indices into the Kw windows
+    laid end to end (5% at the sentinel Kw*W, a few negative) with window
+    starts anywhere in [-W/2, P) (some windows past P); random
+    coefficients and a random 0/1 world."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    def rn(shape, scale):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    R = D * TB
+    if Kw == 1:
+        starts = ri(0, P - W, (C, ntiles)) // 256 * 256
+        starts[:, ::2] = P - W
+        nbr = starts[:, :, None] + ri(-32, W + 32, (C, ntiles, A1 * R))
+    else:
+        starts = ri(-W // 2, P, (C, ntiles, Kw))
+        nbr = ri(-2, Kw * W, (C, ntiles, A1 * R))
+        nbr[torch.rand(nbr.shape, generator=gen, device=dev) < 0.05] = \
+            Kw * W
+    return dict(values=ri(0, 2, (P, NC)).to(torch.int8),
+                nbr=nbr.to(torch.int32), starts=starts.to(torch.int32),
+                base=rn((C, ntiles, TB), 0.5), b1=rn((C, ntiles, R), 0.7),
+                b2=rn((C, ntiles, R), 0.7) if A1 == 2 else None,
+                bx=rn((C, ntiles, R), 0.7) if A1 == 2 else None)
+
+
+def dm_stream_case(dev, D: int, A1: int, Kw: int, W: int, NC: int,
+                   misaligned: bool = False) -> dict:
+    """fused_dm_draw against its plain version on dm_streams, both colors,
+    with and without the delta output."""
+    import torch
+
+    from sampler_tpu_torch.ops.fused import fused_dm_draw, fused_dm_draw_plain
+
+    s = dm_streams(dev, D, A1, Kw, W, NC, 1000 + 97 * D + 13 * NC + Kw)
+    values = off_grid(s["values"]) if misaligned else s["values"]
+    seed = torch.tensor([D + 7 * Kw, -NC], dtype=torch.int32, device=dev)
+    TB = s["base"].shape[2]
+    err, n_diff, n_draws = 0.0, 0, 0
+    for c in range(s["nbr"].shape[0]):
+        args = (values, s["nbr"], s["starts"][c], s["base"], s["b1"],
+                s["b2"], s["bx"], c, seed, W, TB, D, A1, Kw)
+        out, delta = fused_dm_draw(*args, return_delta=True)
+        ref, ref_delta = fused_dm_draw_plain(*args, return_delta=True)
+        require(torch.equal(fused_dm_draw(*args), out),
+                f"fused_dm_draw draws differ with and without the delta "
+                f"(D={D}, A1={A1}, Kw={Kw}, NC={NC})")
+        err = max(err, float((delta - ref_delta).abs().max()))
+        n_diff += check_draws(out, ref, delta, seed, TB, NC)
+        n_draws += out.numel()
+    require(err < 1e-5, f"fused_dm_draw delta error {err} (D={D}, A1={A1}, "
+            f"Kw={Kw}, W={W}, NC={NC}, misaligned={misaligned})")
+    require(n_diff <= 1e-4 * n_draws,
+            f"{n_diff} of {n_draws} fused_dm_draw draws differ (D={D}, "
+            f"A1={A1}, Kw={Kw}, NC={NC})")
+    return dict(D=D, A1=A1, Kw=Kw, W=W, NC=NC, misaligned=misaligned,
+                delta_max_abs_err=err, draws_differing=n_diff,
+                draws=n_draws)
 
 
 def dm_kernels_phase(dev) -> tuple:
@@ -681,6 +781,7 @@ def dm_kernels_phase(dev) -> tuple:
 
     from sampler_tpu_torch.benchgraphs import big_ising_grid, big_triple_grid
     from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.ops import _build
     from sampler_tpu_torch.ops.banded import (_multi_rows,
                                               banded_gather_multi,
                                               banded_gather_multi_plain)
@@ -690,9 +791,17 @@ def dm_kernels_phase(dev) -> tuple:
 
     t7 = time.perf_counter()
     g, d, info, compile_s = triple_flagship(dev)
-    cases = {"triple_flagship": dm_case(dev, d, info, TRI_CHAINS, 1)}
-    # band_k 1 (global indices), and arity 2 (no b2/bx terms), at 1024
-    # chains (16 a thread) and at 37 (one a thread)
+    # every variant of the draw: 16-byte rows (1024 and 512 chains: a
+    # warp's table where A1*D <= 8; 48 chains: the selects), byte rows (37
+    # chains, and 48 one byte off the 16-byte grid); A1 2 and 1, Kw 2 and
+    # 1 on graphs; on random streams D = 1..9 and 12 (the unrolled and
+    # the chunked variants), Kw up to 3, W a power of two and not
+    cases = {"triple_flagship": dm_case(dev, d, info, TRI_CHAINS, 1),
+             "triple_flagship_nc48": dm_case(dev, d, info, 48, 4),
+             "triple_flagship_nc37": dm_case(dev, d, info, 37, 5),
+             "triple_flagship_nc48_off_grid": dm_case(dev, d, info, 48, 6,
+                                                      misaligned=True)}
+    # band_k 1 (global indices), and arity 2 (no b2/bx terms)
     gs, colors_s = big_triple_grid(16, 16)
     dgs, infos = compile_graph(gs, colors=colors_s, band_tile=8,
                                band_min_block=1)
@@ -706,8 +815,21 @@ def dm_kernels_phase(dev) -> tuple:
     for name, dgx, infox in (("triple16_k1", dgs, infos),
                              ("ising3_a2", dgi, infoi)):
         dx = to_device(dgx, dev)
-        for NC in (1024, 37):
+        for NC in (1024, 512, 48, 37):
             cases[f"{name}_nc{NC}"] = dm_case(dev, dx, infox, NC, 2)
+        cases[f"{name}_nc48_off_grid"] = dm_case(dev, dx, infox, 48, 3,
+                                                 misaligned=True)
+    streams = [dm_stream_case(dev, D, A1, Kw, W, NC, off)
+               for D, A1, Kw, W, NC, off in (
+                   [(D, 2, 2, 256, 48, False) for D in range(1, 10)]
+                   + [(12, 2, 2, 384, 48, False), (4, 2, 3, 384, 512, False),
+                      (4, 1, 2, 384, 48, False), (5, 1, 1, 256, 48, False),
+                      (4, 2, 1, 256, 1024, False), (9, 1, 3, 384, 48, False),
+                      (1, 2, 2, 256, 512, False), (3, 2, 1, 256, 512, False),
+                      (5, 2, 2, 384, 512, False), (6, 1, 1, 256, 512, False),
+                      (8, 1, 2, 384, 1024, False), (9, 1, 2, 256, 512, False),
+                      (4, 2, 2, 384, 37, False), (12, 1, 1, 256, 37, False),
+                      (4, 2, 2, 256, 48, True), (9, 2, 1, 256, 48, True)])]
 
     ts, ti = d.tiers[0], info.tiers[0]
     C, P, B = info.n_colors, d.var_card.shape[0], ti.block
@@ -758,13 +880,21 @@ def dm_kernels_phase(dev) -> tuple:
                                               rows_read=n_rows))
     kern["banded_gather_multi"].update(kernel_bound(g_bytes, 0))
     kern["fused_dm_draw"]["max_abs_err"] = max(
-        case["delta_max_abs_err"] for case in cases.values())
+        case["delta_max_abs_err"]
+        for case in (*cases.values(), *streams))
+    kern["fused_dm_draw"].update(
+        pre_redesign_ms=PRE_REDESIGN_MS["fused_dm_draw"],
+        **issue_bound(dev, sass_instructions(
+            _build.library_path(),
+            f"fused_dm_draw_kernelILi16ELi{D}ELi{A1}ELb{int(A1 * D <= 8)}E"),
+        nt * TB * TRI_CHAINS))
     kern["banded_gather_multi"]["max_abs_err"] = 0.0    # required exact
     in_window = int(_multi_rows(rn, ts.bd_start[0], W, P)[1].sum())
     del values, fargs, gargs
     report("7 dm kernels", t7, compile_graph_s=round(compile_s, 3), P=P,
            colors=C, block=B, ntiles=nt, TB=TB, D=D, A1=A1, W=W, K=K, R=R,
-           gather_slots_in_window=in_window, cases=cases, kernels=kern)
+           gather_slots_in_window=in_window, cases=cases,
+           stream_cases=streams, kernels=kern)
     return g, d, info, kern
 
 
@@ -994,9 +1124,11 @@ def cat_scores(logits, rows, chains, seed, TB: int, NC: int):
     return logits[rows, :, chains] - torch.log(-torch.log(u))
 
 
-def cat_case(dev, d, info, NC: int, seed_val: int) -> dict:
+def cat_case(dev, d, info, NC: int, seed_val: int,
+             misaligned: bool = False) -> dict:
     """fused_cat_draw against its plain version on every color of ``d``'s
-    one affinek tier, on a random world of NC chains."""
+    one affinek tier, on a random world of NC chains (one byte off the
+    16-byte grid where ``misaligned``)."""
     import torch
 
     from sampler_tpu_torch.ops.fused import (fold_affine_cat, fused_cat_draw,
@@ -1008,35 +1140,123 @@ def cat_case(dev, d, info, NC: int, seed_val: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed_val)
     values = (torch.randint(0, 1 << 20, (P, NC), generator=gen, device=dev)
               % d.var_card.clamp(min=1)[:, None]).to(torch.int8)
+    if misaligned:
+        values = off_grid(values)
     fold = fold_affine_cat(ts, ti, C, d.w_init)
     seed = torch.tensor([seed_val, -7 * seed_val - 1], dtype=torch.int32,
                         device=dev)
-    err, n_diff, n_draws, max_gap = 0.0, 0, 0, 0.0
+    res = dict(NC=NC, misaligned=misaligned, D=ti.degree, K=K,
+               logits_max_abs_err=0.0, draws_differing=0, draws=0,
+               max_score_gap_of_differing=0.0)
     for c in range(C):
         args = (values, ts.bd_nbr, ts.bd_start[c], ts.bd_eqo, ts.bd_eqn,
                 *fold, c, seed, ti.band_w, TB, ti.degree, K)
-        out, logits = fused_cat_draw(*args, return_logits=True)
-        ref, ref_logits = fused_cat_draw_plain(*args, return_logits=True)
-        err = max(err, float((logits - ref_logits).abs().max()))
-        diff = out != ref
-        if bool(diff.any()):
-            rows, chains = diff.nonzero(as_tuple=True)
-            top2 = cat_scores(ref_logits, rows, chains, seed, TB,
-                              NC).topk(2, dim=1).values
-            max_gap = max(max_gap, float((top2[:, 0] - top2[:, 1]).max()))
-            require(max_gap < CAT_GAP,
-                    f"a differing categorical draw has a score gap {max_gap}")
+        out = cat_compare(args, seed, TB, NC, res)
         card = d.var_card[c * gB + ti.off:c * gB + ti.off + out.shape[0]]
         require(bool(((out >= 0) & (out < card[:, None])).all()),
                 f"a draw at or above its variable's card (c={c}, NC={NC})")
-        n_diff += int(diff.sum())
-        n_draws += out.numel()
-        del out, logits, ref, ref_logits
-    require(err == 0.0, f"fused_cat_draw logits differ by {err} (NC={NC})")
-    require(n_diff <= 1e-4 * n_draws,
-            f"{n_diff} of {n_draws} fused_cat_draw draws differ (NC={NC})")
-    return dict(NC=NC, K=K, logits_max_abs_err=err, draws_differing=n_diff,
-                draws=n_draws, max_score_gap_of_differing=max_gap)
+        del out
+    cat_verdict(res)
+    return res
+
+
+def cat_compare(args, seed, TB: int, NC: int, res: dict):
+    """One fused_cat_draw launch against its plain version, with and
+    without the logits; adds its numbers to ``res`` and returns the
+    kernel's draws.  The logits must be exactly equal; a draw may differ
+    only where the plain version's top two scores lie within CAT_GAP."""
+    import torch
+
+    from sampler_tpu_torch.ops.fused import (fused_cat_draw,
+                                             fused_cat_draw_plain)
+
+    out, logits = fused_cat_draw(*args, return_logits=True)
+    ref, ref_logits = fused_cat_draw_plain(*args, return_logits=True)
+    require(torch.equal(fused_cat_draw(*args), out),
+            "fused_cat_draw draws differ with and without the logits")
+    res["logits_max_abs_err"] = max(
+        res["logits_max_abs_err"],
+        float((logits - ref_logits).abs().max()))
+    diff = out != ref
+    if bool(diff.any()):
+        rows, chains = diff.nonzero(as_tuple=True)
+        top2 = cat_scores(ref_logits, rows, chains, seed, TB,
+                          NC).topk(2, dim=1).values
+        res["max_score_gap_of_differing"] = max(
+            res["max_score_gap_of_differing"],
+            float((top2[:, 0] - top2[:, 1]).max()))
+        require(res["max_score_gap_of_differing"] < CAT_GAP,
+                f"a differing categorical draw has a score gap "
+                f"{res['max_score_gap_of_differing']}")
+    res["draws_differing"] += int(diff.sum())
+    res["draws"] += out.numel()
+    return out
+
+
+def cat_verdict(res: dict) -> None:
+    """Require exact logits and at most 1e-4 of the draws differing."""
+    require(res["logits_max_abs_err"] == 0.0,
+            f"fused_cat_draw logits differ by {res['logits_max_abs_err']} "
+            f"({res})")
+    require(res["draws_differing"] <= 1e-4 * res["draws"],
+            f"{res['draws_differing']} of {res['draws']} fused_cat_draw "
+            f"draws differ ({res})")
+
+
+def cat_streams(dev, D: int, K: int, NC: int, seed: int, P: int = 1000,
+                ntiles: int = 8, TB: int = 8, W: int = 256, C: int = 2):
+    """Random streams of an affinek tier of C colors, at shapes the
+    kernel's variants split on: window starts on the 256 grid, every
+    other one clipped to P - W; neighbours around the window (some
+    outside it, some at or past P); eqo in [0, K) with 5% matching no
+    candidate; eqn in [0, K) with 5% outside int8's range; random
+    coefficients, kmask 0 or (10%) -1e30, and a world of values in
+    [0, K)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    def some(shape, share):
+        return torch.rand(shape, generator=gen, device=dev) < share
+
+    shape = (C, ntiles, D * TB)
+    starts = ri(0, P - W, (C, ntiles)) // 256 * 256
+    starts[:, ::2] = P - W
+    nbr = starts[:, :, None] + ri(-32, W + 32, shape)
+    eqo = ri(0, K, shape)
+    eqo[some(shape, 0.05)] = K
+    eqn = ri(0, K, shape)
+    eqn[some(shape, 0.05)] = 300
+    kmask = torch.where(some((C, ntiles, TB, K), 0.1), -1e30, 0.0)
+    return dict(values=ri(0, K, (P, NC)).to(torch.int8),
+                nbr=nbr.to(torch.int32), starts=starts.to(torch.int32),
+                eqo=eqo.to(torch.int32), eqn=eqn.to(torch.int32),
+                av=torch.randn(shape, generator=gen, device=dev),
+                bv=torch.randn(shape, generator=gen, device=dev),
+                kmask=kmask, W=W, TB=TB)
+
+
+def cat_stream_case(dev, D: int, K: int, NC: int,
+                    misaligned: bool = False) -> dict:
+    """fused_cat_draw against its plain version on cat_streams, both
+    colors."""
+    import torch
+
+    s = cat_streams(dev, D, K, NC, 2000 + 97 * D + 13 * NC + K)
+    values = off_grid(s["values"]) if misaligned else s["values"]
+    seed = torch.tensor([D + 7 * K, -NC], dtype=torch.int32, device=dev)
+    res = dict(NC=NC, misaligned=misaligned, D=D, K=K,
+               logits_max_abs_err=0.0, draws_differing=0, draws=0,
+               max_score_gap_of_differing=0.0)
+    for c in range(s["nbr"].shape[0]):
+        cat_compare((values, s["nbr"], s["starts"][c], s["eqo"], s["eqn"],
+                     s["av"], s["bv"], s["kmask"], c, seed, s["W"], s["TB"],
+                     D, K), seed, s["TB"], NC, res)
+    cat_verdict(res)
+    return res
 
 
 def sm_clock_hz() -> float:
@@ -1048,10 +1268,13 @@ def sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
-def sass_instructions(library: str, fragment: str):
-    """Instructions in the SASS of the one kernel of ``library`` whose
-    mangled name contains ``fragment`` (cuobjdump beside nvcc), or None
-    where cuobjdump is missing."""
+def sass_instructions(library: str, fragment: str, loop_trips: int = 1):
+    """Instructions a thread issues in the one kernel of ``library`` whose
+    mangled name contains ``fragment`` (its SASS from cuobjdump beside
+    nvcc), or None where cuobjdump is missing.  With ``loop_trips`` > 1 the
+    kernel has one loop the compiler kept (its one backward branch), whose
+    body counts that many times.  Branches the main path skips (the delta
+    or logits stores) count too."""
     import os
     import re
 
@@ -1065,27 +1288,93 @@ def sass_instructions(library: str, fragment: str):
     found = [f for f in re.split(r"\n\s+Function : ", sass)[1:]
              if fragment in f.split("\n", 1)[0]]
     require(len(found) == 1, f"{len(found)} kernels named like {fragment}")
-    return sum(1 for line in found[0].splitlines()
-               if re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line))
+    code = [(int(m.group(1), 16), m.group(2)) for m in (
+        re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(\S.*)", line)
+        for line in found[0].splitlines()) if m]
+    if loop_trips == 1:
+        return len(code)
+    back = [(int(m.group(1), 16), addr) for addr, text in code
+            for m in [re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text)]
+            if m and int(m.group(1), 16) < addr]
+    require(len(back) == 1, f"{fragment}: backward branches {back}")
+    body = sum(1 for addr, _ in code if back[0][0] <= addr <= back[0][1])
+    return len(code) + (loop_trips - 1) * body
+
+
+def ptxas_summary(lines) -> list:
+    """One line a kernel from nvcc's ptxas report: its name with its
+    template arguments, registers and spill bytes."""
+    import re
+
+    out, name, spill = [], "?", ""
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            short = re.search(
+                r"([a-z][a-z_]*_kernel)(I(?:L[ib]-?\d+E)+E)?", m.group(1))
+            name = (short.group(1) + "<" + ",".join(
+                re.findall(r"L[ib](-?\d+)E", short.group(2) or "")) + ">"
+                    if short else m.group(1))
+            spill = ""
+        elif "spill" in line:
+            spill = ", ".join(x.strip() for x in line.split(",")[1:])
+        elif "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers"
+                       f"{', ' + spill if spill else ''}")
+    return out
+
+
+def issue_bound(dev, sass, pairs: int, vec: int = 16) -> dict:
+    """What a kernel's instructions alone take: ``sass`` SASS instructions
+    a thread of ``vec`` chains, over ``pairs`` (row, chain) pairs, issued
+    at 4 warp instructions a clock an SM at the card's maximum SM clock."""
+    import torch
+
+    if sass is None:
+        return dict(sass_instructions_a_thread=None, issue_bound_ms=None)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return dict(sass_instructions_a_thread=sass,
+                sass_instructions_a_pair=sass / vec,
+                issue_bound_ms=pairs / vec * sass
+                / (4 * 32 * n_sm * sm_clock_hz()) * 1e3)
 
 
 def cat_kernel_phase(dev) -> tuple:
     """Phase 10.  Returns (graph, device graph, info, kernel numbers)."""
     import torch
 
+    from sampler_tpu_torch.ops import _build
     from sampler_tpu_torch.ops.fused import (fold_affine_cat, fused_cat_draw,
                                              fused_cat_draw_plain)
 
     t10 = time.perf_counter()
     g, d, info, compile_s = potts_flagship(dev)
+    # every variant of the kernel: 16-byte rows (512 and 48 chains), byte
+    # rows (37 chains, and 48 one byte off the 16-byte grid); K unrolled
+    # (the flagship's 4) and looped (the card-20 grid); on random streams
+    # D = 1..9 and 12 (unrolled and chunked) and K = 2..9 and 20
     cases = {"potts_flagship": cat_case(dev, d, info, CAT_CHAINS, 1),
-             "potts_flagship_nc37": cat_case(dev, d, info, 37, 2)}
+             "potts_flagship_nc48": cat_case(dev, d, info, 48, 4),
+             "potts_flagship_nc37": cat_case(dev, d, info, 37, 2),
+             "potts_flagship_nc48_off_grid": cat_case(dev, d, info, 48, 5,
+                                                      misaligned=True)}
     for name, kw in (("card20_grid128", dict(grid=128, card=20)),
                      ("mixed_grid128", dict(grid=128, mixed=True))):
         _, dx, infox, _ = potts_flagship(dev, **kw)
-        for NC in (CAT_CHAINS, 37):
+        for NC in (CAT_CHAINS, 48, 37):
             cases[f"{name}_nc{NC}"] = cat_case(dev, dx, infox, NC, 3)
+        cases[f"{name}_nc48_off_grid"] = cat_case(dev, dx, infox, 48, 6,
+                                                  misaligned=True)
         del dx
+    streams = [cat_stream_case(dev, D, K, NC, off)
+               for D, K, NC, off in (
+                   [(D, 4, 48, False) for D in range(1, 10)]
+                   + [(5, K, 48, False) for K in (2, 3, 5, 6, 7, 8, 9, 20)]
+                   + [(12, 4, 48, False), (12, 20, 48, False),
+                      (5, 4, 512, False), (9, 20, 512, False),
+                      (5, 4, 37, False), (9, 20, 37, False),
+                      (5, 4, 48, True), (9, 3, 48, True)])]
 
     ts, ti = d.tiers[0], info.tiers[0]
     C, P, K = info.n_colors, d.var_card.shape[0], info.max_card
@@ -1103,7 +1392,8 @@ def cat_kernel_phase(dev) -> tuple:
                               warmup=1),
              library_ms=None,
              max_abs_err=max(c["logits_max_abs_err"]
-                             for c in cases.values()))
+                             for c in (*cases.values(), *streams)),
+             pre_redesign_ms=PRE_REDESIGN_MS["fused_cat_draw"])
     # bound of one launch (color 0), three terms.  Bytes: the distinct
     # in-window neighbour rows it reads, five 4-byte record streams (nbr,
     # eqo, eqn, av, bv), kmask, starts and seed, its int8 output.  f32
@@ -1130,10 +1420,15 @@ def cat_kernel_phase(dev) -> tuple:
              binding_term=binding, bound_terms_ms=terms, bytes=nbytes,
              f32_ops=f_ops, logs=logs, rows_read=n_rows, sm_count=n_sm,
              sm_clock_max_hz=clock, sfu_logs_per_s=sfu_per_s)
+    # the flagship variant (16 chains a thread, D and K unrolled) runs its
+    # chains in 4 groups of 4 in a loop
+    k.update(issue_bound(dev, sass_instructions(
+        _build.library_path(), f"fused_cat_draw_kernelILi16ELi{D}ELi{K}E",
+        loop_trips=4), pairs))
     del values, args, fold
     report("10 cat kernel", t10, compile_graph_s=round(compile_s, 3), P=P,
            colors=C, block=ti.block, ntiles=nt, TB=TB, D=D, W=W, K=K,
-           cases=cases, kernel=k)
+           cases=cases, stream_cases=streams, kernel=k)
     return g, d, info, k
 
 
@@ -1398,7 +1693,7 @@ def main() -> int:
     # ---- 1: build ---------------------------------------------------------
     t1 = time.perf_counter()
     _, build_s, ptxas = _build.build()
-    for line in ptxas:
+    for line in ptxas_summary(ptxas):
         print(f"  {line}", flush=True)
     report("1 build", t1, nvcc_seconds=round(build_s, 3),
            library=_build.library_path(), ptxas_lines=len(ptxas))
@@ -1522,11 +1817,10 @@ def main() -> int:
     sass = sass_instructions(_build.library_path(),
                              f"fused_color_draw_kernelILi16ELi{D}E")
     if sass is not None:
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         kern["fused_color_draw"].update(
             sass_instructions_a_thread=sass,
-            issue_bound_ms=nt * TB * CHAINS / 16 * sass
-            / (4 * 32 * n_sm * sm_clock_hz()) * 1e3)
+            issue_bound_ms=issue_bound(dev, sass,
+                                       nt * TB * CHAINS)["issue_bound_ms"])
     del values, fargs
 
     runs = {}

@@ -120,7 +120,8 @@ def build() -> tuple:
                     os.remove(obj)
         seconds = time.perf_counter() - t0
         os.replace(tmp, path)
-        report = [ln.strip() for ln in text.splitlines() if "ptxas" in ln]
+        report = [ln.strip() for ln in text.splitlines()
+                  if "ptxas" in ln or "spill" in ln]
     lib = ctypes.CDLL(path)
     for name, argtypes in LAUNCHERS.items():
         fn = getattr(lib, name)

@@ -328,3 +328,145 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
         assert fused_cat_draw.launches == before + 1
         assert torch.equal(logits, ref_logits)
         assert int((out != ref).sum()) <= 1e-4 * out.numel()
+
+
+def _cat_streams(seed, D, K, NC, P=1000, ntiles=8, TB=8, W=256, C=2):
+    """Random streams of an affinek tier of C colors: window starts on the
+    256 grid, every other one clipped to P - W; neighbours around the
+    window (some outside it, some at or past P); eqo in [0, K) with 5%
+    matching no candidate; eqn in [0, K) with 5% outside int8's range;
+    random coefficients, kmask 0 or (10%) -1e30, and a world of values in
+    [0, K)."""
+    rng = np.random.default_rng(seed)
+    shape = (C, ntiles, D * TB)
+    starts = rng.integers(0, P - W, (C, ntiles)) // 256 * 256
+    starts[:, ::2] = P - W
+    nbr = starts[:, :, None] + rng.integers(-32, W + 32, shape)
+    eqo = rng.integers(0, K, shape)
+    eqo[rng.random(shape) < 0.05] = K
+    eqn = rng.integers(0, K, shape)
+    eqn[rng.random(shape) < 0.05] = 300
+    kmask = np.where(rng.random((C, ntiles, TB, K)) < 0.1, -1e30, 0.0)
+    return dict(
+        values=rng.integers(0, K, (P, NC)).astype(np.int8),
+        nbr=nbr.astype(np.int32), starts=starts.astype(np.int32),
+        eqo=eqo.astype(np.int32), eqn=eqn.astype(np.int32),
+        av=rng.normal(0.0, 1.0, shape).astype(np.float32),
+        bv=rng.normal(0.0, 1.0, shape).astype(np.float32),
+        kmask=kmask.astype(np.float32), W=W, TB=TB)
+
+
+def _logits_reference(s, c, D, K):
+    """l_k [ntiles*TB, K, NC] of color c in float64, from the definition."""
+    ntiles, TB, W = s["starts"].shape[1], s["TB"], s["W"]
+    P = s["values"].shape[0]
+
+    def tile(x):
+        return x[c].reshape(ntiles, D, TB)
+
+    nbr = tile(s["nbr"])
+    local = nbr - s["starts"][c][:, None, None]
+    valid = (local >= 0) & (local < W) & (nbr >= 0) & (nbr < P)
+    v = np.where(valid[..., None], s["values"][np.where(valid, nbr, 0)], 0)
+    e = (v.astype(np.int64) == tile(s["eqn"])[..., None]).astype(np.float64)
+    contrib = (tile(s["av"]).astype(np.float64)[..., None]
+               + tile(s["bv"]).astype(np.float64)[..., None] * e)
+    k = np.arange(K)[None, :, None, None, None]
+    lk = np.where(tile(s["eqo"])[:, None, :, :, None] == k,
+                  contrib[:, None], 0.0).sum(axis=2)       # [nt, K, TB, NC]
+    lk = lk + s["kmask"][c].transpose(0, 2, 1)[..., None]
+    return lk.transpose(0, 2, 1, 3).reshape(ntiles * TB, K, -1)
+
+
+# D from 1 to one past the kernel's unrolled 1..8, K from 2 to one past its
+# unrolled 2..8 and 20 (card-20 grids), and the chain counts its variants
+# split on (16 and 48: 16-byte rows; 37: byte rows)
+SHAPES = ([(d, 4, 16) for d in range(1, 10)]
+          + [(5, k, 16) for k in (2, 3, 5, 6, 7, 8, 9, 20)]
+          + [(5, 4, 37), (5, 4, 48), (9, 20, 37)])
+
+
+@pytest.mark.parametrize("D,K,NC", SHAPES)
+def test_plain_draw_matches_jax_interpret_shapes(D, K, NC):
+    """On random streams at the shapes the kernel's variants split on: the
+    plain logits match the definition within 1e-5 (where kmask is 0), and
+    the plain draws match JAX's interpret-mode kernel except where the top
+    two scores lie within 1e-5."""
+    s = _cat_streams(300 + 10 * D + K + NC, D, K, NC)
+    seed_words = (500 + D, -31 * K - NC)
+    t = {k: torch.from_numpy(v) for k, v in s.items()
+         if isinstance(v, np.ndarray)}
+    n_diff = n_all = 0
+    for c in range(s["starts"].shape[0]):
+        ref = np.asarray(jax_fused_cat_draw(
+            *(jnp.asarray(s[k]) for k in ("values", "nbr")),
+            jnp.asarray(s["starts"][c]),
+            *(jnp.asarray(s[k]) for k in ("eqo", "eqn", "av", "bv",
+                                          "kmask")),
+            c, jnp.asarray(seed_words, jnp.int32), s["W"], s["TB"], D, K,
+            interpret=True))
+        out, logits = fused_cat_draw_plain(
+            t["values"], t["nbr"], t["starts"][c], t["eqo"], t["eqn"],
+            t["av"], t["bv"], t["kmask"], c,
+            torch.tensor(seed_words, dtype=torch.int32), s["W"], s["TB"], D,
+            K, return_logits=True)
+        assert out.shape == ref.shape == (s["starts"].shape[1] * s["TB"], NC)
+        open_k = np.broadcast_to(
+            s["kmask"][c].reshape(-1, K)[..., None] == 0, logits.shape)
+        np.testing.assert_allclose(logits.numpy()[open_k],
+                                   _logits_reference(s, c, D, K)[open_k],
+                                   rtol=0, atol=1e-5)
+        assert int(out.max()) < K
+        diff = out.numpy() != ref
+        if diff.any():
+            top2 = _scores(logits, seed_words, s["TB"]).topk(2, dim=1)
+            gap = top2.values[:, 0] - top2.values[:, 1]
+            assert (gap[torch.from_numpy(diff)] < 1e-5).all()
+        n_diff += int(diff.sum())
+        n_all += diff.size
+    assert n_diff <= 1e-4 * n_all
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,K,NC,misaligned", [
+    (1, 4, 16, False), (5, 4, 512, False), (5, 4, 48, False),
+    (8, 8, 64, False), (3, 2, 48, False), (9, 4, 48, False),
+    (12, 20, 512, False), (5, 20, 48, False), (5, 9, 48, False),
+    (5, 4, 37, False), (9, 20, 37, False), (5, 4, 48, True),
+    (9, 3, 48, True)])
+def test_kernel_variants_match_plain_on_card(cuda_device, D, K, NC,
+                                             misaligned):
+    """Each variant of the kernel against its plain version: 16-byte rows
+    (16, 48, 64 and 512 chains) and byte rows (37 chains, or a values
+    pointer off the 16-byte grid), D unrolled (1..8) and chunked (9, 12),
+    K unrolled (2..8) and looped (9, 20), with and without the logits.
+    The logits are exact; a draw may differ only where the plain top two
+    scores lie within 1e-5."""
+    s = _cat_streams(700 + 10 * D + K + NC, D, K, NC)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in s.items()
+         if isinstance(v, np.ndarray)}
+    if misaligned:
+        flat = torch.empty(t["values"].numel() + 1, dtype=torch.int8,
+                           device=cuda_device)
+        t["values"] = flat[1:].view(t["values"].shape)
+        t["values"].copy_(torch.from_numpy(s["values"]))
+        assert t["values"].data_ptr() % 16 != 0
+    seed_words = (D, -K * NC)
+    seed = torch.tensor(seed_words, dtype=torch.int32, device=cuda_device)
+    for c in range(s["starts"].shape[0]):
+        args = (t["values"], t["nbr"], t["starts"][c], t["eqo"], t["eqn"],
+                t["av"], t["bv"], t["kmask"], c, seed, s["W"], s["TB"], D, K)
+        before = fused_cat_draw.launches
+        out, logits = fused_cat_draw(*args, return_logits=True)
+        torch.cuda.synchronize()
+        assert fused_cat_draw.launches == before + 1
+        assert torch.equal(fused_cat_draw(*args), out)
+        ref, ref_logits = fused_cat_draw_plain(*args, return_logits=True)
+        assert torch.equal(logits, ref_logits)
+        diff = out != ref
+        if bool(diff.any()):
+            top2 = _scores(ref_logits.cpu(), seed_words, s["TB"]).topk(
+                2, dim=1)
+            gap = top2.values[:, 0] - top2.values[:, 1]
+            assert bool((gap[diff.cpu()] < 1e-5).all())
+        assert int(diff.sum()) <= 1e-4 * out.numel()

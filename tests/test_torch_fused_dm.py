@@ -250,3 +250,159 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
         assert fused_dm_draw.launches == before + 1
         assert float((delta - ref_delta).abs().max()) < 1e-5
         assert int((out != ref).sum()) <= 1e-4 * out.numel()
+
+
+def _dm_streams(seed, D, A1, Kw, NC, P=1000, ntiles=8, TB=8, W=256, C=2):
+    """Random streams of a fusedm tier of C colors inside the JAX kernel's
+    contract (every window inside [0, P)): Kw == 1, window starts on the
+    256 grid, every other one clipped to P - W, and global positions
+    around each window (some outside it); Kw >= 2, window starts anywhere
+    in [0, P - W] and indices into the Kw windows laid end to end, 5% at
+    the sentinel Kw*W.  Random coefficients and a random 0/1 world."""
+    rng = np.random.default_rng(seed)
+    R = D * TB
+    if Kw == 1:
+        starts = rng.integers(0, P - W, (C, ntiles)) // 256 * 256
+        starts[:, ::2] = P - W
+        nbr = starts[:, :, None] + rng.integers(-32, W + 32,
+                                                (C, ntiles, A1 * R))
+    else:
+        starts = rng.integers(0, P - W + 1, (C, ntiles, Kw))
+        nbr = rng.integers(0, Kw * W, (C, ntiles, A1 * R))
+        nbr[rng.random(nbr.shape) < 0.05] = Kw * W
+
+    def coef(shape):
+        return rng.normal(0.0, 0.7, shape).astype(np.float32)
+
+    return dict(values=rng.integers(0, 2, (P, NC)).astype(np.int8),
+                nbr=nbr.astype(np.int32), starts=starts.astype(np.int32),
+                base=coef((C, ntiles, TB)), b1=coef((C, ntiles, R)),
+                b2=coef((C, ntiles, R)) if A1 == 2 else None,
+                bx=coef((C, ntiles, R)) if A1 == 2 else None, W=W, TB=TB)
+
+
+def _delta_reference(s, c, D, A1, Kw):
+    """delta [ntiles*TB, NC] of color c in float64, from the definition."""
+    ntiles, TB, W = s["nbr"].shape[1], s["TB"], s["W"]
+    P = s["values"].shape[0]
+    idx = s["nbr"][c].reshape(ntiles, A1, D, TB).astype(np.int64)
+    st = s["starts"][c].reshape(ntiles, Kw).astype(np.int64)
+    if Kw == 1:
+        row = idx
+        valid = (idx >= st[:, :1, None, None]) & (idx < st[:, :1, None, None]
+                                                  + W)
+    else:
+        valid = (idx >= 0) & (idx < Kw * W)
+        k = np.where(valid, idx // W, 0)
+        row = np.take_along_axis(st, k.reshape(ntiles, -1), 1).reshape(
+            idx.shape) + idx % W
+    valid &= (row >= 0) & (row < P)
+    n = np.where(valid[..., None], s["values"][np.where(valid, row, 0)],
+                 0).astype(np.float64)                  # [nt, A1, D, TB, NC]
+
+    def coef(x):
+        return x[c].reshape(ntiles, D, TB, 1).astype(np.float64)
+
+    terms = coef(s["b1"]) * n[:, 0]
+    if A1 == 2:
+        terms = terms + coef(s["b2"]) * n[:, 1] + coef(s["bx"]) * (n[:, 0]
+                                                                  * n[:, 1])
+    delta = terms.sum(axis=1) + s["base"][c][..., None]
+    return delta.reshape(ntiles * TB, -1)
+
+
+# D from 1 to one past the kernel's unrolled 1..8; A1 1 and 2; Kw 1 and 2;
+# the chain counts its variants split on (16 and 48: 16-byte rows; 37: byte
+# rows)
+SHAPES = ([(d, 2, 2, 16) for d in range(1, 10)]
+          + [(4, a1, kw, nc) for a1 in (1, 2) for kw in (1, 2)
+             for nc in (16, 37, 48) if (a1, kw, nc) != (2, 2, 16)])
+
+
+@pytest.mark.parametrize("D,A1,Kw,NC", SHAPES)
+def test_plain_draw_matches_jax_interpret_shapes(D, A1, Kw, NC):
+    """On random streams at the shapes the kernel's variants split on: the
+    plain delta matches the definition within 1e-5, and its draws match
+    JAX's interpret-mode kernel except where u lies within 1e-5 of
+    sigmoid(delta)."""
+    s = _dm_streams(400 + 10 * D + 3 * A1 + Kw + NC, D, A1, Kw, NC)
+    seed_words = (900 + D, -17 * NC - Kw)
+    n_diff = n_all = 0
+    for c in range(s["nbr"].shape[0]):
+        coefs = [s[k] for k in ("base", "b1", "b2", "bx")]
+        ref = np.asarray(jax_fused_dm_draw(
+            jnp.asarray(s["values"]), jnp.asarray(s["nbr"]),
+            jnp.asarray(s["starts"][c]),
+            *(None if x is None else jnp.asarray(x) for x in coefs), c,
+            jnp.asarray(seed_words, jnp.int32), s["W"], s["TB"], D, A1, Kw,
+            interpret=True))
+        out, delta = fused_dm_draw_plain(
+            torch.from_numpy(s["values"]), torch.from_numpy(s["nbr"]),
+            torch.from_numpy(s["starts"][c]), *(_torch(x) for x in coefs), c,
+            torch.tensor(seed_words, dtype=torch.int32), s["W"], s["TB"], D,
+            A1, Kw, return_delta=True)
+        assert out.shape == ref.shape == (s["nbr"].shape[1] * s["TB"], NC)
+        np.testing.assert_allclose(delta.numpy(),
+                                   _delta_reference(s, c, D, A1, Kw),
+                                   rtol=0, atol=1e-5)
+        diff = out.numpy() != ref
+        if diff.any():
+            rows, chains = np.nonzero(diff)
+            t = torch.from_numpy(rows // s["TB"])
+            cnt = torch.from_numpy((rows % s["TB"]) * NC + chains)
+            u = uniform24(hash_bits(cnt.to(torch.int64), u32(seed_words[0]),
+                                    tile_seed(seed_words[1], t)))
+            p = torch.sigmoid(delta[torch.from_numpy(diff)])
+            assert (torch.abs(u - p) < 1e-5).all()
+        n_diff += int(diff.sum())
+        n_all += diff.size
+    assert n_diff <= 1e-4 * n_all
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,A1,Kw,NC,misaligned", [
+    (1, 2, 2, 16, False), (4, 2, 2, 1024, False), (4, 2, 2, 48, False),
+    (4, 1, 2, 512, False), (4, 2, 1, 48, False), (5, 1, 1, 64, False),
+    (8, 2, 2, 48, False), (9, 2, 2, 48, False), (12, 1, 2, 512, False),
+    (1, 2, 2, 512, False), (8, 1, 1, 1024, False), (5, 2, 2, 512, False),
+    (4, 2, 2, 37, False), (9, 1, 1, 37, False), (4, 2, 2, 48, True),
+    (9, 2, 1, 48, True)])
+def test_kernel_variants_match_plain_on_card(cuda_device, D, A1, Kw, NC,
+                                             misaligned):
+    """Each variant of the kernel against its plain version: 16-byte rows
+    (512 and 1024 chains: a warp's table of sums where A1*D <= 8; 16, 48
+    and 64 chains: the selects) and byte rows (37 chains, or a values
+    pointer off the 16-byte grid), D unrolled (1..8) and chunked (9, 12),
+    A1 1 and 2, Kw 1 and 2, with and without the delta.  The delta is
+    exact on 0/1 worlds; a draw may differ only where u lies within 1e-5
+    of p."""
+    s = _dm_streams(800 + 10 * D + 3 * A1 + Kw + NC, D, A1, Kw, NC)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in s.items()
+         if isinstance(v, np.ndarray)}
+    if misaligned:
+        flat = torch.empty(t["values"].numel() + 1, dtype=torch.int8,
+                           device=cuda_device)
+        t["values"] = flat[1:].view(t["values"].shape)
+        t["values"].copy_(torch.from_numpy(s["values"]))
+        assert t["values"].data_ptr() % 16 != 0
+    seed = torch.tensor([D + Kw, -NC], dtype=torch.int32, device=cuda_device)
+    for c in range(s["nbr"].shape[0]):
+        args = (t["values"], t["nbr"], t["starts"][c], t["base"], t["b1"],
+                t.get("b2"), t.get("bx"), c, seed, s["W"], s["TB"], D, A1,
+                Kw)
+        before = fused_dm_draw.launches
+        out, delta = fused_dm_draw(*args, return_delta=True)
+        torch.cuda.synchronize()
+        assert fused_dm_draw.launches == before + 1
+        assert torch.equal(fused_dm_draw(*args), out)
+        ref, ref_delta = fused_dm_draw_plain(*args, return_delta=True)
+        assert torch.equal(delta, ref_delta)
+        diff = out != ref
+        if bool(diff.any()):
+            rows, chains = diff.nonzero(as_tuple=True)
+            u = uniform24(hash_bits((rows % s["TB"]) * NC + chains,
+                                    u32(seed[0]),
+                                    tile_seed(seed[1], rows // s["TB"])))
+            assert bool(((u - torch.sigmoid(ref_delta[diff])).abs()
+                         < 1e-5).all())
+        assert int(diff.sum()) <= 1e-4 * out.numel()
