@@ -26,9 +26,18 @@ Phases (each prints one line with its result and elapsed seconds):
              sweep's time goes
   5 grad     the learning flagship (the 1024x1024 grid, every other
              variable labelled evidence, 256 chains a world): grad_pair_tile
-             against its plain version, and the whole kernel-route gradient
-             against the chunked route (banded_gather) and the per-factor
-             gradient; kernel time and bound
+             against its plain version (both colors, both coefficient
+             streams, two launches bit for bit), and the whole kernel-route
+             gradient against the chunked route (banded_gather) and the
+             per-factor gradient; every variant of the kernel on random
+             streams (GRAD_STREAM_CASES: 256, 512, 48 and 37 chains and a
+             world off the 16-byte grid, D = 1..9 and 24, 1, 2 and 64
+             weights, unaligned and clipped window starts, neighbours
+             around the window and past P, weight ids out of range, streams
+             off the 16-byte grid), each against its plain version and
+             twice bit for bit; kernel time (beside its time before the
+             redesign), bound, the L2 -> SM bytes as a diagnostic, the
+             flagship variant's ptxas registers and SASS issue bound
   6 learn    learn_mc on the learning flagship (10 epochs of 2 sweeps, the
              main learning path): launches, rate, peak memory and where an
              epoch's time goes (with one fused_color_draw launch at this
@@ -114,11 +123,25 @@ SFU_PER_CLOCK_PER_SM = 16     # Hopper's special-function units (log2)
 # one byte a thread (PERF.md §6, this script's phase 4 on an NVIDIA H100
 # 80GB HBM3, 700 W): printed beside this run's for reference only
 BYTE_A_THREAD_MS = {"fused_color_draw": 4.488, "banded_gather": 5.240}
-# the two kernels' times before their redesign for Hopper (records read
-# once, neighbours and candidates unrolled), when they looped over the
-# candidates / loaded a row after its index (PERF.md §6, this script's
-# phases 10 and 7 on an NVIDIA H100 80GB HBM3, 700 W): for reference only
-PRE_REDESIGN_MS = {"fused_cat_draw": 1.417, "fused_dm_draw": 0.522}
+# the kernels' times before their redesign for Hopper (records read once,
+# neighbours and candidates unrolled), when they looped over the
+# candidates / loaded a row after its index / took one record at a time
+# (PERF.md §6, this script's phases 10, 7 and 5 on an NVIDIA H100 80GB
+# HBM3, 700 W): for reference only
+PRE_REDESIGN_MS = {"fused_cat_draw": 1.417, "fused_dm_draw": 0.522,
+                   "grad_pair_tile": 0.6932}
+# (NC, D, n_weights, TB, ntiles, world off the 16-byte grid, streams off
+# it): every variant of grad_pair_tile, as tests/test_torch_grad.py's
+# CARD_CASES (16-byte rows in one pass of a warp's lanes at 256 and 48
+# chains, in two at 512; byte rows at 37 and off the grid; D unrolled
+# 1..8, chunked at 9 and 24; 4-byte stream copies for TB not a multiple
+# of 4 and for streams off the grid; a tile staged in two groups of rows)
+GRAD_STREAM_CASES = ([(nc, d, (1, 2, 64)[d % 3], 8, 6, False, False)
+                      for nc in (256, 512, 48, 37) for d in range(1, 10)]
+                     + [(48, 5, 2, 8, 6, True, False),
+                        (256, 5, 2, 6, 6, False, False),
+                        (256, 5, 64, 8, 6, False, True),
+                        (256, 24, 2, 64, 6, False, False)])
 WIDE_GRID = 128               # the Ising grid with every pair factor twice:
 WIDE_COPIES = 2               # degree 9, past the kernel's unrolled D = 1..8
 
@@ -214,8 +237,9 @@ def check_draws(out, ref, delta, seed, TB: int, NC: int) -> int:
 
 
 def off_grid(values):
-    """A copy of ``values`` whose data lies one byte off the 16-byte grid
-    (the kernels then take their byte variants)."""
+    """A copy of ``values`` whose data lies one element (a byte of int8)
+    off the 16-byte grid (the kernels then take their byte variants or
+    4-byte stream copies)."""
     import torch
 
     flat = torch.empty(values.numel() + 1, dtype=values.dtype,
@@ -356,6 +380,113 @@ def init_values_unchunked(dg, generator, n_chains: int, info,
     return torch.where((dg.var_role == 0)[:, None], rand_vals, base)
 
 
+def grad_streams(dev, NC: int, D: int, n_weights: int, seed: int,
+                 TB: int = 8, ntiles: int = 6, W: int = 200, P: int = 1000,
+                 C: int = 2) -> dict:
+    """Random streams of an affine2 tier of C colors, as
+    tests/test_torch_grad.py's: window starts anywhere in [0, P - W],
+    every other one clipped to P - W; neighbours from 40 below the window
+    to 40 past it, 5% at or past P and 5% negative; weight ids in [0,
+    n_weights), 5% -1 and 5% in [n_weights, n_weights + 3); random
+    coefficients and two random 0/1 worlds [P, NC]."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    def ur(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def rn(scale):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    shape = (C, ntiles, D * TB)
+    starts = ri(0, P - W + 1, (C, ntiles))
+    starts[:, ::2] = P - W
+    nbr = starts[:, :, None] + ri(-40, W + 40, shape)
+    u = ur(shape)
+    nbr = torch.where(u < 0.05, P + ri(0, 3, shape), nbr)
+    nbr = torch.where((u >= 0.05) & (u < 0.1), -1 - ri(0, 3, shape), nbr)
+    wid = ri(0, n_weights, shape)
+    u = ur(shape)
+    wid = torch.where(u < 0.05, -1, wid)
+    wid = torch.where(u > 0.95, n_weights + ri(0, 3, shape), wid)
+    own0 = [8 * c * (ntiles * TB // 8 + 1) for c in range(C)]
+    require(own0[-1] + ntiles * TB <= P, f"own rows past P={P}")
+    return dict(v_ev=ri(0, 2, (P, NC)).to(torch.int8),
+                v_free=ri(0, 2, (P, NC)).to(torch.int8),
+                nbr=nbr.to(torch.int32), starts=starts.to(torch.int32),
+                wid=wid.to(torch.int32), coef=rn(1.0), ao=rn(0.7),
+                an=rn(0.5), ax=rn(0.3), own0=own0, W=W)
+
+
+def grad_stream_case(dev, NC: int, D: int, n_weights: int, TB: int,
+                     ntiles: int, world_off: bool, streams_off: bool) -> float:
+    """grad_pair_tile against its plain version on grad_streams, both
+    colors, and two launches bit for bit; returns the largest error
+    relative to the largest |partial|."""
+    import torch
+
+    from sampler_tpu_torch.ops.grad import (grad_pair_tile,
+                                            grad_pair_tile_plain)
+
+    s = grad_streams(dev, NC, D, n_weights, 3000 + 97 * D + 13 * NC + TB,
+                     TB=TB, ntiles=ntiles)
+    worlds = [s["v_ev"], s["v_free"]]
+    streams = [s[k] for k in ("nbr", "wid", "coef", "ao", "an", "ax")]
+    if world_off:
+        worlds = [off_grid(v) for v in worlds]
+    if streams_off:
+        streams = [off_grid(x) for x in streams]
+    rel = 0.0
+    for c in range(2):
+        args = (*worlds, streams[0], s["starts"][c], *streams[1:], c,
+                s["own0"][c], s["W"], TB, D, n_weights)
+        got = grad_pair_tile(*args)
+        again = grad_pair_tile(*args)
+        ref = grad_pair_tile_plain(*args)
+        case = (f"NC={NC} D={D} n_weights={n_weights} TB={TB} "
+                f"world_off={world_off} streams_off={streams_off} c={c}")
+        require(torch.equal(got, again), f"grad_pair_tile: two launches "
+                f"differ ({case})")
+        e, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        require(scale > 0, f"grad_pair_tile: all partials are 0 ({case})")
+        require(e <= GRAD_RTOL * scale,
+                f"grad_pair_tile: |err| {e} of {scale} ({case})")
+        rel = max(rel, e / scale)
+    return rel
+
+
+def grad_kernel_report(dev, D: int, nt: int, TB: int) -> dict:
+    """The learning flagship's variant of grad_pair_tile (16-byte rows in
+    one pass, D unrolled): its ptxas registers and spills, its SASS, and
+    the issue bound they imply: the own-row loop's body (the innermost
+    loop with a shuffle) once a (tile, own row), issued at 4 warp
+    instructions a clock an SM at the card's maximum SM clock.  The code
+    outside that loop (the stream copies, unrolled, of which a warp runs
+    a few trips, and the table's sums) is not counted."""
+    import torch
+
+    from sampler_tpu_torch.ops import _build
+
+    frag = f"grad_pair_tile_kernelILi16ELi{D}ELb1E"
+    name = f"grad_pair_tile_kernel<16,{D},1>"
+    ptxas = [ln for ln in ptxas_summary(_build.build()[2])
+             if ln.startswith(name + ":")]
+    out = dict(ptxas=ptxas[0] if ptxas else None)
+    code = sass_code(_build.library_path(), frag)
+    if code is None:
+        return dict(out, sass_instructions=None, issue_bound_ms=None)
+    body = sass_loop_body(code, "SHFL")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return dict(out, sass_instructions=len(code),
+                sass_instructions_an_own_row=body,
+                issue_bound_ms=nt * TB * body / (4 * n_sm * sm_clock_hz())
+                * 1e3)
+
+
 def grad_phase(dev) -> tuple:
     """Phase 5.  Returns (graph, device graph, info, kernel numbers)."""
     import torch
@@ -398,13 +529,17 @@ def grad_phase(dev) -> tuple:
     for c in range(C):
         for coef in (ts.gd_ctch, ts.gd_cown):
             got = grad_pair_tile(*args(c, coef))
+            again = grad_pair_tile(*args(c, coef))
             ref = grad_pair_tile_plain(*args(c, coef))
+            require(torch.equal(got, again),
+                    f"grad_pair_tile color {c}: two launches differ")
             e, scale = float((got - ref).abs().max()), float(ref.abs().max())
             require(scale > 0, f"color {c}: all partials are 0")
             require(e <= GRAD_RTOL * scale,
                     f"grad_pair_tile color {c}: |err| {e} of {scale}")
             err, rel = max(err, e), max(rel, e / scale)
-            del got, ref
+            del got, again, ref
+    cases = [grad_stream_case(dev, *case) for case in GRAD_STREAM_CASES]
     row_chunk = _row_chunk(ti, ti.block, D, ti.arity, 2 * chains)
     routes = {}
     for lne in (False, True):
@@ -432,6 +567,9 @@ def grad_phase(dev) -> tuple:
 
     k = dict(ms=time_ms(lambda: grad_pair_tile(*args(0, ts.gd_ctch)),
                         iters=20),
+             ms_color1=time_ms(lambda: grad_pair_tile(*args(1, ts.gd_ctch)),
+                               iters=20),
+             pre_redesign_ms=PRE_REDESIGN_MS["grad_pair_tile"],
              plain_ms=time_ms(lambda: grad_pair_tile_plain(
                  *args(0, ts.gd_ctch)), iters=3, warmup=1),
              library_ms=None, max_abs_err=err)
@@ -450,12 +588,26 @@ def grad_phase(dev) -> tuple:
              + 8 * nt * D * TB / F32_OPS_PER_S) * 1e3
     k.update(bound_ms=max(t_bytes, t_ops),
              bound_by="bytes" if t_bytes >= t_ops else "operations",
-             bytes=nbytes, bound_ops_ms=t_ops)
+             bytes=nbytes, bound_ops_ms=t_ops,
+             achieved_TB_s=nbytes / k["ms"] * 1e-9)
+    # a diagnostic, not the bound: the bytes the SMs read from L2, with
+    # each neighbour row read once a tile (L1 serving the repeats inside a
+    # tile) and once a record
+    key = (torch.arange(nt, device=dev).reshape(nt, 1, 1) * Wb + local)[
+        (local >= 0) & (local < Wb)]
+    own_stream = 2 * chains * nt * TB + 6 * 4 * nt * D * TB
+    l2 = {"a_tile": own_stream + 2 * chains * int(torch.unique(key).numel()),
+          "a_record": own_stream + 2 * chains * n_in}
+    k["l2_to_sm"] = {label: dict(bytes=b, TB_s=b / k["ms"] * 1e-9)
+                     for label, b in l2.items()}
+    k.update(grad_kernel_report(dev, D, nt, TB))
     del v_ev, v_free
     report("5 grad", t5, compile_graph_s=round(compile_s, 3),
            P=d.var_card.shape[0], ntiles=nt, TB=TB, D=D, W_window=Wb,
            n_weights=W, NC=chains, records_in_window=n_in,
            partials_max_abs_err=err, partials_max_rel_err=rel,
+           stream_cases=dict(cases=len(cases), two_launches="bit for bit",
+                             max_rel_err=max(cases)),
            row_chunk=row_chunk, routes=routes, kernel=k)
     return g, d, info, k
 
@@ -1268,13 +1420,10 @@ def sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
-def sass_instructions(library: str, fragment: str, loop_trips: int = 1):
-    """Instructions a thread issues in the one kernel of ``library`` whose
-    mangled name contains ``fragment`` (its SASS from cuobjdump beside
-    nvcc), or None where cuobjdump is missing.  With ``loop_trips`` > 1 the
-    kernel has one loop the compiler kept (its one backward branch), whose
-    body counts that many times.  Branches the main path skips (the delta
-    or logits stores) count too."""
+def sass_code(library: str, fragment: str):
+    """The SASS, as (address, instruction) pairs, of the one kernel of
+    ``library`` whose mangled name contains ``fragment`` (from cuobjdump
+    beside nvcc), or None where cuobjdump is missing."""
     import os
     import re
 
@@ -1288,14 +1437,44 @@ def sass_instructions(library: str, fragment: str, loop_trips: int = 1):
     found = [f for f in re.split(r"\n\s+Function : ", sass)[1:]
              if fragment in f.split("\n", 1)[0]]
     require(len(found) == 1, f"{len(found)} kernels named like {fragment}")
-    code = [(int(m.group(1), 16), m.group(2)) for m in (
+    return [(int(m.group(1), 16), m.group(2)) for m in (
         re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(\S.*)", line)
         for line in found[0].splitlines()) if m]
-    if loop_trips == 1:
-        return len(code)
-    back = [(int(m.group(1), 16), addr) for addr, text in code
+
+
+def sass_loops(code) -> list:
+    """The loops of ``code`` as (first, last) addresses: one a backward
+    branch."""
+    import re
+
+    return [(int(m.group(1), 16), addr) for addr, text in code
             for m in [re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text)]
             if m and int(m.group(1), 16) < addr]
+
+
+def sass_loop_body(code, marker: str) -> int:
+    """Instructions in the innermost loop of ``code`` that holds an
+    instruction containing ``marker``."""
+    loops = [(lo, hi) for lo, hi in sass_loops(code)
+             if any(lo <= a <= hi and marker in t for a, t in code)]
+    require(bool(loops), f"no loop holds {marker}")
+    lo, hi = min(loops, key=lambda x: x[1] - x[0])
+    return sum(1 for a, _ in code if lo <= a <= hi)
+
+
+def sass_instructions(library: str, fragment: str, loop_trips: int = 1):
+    """Instructions a thread issues in the one kernel of ``library`` whose
+    mangled name contains ``fragment`` (its SASS from cuobjdump beside
+    nvcc), or None where cuobjdump is missing.  With ``loop_trips`` > 1 the
+    kernel has one loop the compiler kept (its one backward branch), whose
+    body counts that many times.  Branches the main path skips (the delta
+    or logits stores) count too."""
+    code = sass_code(library, fragment)
+    if code is None:
+        return None
+    if loop_trips == 1:
+        return len(code)
+    back = sass_loops(code)
     require(len(back) == 1, f"{fragment}: backward branches {back}")
     body = sum(1 for addr, _ in code if back[0][0] <= addr <= back[0][1])
     return len(code) + (loop_trips - 1) * body

@@ -13,17 +13,20 @@ the free world; p00 cancels):
     Σ_chains sgn·φ = ao·So + an·Sn + ax·Sx
     So = Σ sgn·own,  Sn = Σ sgn·v[nbr],  Sx = Σ sgn·own·v[nbr]
 
-A neighbour outside its tile's window ``[starts[t], starts[t] + W)``
-contributes 0 to Sn and Sx (the TPU kernel's one-hot window).  The partial
-of tile t for weight w is Σ_r [wid[r] == w]·coef[r]·(ao·So + an·Sn + ax·Sx)
-over the tile's D·TB records; the caller sums the partials over the tiles
-and divides by the chain count.
+A neighbour outside its tile's window ``[starts[t], starts[t] + W)``, or
+outside ``[0, P)``, contributes 0 to Sn and Sx (the TPU kernel's one-hot
+window).  The partial of tile t for weight w is
+Σ_r [wid[r] == w]·coef[r]·(ao·So + an·Sn + ax·Sx) over the tile's D·TB
+records; the caller sums the partials over the tiles and divides by the
+chain count.
 
 The CUDA kernel (csrc/grad_pair_tile.cu) reads the two worlds through two
 pointers, so no [P, 2NC] concatenation of them is made; its plain version
 here repeats its arithmetic in bounded tile batches: integer moments, then
-the coefficient arithmetic and the per-tile sums in float64, rounded to
-float32 once per partial.
+the coefficient arithmetic (``coef*((ao*So + an*Sn) + ax*Sx)``) and the
+per-tile sums in float64, rounded to float32 once per partial.  The two
+add a tile's records in different orders, so they may differ only in
+float64 rounding before that one float32 rounding.
 """
 from __future__ import annotations
 
@@ -71,13 +74,15 @@ def grad_pair_tile_plain(v_ev, v_free, nbr_dmaj, starts, wid, coef, ao, an,
         rows = slice(own0 + t0 * TB, own0 + t1 * TB)
         idx = nbr_dmaj[c, t0:t1].reshape(n, D, TB)
         local = idx - starts[t0:t1].reshape(n, 1, 1)
-        inside = (local >= 0) & (local < W)
+        inside = ((local >= 0) & (local < W) & (idx >= 0)
+                  & (idx < v_ev.shape[0]))
+        row = torch.where(inside, idx, 0).reshape(-1)
         So = torch.zeros((n, 1, TB), dtype=i32, device=dev)
         Sn = torch.zeros((n, D, TB), dtype=i32, device=dev)
         Sx = torch.zeros((n, D, TB), dtype=i32, device=dev)
         for world, sgn in ((v_ev, 1), (v_free, -1)):
             own = world[rows].to(i32).reshape(n, 1, TB, -1)
-            nbr = world.index_select(0, idx.reshape(-1)).to(i32) \
+            nbr = world.index_select(0, row).to(i32) \
                 .reshape(n, D, TB, -1)
             nbr = torch.where(inside[..., None], nbr, 0)
             So += sgn * own.sum(-1, dtype=i32)
