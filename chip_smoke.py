@@ -22,8 +22,13 @@ Phases (each prints one line with its result and elapsed seconds):
   4 flagship infer_mc on the 1024x1024 grid with 512 chains, fused (the main
              path) and unfused; kernel times (beside their times before
              the 16-byte redesign), bounds, achieved TB/s, the draw's
-             SASS issue bound, rates, peak memory, and where a fused
-             sweep's time goes
+             SASS issue bound, rates, peak memory, and where a counted
+             fused sweep's time goes (the draws, the tally, the rest);
+             the draw's world-write mode (the main path's) against its
+             output mode and the masked block write, bit for bit (every
+             color, an evidence mask, the sample-evidence mask, a block
+             shorter than the tiles drawn); tally_counts' time, bound and
+             plain (eager-pass) time on the flagship's world
   5 grad     the learning flagship (the 1024x1024 grid, every other
              variable labelled evidence, 256 chains a world): grad_pair_tile
              against its plain version (both colors, both coefficient
@@ -56,7 +61,7 @@ Phases (each prints one line with its result and elapsed seconds):
              48 one byte off the 16-byte grid (byte rows), and on random
              streams D = 1..9 and 12, Kw 1..3, W a power of two and not;
              kernel times (beside the time before the redesign), bounds,
-             the SASS issue bound
+             the SASS issue bound; the world-write mode as in phase 4
   8 oracle dm  infer_mc on three small fusedm graphs (triple grids with
              band_k 1 and 2, a 3-colored Ising grid), fused and unfused,
              against exact enumeration (|dp| < 0.01)
@@ -75,7 +80,8 @@ Phases (each prints one line with its result and elapsed seconds):
              variable's card), and on random streams D = 1..9 and 12, K =
              2..9 and 20; kernel time (beside the time before the
              redesign), plain time, a bound with three terms (bytes, f32
-             operations, logs at the SFU rate) and the SASS issue bound
+             operations, logs at the SFU rate) and the SASS issue bound;
+             the world-write mode as in phase 4
  11 oracle cat  infer_mc, fused and unfused, against exact enumeration
              (|dp| < 0.01) on a 16x16 evidence-clamped card-3 Potts grid
              (fused_cat_draw), fixtures.categorical_graph and mixed_graph
@@ -89,6 +95,27 @@ Phases (each prints one line with its result and elapsed seconds):
              sweeps): launches, rate, peak memory and an epoch by part;
              one banded_gather launch at the chunked gradient's shapes,
              and its launches' share of an epoch
+ 13 tally    tally_counts against its plain version, exactly, on the three
+             flagships' worlds (phases 4, 9, 12) and on random worlds
+             (TALLY_CASES: K = 2, 4, 17 and 200 at 37, 48 and 512 chains,
+             and 2000; int32 worlds above 127; values below 0 and at or
+             past K mixed in; aligned and one element off the 16-byte
+             grid)
+ 14 kbc oracle  the hub tier: infer_mc on tests/test_hub.py's star graphs
+             (boolean, hub_cap 6; card 3, hub_cap 5; chunks of 4) against
+             exact enumeration (|dp| < 0.01 and 0.012), and the chunked
+             gradient over dense and hub tiers against the per-factor one
+             (within 1e-4) on random_kbc_graph(300, 900, ...)
+ 15 kbc      bench.py's KBC inference cell: random_kbc_graph(500000,
+             1500000, skew 1.1, windows of 2000, 1e5 weights), greedy
+             coloring, RCM order, compile_graph(band_wmax=32768,
+             hub_cap=256), 1024 chains, the default modes; host seconds,
+             colors, tiers, rate over bench.py's 5 x 2 counted sweeps,
+             peak memory, and a sweep by part (gathers, the hub's
+             index_add_, draws, masked writes, tally)
+ 16 kbc learn  bench.py's KBC learning cell: random_kbc_graph(200000,
+             600000, 1e4 weights), half labelled, 256 chains a world, 10
+             epochs of 2 sweeps: rate, peak memory, an epoch by part
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failed check ends the run nonzero.
 The script imports neither JAX nor the JAX package.
@@ -144,6 +171,18 @@ GRAD_STREAM_CASES = ([(nc, d, (1, 2, 64)[d % 3], 8, 6, False, False)
                         (256, 24, 2, 64, 6, False, False)])
 WIDE_GRID = 128               # the Ising grid with every pair factor twice:
 WIDE_COPIES = 2               # degree 9, past the kernel's unrolled D = 1..8
+# (K, NC) of the tally's random worlds: every way it counts (registers at
+# K <= 16, a warp's shared histogram to 1024, global atomics above; int8
+# and int32 worlds) at 16-byte rows (48, 512) and byte rows (37)
+TALLY_CASES = [(K, nc) for K in (2, 4, 17, 200) for nc in (37, 48, 512)] \
+    + [(2000, 48)]
+TALLY_ROWS = 100_003
+KBC_ORACLE_CHAINS = 1024
+KBC_ORACLE_BURN, KBC_ORACLE_SWEEPS = 100, 1000
+KBC_VARS, KBC_CHAINS = 500_000, 1024      # bench.py's bench_kbc
+KBC_BURN = 2
+KBC_INNER, KBC_OUTER = 5, 2               # bench.py's counted sweeps
+KBC_LEARN_VARS = 200_000                  # bench.py's KBC learning cell
 
 
 def require(cond, msg: str) -> None:
@@ -328,6 +367,122 @@ def ising_case(d, info, values, seed) -> dict:
                 shifted_starts_clipped_to_P_minus_W=clipped,
                 fused_delta_max_abs_err=err, fused_draws_differing=n_diff,
                 fused_draws=n_draws)
+
+
+def world_write_check(draw, args, start: int, mask) -> int:
+    """One color step of ``draw`` in world-write mode against its output
+    mode followed by today's masked block write (torch.where + copy_),
+    from the same world (``args[0]``, left as it was) and seed: the two
+    worlds must be equal bit for bit.  Returns the rows that changed."""
+    import torch
+
+    world = args[0]
+    n = mask.shape[0]
+    out = draw(*args)
+    ref = world.clone()
+    blk = ref[start:start + n]
+    blk.copy_(torch.where(mask[:, None], out[:n], blk))
+    del out, blk
+    got = world.clone()
+    require(draw(got, *args[1:], write=(start, mask)) is got,
+            f"{draw.__name__}: world-write mode returned another tensor")
+    same = torch.equal(got, ref)
+    changed = int((got != world).any(dim=1).sum())
+    del got, ref
+    require(same, f"{draw.__name__}: the world after world-write mode "
+            f"differs from the output route's (block at {start}, {n} rows)")
+    return changed
+
+
+def world_write_cases(draw, make_args, d, info) -> dict:
+    """``draw``'s world-write mode against the output route on ``d``'s
+    one tier: every color under cm_resample; color 0 with every other row
+    clamped as evidence (label_half's pattern) and under cm_resample_ev
+    (sample_evidence); color 0 with a block 100 rows shorter than the
+    tiles drawn (rows past it must stay as they were).  ``make_args(c)``
+    gives the draw's arguments for color c."""
+    import torch
+
+    ts, ti = d.tiers[0], info.tiers[0]
+    B = info.block_size
+    res = {}
+    for c in range(info.n_colors):
+        res[f"c{c}"] = world_write_check(draw, make_args(c), c * B + ti.off,
+                                         ts.cm_resample[c])
+    m = ts.cm_resample[0]
+    ev = m & (torch.arange(m.shape[0], device=m.device) % 2 == 1)
+    res["c0_every_other_row_evidence"] = world_write_check(
+        draw, make_args(0), ti.off, ev)
+    res["c0_cm_resample_ev"] = world_write_check(
+        draw, make_args(0), ti.off, ts.cm_resample_ev[0])
+    res["c0_block_100_rows_short"] = world_write_check(
+        draw, make_args(0), ti.off, m[:ti.block - 100])
+    return dict(equal_bit_for_bit=True, rows_changed=res)
+
+
+def tally_case(values, K: int) -> dict:
+    """tally_counts against its plain version on ``values``, exactly, from
+    counts that start at 1."""
+    import torch
+
+    from sampler_tpu_torch.ops.tally import tally_counts, tally_plain
+
+    P, NC = values.shape
+    got = torch.ones((K, P), dtype=torch.int32, device=values.device)
+    ref = got.clone()
+    tally_counts(got, values)
+    tally_plain(ref, values)
+    err = int((got - ref).abs().max())
+    require(err == 0, f"tally_counts differs from its plain version by "
+            f"{err} (K={K}, NC={NC}, {values.dtype})")
+    return dict(K=K, NC=NC, P=P, dtype=str(values.dtype), max_abs_err=err)
+
+
+def sweep_breakdown(d, world, info, folded, modes, gen, draws: dict) -> dict:
+    """Where a counted sweep's time goes (CUDA events): one counted sweep
+    (sweep_mc, whose fused draws write into the world, then the tally),
+    the sweep alone and the tally alone; ``draws`` the draws' share from
+    their kernel times, the rest of the sweep what is left."""
+    import torch
+
+    from sampler_tpu_torch.engine.multichain import sweep_mc, tally
+
+    counts = torch.zeros((info.max_card, world.shape[0]), dtype=torch.int32,
+                         device=world.device)
+
+    def sweep():
+        sweep_mc(d, world, d.w_init, gen, False, info, folded, modes)
+
+    def counted():
+        sweep()
+        tally(counts, world)
+
+    counted_ms = time_ms(counted, iters=10)
+    sweep_ms = time_ms(sweep, iters=10)
+    parts = dict(draws, tally=time_ms(lambda: tally(counts, world), iters=10))
+    parts["rest_of_sweep"] = sweep_ms - sum(draws.values())
+    return dict(counted_sweep_ms=counted_ms, sweep_ms=sweep_ms,
+                parts_ms=parts)
+
+
+def tally_numbers(values, K: int) -> dict:
+    """tally_counts' time on ``values``, its plain version's, and its
+    bound: the world read once, counts read and written once.  Up to 16
+    values the plain version is the eager ``(values == k).sum`` passes the
+    port ran before the kernel, one PyTorch call a value: its time is also
+    the library yardstick."""
+    import torch
+
+    from sampler_tpu_torch.ops.tally import tally_counts, tally_plain
+
+    P = values.shape[0]
+    counts = torch.zeros((K, P), dtype=torch.int32, device=values.device)
+    nbytes = values.numel() * values.element_size() + 2 * K * P * 4
+    plain_ms = time_ms(lambda: tally_plain(counts, values), iters=5,
+                       warmup=1)
+    return dict(ms=time_ms(lambda: tally_counts(counts, values), iters=50),
+                plain_ms=plain_ms, library_ms=plain_ms if K <= 16 else None,
+                **kernel_bound(nbytes, 0))
 
 
 def epoch_parts(d, w, info, modes, v_ev, v_free, cfg, gen,
@@ -1042,11 +1197,15 @@ def dm_kernels_phase(dev) -> tuple:
         nt * TB * TRI_CHAINS))
     kern["banded_gather_multi"]["max_abs_err"] = 0.0    # required exact
     in_window = int(_multi_rows(rn, ts.bd_start[0], W, P)[1].sum())
+    world_write = world_write_cases(
+        fused_dm_draw,
+        lambda c: (values, ts.bd_dmnbr, ts.bd_start[c], *fold, c, seed, W,
+                   TB, D, A1, K), d, info)
     del values, fargs, gargs
     report("7 dm kernels", t7, compile_graph_s=round(compile_s, 3), P=P,
            colors=C, block=B, ntiles=nt, TB=TB, D=D, A1=A1, W=W, K=K, R=R,
            gather_slots_in_window=in_window, cases=cases,
-           stream_cases=streams, kernels=kern)
+           stream_cases=streams, world_write=world_write, kernels=kern)
     return g, d, info, kern
 
 
@@ -1118,29 +1277,30 @@ def oracle_dm_phase(dev) -> dict:
     return out
 
 
-def triple_phase(dev, card: str, g, d, info, kern) -> None:
+def triple_phase(dev, card: str, g, d, info, kern) -> dict:
     """Phase 9: the triple flagship's main path, fused and unfused, then
     one learning epoch on its labelled twin.  Fills in the launches of
-    ``kern``'s two entries."""
+    ``kern``'s two entries; returns the tally check on its world."""
     import torch
 
     from sampler_tpu_torch.engine.learn import LearnConfig
     from sampler_tpu_torch.engine.multichain import (infer_mc,
                                                      init_values_mc,
                                                      learn_mc, prepare_fold,
-                                                     resolve_modes, sweep_mc)
+                                                     resolve_modes)
     from sampler_tpu_torch.ops.banded import banded_gather_multi
     from sampler_tpu_torch.ops.fused import fused_dm_draw
+    from sampler_tpu_torch.ops.tally import tally_counts
 
     t9 = time.perf_counter()
-    C, P = info.n_colors, d.var_card.shape[0]
-    ti = info.tiers[0]
+    C = info.n_colors
     require(resolve_modes(info, dev) == ("cuda", "cuda"),
             f"default modes {resolve_modes(info, dev)}")
     runs = {}
     for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):
         fused_dm_draw.launches = 0
         banded_gather_multi.launches = 0
+        tally_counts.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tr = time.perf_counter()
@@ -1162,14 +1322,19 @@ def triple_phase(dev, card: str, g, d, info, kern) -> None:
             / wall,
             peak_memory_bytes=torch.cuda.max_memory_allocated(),
             launches={"fused_dm_draw": fused_dm_draw.launches,
-                      "banded_gather_multi": banded_gather_multi.launches},
+                      "banded_gather_multi": banded_gather_multi.launches,
+                      "tally_counts": tally_counts.launches},
             mean_p1=float(marg[:, 1].mean()))
+        if label == "fused":
+            tally_check = tally_case(vals, 2)
         del vals
     require(runs["fused"]["launches"] == {
-        "fused_dm_draw": C * (BURN + SWEEPS), "banded_gather_multi": 0},
+        "fused_dm_draw": C * (BURN + SWEEPS), "banded_gather_multi": 0,
+        "tally_counts": SWEEPS},
         f"fused path launches {runs['fused']['launches']}")
     require(runs["unfused"]["launches"] == {
-        "fused_dm_draw": 0, "banded_gather_multi": C * (BURN + SWEEPS)},
+        "fused_dm_draw": 0, "banded_gather_multi": C * (BURN + SWEEPS),
+        "tally_counts": SWEEPS},
         f"unfused path launches {runs['unfused']['launches']}")
     dp = abs(runs["fused"]["mean_p1"] - runs["unfused"]["mean_p1"])
     require(dp < 0.01, f"fused and unfused mean marginals differ by {dp}")
@@ -1178,28 +1343,16 @@ def triple_phase(dev, card: str, g, d, info, kern) -> None:
     kern["banded_gather_multi"]["launches"] = \
         runs["unfused"]["launches"]["banded_gather_multi"]
 
-    # where a fused sweep's time goes (CUDA events; after the counted runs)
+    # where a counted fused sweep's time goes (CUDA events; after the
+    # counted runs)
     modes = resolve_modes(info, dev)
     folded = prepare_fold(d, d.w_init, info, modes)
     gen_b = torch.Generator(device=dev).manual_seed(9)
     world = init_values_mc(d, gen_b, TRI_CHAINS, info)
-    counts = torch.zeros((2, P), dtype=torch.int32, device=dev)
-    block, drawn = world[:ti.block], torch.zeros_like(world[:ti.block])
-    ts = d.tiers[0]
-
-    def tally():
-        for k in range(2):
-            counts[k] += (world == k).sum(dim=1, dtype=torch.int32)
-
-    sweep_ms = time_ms(lambda: sweep_mc(d, world, d.w_init, gen_b, False,
-                                        info, folded, modes), iters=10)
-    parts = {"fused_dm_draw_x3": C * kern["fused_dm_draw"]["ms"],
-             "block_write_x3": C * time_ms(lambda: block.copy_(torch.where(
-                 ts.cm_resample[0][:, None], drawn, block)))}
-    parts["rest"] = sweep_ms - sum(parts.values())
-    breakdown = dict(sweep_ms=sweep_ms, parts_ms=parts,
-                     tally_ms=time_ms(tally))
-    del world, counts, block, drawn, folded
+    breakdown = sweep_breakdown(
+        d, world, info, folded, modes, gen_b,
+        {f"fused_dm_draw_x{C}": C * kern["fused_dm_draw"]["ms"]})
+    del world, folded
 
     # one learning epoch on the labelled flagship, 256 chains a world
     gl, dl, infol, compile_l = triple_flagship(dev, labelled=True)
@@ -1233,6 +1386,7 @@ def triple_phase(dev, card: str, g, d, info, kern) -> None:
     report("9 triple", t9, card=card, grid=f"{TRI_GRID}x{TRI_GRID}",
            chains=TRI_CHAINS, burn=BURN, sweeps=SWEEPS, runs=runs,
            fused_sweep_breakdown=breakdown, learning_epoch=learn)
+    return tally_check
 
 
 def potts_flagship(dev, labelled: bool = False, grid: int | None = None,
@@ -1604,10 +1758,15 @@ def cat_kernel_phase(dev) -> tuple:
     k.update(issue_bound(dev, sass_instructions(
         _build.library_path(), f"fused_cat_draw_kernelILi16ELi{D}ELi{K}E",
         loop_trips=4), pairs))
+    world_write = world_write_cases(
+        fused_cat_draw,
+        lambda c: (values, ts.bd_nbr, ts.bd_start[c], ts.bd_eqo, ts.bd_eqn,
+                   *fold, c, seed, W, TB, D, K), d, info)
     del values, args, fold
     report("10 cat kernel", t10, compile_graph_s=round(compile_s, 3), P=P,
            colors=C, block=ti.block, ntiles=nt, TB=TB, D=D, W=W, K=K,
-           cases=cases, stream_cases=streams, kernel=k)
+           cases=cases, stream_cases=streams, world_write=world_write,
+           kernel=k)
     return g, d, info, k
 
 
@@ -1682,9 +1841,10 @@ def oracle_cat_phase(dev) -> dict:
     return out
 
 
-def potts_phase(dev, card: str, g, d, info, kern) -> None:
+def potts_phase(dev, card: str, g, d, info, kern) -> dict:
     """Phase 12: the Potts flagship's main path, fused and unfused, then
-    learn_mc on its labelled twin.  Fills in the launches of ``kern``."""
+    learn_mc on its labelled twin.  Fills in the launches of ``kern``;
+    returns the tally check on its world."""
     import dataclasses
 
     import torch
@@ -1694,14 +1854,14 @@ def potts_phase(dev, card: str, g, d, info, kern) -> None:
     from sampler_tpu_torch.engine.multichain import (_row_chunk, infer_mc,
                                                      init_values_mc, learn_mc,
                                                      prepare_fold,
-                                                     resolve_modes, sweep_mc,
-                                                     tally)
+                                                     resolve_modes)
     from sampler_tpu_torch.ops.banded import (banded_gather,
                                               banded_gather_plain)
     from sampler_tpu_torch.ops.fused import fused_cat_draw
+    from sampler_tpu_torch.ops.tally import tally_counts
 
     t12 = time.perf_counter()
-    C, P, K = info.n_colors, d.var_card.shape[0], info.max_card
+    C, K = info.n_colors, info.max_card
     ti = info.tiers[0]
     require(resolve_modes(info, dev) == ("cuda", "cuda"),
             f"default modes {resolve_modes(info, dev)}")
@@ -1712,6 +1872,7 @@ def potts_phase(dev, card: str, g, d, info, kern) -> None:
     for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):
         fused_cat_draw.launches = 0
         banded_gather.launches = 0
+        tally_counts.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tr = time.perf_counter()
@@ -1733,38 +1894,35 @@ def potts_phase(dev, card: str, g, d, info, kern) -> None:
             / wall,
             peak_memory_bytes=torch.cuda.max_memory_allocated(),
             launches={"fused_cat_draw": fused_cat_draw.launches,
-                      "banded_gather": banded_gather.launches},
+                      "banded_gather": banded_gather.launches,
+                      "tally_counts": tally_counts.launches},
             mean_p=marg.mean(axis=0).tolist())
+        if label == "fused":
+            tally_check = tally_case(vals, K)
         del vals
     sweeps = C * (BURN + SWEEPS)
     require(runs["fused"]["launches"] == {
-        "fused_cat_draw": sweeps, "banded_gather": 0},
+        "fused_cat_draw": sweeps, "banded_gather": 0,
+        "tally_counts": SWEEPS},
         f"fused path launches {runs['fused']['launches']}")
     require(runs["unfused"]["launches"] == {
-        "fused_cat_draw": 0, "banded_gather": sweeps * blocks},
+        "fused_cat_draw": 0, "banded_gather": sweeps * blocks,
+        "tally_counts": SWEEPS},
         f"unfused path launches {runs['unfused']['launches']}")
     dp = max(abs(a - b) for a, b in zip(runs["fused"]["mean_p"],
                                         runs["unfused"]["mean_p"]))
     require(dp < 0.01, f"fused and unfused mean marginals differ by {dp}")
     kern["launches"] = runs["fused"]["launches"]["fused_cat_draw"]
 
-    # where a fused sweep's time goes (CUDA events; after the counted runs)
+    # where a counted fused sweep's time goes (CUDA events; after the
+    # counted runs)
     modes = resolve_modes(info, dev)
     folded = prepare_fold(d, d.w_init, info, modes)
     gen_b = torch.Generator(device=dev).manual_seed(9)
     world = init_values_mc(d, gen_b, CAT_CHAINS, info)
-    counts = torch.zeros((K, P), dtype=torch.int32, device=dev)
-    block, drawn = world[:ti.block], torch.zeros_like(world[:ti.block])
-    ts = d.tiers[0]
-    sweep_ms = time_ms(lambda: sweep_mc(d, world, d.w_init, gen_b, False,
-                                        info, folded, modes), iters=10)
-    parts = {f"fused_cat_draw_x{C}": C * kern["ms"],
-             f"block_write_x{C}": C * time_ms(lambda: block.copy_(
-                 torch.where(ts.cm_resample[0][:, None], drawn, block)))}
-    parts["rest"] = sweep_ms - sum(parts.values())
-    breakdown = dict(sweep_ms=sweep_ms, parts_ms=parts,
-                     tally_ms=time_ms(lambda: tally(counts, world)))
-    del world, counts, block, drawn, folded
+    breakdown = sweep_breakdown(d, world, info, folded, modes, gen_b,
+                                {f"fused_cat_draw_x{C}": C * kern["ms"]})
+    del world, folded
 
     # learning: bench.py's categorical learning configuration
     gl, dl, infol, compile_l = potts_flagship(dev, labelled=True)
@@ -1836,6 +1994,331 @@ def potts_phase(dev, card: str, g, d, info, kern) -> None:
            K=K, chains=CAT_CHAINS, burn=BURN, sweeps=SWEEPS,
            unfused_row_blocks_a_color=blocks, runs=runs,
            fused_sweep_breakdown=breakdown, learning=learn)
+    return tally_check
+
+
+def tally_phase(dev, checks: dict) -> dict:
+    """Phase 13: tally_counts against its plain version, exactly, on random
+    worlds (TALLY_CASES, values below 0 and at or past K mixed in), beside
+    the flagship worlds' checks of phases 4, 9 and 12 (``checks``)."""
+    import torch
+
+    t13 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = dict(checks)
+    for K, NC in TALLY_CASES:
+        dt = torch.int8 if K <= 127 else torch.int32
+        v = torch.randint(-3, min(K + 3, 127) if dt == torch.int8 else K + 3,
+                          (TALLY_ROWS, NC), generator=gen, device=dev,
+                          dtype=dt)
+        cases[f"K{K}_nc{NC}"] = tally_case(v, K)
+        # the same world one element off the 16-byte grid
+        cases[f"K{K}_nc{NC}_off_grid"] = tally_case(off_grid(v), K)
+        del v
+    report("13 tally", t13, rows=TALLY_ROWS, cases=cases)
+    return cases
+
+
+def star_graph(n_leaves: int, card: int = 2, seed: int = 0):
+    """tests/test_hub.py's star: one hub and ``n_leaves`` leaves, hub-leaf
+    EQUAL couplings (0.4) and ISTRUE biases (0.3); card > 2 makes it
+    categorical with random equality predicates."""
+    import numpy as np
+
+    from sampler_tpu_torch import FactorGraph
+    from sampler_tpu_torch import format_spec as fs
+
+    rng = np.random.default_rng(seed)
+    V = n_leaves + 1
+    factors = [(fs.FUNC_ISTRUE, 0, 1.0, [(v, True)]) for v in range(V)]
+    factors += [(fs.FUNC_EQUAL, 1, 1.0, [(0, True), (v, True)])
+                for v in range(1, V)]
+    g = FactorGraph.build(var_card=[card] * V, weights=[0.3, 0.4],
+                          factors=factors)
+    if card > 2:
+        g.var_dtype[:] = fs.DTYPE_CATEGORICAL
+        g.e_eqpred[:] = rng.integers(0, card, g.n_edges)
+    return g
+
+
+def kbc_oracle_phase(dev) -> dict:
+    """Phase 14: the hub tier on the card.  infer_mc on tests/test_hub.py's
+    star graphs against exact enumeration (|dp| < 0.01 boolean with
+    hub_cap 6 and chunks of 4; < 0.012 on the card-3 star with hub_cap 5,
+    the JAX package's bound); then the chunked gradient over dense and hub
+    tiers against the per-factor gradient (within 1e-4) on
+    random_kbc_graph(300, 900, ...) with hub_cap 8 and chunks of 4."""
+    import torch
+
+    from sampler_tpu_torch import oracle
+    from sampler_tpu_torch.benchgraphs import random_kbc_graph
+    from sampler_tpu_torch.coloring import greedy_coloring
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.engine.multichain import (infer_mc, init_values_mc,
+                                                     mc_weight_gradient,
+                                                     resolve_modes)
+    from sampler_tpu_torch.ops.tally import tally_counts
+
+    t14 = time.perf_counter()
+    out = {}
+    for name, g, cap, tol in (("star_bool", star_graph(14), 6, 0.01),
+                              ("star_card3", star_graph(12, 3, 4), 5, 0.012)):
+        dg, info = compile_graph(g, colors=greedy_coloring(g), hub_cap=cap,
+                                 hub_chunk=4)
+        require(info.has_hub and info.tiers[-1].hub
+                and info.tiers[-1].chunk_g == 4, f"{name}: {info.tiers}")
+        exact = oracle.exact_marginals(g)
+        d = to_device(dg, dev)
+        tally_counts.launches = 0
+        marg, _ = infer_mc(d, d.w_init,
+                           torch.Generator(device=dev).manual_seed(1),
+                           KBC_ORACLE_BURN, KBC_ORACLE_SWEEPS, info,
+                           KBC_ORACLE_CHAINS, device=dev)
+        dp = float(abs(marg[:, :exact.shape[1]] - exact).max())
+        require(dp < tol, f"{name}: |dp| = {dp} (bound {tol})")
+        require(tally_counts.launches == KBC_ORACLE_SWEEPS,
+                f"{name}: tally_counts launches {tally_counts.launches}")
+        out[name] = dict(max_abs_dp=dp, bound=tol, hub_cap=cap,
+                         modes=resolve_modes(info, dev),
+                         tally_counts_launches=tally_counts.launches)
+    g = random_kbc_graph(300, 900, max_arity=3, n_weights=11, seed=3,
+                         skew=1.2, evidence_frac=0.3)
+    dg, info = compile_graph(g, colors=greedy_coloring(g), hub_cap=8,
+                             hub_chunk=4)
+    require(info.has_hub, "random_kbc_graph(300, ...) has no hub tier")
+    d = to_device(dg, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    v_ev = init_values_mc(d, gen, 64, info)
+    v_free = init_values_mc(d, gen, 64, info)
+    grads = {}
+    for lne in (False, True):
+        g_cs = mc_weight_gradient(d, v_ev, v_free, lne, info,
+                                  resolve_modes(info, dev))
+        g_ref = mc_weight_gradient(d, v_ev, v_free, lne, info, None)
+        err = float((g_cs - g_ref).abs().max())
+        require(err < 1e-4, f"hub gradient (learn_non_evidence={lne}) "
+                f"differs from the per-factor one by {err}")
+        grads[f"learn_non_evidence_{lne}"] = dict(
+            max_abs_err=err, max_abs_grad=float(g_ref.abs().max()))
+    out["kbc300_gradient"] = grads
+    report("14 kbc oracle", t14, chains=KBC_ORACLE_CHAINS,
+           burn=KBC_ORACLE_BURN, sweeps=KBC_ORACLE_SWEEPS, graphs=out)
+    return out
+
+
+def kbc_graph(n_vars: int, n_weights: int, seed: int):
+    """bench.py's KBC shape: random_kbc_graph with 3 factors a variable,
+    arity up to 3, skew 1.1, document windows of 2000."""
+    from sampler_tpu_torch.benchgraphs import random_kbc_graph
+
+    return random_kbc_graph(n_vars, 3 * n_vars, max_arity=3,
+                            n_weights=n_weights, seed=seed, skew=1.1,
+                            window=2000)
+
+
+def kbc_sweep_parts(d, world, info, modes, gen) -> dict:
+    """Where an unfused KBC sweep's time goes, summed over its colors and
+    tiers (CUDA events, a few calls each): the neighbour gathers, the hub
+    tier's index_add_ of its chunks' deltas, the rest of the draws
+    (log-odds arithmetic and Bernoulli), the masked block writes, and the
+    tally; beside one whole counted sweep."""
+    import torch
+
+    from sampler_tpu_torch.compile import tier_geom
+    from sampler_tpu_torch.engine.multichain import (_gather_nbr, _tc,
+                                                     color_delta_bool,
+                                                     color_delta_multilin,
+                                                     color_draw_tier,
+                                                     prepare_fold, sweep_mc,
+                                                     tally)
+
+    folded = prepare_fold(d, d.w_init, info, modes)
+    C, B = info.n_colors, info.block_size
+    counts = torch.zeros((info.max_card, world.shape[0]), dtype=torch.int32,
+                         device=world.device)
+    parts = dict(gathers=0.0, hub_index_add=0.0, draws=0.0,
+                 masked_writes=0.0)
+    reps = dict(iters=2, warmup=1)
+    for c in range(C):
+        for t, (ts, ti) in enumerate(zip(d.tiers, info.tiers)):
+            rows, D, A = tier_geom(ts, ti, C)
+            if A > 1:
+                nbr = _tc(ts.cs_nbr, c, (rows, D, A - 1))
+                parts["gathers"] += time_ms(lambda: _gather_nbr(
+                    ts, ti, world, nbr, c, modes), **reps)
+            draw_ms = time_ms(lambda: color_draw_tier(
+                d, ts, ti, world, d.w_init, gen, c, info, folded[t], modes),
+                **reps)
+            if ti.hub:
+                dchunk = (color_delta_multilin(ts, ti, world, c, info,
+                                               folded[t], modes)
+                          if ti.deltam and folded[t] is not None else
+                          color_delta_bool(ts, ti, world, d.w_init, c, info,
+                                           modes))
+                row = ts.hb_row[c].to(torch.int64)
+                add_ms = time_ms(lambda: torch.zeros(
+                    (ti.block + 1, world.shape[1]), device=world.device)
+                    .index_add_(0, row, dchunk), **reps)
+                parts["hub_index_add"] += add_ms
+                draw_ms -= add_ms
+                del dchunk
+            parts["draws"] += draw_ms
+            drawn = color_draw_tier(d, ts, ti, world, d.w_init, gen, c, info,
+                                    folded[t], modes)
+            start = c * B + ti.off
+            old = world[start:start + ti.block]
+            mask = ts.cm_resample[c]
+            parts["masked_writes"] += time_ms(lambda: old.copy_(torch.where(
+                mask[:, None], drawn, old)), **reps)
+            del drawn
+    parts["draws"] -= parts["gathers"]          # the draws include them
+    parts["tally"] = time_ms(lambda: tally(counts, world), **reps)
+
+    def counted():
+        sweep_mc(d, world, d.w_init, gen, False, info, folded, modes)
+        tally(counts, world)
+
+    return dict(counted_sweep_ms=time_ms(counted, iters=3, warmup=1),
+                parts_ms=parts, parts_sum_ms=sum(parts.values()))
+
+
+def kbc_phase(dev, card: str) -> None:
+    """Phase 15: bench.py's KBC inference cell (bench_kbc): KBC_VARS
+    variables, greedy coloring, RCM order, compile_graph(band_wmax=32768,
+    hub_cap=256), KBC_CHAINS chains, the default modes; KBC_BURN burn-in
+    sweeps, then KBC_OUTER counted runs of KBC_INNER sweeps through
+    run_inference_mc (bench.py's 5 x 2)."""
+    import torch
+
+    from sampler_tpu_torch.coloring import greedy_coloring, rcm_order
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.engine.multichain import (init_values_mc,
+                                                     resolve_modes,
+                                                     run_inference_mc,
+                                                     run_sweeps_mc)
+    from sampler_tpu_torch.ops.tally import tally_counts
+
+    t15 = time.perf_counter()
+    g = kbc_graph(KBC_VARS, 100_000, 0)
+    host = {}
+    tc = time.perf_counter()
+    colors = greedy_coloring(g)
+    host["greedy_coloring_s"] = time.perf_counter() - tc
+    tc = time.perf_counter()
+    order = rcm_order(g)
+    host["rcm_order_s"] = time.perf_counter() - tc
+    tc = time.perf_counter()
+    dg, info = compile_graph(g, colors=colors, order=order, band_wmax=32768,
+                             hub_cap=256)
+    host["compile_graph_s"] = time.perf_counter() - tc
+    require(info.has_hub and info.tiers[-1].hub, f"KBC tiers {info.tiers}")
+    d = to_device(dg, dev)
+    del dg
+    modes = resolve_modes(info, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vals = init_values_mc(d, gen, KBC_CHAINS, info)
+    vals = run_sweeps_mc(d, vals, d.w_init, gen, KBC_BURN, False, info,
+                         modes, device=dev)
+    tally_counts.launches = 0
+    torch.cuda.synchronize()
+    tr = time.perf_counter()
+    for _ in range(KBC_OUTER):
+        vals, counts = run_inference_mc(d, vals, d.w_init, gen, KBC_INNER,
+                                        False, info, modes, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tr
+    launches = tally_counts.launches
+    require(launches == KBC_OUTER * KBC_INNER,
+            f"KBC: tally_counts launches {launches}")
+    P, K = vals.shape[0], info.max_card
+    per_pos = counts.reshape(K, P).sum(dim=0)
+    require(bool((per_pos == KBC_INNER * KBC_CHAINS).all()),
+            "KBC: a position's counts do not sum to sweeps x chains")
+    require(bool(((vals == 0) | (vals == 1)).all()), "KBC: non-boolean world")
+    run = dict(wall_s=wall,
+               variable_updates_per_s=info.n_vars * KBC_CHAINS * KBC_INNER
+               * KBC_OUTER / wall,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               world_bytes=vals.numel() * vals.element_size(),
+               tally_counts_launches=launches)
+    breakdown = kbc_sweep_parts(d, vals, info, modes, gen)
+    tiers = [dict(block=ti.block, degree=ti.degree, arity=ti.arity,
+                  band_w=ti.band_w, band_k=ti.band_k, deltam=ti.deltam,
+                  hub=ti.hub, chunks=ti.chunks, chunk_g=ti.chunk_g)
+             for ti in info.tiers]
+    del d, vals, counts
+    report("15 kbc", t15, card=card, n_vars=info.n_vars,
+           n_factors=info.n_factors, colors=info.n_colors, tiers=tiers,
+           has_hub=info.has_hub, modes=modes, host_seconds=host,
+           chains=KBC_CHAINS, burn=KBC_BURN, sweeps=f"{KBC_INNER}x{KBC_OUTER}",
+           run=run, sweep_breakdown=breakdown)
+
+
+def kbc_learn_phase(dev, card: str) -> None:
+    """Phase 16: bench.py's KBC learning cell (bench.py:274-288):
+    KBC_LEARN_VARS variables, greedy coloring, every other variable
+    labelled, band_wmax=32768, hub_cap=256, LEARN_CHAINS chains a world,
+    LEARN_EPOCHS epochs of LEARN_SWEEPS sweeps."""
+    import dataclasses
+
+    import torch
+
+    from sampler_tpu_torch import format_spec as fs
+    from sampler_tpu_torch.coloring import greedy_coloring
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.engine.learn import LearnConfig
+    from sampler_tpu_torch.engine.multichain import learn_mc, resolve_modes
+
+    t16 = time.perf_counter()
+    g = kbc_graph(KBC_LEARN_VARS, 10_000, 1)
+    colors = greedy_coloring(g)
+    label_half(g)
+    tc = time.perf_counter()
+    dg, info = compile_graph(g, colors=colors, band_wmax=32768, hub_cap=256)
+    compile_s = time.perf_counter() - tc
+    require(info.has_hub, f"KBC learning tiers {info.tiers}")
+    d = to_device(dg, dev)
+    del dg
+    cfg = LearnConfig(n_epochs=LEARN_EPOCHS, n_sweeps_per_epoch=LEARN_SWEEPS,
+                      stepsize=0.01, diminish=0.99, regularization="l2",
+                      reg_param=0.01)
+    learn_mc(d, d.w_init, torch.Generator(device=dev).manual_seed(1),
+             dataclasses.replace(cfg, n_epochs=1), info, LEARN_CHAINS,
+             device=dev)                                # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = time.perf_counter()
+    w, v_ev, v_free = learn_mc(d, d.w_init,
+                               torch.Generator(device=dev).manual_seed(2),
+                               cfg, info, LEARN_CHAINS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tr
+    n_sw = cfg.n_epochs * cfg.n_sweeps_per_epoch
+    nw = g.n_weights
+    require(bool(torch.isfinite(w).all()), "KBC learning: weights not finite")
+    require(int((w[:nw] != d.w_init[:nw]).sum()) > nw // 2,
+            "KBC learning: most weights did not move")
+    ev = (d.var_role == fs.ROLE_EVIDENCE) & (d.var_card > 1)
+    require(bool((v_ev[ev] == d.var_init.to(v_ev.dtype)[ev, None]).all()),
+            "KBC learning: the evidence world lost a label")
+    learn = dict(chains=LEARN_CHAINS, epochs=cfg.n_epochs,
+                 sweeps_per_epoch=cfg.n_sweeps_per_epoch,
+                 compile_graph_s=compile_s, wall_s=wall,
+                 learning_sweeps_per_s=n_sw / wall,
+                 learning_updates_per_s=info.n_vars * n_sw * 2
+                 * LEARN_CHAINS / wall,
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 weights_moved=int((w[:nw] != d.w_init[:nw]).sum()),
+                 max_abs_weight=float(w.abs().max()))
+    learn["epoch_breakdown_ms"] = epoch_parts(
+        d, w, info, resolve_modes(info, dev), v_ev, v_free, cfg,
+        torch.Generator(device=dev).manual_seed(3), reps=1)
+    del d, v_ev, v_free
+    report("16 kbc learn", t16, card=card, n_vars=info.n_vars,
+           colors=info.n_colors, tiers=len(info.tiers), has_hub=info.has_hub,
+           learning=learn)
 
 
 def main() -> int:
@@ -1862,12 +2345,13 @@ def main() -> int:
     from sampler_tpu_torch.engine.multichain import (infer_mc,
                                                      init_values_mc,
                                                      prepare_fold,
-                                                     resolve_modes, sweep_mc)
+                                                     resolve_modes)
     from sampler_tpu_torch.ops import _build
     from sampler_tpu_torch.ops.banded import (banded_gather,
                                               banded_gather_plain)
     from sampler_tpu_torch.ops.fused import (fold_affine, fused_color_draw,
                                              fused_color_draw_plain)
+    from sampler_tpu_torch.ops.tally import tally_counts
 
     # ---- 1: build ---------------------------------------------------------
     t1 = time.perf_counter()
@@ -2000,12 +2484,23 @@ def main() -> int:
             sass_instructions_a_thread=sass,
             issue_bound_ms=issue_bound(dev, sass,
                                        nt * TB * CHAINS)["issue_bound_ms"])
+    # the draw's world-write mode (the main path's) against the output
+    # route and the masked block write, bit for bit
+    world_write = world_write_cases(
+        fused_color_draw,
+        lambda c: (values, ts.bd_nbr, ts.bd_start[c], beta, base, c, seed, W,
+                   TB, D), d, info)
+    # the tally kernel on the flagship's world: its numbers, and exactly
+    # its plain version's counts
+    kern["tally_counts"] = tally_numbers(values, 2)
+    tally_checks = {"ising_flagship": tally_case(values, 2)}
     del values, fargs
 
     runs = {}
     for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):
         fused_color_draw.launches = 0
         banded_gather.launches = 0
+        tally_counts.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tr = time.perf_counter()
@@ -2016,7 +2511,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - tr
         launches = {"fused_color_draw": fused_color_draw.launches,
-                    "banded_gather": banded_gather.launches}
+                    "banded_gather": banded_gather.launches,
+                    "tally_counts": tally_counts.launches}
         require(marg.shape == (g.n_vars, 2), f"marginals {marg.shape}")
         require(bool((marg >= 0).all() and (marg <= 1).all()),
                 "marginals outside [0, 1]")
@@ -2034,38 +2530,33 @@ def main() -> int:
             == C * (BURN + SWEEPS), "fused path: fused_color_draw launches")
     require(runs["unfused"]["launches"]["banded_gather"]
             == C * (BURN + SWEEPS), "unfused path: banded_gather launches")
+    require(all(r["launches"]["tally_counts"] == SWEEPS
+                for r in runs.values()), "tally_counts launches")
     dp = abs(runs["fused"]["mean_p1"] - runs["unfused"]["mean_p1"])
     require(dp < 0.01, f"fused and unfused mean marginals differ by {dp}")
-    # where a fused sweep's time goes (CUDA events; after the counted runs)
+    # where a counted fused sweep's time goes (CUDA events; after the
+    # counted runs): the draws write into the world, so the sweep is the
+    # draws and what is left; then the tally
     modes = resolve_modes(info, dev)
     folded = prepare_fold(d, d.w_init, info, modes)
     gen_b = torch.Generator(device=dev).manual_seed(9)
     world = init_values_mc(d, gen_b, CHAINS, info)
-    counts = torch.zeros((2, P), dtype=torch.int32, device=dev)
-    block, drawn = world[:B], torch.zeros_like(world[:B])
-
-    def tally():
-        for k in range(2):
-            counts[k] += (world == k).sum(dim=1, dtype=torch.int32)
-
-    sweep_ms = time_ms(lambda: sweep_mc(d, world, d.w_init, gen_b, False,
-                                        info, folded, modes), iters=10)
-    parts = {"fused_color_draw_x2": 2 * kern["fused_color_draw"]["ms"],
-             "block_write_x2": 2 * time_ms(lambda: block.copy_(torch.where(
-                 ts.cm_resample[0][:, None], drawn, block)))}
-    parts["rest"] = sweep_ms - sum(parts.values())
-    breakdown = dict(sweep_ms=sweep_ms, parts_ms=parts,
-                     tally_ms=time_ms(tally))
-    del world, counts, block, drawn, d, ds, folded
+    breakdown = sweep_breakdown(
+        d, world, info, folded, modes, gen_b,
+        {"fused_color_draw_x2": 2 * kern["fused_color_draw"]["ms"]})
+    del world, d, ds, folded
     kern["fused_color_draw"].update(
         launches=runs["fused"]["launches"]["fused_color_draw"],
         max_abs_err=fused_err)
     kern["banded_gather"].update(
         launches=runs["unfused"]["launches"]["banded_gather"],
         max_abs_err=0.0)
+    kern["tally_counts"].update(
+        launches=runs["fused"]["launches"]["tally_counts"], max_abs_err=0.0)
     report("4 flagship", t4, card=card, grid=f"{GRID}x{GRID}", chains=CHAINS,
-           burn=BURN, sweeps=SWEEPS, runs=runs, kernels=kern,
-           fused_sweep_breakdown=breakdown)
+           burn=BURN, sweeps=SWEEPS, runs=runs,
+           kernels={k: v for k, v in kern.items() if k != "tally_counts"},
+           fused_world_write=world_write, fused_sweep_breakdown=breakdown)
 
     # ---- 5, 6: the learning flagship --------------------------------------
     g, d, info, kern["grad_pair_tile"] = grad_phase(dev)
@@ -2077,14 +2568,24 @@ def main() -> int:
     g, d, info, dm_kern = dm_kernels_phase(dev)
     kern.update(dm_kern)
     oracle_dm_phase(dev)
-    triple_phase(dev, card, g, d, info, kern)
+    tally_checks["triple_flagship"] = triple_phase(dev, card, g, d, info,
+                                                   kern)
     del d
 
     # ---- 10, 11, 12: the categorical class ------------------------------
     g, d, info, kern["fused_cat_draw"] = cat_kernel_phase(dev)
     oracle_cat_phase(dev)
-    potts_phase(dev, card, g, d, info, kern["fused_cat_draw"])
+    tally_checks["potts_flagship"] = potts_phase(dev, card, g, d, info,
+                                                 kern["fused_cat_draw"])
     del d
+
+    # ---- 13: the tally kernel ---------------------------------------------
+    tally_phase(dev, tally_checks)
+
+    # ---- 14, 15, 16: the KBC class (the hub tier) --------------------------
+    kbc_oracle_phase(dev)
+    kbc_phase(dev, card)
+    kbc_learn_phase(dev, card)
 
     sources = {"fused_color_draw": ("sampler_tpu_torch/csrc/"
                                     "fused_color_draw.cu",
@@ -2099,7 +2600,11 @@ def main() -> int:
                                        "banded_gather_multi.cu",
                                        "sampler_tpu/ops/banded.py:329"),
                "fused_cat_draw": ("sampler_tpu_torch/csrc/fused_cat_draw.cu",
-                                  "sampler_tpu/ops/fused.py:506")}
+                                  "sampler_tpu/ops/fused.py:506"),
+               # no Pallas kernel: the tallies XLA fuses into the jitted
+               # sweep loop of _run_inference_mc
+               "tally_counts": ("sampler_tpu_torch/csrc/tally_counts.cu",
+                                "sampler_tpu/engine/multichain.py:676")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": k["launches"],

@@ -91,6 +91,58 @@ def greedy_coloring(graph: FactorGraph) -> np.ndarray:
     return colors
 
 
+def rcm_order(graph: FactorGraph) -> np.ndarray:
+    """Bandwidth-reducing variable rank (reverse Cuthill-McKee).
+
+    Returns int64 [V] ranks; pass as ``compile_graph(order=...)`` so each
+    (color, tier) segment is laid out in RCM order — neighbors then sit
+    close in the position space, the per-tile read spread (bd_lo/bd_hi)
+    shrinks, and the banded MXU gather + halo exchange engage on irregular
+    graphs, not just grids (ops/banded.py header promise; VERDICT.md r2
+    next-round #2).  scipy's csgraph implementation when available; a plain
+    BFS ordering is the fallback (same asymptotic bandwidth behavior).
+    """
+    V = graph.n_vars
+    indptr, indices = variable_adjacency(graph)
+    try:
+        import scipy.sparse as sp
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+        adj = sp.csr_matrix(
+            (np.ones(len(indices), np.int8), indices, indptr), shape=(V, V))
+        perm = np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True),
+                          np.int64)
+    except ImportError:                                    # pragma: no cover
+        perm = _bfs_order(indptr, indices, V)
+    rank = np.empty(V, np.int64)
+    rank[perm] = np.arange(V)
+    return rank
+
+
+def _bfs_order(indptr, indices, V: int) -> np.ndarray:     # pragma: no cover
+    """Fallback BFS ordering (component by component, min-degree seeds)."""
+    from collections import deque
+
+    degree = np.diff(indptr)
+    seen = np.zeros(V, bool)
+    out = np.empty(V, np.int64)
+    n = 0
+    for seed in np.argsort(degree, kind="stable"):
+        if seen[seed]:
+            continue
+        q = deque([seed])
+        seen[seed] = True
+        while q:
+            v = q.popleft()
+            out[n] = v
+            n += 1
+            for u in indices[indptr[v]:indptr[v + 1]]:
+                if not seen[u]:
+                    seen[u] = True
+                    q.append(u)
+    return out[:n]
+
+
 def validate_coloring(graph: FactorGraph, colors: np.ndarray) -> None:
     """Raise if any factor has two distinct members with equal colors."""
     src, dst = factor_member_pairs(graph)

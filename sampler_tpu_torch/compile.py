@@ -1,11 +1,10 @@
 """Compile a host FactorGraph into the padded, rectangular device layout.
 
 Copy of the host part of sampler_tpu/compile.py (numpy only; the port
-imports nothing of the JAX package).  Left out: the JAX package's native
-multithreaded C++ stream code (its numpy specification is kept, so the
-streams are identical) and the chunked-CSR hub tier, which the port does not
-run yet (compile_graph raises NotImplementedError for a graph that needs
-one).  to_device moves the streams to torch tensors.
+imports nothing of the JAX package), the chunked-CSR hub tier included.
+Left out: the JAX package's native multithreaded C++ stream code (its numpy
+specification is kept, so the streams are identical).  to_device moves the
+streams to torch tensors.
 
 Equivalent role to the reference's FactorGraph::compile() →
 CompiledFactorGraph (ref: src/factor_graph.cc — recalled), but the layout is
@@ -367,7 +366,8 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
                   max_tiers: int = 4,
                   shards: int = 1,
                   order: np.ndarray | None = None,
-                  hub_cap: int = 2048) -> tuple[DeviceGraph,
+                  hub_cap: int = 2048,
+                  hub_chunk: int = 512) -> tuple[DeviceGraph,
                                                  CompileInfo]:
     """Build the padded color-major, degree-tiered device layout.
 
@@ -381,9 +381,11 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
     order: optional int ordering key per variable (smaller = earlier within
     its (color, tier) segment) — e.g. an RCM rank for bandwidth reduction;
     default keeps original-id order.
-    hub_cap: in the JAX package variables with more than ``hub_cap``
-    incident factors go to a chunked-CSR HUB tier; the port raises
-    NotImplementedError for such a graph until that tier is ported.
+    hub_cap / hub_chunk: variables with more than ``hub_cap`` incident
+    factors go to a chunked-CSR HUB tier (``hub_chunk`` records per chunk)
+    instead of a dense [B, D, A] tier — a power-law head variable must not
+    inflate the padded stream volume by its own degree (SURVEY.md §7
+    hard-part 2).
     """
     graph.validate()
     V, F, E = graph.n_vars, graph.n_factors, graph.n_edges
@@ -411,13 +413,19 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
         maxA_v = np.where(degree_v > 0, red, 1)
 
     # --- degree tiers (hubs split off first) ------------------------------
-    n_hub = int((degree_v > hub_cap).sum())
+    is_hub = degree_v > hub_cap
+    n_hub = int(is_hub.sum())
     if n_hub:
-        raise NotImplementedError(
-            f"{n_hub} variables exceed hub_cap={hub_cap}: the chunked-CSR "
-            "hub tier (compile._build_hub_tier, multichain.hub_color_draw) "
-            "is not ported yet")
-    tier_of_v, T = plan_tiers(degree_v, maxA_v, max_tiers)
+        dense = ~is_hub
+        tier_of_v = np.zeros(V, np.int32)
+        td, T = plan_tiers(degree_v[dense], maxA_v[dense], max_tiers)
+        tier_of_v[dense] = td
+        tier_of_v[is_hub] = T          # hub tier is the LAST tier
+        hub_tier = T
+        T = T + 1
+    else:
+        tier_of_v, T = plan_tiers(degree_v, maxA_v, max_tiers)
+        hub_tier = -1
 
     # --- per-(color, tier) counts -> padded tier blocks -------------------
     gidx = colors.astype(np.int64) * T + tier_of_v
@@ -426,7 +434,7 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
     try_band_t = np.zeros(T, bool)
     for t in range(T):
         b = _round_up(max(int(gcnt[:, t].max()), 1), align)
-        if band_tile > 0 and b >= band_min_block:
+        if band_tile > 0 and b >= band_min_block and t != hub_tier:
             # x8: the fused kernels read their [C, ntiles, R] streams in
             # (1, 8, R) blocks (Mosaic requires the penultimate block dim
             # divisible by 8), so ntiles must be a multiple of 8 — per
@@ -490,6 +498,11 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
     # device lookup needs NO mask (SURVEY.md §7 hard-part 3: hash-free).
     ZERO_WID = graph.n_weights
     has_cw = graph.cw_fid is not None and len(graph.cw_fid) > 0
+    if has_cw and n_hub:
+        raise ValueError(
+            f"sparse per-combination weights cannot combine with hub-tier "
+            f"variables yet ({n_hub} variables exceed hub_cap={hub_cap}); "
+            "raise hub_cap or use dense weights")
     if has_cw:
         f_cwbase_full = np.full(F + 1, -1, np.int64)
         f_cwstride_full = np.zeros((F + 1, A), np.int64)
@@ -542,14 +555,23 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
     tier_infos = []
     for t in range(T):
         sel = tier_of_pair == t
-        ts, ti = _build_tier(
-            t, int(off[t]), int(Bt[t]), C, B, P, DUMMY,
-            up[sel], uf[sel], rloc[sel],
-            f_vids, f_ispos, f_eqpred, f_mask, f_type, f_arity, f_wid,
-            f_feat, f_minpos, f_touch, f_cwbase, f_cwstride,
-            var_card, var_role,
-            A, K, eq_dtype, all_boolean, has_cw,
-            bool(try_band_t[t]), band_tile, band_wmax)
+        if t == hub_tier:
+            ts, ti = _build_hub_tier(
+                int(off[t]), int(Bt[t]), C, B, P, DUMMY,
+                up[sel], uf[sel], rloc[sel],
+                f_vids, f_ispos, f_eqpred, f_mask, f_type, f_arity, f_wid,
+                f_feat, f_minpos, f_touch,
+                var_card, var_role,
+                K, eq_dtype, all_boolean, hub_chunk, shards)
+        else:
+            ts, ti = _build_tier(
+                t, int(off[t]), int(Bt[t]), C, B, P, DUMMY,
+                up[sel], uf[sel], rloc[sel],
+                f_vids, f_ispos, f_eqpred, f_mask, f_type, f_arity, f_wid,
+                f_feat, f_minpos, f_touch, f_cwbase, f_cwstride,
+                var_card, var_role,
+                A, K, eq_dtype, all_boolean, has_cw,
+                bool(try_band_t[t]), band_tile, band_wmax)
         tiers.append(ts)
         tier_infos.append(ti)
 
@@ -576,7 +598,7 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
         affine2=any(ti.affine2 for ti in tier_infos),
         affinek=any(ti.affinek for ti in tier_infos),
         fusedm=any(ti.fusedm for ti in tier_infos),
-        has_hub=False,
+        has_hub=n_hub > 0,
         has_sparse_cw=has_cw,
         tiers=tuple(tier_infos),
     )
@@ -899,6 +921,172 @@ def _build_tier(t: int, off_t: int, Bt: int, C: int, B: int, P: int,
         band_k=band_k,
         bounds=bounds, affine2=affine2, affinek=affinek, deltam=deltam,
         fusedm=fusedm,
+        present_funcs=present_t,
+    )
+    return ts, ti
+
+
+def _build_hub_tier(off_t: int, Bt: int, C: int, B: int, P: int,
+                    DUMMY: int, up, uf, rloc,
+                    f_vids, f_ispos, f_eqpred, f_mask, f_type, f_arity,
+                    f_wid, f_feat, f_minpos, f_touch,
+                    var_card, var_role,
+                    K: int, eq_dtype, all_boolean: bool,
+                    G: int, shards: int = 1) -> tuple[TierStreams, TierInfo]:
+    """Assemble the chunked-CSR hub tier.
+
+    (up, uf, rloc): this tier's (position, factor, row-in-color-block)
+    incidence pairs.  Records are laid out [C, M, G, A_h]: every chunk of
+    G records belongs to ONE tier-local variable row (hb_row), chunks of a
+    variable are consecutive, pads point at the dummy factor / row Bt.
+    The engine evaluates chunks exactly like dense-tier rows (same stream
+    conventions), then segment-sums chunk contributions to rows.
+    """
+    n = len(uf)
+    A_h = max(int(f_arity[uf].max()) if n else 1, 1)
+    A1 = A_h - 1
+    present_t = (tuple(sorted(int(x) for x in np.unique(f_type[uf])))
+                 if n else ())
+
+    rows_t = (up // B) * Bt + (rloc - off_t)       # [n] in [0, C*Bt)
+    order = np.argsort(rows_t, kind="stable")
+    sp, sf, spos = rows_t[order], uf[order], up[order]
+    starts = np.searchsorted(sp, np.arange(C * Bt))
+    posn = np.arange(n, dtype=np.int64) - starts[sp]
+    ck_in_row = posn // G
+    slot = (posn % G).astype(np.int64)
+    # global chunk ids -> per-color padded chunk index
+    maxck = int(ck_in_row.max()) + 1 if n else 1
+    cuid = sp * maxck + ck_in_row
+    uniq, inv = np.unique(cuid, return_inverse=True)
+    urow = uniq // maxck                            # [n_chunks] in [0,C*Bt)
+    ucol = urow // Bt
+    ckcnt = np.bincount(ucol, minlength=C)
+    # chunk count padded so the graph axis can split each color's chunk
+    # run evenly (pad chunks map to the dummy row Bt, a dropped segment)
+    M = _round_up(max(int(ckcnt.max()), 1), max(shards, 1))
+    ckstart = np.searchsorted(ucol, np.arange(C))
+    ulocal = np.arange(len(uniq)) - ckstart[ucol]   # chunk rank in color
+    # per-record destination (color, local chunk, slot)
+    rcol = ucol[inv]
+    rck = ulocal[inv]
+
+    hb_row = np.full((C, M), Bt, np.int32)          # pad -> dummy row Bt
+    hb_row[ucol, ulocal] = (urow % Bt).astype(np.int32)
+
+    def full(shape, fill, dt):
+        return np.full((C, M, G) + shape, fill, dt)
+
+    cs_nbr = full((A1,), DUMMY, np.int32)
+    cs_ismine = full((A_h,), False, bool)
+    cs_hmask = full((A_h,), False, bool)
+    cs_pos = full((A_h,), False, bool)
+    cs_mask = full((A_h,), False, bool)
+    cs_eq = (np.ones((C, 1, 1, 1), eq_dtype) if all_boolean
+             else full((A_h,), 0, eq_dtype))
+    cs_type = full((), fs.FUNC_AND, np.int8)
+    cs_arity = full((), 1, np.int16)
+    cs_wid = full((), 0, np.int32)
+    cs_feat = full((), 0.0, np.float32)
+    cs_gowner = full((), False, bool)
+    cs_gtouch = full((), False, bool)
+
+    CHUNK = max(1, (1 << 24) // max(A_h, 1))
+    take = np.take_along_axis
+    iota_a = np.arange(A_h, dtype=np.int16)[None, :]
+    for r0 in range(0, n, CHUNK):
+        r1 = min(r0 + CHUNK, n)
+        f = sf[r0:r1]
+        own = spos[r0:r1].astype(np.int32)[:, None]
+        mv = f_vids[f][:, :A_h]                     # [m, A_h]
+        ismine = mv == own
+        ar = f_arity[f]
+        msk = f_mask[f][:, :A_h]
+        hm = (iota_a == ar[:, None] - 1) & msk
+        pos = f_ispos[f][:, :A_h]
+        eq = None if all_boolean else f_eqpred[f][:, :A_h]
+        if A_h == 2:
+            sw = (ismine[:, 0] & ~ismine[:, 1])[:, None]
+
+            def permute(x):
+                return np.where(sw, x[:, ::-1], x)
+        else:
+            perm = np.argsort(ismine, axis=-1, kind="stable")
+
+            def permute(x):
+                return take(x, perm, axis=-1)
+
+        mv_p = permute(mv)
+        ismine_p = permute(ismine)
+        dst = (rcol[r0:r1], rck[r0:r1], slot[r0:r1])
+        cs_nbr[dst] = np.where(ismine_p, np.int32(DUMMY), mv_p)[:, :A1]
+        cs_ismine[dst] = ismine_p
+        cs_hmask[dst] = permute(hm)
+        cs_pos[dst] = permute(pos)
+        cs_mask[dst] = permute(msk)
+        if not all_boolean:
+            cs_eq[dst] = permute(eq)
+        cs_type[dst] = f_type[f]
+        cs_arity[dst] = ar
+        cs_wid[dst] = f_wid[f]
+        cs_feat[dst] = f_feat[f]
+        gown = f_minpos[f] == own[:, 0]
+        cs_gowner[dst] = gown
+        cs_gtouch[dst] = gown & f_touch[f]
+
+    # multilinear delta-φ coefficients for the hub chunks (same corner
+    # construction as the dense tiers; the hub draw segment-sums chunk
+    # deltas onto rows, so per-chunk coefficients compose directly)
+    deltam = bool(all_boolean and 2 <= A_h <= 3)
+    if deltam:
+        dm_a, dm_b1, dm_b2, dm_x = _deltam_streams(
+            cs_ismine, cs_pos, cs_mask, cs_hmask, cs_type, present_t, A_h)
+    else:
+        dm_a = dm_b1 = dm_b2 = dm_x = np.zeros((C, 1, 1), np.float32)
+
+    # row-level draw masks (rows off_t..off_t+Bt of each color block)
+    cm_view = lambda a: a[:-1].reshape(C, B)[:, off_t:off_t + Bt]
+    cm_card = cm_view(var_card).copy()
+    cm_role = cm_view(var_role).copy()
+    cm_kmask = np.where(
+        np.arange(K)[None, None, :] < cm_card[:, :, None], 0.0, -1e30
+    ).astype(np.float32)
+    cm_resample = (cm_role == 0) & (cm_card > 1)
+    cm_resample_ev = cm_card > 1
+
+    z32 = np.zeros((C, 1), np.int32)
+    ts = TierStreams(
+        cs_nbr=cs_nbr, cs_ismine=cs_ismine, cs_hmask=cs_hmask,
+        cs_pos=cs_pos, cs_eq=cs_eq, cs_mask=cs_mask,
+        cs_type=cs_type, cs_arity=cs_arity, cs_wid=cs_wid, cs_feat=cs_feat,
+        cs_gowner=cs_gowner, cs_gtouch=cs_gtouch,
+        cs_issparse=np.zeros((C, 1, 1), bool),
+        cs_cwbase=np.zeros((C, 1, 1), np.int32),
+        cs_cwstride=np.zeros((C, 1, 1, 1), np.int32),
+        bd_start=z32, bd_rnbr=np.zeros((C, 1, 1), np.int32),
+        bd_lo=z32, bd_hi=z32,
+        bd_nbr=np.zeros((C, 1, 1), np.int32),
+        ab_a=np.zeros((C, 1, 1), np.float32),
+        ab_b=np.zeros((C, 1, 1), np.float32),
+        cs_cka=np.zeros((C, 1, 1), np.float32),
+        cs_ckb=np.zeros((C, 1, 1), np.float32),
+        bd_eqo=np.zeros((C, 1, 1), np.int32),
+        bd_eqn=np.zeros((C, 1, 1), np.int32),
+        gd_wid=np.zeros((C, 1, 1), np.int32),
+        gd_cown=np.zeros((C, 1, 1), np.float32),
+        gd_ctch=np.zeros((C, 1, 1), np.float32),
+        gd_ao=np.zeros((C, 1, 1), np.float32),
+        gd_an=np.zeros((C, 1, 1), np.float32),
+        gd_ax=np.zeros((C, 1, 1), np.float32),
+        dm_a=dm_a, dm_b1=dm_b1, dm_b2=dm_b2, dm_x=dm_x,
+        bd_dmnbr=np.zeros((C, 1, 1), np.int32),
+        cm_kmask=cm_kmask, cm_resample=cm_resample,
+        cm_resample_ev=cm_resample_ev,
+        hb_row=hb_row,
+    )
+    ti = TierInfo(
+        off=off_t, block=Bt, degree=G, arity=A_h,
+        hub=True, chunks=M, chunk_g=G, deltam=deltam,
         present_funcs=present_t,
     )
     return ts, ti

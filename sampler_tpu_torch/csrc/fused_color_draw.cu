@@ -45,6 +45,17 @@
 // loads, which are independent, so 16*D bytes are in flight a thread.  The
 // grid runs rows in order, so the blocks resident at one time read
 // neighbouring windows and the rows that several rows read come from L2.
+//
+// World-write mode: the kernel writes its draws straight into the world's
+// rows of the block (`out` points at the block's first row of `values`),
+// for the rows the block's resample mask selects, and draws no other row;
+// the rows past the block's length are neither drawn nor written.  It
+// reads the world while it writes it.  That is safe because no real
+// neighbour of a row lies in the block being drawn (the rows of one color
+// share no factor); a pad record can name any row, but its weight is +0 or
+// -0, and beta * value is then the same zero for a value of 0 or 1, so the
+// value read there, old or new, cannot change a delta.  Each thread's
+// loads of its neighbour rows come before its one store.
 
 #include <climits>
 #include <cstddef>
@@ -99,7 +110,8 @@ __global__ void __launch_bounds__(kThreads)
                             const int32_t* __restrict__ seed, int g_begin,
                             int n_rows, int TB, int D, int W,
                             int8_t* __restrict__ out,
-                            float* __restrict__ delta_out) {
+                            float* __restrict__ delta_out,
+                            const uint8_t* __restrict__ wmask, int n_write) {
   using T = typename Vec<VEC>::T;
   constexpr int CH = DS > 0 ? DS : kChunk;
   const unsigned ncv = static_cast<unsigned>(NC / VEC);
@@ -107,6 +119,8 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned gl = idx / ncv;
   const int g = g_begin + static_cast<int>(gl);
   if (g >= n_rows) return;
+  // world-write mode: only rows of the block that the mask selects
+  if (wmask != nullptr && (g >= n_write || wmask[g] == 0)) return;
   const int lane = static_cast<int>(idx - gl * ncv);
   const int t = static_cast<int>(static_cast<unsigned>(g) /
                                 static_cast<unsigned>(TB));
@@ -203,7 +217,8 @@ template <int VEC, int DS>
 int launch_rows(const int8_t* values, int NC, const int32_t* nbr,
                 const float* beta, const float* base, const int32_t* starts,
                 const int32_t* seed, int n_rows, int TB, int D, int W,
-                int8_t* out, float* delta_out, cudaStream_t s) {
+                int8_t* out, float* delta_out, const uint8_t* wmask,
+                int n_write, cudaStream_t s) {
   const long long ncv = NC / VEC;
   // rows a launch, so that its thread index stays inside 31 bits
   const long long per = INT_MAX / ncv;
@@ -214,7 +229,7 @@ int launch_rows(const int8_t* values, int NC, const int32_t* nbr,
         <<<static_cast<unsigned>((threads + kThreads - 1) / kThreads),
            kThreads, 0, s>>>(values, NC, nbr, beta, base, starts, seed,
                              static_cast<int>(g), n_rows, TB, D, W, out,
-                             delta_out);
+                             delta_out, wmask, n_write);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -225,11 +240,13 @@ template <int VEC>
 int launch_vec(const int8_t* values, int NC, const int32_t* nbr,
                const float* beta, const float* base, const int32_t* starts,
                const int32_t* seed, int n_rows, int TB, int D, int W,
-               int8_t* out, float* delta_out, cudaStream_t s) {
+               int8_t* out, float* delta_out, const uint8_t* wmask,
+               int n_write, cudaStream_t s) {
 #define SAMPLER_FCD_CASE(DS)                                               \
   case DS:                                                                 \
     return launch_rows<VEC, DS>(values, NC, nbr, beta, base, starts, seed, \
-                                n_rows, TB, D, W, out, delta_out, s);
+                                n_rows, TB, D, W, out, delta_out, wmask,   \
+                                n_write, s);
   switch (D) {
     SAMPLER_FCD_CASE(1)
     SAMPLER_FCD_CASE(2)
@@ -241,7 +258,8 @@ int launch_vec(const int8_t* values, int NC, const int32_t* nbr,
     SAMPLER_FCD_CASE(8)
     default:
       return launch_rows<VEC, 0>(values, NC, nbr, beta, base, starts, seed,
-                                 n_rows, TB, D, W, out, delta_out, s);
+                                 n_rows, TB, D, W, out, delta_out, wmask,
+                                 n_write, s);
   }
 #undef SAMPLER_FCD_CASE
 }
@@ -252,18 +270,24 @@ static_assert(kMaxD == 8, "launch_vec unrolls D = 1..8");
 // values int8 [P, NC]; nbr int32 and beta f32 [>= ntiles, D*TB] (this
 // color's rows, d-major within a tile); base f32 [>= ntiles, TB]; starts
 // int32 [ntiles]; seed int32 [2] on the device; out int8 [ntiles*TB, NC];
-// delta_out f32 [ntiles*TB, NC] or null.  Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue for D < 1 or for rows whose index would
-// not fit an int).
+// delta_out f32 [ntiles*TB, NC] or null.  World-write mode (wmask not
+// null): out is the world's row of the block's first row, wmask uint8
+// [n_write] the block's row mask, and row g is drawn and written only where
+// g < n_write and wmask[g] != 0 (delta_out must be null).  Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for D < 1, for a delta
+// output in world-write mode, or for rows whose index would not fit an
+// int).
 extern "C" int fused_color_draw_launch(const void* values, int NC,
                                        const void* nbr, const void* beta,
                                        const void* base, const void* starts,
                                        const void* seed, int ntiles, int TB,
                                        int D, int W, void* out,
-                                       void* delta_out, void* stream) {
+                                       void* delta_out, const void* wmask,
+                                       int n_write, void* stream) {
   const long long n_rows = static_cast<long long>(ntiles) * TB;
   if (n_rows == 0 || NC == 0) return static_cast<int>(cudaSuccess);
-  if (n_rows > INT_MAX - kThreads || NC < 0 || D < 1) {
+  if (n_rows > INT_MAX - kThreads || NC < 0 || D < 1 ||
+      (wmask != nullptr && delta_out != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool wide = NC % 16 == 0 &&
@@ -278,10 +302,11 @@ extern "C" int fused_color_draw_launch(const void* values, int NC,
   const auto* sd = static_cast<const int32_t*>(seed);
   auto* o = static_cast<int8_t*>(out);
   auto* dl = static_cast<float*>(delta_out);
+  const auto* wm = static_cast<const uint8_t*>(wmask);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(n_rows);
   return wide ? launch_vec<16>(v, NC, nb, bt, bs, st, sd, n, TB, D, W, o, dl,
-                               s)
+                               wm, n_write, s)
               : launch_vec<1>(v, NC, nb, bt, bs, st, sd, n, TB, D, W, o, dl,
-                              s);
+                              wm, n_write, s);
 }

@@ -65,6 +65,18 @@
 //     assumed to be aligned, and a row at or past P reads 0.
 //   * ptxas gives the flagship variant 63 registers and no spills
 //     (__launch_bounds__(256, 4): at most 64, 4 blocks an SM).
+//   * World-write mode: the draws go straight into the world's rows of the
+//     block (`out` points at the block's first row of `values`), for the
+//     rows the block's resample mask selects; no other row is drawn, and
+//     none past the block's length is written.  The kernel reads the world
+//     while it writes it.  No real neighbour of a row lies in the block
+//     being drawn (the rows of one color share no factor).  A pad slot
+//     (the dummy row, a multi-window sentinel, a neighbour slot of a
+//     factor of lower arity) can name any row, but its record's
+//     coefficients are +0 or -0, so its four terms are one and the same
+//     zero and the bit read there, old or new, cannot change a delta or a
+//     table key's sum.  The table is built from coefficients only, never
+//     from world rows.
 
 #include <climits>
 #include <cstddef>
@@ -212,7 +224,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                          const int32_t* __restrict__ seed, int g_begin,
                          int n_rows, int TB, int D, int W, int Kw, int shift,
                          uint32_t magic, int8_t* __restrict__ out,
-                         float* __restrict__ delta_out) {
+                         float* __restrict__ delta_out,
+                         const uint8_t* __restrict__ wmask, int n_write) {
   using T = typename Vec<VEC>::T;
   constexpr int CH = DS > 0 ? DS : kChunk;
   constexpr int NW = VEC == 16 ? 4 : 1;  // 32-bit words a row slice
@@ -225,6 +238,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const unsigned gl = idx / ncv;
   const int g = g_begin + static_cast<int>(gl);
   if (g >= n_rows) return;
+  // world-write mode: only rows of the block that the mask selects (a warp
+  // that builds a table is one row, so it leaves whole)
+  if (wmask != nullptr && (g >= n_write || wmask[g] == 0)) return;
   const int lane = static_cast<int>(idx - gl * ncv);
   const int t = static_cast<int>(static_cast<unsigned>(g) /
                                  static_cast<unsigned>(TB));
@@ -387,7 +403,8 @@ int launch_rows(const int8_t* values, int NC, int P, const int32_t* nbr,
                 const float* base, const int32_t* starts,
                 const int32_t* seed, int n_rows, int TB, int D, int W,
                 int Kw, int shift, uint32_t magic, int8_t* out,
-                float* delta_out, cudaStream_t s) {
+                float* delta_out, const uint8_t* wmask, int n_write,
+                cudaStream_t s) {
   const long long ncv = NC / VEC;
   // the table variant where each warp is one row (32 | NC/16)
   constexpr bool kCanTable = VEC == 16 && DS > 0 && A1 * DS <= kTableBits;
@@ -403,12 +420,12 @@ int launch_rows(const int8_t* values, int NC, int P, const int32_t* nbr,
       fused_dm_draw_kernel<VEC, DS, A1, kCanTable><<<blocks, kThreads, 0, s>>>(
           values, NC, P, nbr, b1, b2, bx, base, starts, seed,
           static_cast<int>(g), n_rows, TB, D, W, Kw, shift, magic, out,
-          delta_out);
+          delta_out, wmask, n_write);
     } else {
       fused_dm_draw_kernel<VEC, DS, A1, false><<<blocks, kThreads, 0, s>>>(
           values, NC, P, nbr, b1, b2, bx, base, starts, seed,
           static_cast<int>(g), n_rows, TB, D, W, Kw, shift, magic, out,
-          delta_out);
+          delta_out, wmask, n_write);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -418,14 +435,15 @@ int launch_rows(const int8_t* values, int NC, int P, const int32_t* nbr,
 
 #define SAMPLER_FDM_ARGS                                                     \
   values, NC, P, nbr, b1, b2, bx, base, starts, seed, n_rows, TB, D, W, Kw, \
-      shift, magic, out, delta_out, s
+      shift, magic, out, delta_out, wmask, n_write, s
 
 template <int VEC, int A1>
 int launch_d(const int8_t* values, int NC, int P, const int32_t* nbr,
              const float* b1, const float* b2, const float* bx,
              const float* base, const int32_t* starts, const int32_t* seed,
              int n_rows, int TB, int D, int W, int Kw, int shift,
-             uint32_t magic, int8_t* out, float* delta_out, cudaStream_t s) {
+             uint32_t magic, int8_t* out, float* delta_out,
+             const uint8_t* wmask, int n_write, cudaStream_t s) {
   switch (D) {
     case 1: return launch_rows<VEC, 1, A1>(SAMPLER_FDM_ARGS);
     case 2: return launch_rows<VEC, 2, A1>(SAMPLER_FDM_ARGS);
@@ -446,7 +464,7 @@ int launch_vec(int A1, const int8_t* values, int NC, int P,
                const float* bx, const float* base, const int32_t* starts,
                const int32_t* seed, int n_rows, int TB, int D, int W, int Kw,
                int shift, uint32_t magic, int8_t* out, float* delta_out,
-               cudaStream_t s) {
+               const uint8_t* wmask, int n_write, cudaStream_t s) {
   return A1 == 2 ? launch_d<VEC, 2>(SAMPLER_FDM_ARGS)
                  : launch_d<VEC, 1>(SAMPLER_FDM_ARGS);
 }
@@ -458,21 +476,26 @@ int launch_vec(int A1, const int8_t* values, int NC, int P,
 // bd_dmnbr); b1, b2, bx f32 [>= ntiles, D*TB] (b2, bx null when A1 == 1);
 // base f32 [>= ntiles, TB]; starts int32 [ntiles, Kw]; seed int32 [2] on the
 // device; out int8 [ntiles*TB, NC]; delta_out f32 [ntiles*TB, NC] or null.
-// Returns the cudaError_t of the launch (cudaErrorInvalidValue for A1
-// outside 1..2, W < 1, Kw < 1, Kw*W past an int, or rows whose index would
-// not fit an int).
+// World-write mode (wmask not null): out is the world's row of the block's
+// first row, wmask uint8 [n_write] the block's row mask, and row g is drawn
+// and written only where g < n_write and wmask[g] != 0 (delta_out must be
+// null).  Returns the cudaError_t of the launch (cudaErrorInvalidValue for
+// A1 outside 1..2, W < 1, Kw < 1, Kw*W past an int, a delta output in
+// world-write mode, or rows whose index would not fit an int).
 extern "C" int fused_dm_draw_launch(const void* values, int NC, int P,
                                     const void* nbr, const void* b1,
                                     const void* b2, const void* bx,
                                     const void* base, const void* starts,
                                     const void* seed, int ntiles, int TB,
                                     int D, int A1, int W, int Kw, void* out,
-                                    void* delta_out, void* stream) {
+                                    void* delta_out, const void* wmask,
+                                    int n_write, void* stream) {
   const long long n_rows = static_cast<long long>(ntiles) * TB;
   if (n_rows == 0 || NC == 0) return static_cast<int>(cudaSuccess);
   if ((A1 != 1 && A1 != 2) || W < 1 || Kw < 1 || D < 0 || NC < 0 ||
       static_cast<long long>(Kw) * W > INT_MAX ||
-      n_rows > INT_MAX - kThreads) {
+      n_rows > INT_MAX - kThreads ||
+      (wmask != nullptr && delta_out != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool wide = NC % 16 == 0 &&
@@ -497,10 +520,13 @@ extern "C" int fused_dm_draw_launch(const void* values, int NC, int P,
   const auto* sd = static_cast<const int32_t*>(seed);
   auto* o = static_cast<int8_t*>(out);
   auto* dl = static_cast<float*>(delta_out);
+  const auto* wm = static_cast<const uint8_t*>(wmask);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(n_rows);
   return wide ? launch_vec<16>(A1, v, NC, P, nb, c1, c2, cx, bs, st, sd, n,
-                               TB, D, W, Kw, shift, magic, o, dl, s)
+                               TB, D, W, Kw, shift, magic, o, dl, wm,
+                               n_write, s)
               : launch_vec<1>(A1, v, NC, P, nb, c1, c2, cx, bs, st, sd, n,
-                              TB, D, W, Kw, shift, magic, o, dl, s);
+                              TB, D, W, Kw, shift, magic, o, dl, wm,
+                              n_write, s);
 }

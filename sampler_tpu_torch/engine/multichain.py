@@ -9,7 +9,7 @@ once (chromatic Gibbs) and writes the new values into ``values`` in place.
 
 This port runs marginal inference and weight learning on boolean,
 categorical and mixed graphs with dense weights, single-window and
-multi-window banded alike:
+multi-window banded alike, hub tiers included:
 
   * affine2 tiers (pairwise boolean, one window a tile) with the fused
     mode on draw a whole color in ``ops.fused.fused_color_draw`` (one CUDA
@@ -28,6 +28,12 @@ multi-window banded alike:
     of rows at a time) on the others, gathering neighbour values with
     ``ops.banded.banded_gather`` (band_k 1), ``banded_gather_multi``
     (band_k >= 2) or ``index_select`` (band off);
+  * a hub tier (the variables of more than ``hub_cap`` factors) draws in
+    ``hub_color_draw``: its chunks of records are evaluated like rows of a
+    dense tier, and their deltas or logits summed onto their rows with
+    ``index_add_``;
+  * the tallies of inference go through ``ops.tally.tally_counts`` (one
+    CUDA kernel a sweep);
   * ``learn_mc`` runs contrastive SGD over an evidence and a free world of
     NC chains each; its gradient (``mc_weight_gradient_cs``) goes through
     ``ops.grad.grad_pair_tile`` (one CUDA kernel a color) on affine2 tiers
@@ -38,8 +44,10 @@ multi-window banded alike:
 PyTorch version) or "off"; the default is "cuda" on a CUDA device and
 "plain" on the CPU, gated by what the compiled graph supports, as the JAX
 package's resolve_band / resolve_fused gate them.  What lies outside the
-slice (sparse per-combination weights, hub tiers) raises
-NotImplementedError naming the missing piece.
+slice (sparse per-combination weights) raises NotImplementedError naming
+the missing piece.  The fused draws write straight into the world's block
+(their world-write mode); the other tiers draw a block and write it under
+the resample mask.
 
 Randomness comes from one explicit ``torch.Generator`` on the run's device:
 the initial worlds, the uniforms and Gumbel noise of the unfused draws, and
@@ -66,6 +74,7 @@ from ..ops.fused import (fold_affine, fold_affine_cat, fold_deltam,
                          fused_color_draw_plain, fused_dm_draw,
                          fused_dm_draw_plain)
 from ..ops.grad import GRAD_W_MAX, grad_pair_tile, grad_pair_tile_plain
+from ..ops.tally import tally_counts, tally_plain
 from ..ops.weights import expand_wf, segment_reduce
 from .learn import apply_update
 
@@ -115,9 +124,6 @@ def check_slice(info, modes) -> None:
         raise NotImplementedError(
             "sparse per-combination weights (color_logits_mc's sparse "
             "branch) are not ported yet")
-    if info.has_hub:
-        raise NotImplementedError("the hub tier (hub_color_draw) is not "
-                                  "ported yet")
 
 
 def _on(t: torch.Tensor, dev: torch.device) -> bool:
@@ -465,13 +471,59 @@ def prepare_fold(dg, weights, info, modes):
     return tuple(fold_one(ts, ti) for ts, ti in zip(dg.tiers, info.tiers))
 
 
+def hub_color_draw(dg, ts, ti, values, weights, generator, c, info,
+                   modes=("off", "off"), folded_t=None) -> torch.Tensor:
+    """Draw new values [B_t, NC] for a chunked-CSR hub tier of color ``c``:
+    its [M, G, A] chunk streams are evaluated with the dense tiers' code (a
+    chunk is a row of D = G records), and the chunks' deltas (boolean) or
+    logits (categorical) are summed onto their rows with ``index_add_``
+    into [B_t + 1, ...]: the pad chunks, whose ``hb_row`` is B_t, land in
+    the extra row, which is dropped.  Then the Bernoulli or Gumbel-argmax
+    draw, as on the unfused dense tiers."""
+    Bh = ti.block
+    NC = values.shape[-1]
+    dev = values.device
+    row = ts.hb_row[c].to(torch.int64)                          # [M]
+    if info.all_boolean and info.max_card == 2:
+        if ti.deltam and folded_t is not None:
+            dchunk = color_delta_multilin(ts, ti, values, c, info, folded_t,
+                                          modes)
+        else:
+            dchunk = color_delta_bool(ts, ti, values, weights, c, info,
+                                      modes)
+        delta = torch.zeros((Bh + 1, NC), dtype=dchunk.dtype, device=dev)
+        delta = delta.index_add_(0, row, dchunk)[:Bh]
+        u = torch.rand(delta.shape, generator=generator, device=dev,
+                       dtype=delta.dtype)
+        return (u < torch.sigmoid(delta)).to(values.dtype)
+    K = info.max_card
+    M, G, A = tier_geom(ts, ti, info.n_colors)
+    logits = torch.zeros((Bh + 1, K, NC), dtype=torch.float32, device=dev)
+    rc = _row_chunk(ti, M, G, K * A, NC)
+    for r0 in range(0, M, rc):
+        logits.index_add_(0, row[r0:r0 + rc],
+                          color_logits_mc(dg, ts, ti, values, weights, c,
+                                          info, modes, r0, rc))
+    masked = logits[:Bh] + _tc(ts.cm_kmask, c, (Bh, K))[:, :, None]
+    masked += _gumbel(masked.shape, generator, dev)
+    return masked.argmax(dim=1).to(values.dtype)
+
+
+def _fused(ti, folded_t, modes) -> bool:
+    """A tier that draws in a fused kernel (or its plain version)."""
+    return (not ti.hub and folded_t is not None
+            and tier_modes(ti, modes)[1] != "off")
+
+
 def color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
-                    folded_t=None, modes=("off", "off")) -> torch.Tensor:
-    """Draw new values [B_t, NC] for one tier of color ``c``."""
+                    folded_t=None, modes=("off", "off"), write=None):
+    """Draw new values [B_t, NC] for one tier of color ``c``.  A fused tier
+    given ``write = (row0, mask)`` draws straight into the world's block
+    instead (the kernels' world-write mode) and returns ``values``."""
     if ti.hub:
-        raise NotImplementedError("the hub tier (hub_color_draw) is not "
-                                  "ported yet")
-    if folded_t is not None and tier_modes(ti, modes)[1] != "off":
+        return hub_color_draw(dg, ts, ti, values, weights, generator, c,
+                              info, modes, folded_t)
+    if _fused(ti, folded_t, modes):
         seed = torch.randint(-(1 << 31), 1 << 31, (2,), generator=generator,
                              device=values.device, dtype=torch.int32)
         cuda = modes[1] == "cuda"
@@ -479,18 +531,18 @@ def color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
             draw = fused_color_draw if cuda else fused_color_draw_plain
             return draw(values, ts.bd_nbr, ts.bd_start[c], folded_t[0],
                         folded_t[1], c, seed, ti.band_w, ti.band_tb,
-                        ti.degree)
+                        ti.degree, write=write)
         if ti.affinek:
             av, bv, kmask = folded_t         # fold_affine_cat layout
             draw = fused_cat_draw if cuda else fused_cat_draw_plain
             return draw(values, ts.bd_nbr, ts.bd_start[c], ts.bd_eqo,
                         ts.bd_eqn, av, bv, kmask, c, seed, ti.band_w,
-                        ti.band_tb, ti.degree, info.max_card)
+                        ti.band_tb, ti.degree, info.max_card, write=write)
         base, b1, b2, bx = folded_t          # fold_deltam_tiles layout
         draw = fused_dm_draw if cuda else fused_dm_draw_plain
         return draw(values, ts.bd_dmnbr, ts.bd_start[c], base, b1, b2, bx,
                     c, seed, ti.band_w, ti.band_tb, ti.degree, ti.arity - 1,
-                    ti.band_k)
+                    ti.band_k, write=write)
     if not (info.all_boolean and info.max_card == 2):
         return color_draw_categorical(dg, ts, ti, values, weights, generator,
                                       c, info, modes)
@@ -508,16 +560,22 @@ def color_step_mc(dg, values, weights, generator, c, sample_evidence: bool,
                   info, folded=None, modes=("off", "off")) -> torch.Tensor:
     """Resample color ``c`` in all chains, writing into ``values`` in place
     (tiers of one color share no factor, so tier by tier is the
-    simultaneous block update); returns ``values``."""
+    simultaneous block update); returns ``values``.  A fused tier's kernel
+    writes its draws into the block itself, under the resample mask; the
+    other tiers' draws are written under it here."""
     B = info.block_size
     if folded is None:
         folded = (None,) * len(dg.tiers)
     for t, (ts, ti) in enumerate(zip(dg.tiers, info.tiers)):
-        drawn = color_draw_tier(dg, ts, ti, values, weights, generator, c,
-                                info, folded[t], modes)
         resample = (ts.cm_resample_ev[c] if sample_evidence
                     else ts.cm_resample[c])
         start = c * B + ti.off
+        if _fused(ti, folded[t], modes):
+            color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
+                            folded[t], modes, write=(start, resample))
+            continue
+        drawn = color_draw_tier(dg, ts, ti, values, weights, generator, c,
+                                info, folded[t], modes)
         old = values[start:start + ti.block]
         old.copy_(torch.where(resample[:, None], drawn, old))
     return values
@@ -548,24 +606,13 @@ def run_sweeps_mc(dg, values, weights, generator, n_sweeps: int,
 
 def tally(counts: torch.Tensor, values: torch.Tensor) -> None:
     """Add each position's count of every value k over the chains to
-    ``counts`` [K, P] int32, in place.  Up to 16 values, one comparison a
-    value in the worlds' dtype; above, one bincount a block of rows (the
-    JAX package switches to a one-hot there too), whose int64 temporaries
-    stay near INIT_CHUNK_ELEMS entries."""
-    K = counts.shape[0]
-    if K <= 16:
-        for k in range(K):
-            counts[k] += (values == k).sum(dim=1, dtype=torch.int32)
-        return
-    P, NC = values.shape
-    step = max(1, INIT_CHUNK_ELEMS // max(NC, K))
-    for r0 in range(0, P, step):
-        blk = values[r0:r0 + step]
-        n = blk.shape[0]
-        idx = blk.to(torch.int64) * n + torch.arange(
-            n, device=values.device)[:, None]
-        counts[:, r0:r0 + n] += torch.bincount(
-            idx.reshape(-1), minlength=K * n).view(K, n).to(torch.int32)
+    ``counts`` [K, P] int32, in place: the CUDA kernel (ops.tally) for a
+    world on the card, its plain version, in bincount blocks of about
+    INIT_CHUNK_ELEMS entries above 16 values, on the CPU."""
+    if values.device.type == "cpu":
+        tally_plain(counts, values, INIT_CHUNK_ELEMS)
+    else:
+        tally_counts(counts, values)
 
 
 def run_inference_mc(dg, values, weights, generator, n_sweeps: int,
@@ -725,7 +772,8 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
     kernel, or its plain version), one call a color.  Every other tier
     runs the chunked route: both worlds side by side on the chain axis,
     rows in chunks of ``row_chunk`` (default ``_row_chunk``), φ from
-    ``_phi_streams`` and a segment sum per weight."""
+    ``_phi_streams`` and a segment sum per weight.  A hub tier's stream
+    rows are its chunks, each with its row's own value."""
     check_slice(info, modes)
     W = dg.w_init.shape[0]
     NC = v_ev.shape[-1]
@@ -759,10 +807,17 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
         gsrc = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
         for c in range(C):
             for r0 in range(0, Bl, rc):
-                start = c * gB + ti.off + r0
-                phi = _phi_streams(v_both, v_both[start:start + rc], ts, ti,
-                                   c, r0, rc, present, modes,
-                                   info.all_boolean)
+                if ti.hub:
+                    # stream rows are chunks: a chunk's own value is its
+                    # row's (a pad chunk's, row ti.block, is masked by gsrc)
+                    hrow = ts.hb_row[c, r0:r0 + rc].clamp(max=ti.block - 1)
+                    own = v_both.index_select(
+                        0, c * gB + ti.off + hrow.to(torch.int64))
+                else:
+                    start = c * gB + ti.off + r0
+                    own = v_both[start:start + rc]
+                phi = _phi_streams(v_both, own, ts, ti, c, r0, rc, present,
+                                   modes, info.all_boolean)
                 sl = slice((c * Bl + r0) * D, (c * Bl + r0 + rc) * D)
                 diff = (phi[..., :NC] - phi[..., NC:]).mean(dim=-1) \
                     * ts.cs_feat[sl].view(rc, D)

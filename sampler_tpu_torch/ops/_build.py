@@ -25,26 +25,29 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("fused_color_draw.cu", "banded_gather.cu", "grad_pair_tile.cu",
-           "banded_gather_multi.cu", "fused_dm_draw.cu", "fused_cat_draw.cu")
+           "banded_gather_multi.cu", "fused_dm_draw.cu", "fused_cat_draw.cu",
+           "tally_counts.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 300
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # launcher name -> argtypes (every pointer and the stream as c_void_p)
 LAUNCHERS = {
     "fused_color_draw_launch": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _P, _P, _P),
+                                _P, _P, _P, _I, _P),
     "banded_gather_launch": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
     "grad_pair_tile_launch": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _P, _P),
     "banded_gather_multi_launch": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
                                    _P),
     "fused_dm_draw_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _P, _P, _P),
+                             _I, _I, _I, _I, _P, _P, _P, _I, _P),
     "fused_cat_draw_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _I, _I, _I, _P, _P, _P),
+                              _I, _I, _I, _I, _P, _P, _P, _I, _P),
+    "tally_counts_launch": (_P, _L, _I, _I, _P, _I, _P),
 }
 
 

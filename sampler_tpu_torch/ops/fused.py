@@ -316,19 +316,61 @@ def uniform24(bits: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# where a draw goes: an output buffer, or straight into the world
+# --------------------------------------------------------------------------
+
+def _put(values, out, write, r0: int, r1: int, drawn) -> None:
+    """Rows r0 .. r1 of a draw into ``out``, or in world-write mode
+    (``write = (row0, mask)``) into the world's rows row0 + r0 .. of the
+    block where its row mask selects them (none past the mask's length)."""
+    if write is None:
+        out[r0:r1] = drawn
+        return
+    row0, mask = write
+    r1 = min(r1, mask.shape[0])
+    if r1 > r0:
+        blk = values[row0 + r0:row0 + r1]
+        blk.copy_(torch.where(mask[r0:r1, None], drawn[:r1 - r0], blk))
+
+
+def _write_target(name: str, values, write, n_rows: int, extra) -> tuple:
+    """(result, out pointer, mask pointer, mask length) of a kernel launch:
+    a new int8 [n_rows, NC] output, or in world-write mode the world, a
+    pointer at its row of the block's first row, and the block's row mask
+    (bool [n_block], n_block at most n_rows, the block inside the world)."""
+    P, NC = values.shape
+    if write is None:
+        out = torch.empty((n_rows, NC), dtype=torch.int8,
+                          device=values.device)
+        return out, out.data_ptr(), None, 0
+    row0, mask = write
+    if extra:
+        raise ValueError(f"{name}: no delta or logits output in world-write "
+                         "mode")
+    check_tensor(mask, "mask", torch.bool, values.device, 1)
+    n = mask.shape[0]
+    if not (0 <= row0 and 0 < n <= n_rows and row0 + n <= P):
+        raise ValueError(f"{name}: block at row {row0} of {n} rows, {n_rows} "
+                         f"rows drawn, world of {P}")
+    return (values, values.data_ptr() + row0 * NC * values.element_size(),
+            mask.data_ptr(), n)
+
+
+# --------------------------------------------------------------------------
 # the fused color step
 # --------------------------------------------------------------------------
 
 def fused_color_draw_plain(values, nbr_dmaj, starts, beta, base, c: int,
                            seed, W: int, TB: int, D: int,
-                           return_delta: bool = False):
+                           return_delta: bool = False, write=None):
     """Plain PyTorch version of :func:`fused_color_draw`, over chunks of
     PLAIN_CHUNK_TILES tiles so its temporaries stay bounded (~0.3 GB at
     D=5, TB=128, 512 chains)."""
     nt = starts.shape[0]
     NC = values.shape[1]
     dev = values.device
-    out = torch.empty((nt * TB, NC), dtype=values.dtype, device=dev)
+    out = (torch.empty((nt * TB, NC), dtype=values.dtype, device=dev)
+           if write is None else values)
     delta_all = (torch.empty((nt * TB, NC), dtype=torch.float32, device=dev)
                  if return_delta else None)
     s0, s1 = u32(seed[0]), u32(seed[1])
@@ -350,15 +392,16 @@ def fused_color_draw_plain(values, nbr_dmaj, starts, beta, base, c: int,
         tt = torch.arange(t0, t1, dtype=torch.int64, device=dev)
         u = uniform24(hash_bits(cnt, s0, tile_seed(s1, tt).reshape(n, 1, 1)))
         rows = slice(t0 * TB, t1 * TB)
-        out[rows] = (u < torch.sigmoid(delta)).to(values.dtype).reshape(
-            n * TB, NC)
+        _put(values, out, write, t0 * TB, t1 * TB,
+             (u < torch.sigmoid(delta)).to(values.dtype).reshape(n * TB, NC))
         if return_delta:
             delta_all[rows] = delta.reshape(n * TB, NC)
     return (out, delta_all) if return_delta else out
 
 
 def fused_color_draw(values, nbr_dmaj, starts, beta, base, c: int, seed,
-                     W: int, TB: int, D: int, return_delta: bool = False):
+                     W: int, TB: int, D: int, return_delta: bool = False,
+                     write=None):
     """Draw color ``c`` of an affine2 tier.
 
     values int8 [P, NC]; nbr_dmaj int32 [C, >= ntiles, D*TB] (all colors,
@@ -368,11 +411,17 @@ def fused_color_draw(values, nbr_dmaj, starts, beta, base, c: int, seed,
     Returns int8 [ntiles*TB, NC], and with ``return_delta`` also the f32
     log-odds delta of the same shape.
 
+    World-write mode, ``write = (row0, mask)`` with ``mask`` bool [n]
+    (n <= ntiles*TB; a tier's cm_resample or cm_resample_ev row): row g is
+    drawn only where g < n and mask[g], straight into values[row0 + g]; the
+    other rows of the world stay as they were.  The same seed gives the
+    same draws as the output mode.  Returns ``values``.
+
     A CPU tensor goes to the plain version; a CUDA tensor to the kernel
     (the launch adds one to ``fused_color_draw.launches``)."""
     if values.device.type == "cpu":
         return fused_color_draw_plain(values, nbr_dmaj, starts, beta, base,
-                                      c, seed, W, TB, D, return_delta)
+                                      c, seed, W, TB, D, return_delta, write)
     if values.device.type != "cuda":
         raise ValueError(f"fused_color_draw: no kernel for {values.device}")
     dev = values.device
@@ -393,16 +442,17 @@ def fused_color_draw(values, nbr_dmaj, starts, beta, base, c: int, seed,
             f"fused_color_draw: nbr {tuple(nbr_dmaj.shape)}, beta "
             f"{tuple(beta.shape)}, base {tuple(base.shape)}, starts "
             f"{tuple(starts.shape)}, c={c}, D={D}, TB={TB}, W={W}, P={P}")
-    out = torch.empty((nt * TB, NC), dtype=torch.int8, device=dev)
+    out, out_ptr, mask_ptr, n_write = _write_target(
+        "fused_color_draw", values, write, nt * TB, return_delta)
     delta = (torch.empty((nt * TB, NC), dtype=torch.float32, device=dev)
              if return_delta else None)
     with torch.cuda.device(dev):
         launch("fused_color_draw_launch", values.data_ptr(), NC,
                nbr_dmaj[c].data_ptr(), beta[c].data_ptr(),
                base[c].data_ptr(), starts.data_ptr(), seed.data_ptr(),
-               nt, TB, D, W, out.data_ptr(),
-               None if delta is None else delta.data_ptr(),
-               torch.cuda.current_stream(dev).cuda_stream)
+               nt, TB, D, W, out_ptr,
+               None if delta is None else delta.data_ptr(), mask_ptr,
+               n_write, torch.cuda.current_stream(dev).cuda_stream)
     fused_color_draw.launches += 1
     return (out, delta) if return_delta else out
 
@@ -435,7 +485,7 @@ def _dm_rows(dm_nbr, starts, c: int, t0: int, t1: int, W: int, TB: int,
 
 def fused_dm_draw_plain(values, dm_nbr, starts, base, b1, b2, bx, c: int,
                         seed, W: int, TB: int, D: int, A1: int, Kw: int,
-                        return_delta: bool = False):
+                        return_delta: bool = False, write=None):
     """Plain PyTorch version of :func:`fused_dm_draw`, over chunks of tiles
     whose [tiles, TB, NC] planes hold about PLAIN_CHUNK_ELEMS values, so
     its temporaries stay bounded (~0.4 GB) whatever the chain count."""
@@ -443,7 +493,8 @@ def fused_dm_draw_plain(values, dm_nbr, starts, base, b1, b2, bx, c: int,
     P, NC = values.shape
     dev = values.device
     f32 = torch.float32
-    out = torch.empty((nt * TB, NC), dtype=values.dtype, device=dev)
+    out = (torch.empty((nt * TB, NC), dtype=values.dtype, device=dev)
+           if write is None else values)
     delta_all = (torch.empty((nt * TB, NC), dtype=f32, device=dev)
                  if return_delta else None)
     s0, s1 = u32(seed[0]), u32(seed[1])
@@ -477,8 +528,8 @@ def fused_dm_draw_plain(values, dm_nbr, starts, base, b1, b2, bx, c: int,
         tt = torch.arange(t0, t1, dtype=torch.int64, device=dev)
         u = uniform24(hash_bits(cnt, s0, tile_seed(s1, tt).reshape(n, 1, 1)))
         rows = slice(t0 * TB, t1 * TB)
-        out[rows] = (u < torch.sigmoid(delta)).to(values.dtype).reshape(
-            n * TB, NC)
+        _put(values, out, write, t0 * TB, t1 * TB,
+             (u < torch.sigmoid(delta)).to(values.dtype).reshape(n * TB, NC))
         if return_delta:
             delta_all[rows] = delta.reshape(n * TB, NC)
     return (out, delta_all) if return_delta else out
@@ -486,7 +537,7 @@ def fused_dm_draw_plain(values, dm_nbr, starts, base, b1, b2, bx, c: int,
 
 def fused_dm_draw(values, dm_nbr, starts, base, b1, b2, bx, c: int, seed,
                   W: int, TB: int, D: int, A1: int, Kw: int,
-                  return_delta: bool = False):
+                  return_delta: bool = False, write=None):
     """Draw color ``c`` of a fusedm tier (boolean, arity <= 3, banded).
 
     values int8 [P, NC]; dm_nbr int32 [C, >= ntiles, A1*D*TB] (all colors,
@@ -503,13 +554,15 @@ def fused_dm_draw(values, dm_nbr, starts, base, b1, b2, bx, c: int, seed,
 
     summed in that order; the draw is ``u < sigmoid(delta)`` with u from
     the counter hash of fused_color_draw.  Returns int8 [ntiles*TB, NC],
-    and with ``return_delta`` also the f32 delta of the same shape.
+    and with ``return_delta`` also the f32 delta of the same shape; in
+    world-write mode (``write``, as in fused_color_draw) ``values``.
 
     A CPU tensor goes to the plain version; a CUDA tensor to the kernel
     (the launch adds one to ``fused_dm_draw.launches``)."""
     if values.device.type == "cpu":
         return fused_dm_draw_plain(values, dm_nbr, starts, base, b1, b2, bx,
-                                   c, seed, W, TB, D, A1, Kw, return_delta)
+                                   c, seed, W, TB, D, A1, Kw, return_delta,
+                                   write)
     if values.device.type != "cuda":
         raise ValueError(f"fused_dm_draw: no kernel for {values.device}")
     dev = values.device
@@ -537,7 +590,8 @@ def fused_dm_draw(values, dm_nbr, starts, base, b1, b2, bx, c: int, seed,
             f"{[tuple(x.shape) for x in coefs]}, base {tuple(base.shape)}, "
             f"starts {tuple(starts.shape)}, c={c}, W={W}, TB={TB}, D={D}, "
             f"A1={A1}, Kw={Kw}, P={P}")
-    out = torch.empty((nt * TB, NC), dtype=torch.int8, device=dev)
+    out, out_ptr, mask_ptr, n_write = _write_target(
+        "fused_dm_draw", values, write, nt * TB, return_delta)
     delta = (torch.empty((nt * TB, NC), dtype=torch.float32, device=dev)
              if return_delta else None)
     b2c, bxc = (b2[c].data_ptr(), bx[c].data_ptr()) if A1 == 2 else (None,
@@ -546,9 +600,9 @@ def fused_dm_draw(values, dm_nbr, starts, base, b1, b2, bx, c: int, seed,
         launch("fused_dm_draw_launch", values.data_ptr(), NC, P,
                dm_nbr[c].data_ptr(), b1[c].data_ptr(), b2c, bxc,
                base[c].data_ptr(), starts.data_ptr(), seed.data_ptr(), nt,
-               TB, D, A1, W, Kw, out.data_ptr(),
-               None if delta is None else delta.data_ptr(),
-               torch.cuda.current_stream(dev).cuda_stream)
+               TB, D, A1, W, Kw, out_ptr,
+               None if delta is None else delta.data_ptr(), mask_ptr,
+               n_write, torch.cuda.current_stream(dev).cuda_stream)
     fused_dm_draw.launches += 1
     return (out, delta) if return_delta else out
 
@@ -562,7 +616,7 @@ fused_dm_draw.launches = 0
 
 def fused_cat_draw_plain(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
                          c: int, seed, W: int, TB: int, D: int, K: int,
-                         return_logits: bool = False):
+                         return_logits: bool = False, write=None):
     """Plain PyTorch version of :func:`fused_cat_draw`, over chunks of
     tiles whose D [tiles, TB, NC] contribution planes hold about
     PLAIN_CHUNK_ELEMS values, so its temporaries stay bounded (~0.4 GB)
@@ -571,7 +625,8 @@ def fused_cat_draw_plain(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
     P, NC = values.shape
     dev = values.device
     f32 = torch.float32
-    out = torch.empty((nt * TB, NC), dtype=values.dtype, device=dev)
+    out = (torch.empty((nt * TB, NC), dtype=values.dtype, device=dev)
+           if write is None else values)
     logits_all = (torch.empty((nt * TB, K, NC), dtype=f32, device=dev)
                   if return_logits else None)
     s0, s1 = u32(seed[0]), u32(seed[1])
@@ -619,13 +674,14 @@ def fused_cat_draw_plain(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
                 best_k = torch.where(take, k, best_k)
             if return_logits:
                 logits_all[t0 * TB:t1 * TB, k] = lk.reshape(n * TB, NC)
-        out[t0 * TB:t1 * TB] = best_k.reshape(n * TB, NC).to(values.dtype)
+        _put(values, out, write, t0 * TB, t1 * TB,
+             best_k.reshape(n * TB, NC).to(values.dtype))
     return (out, logits_all) if return_logits else out
 
 
 def fused_cat_draw(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
                    c: int, seed, W: int, TB: int, D: int, K: int,
-                   return_logits: bool = False):
+                   return_logits: bool = False, write=None):
     """Draw color ``c`` of an affinek tier among K candidates.
 
     values int8 [P, NC]; nbr_dmaj int32 [C, >= ntiles, D*TB] (all colors,
@@ -644,14 +700,15 @@ def fused_cat_draw(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
     the counter hash with second seed word
     seed[1] ^ t*0x9E3779B1 ^ (k+1)*0x9E3779B1; a later candidate wins only
     with a strictly larger score.  Returns int8 [ntiles*TB, NC], and with
-    ``return_logits`` also the f32 l_k as [ntiles*TB, K, NC].
+    ``return_logits`` also the f32 l_k as [ntiles*TB, K, NC]; in
+    world-write mode (``write``, as in fused_color_draw) ``values``.
 
     A CPU tensor goes to the plain version; a CUDA tensor to the kernel
     (the launch adds one to ``fused_cat_draw.launches``)."""
     if values.device.type == "cpu":
         return fused_cat_draw_plain(values, nbr_dmaj, starts, eqo, eqn, av,
                                     bv, kmask, c, seed, W, TB, D, K,
-                                    return_logits)
+                                    return_logits, write)
     if values.device.type != "cuda":
         raise ValueError(f"fused_cat_draw: no kernel for {values.device}")
     dev = values.device
@@ -678,7 +735,8 @@ def fused_cat_draw(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
             f"{tuple(av.shape)}, bv {tuple(bv.shape)}, kmask "
             f"{tuple(kmask.shape)}, starts {tuple(starts.shape)}, c={c}, "
             f"W={W}, TB={TB}, D={D}, K={K}, P={P}")
-    out = torch.empty((nt * TB, NC), dtype=torch.int8, device=dev)
+    out, out_ptr, mask_ptr, n_write = _write_target(
+        "fused_cat_draw", values, write, nt * TB, return_logits)
     logits = (torch.empty((nt * TB, K, NC), dtype=torch.float32, device=dev)
               if return_logits else None)
     with torch.cuda.device(dev):
@@ -686,8 +744,8 @@ def fused_cat_draw(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
                nbr_dmaj[c].data_ptr(), eqo[c].data_ptr(), eqn[c].data_ptr(),
                av[c].data_ptr(), bv[c].data_ptr(), kmask[c].data_ptr(),
                starts.data_ptr(), seed.data_ptr(), nt, TB, D, K, W,
-               out.data_ptr(), None if logits is None else logits.data_ptr(),
-               torch.cuda.current_stream(dev).cuda_stream)
+               out_ptr, None if logits is None else logits.data_ptr(),
+               mask_ptr, n_write, torch.cuda.current_stream(dev).cuda_stream)
     fused_cat_draw.launches += 1
     return (out, logits) if return_logits else out
 

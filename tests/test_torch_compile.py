@@ -1,7 +1,7 @@
 """The port's host compile against the JAX package's.
 
 sampler_tpu_torch.compile is a numpy copy of sampler_tpu.compile (without
-the native C++ stream code and the hub tier): on the same graph and coloring
+the native C++ stream code): on the same graph and coloring
 both must give array-equal streams and equal static info.  from_jax carries
 a JAX-compiled graph across unchanged.
 """

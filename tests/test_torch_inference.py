@@ -13,7 +13,8 @@
     (within 1e-5) on categorical, mixed, Potts and card-200 graphs, and
     infer_mc matches exact enumeration on the first, second and last of
     them, with int32 worlds and the band off at card 200;
-  * what the slice does not cover raises NotImplementedError.
+  * what the slice does not cover (sparse weights) raises
+    NotImplementedError; a hub tier beside sparse weights is refused.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -304,14 +305,17 @@ def test_outside_slice_raises(make):
 
 
 def test_hub_graph_raises():
-    """A star whose centre has more incident factors than hub_cap needs
-    the hub tier, which is not ported."""
+    """A star whose centre has more incident factors than hub_cap compiles
+    to a hub tier; only sparse per-combination weights beside a hub tier
+    raise, as in the JAX package."""
     n = 12
     factors = [(fs.FUNC_EQUAL, 0, 1.0, [(0, True), (v, True)])
                for v in range(1, n)]
     g = FactorGraph.build(var_card=[2] * n, weights=[0.3], factors=factors)
-    with pytest.raises(NotImplementedError, match="hub"):
-        compile_graph(g, hub_cap=4)
+    _, info = compile_graph(g, hub_cap=4)
+    assert info.has_hub and info.tiers[-1].hub
+    with pytest.raises(ValueError, match="hub"):
+        compile_graph(fixtures.sparse_categorical_graph(), hub_cap=0)
 
 
 def _big_card_graph(graph_cls, card=200):

@@ -17,6 +17,7 @@ MODULES = [
     "sampler_tpu_torch.ops.fused", "sampler_tpu_torch.ops.weights",
     "sampler_tpu_torch.ops._build", "sampler_tpu_torch.engine.multichain",
     "sampler_tpu_torch.engine.learn", "sampler_tpu_torch.ops.grad",
+    "sampler_tpu_torch.ops.tally",
 ]
 
 
@@ -110,7 +111,10 @@ def test_every_kernel_source_is_built_and_bound():
                 if re.search(rf'extern "C" int {launcher}\(', src)]
         assert len(hits) == 1, (launcher, hits)
     for name, src in text.items():
-        assert "sm_90a" in src and "Replaces: sampler_tpu/ops/" in src, name
+        # a kernel names what it replaces: a Pallas kernel of ops/, or (the
+        # tally) the engine code that XLA fused
+        assert "sm_90a" in src, name
+        assert re.search(r"Replaces: sampler_tpu/(ops|engine)/", src), name
         assert not re.search(r"#include\s*[<\"](torch|ATen|jax)", src), name
 
 
