@@ -116,6 +116,27 @@ Phases (each prints one line with its result and elapsed seconds):
  16 kbc learn  bench.py's KBC learning cell: random_kbc_graph(200000,
              600000, 1e4 weights), half labelled, 256 chains a world, 10
              epochs of 2 sweeps: rate, peak memory, an epoch by part
+ 17 cli kbc  the dw gibbs command (python -m sampler_tpu_torch.cli, a child
+             process) on phase 15's graph, written by the port's binary
+             writer, with phase 15's compile settings, 1024 chains, 2
+             learning epochs of 2 sweeps, 2 burn-in and 10 counted sweeps:
+             seconds to write, load, compile, learn and infer, the
+             command's rate (its whole inference, and its counted sweeps
+             alone) beside phase 15's, peak memory, the output
+             files checked (one line a variable and category, one a
+             weight)
+ 18 cli oracle  the command in this process (cli.main) against exact
+             enumeration: a 3x3 Ising grid (|dp| < 0.015), the labelled coin
+             (within 0.2 of its log-odds), sparse-weight graphs (|dp| <
+             0.01; one of them with checkpoints); 256x256 Ising, Potts
+             and triple grids with learning,
+             each kernel's launches on the command's path exactly counted
+ 19 cli resume  kill and resume: the labelled 256x256 grid killed by the
+             fault hook after 5 checkpoint saves (a child process) and
+             resumed writes the bytes of the uninterrupted run; a small KBC
+             graph with a hub tier: the two runs' largest |dp|; the two
+             killed runs go side by side while this process makes the
+             uninterrupted ones
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failed check ends the run nonzero.
 The script imports neither JAX nor the JAX package.
@@ -123,6 +144,7 @@ The script imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -183,6 +205,23 @@ KBC_VARS, KBC_CHAINS = 500_000, 1024      # bench.py's bench_kbc
 KBC_BURN = 2
 KBC_INNER, KBC_OUTER = 5, 2               # bench.py's counted sweeps
 KBC_LEARN_VARS = 200_000                  # bench.py's KBC learning cell
+CLI_KBC_ARGS = ["--order", "rcm", "--band_wmax", "32768", "--hub_cap", "256",
+                "--n_chains", str(KBC_CHAINS), "-l", "2", "-s", "2", "-b", "2",
+                "-i", "10", "--seed", "0"]
+CLI_TIMEOUT_S = 600
+CLI_GRID = 256                # a labelled boolean grid that bands
+CLI_GRID_EPOCHS, CLI_GRID_BURN, CLI_GRID_SWEEPS = 5, 5, 20
+CLI_GRID_ARGS = ["-l", str(CLI_GRID_EPOCHS), "-a", "0.05",
+                 "-b", str(CLI_GRID_BURN), "-i", str(CLI_GRID_SWEEPS),
+                 "--n_chains", "64"]
+RESUME_GRID = 256
+RESUME_GRID_ARGS = ["-l", "4", "-a", "0.05", "-b", "20", "-i", "40",
+                    "--n_chains", "64", "--checkpoint_every", "10"]
+RESUME_KBC = (5000, 15000)                # variables, factors; a hub tier
+RESUME_KBC_ARGS = ["--order", "rcm", "--band_wmax", "32768", "--hub_cap",
+                   "256", "-l", "2", "-b", "10", "-i", "40", "--n_chains",
+                   "256", "--checkpoint_every", "10"]
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def require(cond, msg: str) -> None:
@@ -2182,12 +2221,13 @@ def kbc_sweep_parts(d, world, info, modes, gen) -> dict:
                 parts_ms=parts, parts_sum_ms=sum(parts.values()))
 
 
-def kbc_phase(dev, card: str) -> None:
+def kbc_phase(dev, card: str) -> tuple:
     """Phase 15: bench.py's KBC inference cell (bench_kbc): KBC_VARS
     variables, greedy coloring, RCM order, compile_graph(band_wmax=32768,
     hub_cap=256), KBC_CHAINS chains, the default modes; KBC_BURN burn-in
     sweeps, then KBC_OUTER counted runs of KBC_INNER sweeps through
-    run_inference_mc (bench.py's 5 x 2)."""
+    run_inference_mc (bench.py's 5 x 2).  Returns the graph and the
+    counted sweeps' updates/s, for phase 17."""
     import torch
 
     from sampler_tpu_torch.coloring import greedy_coloring, rcm_order
@@ -2254,6 +2294,7 @@ def kbc_phase(dev, card: str) -> None:
            has_hub=info.has_hub, modes=modes, host_seconds=host,
            chains=KBC_CHAINS, burn=KBC_BURN, sweeps=f"{KBC_INNER}x{KBC_OUTER}",
            run=run, sweep_breakdown=breakdown)
+    return g, run["variable_updates_per_s"]
 
 
 def kbc_learn_phase(dev, card: str) -> None:
@@ -2319,6 +2360,378 @@ def kbc_learn_phase(dev, card: str) -> None:
     report("16 kbc learn", t16, card=card, n_vars=info.n_vars,
            colors=info.n_colors, tiers=len(info.tiers), has_hub=info.has_hub,
            learning=learn)
+
+
+def graph_flags(g, outdir: str) -> list:
+    """Write ``g`` with the port's binary writer into ``outdir``; returns
+    the gibbs command's -w -v -f -m flags."""
+    from sampler_tpu_torch.io import binary
+
+    meta = binary.write_graph(g, outdir)
+    return ["-w", os.path.join(outdir, "graph.weights"),
+            "-v", os.path.join(outdir, "graph.variables"),
+            "-f", os.path.join(outdir, "graph.factors"), "-m", meta]
+
+
+def cli_child(args, env_extra=None) -> subprocess.Popen:
+    """``python -m sampler_tpu_torch.cli`` started in a child process, from
+    the repository root (the fault hook ends its process); see
+    cli_subprocess."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), **(env_extra or {}))
+    return subprocess.Popen([sys.executable, "-m", "sampler_tpu_torch.cli"]
+                            + args, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def cli_subprocess(args, env_extra=None) -> subprocess.CompletedProcess:
+    """cli_child run to its end (CLI_TIMEOUT_S at most)."""
+    child = cli_child(args, env_extra)
+    try:
+        out, err = child.communicate(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise
+    return subprocess.CompletedProcess(child.args, child.returncode, out, err)
+
+
+def cli_log(stdout: str) -> dict:
+    """The numbers of the gibbs command's log lines."""
+    import re
+
+    pats = {"load_s": r"^loaded graph: .*\[([\d.]+)s\]",
+            "compile_s": r"^compiled: .*\[([\d.]+)s\]",
+            "learn_s": r"^learning: \d+ sweeps in ([\d.]+)s",
+            "infer_s": r"^inference: \d+ sweeps x \d+ chains in ([\d.]+)s",
+            "infer_vars_per_s": r"^inference: .*\(([\d.e+]+) vars/s\)",
+            "counted_s": r"^counted sweeps: \d+ in ([\d.]+)s",
+            "counted_vars_per_s":
+                r"^counted sweeps: .*\(([\d.e+]+) vars/s\)",
+            "peak_memory_bytes": r"^peak device memory (\d+) bytes",
+            "chains": r"^inference: \d+ sweeps x (\d+) chains"}
+    out = {}
+    for key, pat in pats.items():
+        m = re.search(pat, stdout, flags=re.M)
+        if m:
+            out[key] = float(m.group(1))
+    m = re.search(r"^kernel launches: (.*)$", stdout, flags=re.M)
+    if m:
+        out["launches"] = json.loads(m.group(1))
+    return out
+
+
+def check_cli_outputs(g, outdir: str) -> dict:
+    """The gibbs command's two files: one marginal line for each
+    (variable, category) (one for a boolean variable), probabilities in
+    [0, 1] that sum to 1 over a categorical variable's categories, one
+    finite weight line for each weight.  Returns {(vid, cat): p} and the
+    weights."""
+    import numpy as np
+
+    from sampler_tpu_torch import format_spec as fs
+    from sampler_tpu_torch.io import results
+
+    parsed = results.read_marginals(
+        os.path.join(outdir, "inference_result.out.text"))
+    boolean = np.asarray(g.var_dtype) == fs.DTYPE_BOOLEAN
+    want = int(np.where(boolean, 1, np.asarray(g.var_card)).sum())
+    require(len(parsed) == want,
+            f"{len(parsed)} marginal lines, {want} expected")
+    marg = {(v, 1 if c is None else c): p for v, c, p in parsed}
+    p = np.array(list(marg.values()))
+    require(bool(((p >= 0) & (p <= 1)).all()), "a marginal outside [0, 1]")
+    sums = {}
+    for (v, _), pv in marg.items():
+        if not boolean[v]:
+            sums[v] = sums.get(v, 0.0) + pv
+    require(all(abs(x - 1) < 1e-5 * (1 + g.var_card[v])
+                for v, x in sums.items()),
+            "a categorical variable's marginals do not sum to 1")
+    with open(os.path.join(outdir,
+                           "inference_result.out.weights.text")) as fp:
+        w = np.array([float(ln.split()[1]) for ln in fp])
+    require(len(w) == g.n_weights and bool(np.isfinite(w).all()),
+            f"{len(w)} weight lines for {g.n_weights} weights")
+    return marg, w
+
+
+def cli_kbc_phase(dev, card: str, g, kbc_rate: float) -> None:
+    """Phase 17: the gibbs command on phase 15's KBC graph at full size:
+    written by the port's binary writer, then learning and inference in a
+    child process with phase 15's compile settings (CLI_KBC_ARGS)."""
+    import tempfile
+
+    import torch
+
+    t17 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tw = time.perf_counter()
+        flags = graph_flags(g, tmp)
+        write_s = time.perf_counter() - tw
+        out = os.path.join(tmp, "out")
+        tr = time.perf_counter()
+        r = cli_subprocess(["gibbs", *flags, "-o", out, *CLI_KBC_ARGS,
+                            "--device", dev.type])
+        wall = time.perf_counter() - tr
+        require(r.returncode == 0, f"KBC gibbs exited {r.returncode}: "
+                f"{r.stderr[-2000:]}")
+        log = cli_log(r.stdout)
+        check_cli_outputs(g, out)
+    require(log.get("launches", {}).get("tally_counts", 0) > 0,
+            f"KBC gibbs launched no tally_counts: {log}")
+    ratio = log["infer_vars_per_s"] / kbc_rate
+    report("17 cli kbc", t17, card=card, args=CLI_KBC_ARGS,
+           write_graph_s=write_s, command_wall_s=wall, cli=log,
+           in_process_updates_per_s=kbc_rate,
+           cli_over_in_process=ratio,
+           counted_over_in_process=log["counted_vars_per_s"] / kbc_rate,
+           stdout=r.stdout.splitlines())
+
+
+def cli_marginal_err(g, outdir: str) -> float:
+    """Largest |dp| of the command's marginals against exact enumeration
+    (query variables)."""
+    import numpy as np
+
+    from sampler_tpu_torch import oracle
+
+    marg, _ = check_cli_outputs(g, outdir)
+    exact = oracle.exact_marginals(g, clamp_evidence=True)
+    return max(abs(p - exact[v, c]) for (v, c), p in marg.items()
+               if g.var_role[v] == 0)
+
+
+def mixed_sparse_dense():
+    """tests/test_sparse_weights.py's mixed graph: a sparse unary table,
+    a dense categorical pair factor and a boolean unary factor."""
+    from sampler_tpu_torch import FactorGraph
+    from sampler_tpu_torch import format_spec as fs
+
+    return FactorGraph.build(
+        var_card=[3, 3, 2], weights=[0.4, -0.6, 0.8, 0.3],
+        factors=[
+            (fs.FUNC_AND_CATEGORICAL, 3, 1.0, [(0, True, 0)],
+             [((0,), 0), ((1,), 1), ((2,), 2)]),
+            (fs.FUNC_AND_CATEGORICAL, 3, 1.5, [(0, True, 1), (1, True, 2)]),
+            (fs.FUNC_ISTRUE, 3, 1.0, [(2, True)]),
+        ])
+
+
+def cli_oracle_phase(dev) -> dict:
+    """Phase 18: the gibbs command on the card, in this process (cli.main),
+    against exact enumeration: tests/test_cli.py's 3x3 Ising grid (|dp| <
+    0.015) and labelled coin (the learned weight within 0.2 of the labels'
+    log-odds), the sparse-weight graphs (|dp| < 0.01; the first with
+    checkpoints, so in chunks of 150 sweeps, saved after each); then the
+    cli_kernel_paths grids, whose kernel launches show the command's path
+    through every draw kernel of their classes, grad_pair_tile and
+    tally_counts."""
+    import tempfile
+
+    import numpy as np
+
+    from sampler_tpu_torch import cli, fixtures
+
+    kernels = cli_kernels()
+
+    t18 = time.perf_counter()
+    cases = {
+        "ising_3x3": (fixtures.ising_grid(3, 3, w_pair=0.4, w_bias=0.3),
+                      ["-i", "1000", "-b", "100", "--n_chains", "128"], 0.015),
+        "sparse_categorical": (fixtures.sparse_categorical_graph(),
+                               ["-i", "600", "-b", "100", "--n_chains",
+                                "512", "--checkpoint_every", "150"], 0.01),
+        "mixed_sparse_dense": (mixed_sparse_dense(),
+                               ["-i", "600", "-b", "100", "--n_chains",
+                                "512"], 0.01),
+    }
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (g, args, bound) in cases.items():
+            tc = time.perf_counter()
+            d = os.path.join(tmp, name)
+            require(cli.main(["gibbs", *graph_flags(g, d), "-o",
+                              os.path.join(d, "out"), *args, "--device",
+                              dev.type, "--quiet"]) == 0,
+                    f"{name}: gibbs failed")
+            err = cli_marginal_err(g, os.path.join(d, "out"))
+            require(err < bound, f"{name}: |dp| = {err} (bound {bound})")
+            out[name] = dict(max_abs_dp=err, bound=bound, args=args,
+                             seconds=time.perf_counter() - tc)
+        tc = time.perf_counter()
+        g = fixtures.labeled_coin_graph(n_flips=300, p_heads=0.8, seed=5)
+        d = os.path.join(tmp, "coin")
+        require(cli.main(["gibbs", *graph_flags(g, d), "-o",
+                          os.path.join(d, "out"), "-l", "300", "-a", "0.02",
+                          "-d", "0.995", "-i", "10", "--device", dev.type,
+                          "--quiet"]) == 0,
+                "coin: gibbs failed")
+        _, w = check_cli_outputs(g, os.path.join(d, "out"))
+        p_hat = float(g.var_init.mean())
+        w_star = float(np.log(p_hat / (1 - p_hat)))
+        require(abs(w[0] - w_star) < 0.2, f"coin: w {w[0]} vs {w_star}")
+        out["labelled_coin"] = dict(weight=float(w[0]), log_odds=w_star,
+                                    seconds=time.perf_counter() - tc)
+        # the command's path through the kernels, on a grid of each class
+        # that bands: learning and inference, no checkpoints
+        for name, (make, args, want) in cli_kernel_paths().items():
+            g = make()
+            d = os.path.join(tmp, name)
+            for k in kernels.values():
+                k.launches = 0
+            require(cli.main(["gibbs", *graph_flags(g, d), "-o",
+                              os.path.join(d, "out"), *args, "--device",
+                              dev.type, "--quiet"]) == 0,
+                    f"{name}: gibbs failed")
+            got = {n: k.launches for n, k in kernels.items()}
+            require(all(got[k] == n for k, n in want.items()),
+                    f"{name} gibbs launches {got}, want {want}")
+            check_cli_outputs(g, os.path.join(d, "out"))
+            out[name] = dict(grid=f"{CLI_GRID}x{CLI_GRID}", args=args,
+                             launches=got)
+    report("18 cli oracle", t18, graphs=out)
+
+
+def big_grid(n: int):
+    from sampler_tpu_torch.benchgraphs import big_ising_grid
+
+    return big_ising_grid(n, n)[0]
+
+
+def cli_kernels() -> dict:
+    from sampler_tpu_torch.ops.banded import (banded_gather,
+                                              banded_gather_multi)
+    from sampler_tpu_torch.ops.fused import (fused_cat_draw, fused_color_draw,
+                                             fused_dm_draw)
+    from sampler_tpu_torch.ops.grad import grad_pair_tile
+    from sampler_tpu_torch.ops.tally import tally_counts
+
+    return {k.__name__: k for k in (
+        fused_color_draw, banded_gather, grad_pair_tile, fused_dm_draw,
+        banded_gather_multi, fused_cat_draw, tally_counts)}
+
+
+def cli_kernel_paths() -> dict:
+    """name -> (graph maker, gibbs arguments, the launches they must make;
+    the chunked gradients' gathers are counted, not required):
+    CLI_GRID² grids of the three classes that band, run through the
+    command with CLI_GRID_ARGS (learning, burn-in, counted sweeps): the
+    labelled Ising grid (2 colors; fused_color_draw in both worlds' sweeps
+    and inference, grad_pair_tile a color an epoch), the Potts grid (2
+    colors, fused_cat_draw) and the triple grid (3 colors,
+    fused_dm_draw); tally_counts once a counted sweep."""
+    from sampler_tpu_torch.benchgraphs import big_potts_grid, big_triple_grid
+
+    E, B, S = CLI_GRID_EPOCHS, CLI_GRID_BURN, CLI_GRID_SWEEPS
+    return {
+        "ising_grid": (lambda: label_half(big_grid(CLI_GRID)), CLI_GRID_ARGS,
+                       {"fused_color_draw": 2 * (2 * E + B + S),
+                        "grad_pair_tile": 2 * E, "tally_counts": S}),
+        "potts_grid": (lambda: label_half(big_potts_grid(CLI_GRID, CLI_GRID,
+                                                         card=4)[0]),
+                       CLI_GRID_ARGS,
+                       {"fused_cat_draw": 2 * (2 * E + B + S),
+                        "tally_counts": S}),
+        "triple_grid": (lambda: label_half(big_triple_grid(CLI_GRID,
+                                                           CLI_GRID)[0]),
+                        CLI_GRID_ARGS,
+                        {"fused_dm_draw": 3 * (2 * E + B + S),
+                         "tally_counts": S}),
+    }
+
+
+def resume_start(dev, g, args, tmp: str, name: str,
+                 fault_after: int) -> dict:
+    """Write ``g`` and start its gibbs run that the fault hook kills after
+    ``fault_after`` checkpoint saves (a child process, running while this
+    process goes on); returns what resume_finish needs."""
+    d = os.path.join(tmp, name)
+    base = ["gibbs", *graph_flags(g, d), *args, "--device", dev.type,
+            "--quiet"]
+    out_b = os.path.join(d, "b")
+    return dict(name=name, g=g, base=base, out_a=os.path.join(d, "a"),
+                out_b=out_b, t=time.perf_counter(),
+                child=cli_child(base + ["-o", out_b],
+                                {"SAMPLER_TPU_FAULT_AFTER": str(fault_after)}))
+
+
+def resume_finish(case: dict) -> dict:
+    """The uninterrupted checkpointed run (cli.main, this process), then,
+    once the killed child has ended, its --resume (cli.main); returns the
+    two runs' outputs compared."""
+    from sampler_tpu_torch import cli
+
+    name, g, base = case["name"], case["g"], case["base"]
+    out_a, out_b, child = case["out_a"], case["out_b"], case["child"]
+    secs = {}
+    t = time.perf_counter()
+    require(cli.main(base + ["-o", out_a]) == 0, f"{name}: run a failed")
+    secs["uninterrupted"] = time.perf_counter() - t
+    try:
+        _, err = child.communicate(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise
+    secs["killed_child_from_start"] = time.perf_counter() - case["t"]
+    require(child.returncode == 3, f"{name}: killed run exited "
+            f"{child.returncode}: {err[-2000:]}")
+    require(os.path.exists(os.path.join(out_b, "checkpoint.npz"))
+            and not os.path.exists(os.path.join(
+                out_b, "inference_result.out.text")),
+            f"{name}: the killed run left no checkpoint, or outputs")
+    t = time.perf_counter()
+    require(cli.main(base + ["-o", out_b, "--resume"]) == 0,
+            f"{name}: the resumed run failed")
+    secs["resumed"] = time.perf_counter() - t
+    res = {"seconds": secs}
+    for fname in ("inference_result.out.text",
+                  "inference_result.out.weights.text"):
+        with open(os.path.join(out_a, fname), "rb") as fa, \
+                open(os.path.join(out_b, fname), "rb") as fb:
+            res[fname] = fa.read() == fb.read()
+    ma, wa = check_cli_outputs(g, out_a)
+    mb, wb = check_cli_outputs(g, out_b)
+    res["max_abs_dp"] = max(abs(ma[k] - mb[k]) for k in ma)
+    res["max_abs_dw"] = float(abs(wa - wb).max())
+    return res
+
+
+def cli_resume_phase(dev) -> None:
+    """Phase 19: kill and resume on the card.  The labelled RESUME_GRID²
+    grid: the killed and resumed run writes exactly the bytes of the
+    uninterrupted one.  A small KBC graph with a hub tier, whose
+    index_add_ sums in a varying order: the largest |dp| between the
+    two runs.  Both killed runs start first, side by side, and run while
+    this process makes the uninterrupted runs."""
+    import tempfile
+
+    from sampler_tpu_torch.benchgraphs import random_kbc_graph
+
+    t19 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        started = [
+            resume_start(dev, label_half(big_grid(RESUME_GRID)),
+                         RESUME_GRID_ARGS, tmp, "grid", 5),
+            resume_start(dev, random_kbc_graph(
+                *RESUME_KBC, max_arity=3, n_weights=1000, seed=0, skew=1.1,
+                window=2000), RESUME_KBC_ARGS, tmp, "kbc", 4)]
+        try:
+            grid, kbc = (resume_finish(case) for case in started)
+        finally:
+            for case in started:
+                if case["child"].poll() is None:
+                    case["child"].kill()
+                    case["child"].communicate()
+    require(grid["inference_result.out.text"]
+            and grid["inference_result.out.weights.text"],
+            f"grid: the resumed run's outputs differ: {grid}")
+    require(kbc["max_abs_dp"] < 0.1, f"kbc: resumed run's |dp| {kbc}")
+    report("19 cli resume", t19, grid=dict(grid=RESUME_GRID,
+                                           args=RESUME_GRID_ARGS, **grid),
+           kbc=dict(n_vars=RESUME_KBC[0], args=RESUME_KBC_ARGS, **kbc))
 
 
 def main() -> int:
@@ -2584,8 +2997,14 @@ def main() -> int:
 
     # ---- 14, 15, 16: the KBC class (the hub tier) --------------------------
     kbc_oracle_phase(dev)
-    kbc_phase(dev, card)
+    g_kbc, kbc_rate = kbc_phase(dev, card)
     kbc_learn_phase(dev, card)
+
+    # ---- 17, 18, 19: the gibbs command on the card -----------------------
+    cli_kbc_phase(dev, card, g_kbc, kbc_rate)
+    del g_kbc
+    cli_oracle_phase(dev)
+    cli_resume_phase(dev)
 
     sources = {"fused_color_draw": ("sampler_tpu_torch/csrc/"
                                     "fused_color_draw.cu",

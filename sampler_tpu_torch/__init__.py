@@ -6,11 +6,14 @@ imports nothing of the JAX package: the numpy host side (graph model,
 coloring, compile, oracle, fixtures) is a copy.  The JAX package stays the
 reference that the tests hold the port to.
 
-Ported so far: multi-chain marginal inference on all-boolean graphs
-(``engine.multichain.infer_mc``), with the ``fused_color_draw`` and
-``banded_gather`` kernels, and multi-chain weight learning on the same
-graphs (``engine.multichain.learn_mc``), with the ``grad_pair_tile``
-kernel.
+Ported so far: multi-chain marginal inference and weight learning
+(``engine.multichain.infer_mc``, ``learn_mc``) on boolean, categorical,
+mixed, arity-3, multi-window and hub-tier (KBC) graphs, with dense or
+sparse per-combination weights, through seven CUDA kernels (``ops/``);
+the single-chain ``engine.gibbs.infer`` and ``engine.learn.learn``; the
+binary and text graph files (``io/``), checkpoints (``checkpoint``) and
+the ``dw``-compatible command line (``python -m sampler_tpu_torch.cli``).
+Chain and graph sharding across devices are not ported yet.
 """
 from .graph import FactorGraph
 from .compile import compile_graph, to_device, DeviceGraph, CompileInfo

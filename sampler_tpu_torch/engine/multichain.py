@@ -8,8 +8,8 @@ order; a color step draws every variable of that color in every chain at
 once (chromatic Gibbs) and writes the new values into ``values`` in place.
 
 This port runs marginal inference and weight learning on boolean,
-categorical and mixed graphs with dense weights, single-window and
-multi-window banded alike, hub tiers included:
+categorical and mixed graphs with dense or sparse per-combination weights,
+single-window and multi-window banded alike, hub tiers included:
 
   * affine2 tiers (pairwise boolean, one window a tile) with the fused
     mode on draw a whole color in ``ops.fused.fused_color_draw`` (one CUDA
@@ -38,16 +38,20 @@ multi-window banded alike, hub tiers included:
     NC chains each; its gradient (``mc_weight_gradient_cs``) goes through
     ``ops.grad.grad_pair_tile`` (one CUDA kernel a color) on affine2 tiers
     with the band mode on, and through the chunked cs-stream route
-    (``_phi_streams``, with the same gathers as the draw) elsewhere.
+    (``_phi_streams``, with the same gathers as the draw) elsewhere;
+  * sparse per-combination weights (a factor whose weight is looked up by
+    its members' joint values in ``cwt_wid``; compile turns the affine
+    and fused plans off beside them) take the candidate route
+    (``color_logits_mc``'s sparse branch) and the chunked gradient; every
+    table index is clipped to the table, and a miss lands on the reserved
+    zero weight at index W, whose gradient is held at 0.
 
 ``modes = (band, fused)``, each "cuda" (the kernel), "plain" (its plain
 PyTorch version) or "off"; the default is "cuda" on a CUDA device and
 "plain" on the CPU, gated by what the compiled graph supports, as the JAX
-package's resolve_band / resolve_fused gate them.  What lies outside the
-slice (sparse per-combination weights) raises NotImplementedError naming
-the missing piece.  The fused draws write straight into the world's block
-(their world-write mode); the other tiers draw a block and write it under
-the resample mask.
+package's resolve_band / resolve_fused gate them.  The fused draws write
+straight into the world's block (their world-write mode); the other tiers
+draw a block and write it under the resample mask.
 
 Randomness comes from one explicit ``torch.Generator`` on the run's device:
 the initial worlds, the uniforms and Gumbel noise of the unfused draws, and
@@ -55,9 +59,11 @@ two int32 seed words per (sweep, color, tier) for the fused kernels'
 counter hash.  In learning the one generator drives both worlds' sweeps in
 turn.
 
-Unlike the JAX package, the port runs the chain count it is asked for: the
-TPU rounds chains up to its 128 lanes (effective_chains, demote_modes), and
-a GPU kernel has no such constraint.
+Unlike the JAX package, the port's entry points run the chain count they
+are asked for: the TPU rounds chains up to its 128 lanes so its kernels
+stay on (demote_modes turns them off otherwise), and a GPU kernel runs at
+any count.  ``effective_chains`` keeps the command line's rounding, to a
+multiple of 16 on the card, where the kernels take their 16-byte variants.
 """
 from __future__ import annotations
 
@@ -77,6 +83,8 @@ from ..ops.grad import GRAD_W_MAX, grad_pair_tile, grad_pair_tile_plain
 from ..ops.tally import tally_counts, tally_plain
 from ..ops.weights import expand_wf, segment_reduce
 from .learn import apply_update
+from .potentials import (_eval_phi_ax2, _factor_phis_mc, _need_head,
+                         _phi_from_counts)
 
 MECHANISMS = ("cuda", "plain", "off")
 
@@ -118,12 +126,26 @@ def tier_modes(ti, modes) -> tuple:
     return band, fused
 
 
-def check_slice(info, modes) -> None:
-    """Raise NotImplementedError for what this port does not run yet."""
-    if info.has_sparse_cw:
-        raise NotImplementedError(
-            "sparse per-combination weights (color_logits_mc's sparse "
-            "branch) are not ported yet")
+CHAIN_ROUND = 16                # chains a thread in the kernels' 16-byte rows
+AUTOCHAIN_BYTES = 1 << 30       # the rounded worlds' budget (as in JAX)
+
+
+def effective_chains(info, device, n_chains: int, n_positions: int,
+                     n_worlds: int = 1) -> int:
+    """The chain count the command line runs: on a CUDA device, ``n_chains``
+    rounded up to a multiple of CHAIN_ROUND, so the kernels take their
+    16-byte variants (16 chains a thread) instead of their byte variants.
+    The extra chains are real chains pooled into the same tallies and
+    chain-averaged gradients.  Kept as asked on the CPU, and where the
+    rounded worlds would pass AUTOCHAIN_BYTES, as the JAX package keeps
+    its lane rounding under the same budget."""
+    if torch.device(device).type != "cuda" or n_chains % CHAIN_ROUND == 0:
+        return n_chains
+    new = -(-n_chains // CHAIN_ROUND) * CHAIN_ROUND
+    bytes_per = 1 if info.max_card <= 127 else 4
+    if n_positions * new * n_worlds * bytes_per > AUTOCHAIN_BYTES:
+        return n_chains
+    return new
 
 
 def _on(t: torch.Tensor, dev: torch.device) -> bool:
@@ -140,7 +162,6 @@ def _setup(dg, values, weights, device, info, modes) -> tuple:
                              "move the graph with to_device(dg, device)")
     modes = check_modes(resolve_modes(info, dev) if modes is None else modes,
                         dev)
-    check_slice(info, modes)
     w = torch.as_tensor(weights, dtype=torch.float32).to(dg.var_card.device)
     return modes, w
 
@@ -172,73 +193,6 @@ def init_values_mc(dg, generator, n_chains: int, info,
         blk = out[r0:r1]
         blk.copy_(torch.where(query[r0:r1, None], rand_vals, blk))
     return out
-
-
-def _need_head(present) -> bool:
-    return any(t in present for t in (
-        fs.FUNC_ISTRUE, fs.FUNC_IMPLY_MLN, fs.FUNC_LINEAR, fs.FUNC_RATIO,
-        fs.FUNC_LOGICAL))
-
-
-def _phi_from_counts(nlit, head, n, f_type, present):
-    """φ from sufficient statistics: nlit = # true literals, head = head
-    literal (None if no present type needs it), n = true arity.
-    Branchless over ``present``; all args broadcast together."""
-    f32 = torch.float32
-    if head is not None:
-        nbody = nlit - head.to(torch.int32)
-        n_body = torch.clamp(n - 1, min=0)
-
-    def variant(t):
-        if t in (fs.FUNC_AND, fs.FUNC_AND_CATEGORICAL, fs.FUNC_IMPLY_NATURAL):
-            return (nlit == n).to(f32)
-        if t == fs.FUNC_OR:
-            return (nlit > 0).to(f32)
-        if t == fs.FUNC_EQUAL:
-            return ((nlit == 0) | (nlit == n)).to(f32)
-        if t == fs.FUNC_ISTRUE:
-            return head.to(f32)
-        if t == fs.FUNC_IMPLY_MLN:
-            return torch.where(nbody < n_body, 1.0, head.to(f32))
-        lin = torch.where(head, n_body, n_body - nbody).to(f32)
-        lin = torch.where(n == 1, head.to(f32), lin)
-        if t == fs.FUNC_LINEAR:
-            return lin
-        if t == fs.FUNC_RATIO:
-            return torch.log1p(lin)
-        if t == fs.FUNC_LOGICAL:
-            return (lin > 0).to(f32)
-        raise ValueError(f"unknown factor function type {t}")
-
-    present = tuple(present)
-    if len(present) == 1:
-        return variant(present[0])
-    out = torch.zeros((), dtype=f32, device=nlit.device)
-    for t in reversed(present):
-        out = torch.where(f_type == t, variant(t), out)
-    return out
-
-
-def _eval_phi_ax2(lits, mask, f_type, f_arity, present, hmask=None):
-    """φ with the arity axis at -2 (chain axis trailing).
-
-    lits [.., A, NC] bool; mask broadcastable to lits; f_type / f_arity
-    of rank lits.ndim - 1 (every lits axis but A, with broadcast-1 dims
-    where needed, e.g. [F, 1] for lits [F, A, NC]).  ``hmask``, bool
-    broadcastable to lits, marks the head slot; it is needed where the A
-    axis is permuted own-last (the cs streams).  None takes slot
-    arity - 1, the factor records' order.  Returns float32 [.., NC]."""
-    lits = lits & mask
-    nlit = lits.sum(dim=-2, dtype=torch.int32)
-    head = None
-    if _need_head(present):
-        if hmask is None:
-            iota_a = torch.arange(lits.shape[-2],
-                                  device=lits.device)[:, None]
-            hmask = iota_a == (f_arity.to(torch.int64) - 1)[..., None]
-        head = (lits & hmask).any(dim=-2)
-    return _phi_from_counts(nlit, head, f_arity.to(torch.int32), f_type,
-                            present)
 
 
 def _tc(arr: torch.Tensor, c: int, shape) -> torch.Tensor:
@@ -367,16 +321,23 @@ def color_logits_mc(dg, ts, ti, values, weights, c, info,
     """Conditional log-potentials [rc, K, NC] of the candidates
     k = 0 .. K-1 for rows ``r0 .. r0+rc`` (all rows by default) of tier
     ``ts``, color ``c``: Σ_d wf·φ with the candidate at the own slots and
-    the gathered neighbour values at the others (dense weights; the
-    caller masks k >= card with cm_kmask).  Its [rc, D, K, A, NC] literal
-    and [rc, D, K, NC] φ temporaries scale with ``rc``."""
+    the gathered neighbour values at the others (the caller masks
+    k >= card with cm_kmask).  Its [rc, D, K, A, NC] literal
+    and [rc, D, K, NC] φ temporaries scale with ``rc``.
+
+    A sparse factor (cs_issparse) contributes weights[cwt_wid[m]]·feat
+    instead, with m = cs_cwbase + Σ_slot stride·value over the candidate at
+    the own slots and the gathered values at the others; m is clipped to
+    the table, and a combination the table lacks holds the reserved zero
+    weight, so no mask is needed."""
     K = info.max_card
     B, D, A = tier_geom(ts, ti, info.n_colors)
     rc = B - r0 if rc is None else rc
     rows = slice(r0, r0 + rc)
     A1 = A - 1
     NC = values.shape[-1]
-    nbr_lit, pos, eq, _ = _nbr_lits(ts, ti, values, c, info, modes, r0, rc)
+    nbr_lit, pos, eq, vals_raw = _nbr_lits(ts, ti, values, c, info, modes,
+                                           r0, rc)
     ks = torch.arange(K, device=values.device)[None, None, :, None]
     cand = ks == 1 if eq is None else ks == eq[:, :, None, :]
     cand_lit = cand == pos[:, :, None, :]                       # [rc,D,K,A]
@@ -394,9 +355,41 @@ def color_logits_mc(dg, ts, ti, values, weights, c, info,
         _tc(ts.cs_type, c, (B, D))[rows][:, :, None, None],
         _tc(ts.cs_arity, c, (B, D))[rows][:, :, None, None], present,
         hmask=_tc(ts.cs_hmask, c, (B, D, A))[rows][:, :, None, :, None])
+    feat = _tc(ts.cs_feat, c, (B, D))[rows]
     wf = expand_wf(weights, _tc(ts.cs_wid, c, (B, D))[rows],
-                   _tc(ts.cs_feat, c, (B, D))[rows])[:, :, None, None]
-    return (wf * phi).sum(dim=1)                                # [rc, K, NC]
+                   feat)[:, :, None, None]
+    contrib = wf * phi                                          # [rc,D,K,NC]
+    if info.has_sparse_cw:
+        stride = _tc(ts.cs_cwstride, c, (B, D, A))[rows]
+        s_own = torch.where(is_mine, stride, 0).sum(dim=-1,
+                                                    dtype=torch.int32)
+        m = (_tc(ts.cs_cwbase, c, (B, D))[rows][:, :, None, None]
+             + s_own[:, :, None, None] * ks.to(torch.int32)
+             + _stride_sum(stride, vals_raw, A1, NC)[:, :, None, :])
+        swid = _table_wid(dg, m)
+        sc = expand_wf(weights, swid) * feat[:, :, None, None]
+        contrib = torch.where(
+            _tc(ts.cs_issparse, c, (B, D))[rows][:, :, None, None], sc,
+            contrib)
+    return contrib.sum(dim=1)                                   # [rc, K, NC]
+
+
+def _stride_sum(stride, nbr_vals, A1: int, NC: int) -> torch.Tensor:
+    """Σ over the neighbour slots of stride·value, [rows, D, NC] int32
+    (zeros on a unary tier, whose ``nbr_vals`` is None)."""
+    if nbr_vals is None:
+        return torch.zeros(stride.shape[:2] + (NC,), dtype=torch.int32,
+                           device=stride.device)
+    return (stride[..., :A1, None].to(torch.int32)
+            * nbr_vals.to(torch.int32)).sum(dim=-2, dtype=torch.int32)
+
+
+def _table_wid(dg, m: torch.Tensor) -> torch.Tensor:
+    """cwt_wid at the combination indices ``m``, clipped to [0, T-1] as
+    JAX clips a gather index."""
+    T = dg.cwt_wid.shape[0]
+    idx = m.clamp(0, T - 1).to(torch.int64)
+    return dg.cwt_wid.index_select(0, idx.reshape(-1)).reshape(m.shape)
 
 
 def _row_chunk(ti, B: int, D: int, A: int, NC: int) -> int:
@@ -663,56 +656,96 @@ def infer_mc(dg, weights, generator, n_burn: int, n_sweeps: int, info,
 
 def mc_factor_phis(dg, values, info) -> torch.Tensor:
     """φ for every factor in every chain: [F', NC] (values [P, NC])."""
-    f_vids, f_ispos, f_eqpred, f_mask = factor_records(dg)
-    NC = values.shape[-1]
-    vals = values.index_select(0, f_vids.reshape(-1)) \
-        .reshape(f_vids.shape + (NC,))
-    eq = f_eqpred[..., None].to(values.dtype)
-    lits = (vals == eq) == f_ispos[..., None]
-    return _eval_phi_ax2(lits, f_mask[..., None], dg.f_type[:, None],
-                         dg.f_arity[:, None], info.present_funcs)
+    return _factor_phis_mc(dg, values, info.present_funcs)
+
+
+def sparse_comb_wids(dg, values) -> torch.Tensor:
+    """Per-factor sparse-table weight ids int32 for world(s) ``values``:
+    [P] -> [F'], [P, NC] -> [F', NC].  Factors that are not sparse map to
+    the reserved zero-weight slot."""
+    f_vids = factor_records(dg)[0]
+    Fp, A = f_vids.shape
+    tail = () if values.ndim == 1 else (values.shape[-1],)
+    vals = values.index_select(0, f_vids.reshape(-1)).to(torch.int32) \
+        .reshape((Fp, A) + tail)
+    stride = dg.f_cwstride.reshape(Fp, -1)
+    base = dg.f_cwbase
+    if values.ndim > 1:
+        stride, base = stride[..., None], base[:, None]
+    m = base + (stride * vals).sum(dim=1, dtype=torch.int32)
+    zero = dg.w_init.shape[0] - 1                    # reserved zero slot
+    return torch.where(base >= 0, _table_wid(dg, m), zero).to(torch.int32)
 
 
 def _mc_weight_gradient_factors(dg, v_ev, v_free, learn_non_evidence: bool,
                                 info) -> torch.Tensor:
     """Weight gradient [W] averaged over the chain axis of [P, NC] worlds,
     factor by factor: the reference the cs-stream routes are held to."""
-    if info.has_sparse_cw:
-        raise NotImplementedError(
-            "the gradient of sparse per-combination weights "
-            "(sparse_comb_wids) is not ported yet")
-    diff = dg.f_feat[:, None] * (mc_factor_phis(dg, v_ev, info)
-                                 - mc_factor_phis(dg, v_free, info))
+    return factor_gradient(dg, v_ev, v_free, learn_non_evidence,
+                           info.present_funcs, info.has_sparse_cw)
+
+
+def factor_gradient(dg, v_ev, v_free, learn_non_evidence: bool, present,
+                    has_sparse_cw: bool) -> torch.Tensor:
+    """The per-factor gradient of ``_mc_weight_gradient_factors`` (and of
+    the single-chain ``engine.learn.weight_gradient``, at NC = 1).  A
+    sparse factor's φ is 1 on its current combination, so it adds +feat at
+    the weight its evidence world selects and -feat at the free world's."""
+    W = dg.w_init.shape[0]
+    NC = v_ev.shape[-1]
+    diff = dg.f_feat[:, None] * (_factor_phis_mc(dg, v_ev, present)
+                                 - _factor_phis_mc(dg, v_free, present))
+    keep = torch.ones_like(dg.f_feat, dtype=torch.bool)
     if not learn_non_evidence:
         f_vids, _, _, f_mask = factor_records(dg)
         role = dg.var_role.index_select(0, f_vids.reshape(-1)) \
             .reshape(f_vids.shape)
-        touches_ev = ((role == fs.ROLE_EVIDENCE) & f_mask).any(dim=-1)
-        diff = torch.where(touches_ev[:, None], diff, 0.0)
-    return segment_reduce(diff.mean(dim=1), dg.f_wid, dg.w_init.shape[0])
+        keep = ((role == fs.ROLE_EVIDENCE) & f_mask).any(dim=-1)
+    issparse = dg.f_cwbase >= 0 if has_sparse_cw else None
+    dense = keep if issparse is None else keep & ~issparse
+    diff = torch.where(dense[:, None], diff, 0.0)
+    grad = segment_reduce(diff.mean(dim=1), dg.f_wid, W)
+    if issparse is None:
+        return grad
+    sel = torch.where(keep & issparse, dg.f_feat / NC, 0.0)[:, None] \
+        .expand(-1, NC)
+    grad = grad + segment_reduce(
+        torch.cat([sel, -sel], dim=-1),
+        torch.cat([sparse_comb_wids(dg, v_ev),
+                   sparse_comb_wids(dg, v_free)], dim=-1), W)
+    grad[W - 1] = 0.0                   # keep the reserved slot inert
+    return grad
+
+
+def _rows(arr, C: int, c: int, r0: int, rc: int, *tail) -> torch.Tensor:
+    """Rows ``r0 .. r0+rc`` of color ``c`` of a flat tier stream whose
+    logical shape is [C, rows, *tail]."""
+    n = 1
+    for x in tail:
+        n *= x
+    B = arr.numel() // (C * n)
+    base = (c * B + r0) * n
+    return arr[base:base + rc * n].view((rc,) + tail)
 
 
 def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes,
-                 all_boolean: bool = True):
-    """φ [rc, D, NC] of rows ``r0 .. r0+rc`` of one tier's color ``c`` at
-    the current ``values``, with the variable's own value ``ownv``
-    [rc, NC] as the candidate.  Neighbour values come through the same
-    gather as the draw (``_gather_nbr``).  On all-boolean graphs it is
-    counts-based: the slot axis is reduced at once, so no [rc, D, A, NC]
-    literal tensor is made; elsewhere a literal is ``value == cs_eq`` and
-    that tensor is made (the caller's row chunk bounds it)."""
+                 all_boolean: bool = True) -> tuple:
+    """(φ [rc, D, NC], gathered neighbour values [rc, D, A-1, NC] or None on
+    a unary tier) of rows ``r0 .. r0+rc`` of one tier's color ``c`` at the
+    current ``values``, with the variable's own value ``ownv`` [rc, NC] as
+    the candidate.  Neighbour values come through the same gather as the
+    draw (``_gather_nbr``); the sparse-weight gradient reuses them for its
+    table lookup.  On all-boolean graphs φ is counts-based: the slot axis
+    is reduced at once, so no [rc, D, A, NC] literal tensor is made;
+    elsewhere a literal is ``value == cs_eq`` and that tensor is made (the
+    caller's row chunk bounds it)."""
     C = ts.bd_start.shape[0]
     _, D, A = tier_geom(ts, ti, C)
     A1 = A - 1
     NC = values.shape[-1]
 
     def rows(arr, *tail):
-        n = 1
-        for x in tail:
-            n *= x
-        B = arr.numel() // (C * n)
-        base = (c * B + r0) * n
-        return arr[base:base + rc * n].view((rc,) + tail)
+        return _rows(arr, C, c, r0, rc, *tail)
 
     pos = rows(ts.cs_pos, D, A)
     ismine = rows(ts.cs_ismine, D, A)
@@ -723,6 +756,7 @@ def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes,
     if not all_boolean:
         eq = rows(ts.cs_eq, D, A).to(values.dtype)
         own_lit = (ownv[:, None, None, :] == eq[..., None]) == pos[..., None]
+        vals = None
         if A1 > 0:
             vals = _gather_nbr(ts, ti, values, rows(ts.cs_nbr, D, A1), c,
                                modes, r0)
@@ -733,7 +767,8 @@ def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes,
         else:
             lit = own_lit
         return _eval_phi_ax2(lit, msk[..., None], typ, n, present,
-                             hmask=hmask[..., None])          # [rc, D, NC]
+                             hmask=hmask[..., None]), vals    # [rc, D, NC]
+    vals = None
     if A1 > 0:
         vals = _gather_nbr(ts, ti, values, rows(ts.cs_nbr, D, A1), c, modes,
                            r0)
@@ -757,7 +792,7 @@ def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes,
         else:
             hl = torch.zeros(nl.shape, dtype=torch.bool, device=nl.device)
         head = torch.where(head_own, torch.where(v1, headpos, ~headpos), hl)
-    return _phi_from_counts(nl + nown, head, n, typ, present)
+    return _phi_from_counts(nl + nown, head, n, typ, present), vals
 
 
 def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
@@ -773,8 +808,10 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
     runs the chunked route: both worlds side by side on the chain axis,
     rows in chunks of ``row_chunk`` (default ``_row_chunk``), φ from
     ``_phi_streams`` and a segment sum per weight.  A hub tier's stream
-    rows are its chunks, each with its row's own value."""
-    check_slice(info, modes)
+    rows are its chunks, each with its row's own value.  A sparse factor's
+    owner record adds +feat at the table weight of its evidence world's
+    combination and -feat at its free world's, the draw's table lookup
+    with the own value as the candidate."""
     W = dg.w_init.shape[0]
     NC = v_ev.shape[-1]
     gB = info.block_size
@@ -785,7 +822,7 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
         Bl, D, A = tier_geom(ts, ti, C)
         band = tier_modes(ti, modes)[0]
         if (ti.affine2 and W <= GRAD_W_MAX and band != "off"
-                and row_chunk is None):
+                and not info.has_sparse_cw and row_chunk is None):
             kernel = grad_pair_tile if band == "cuda" else grad_pair_tile_plain
             coef = ts.gd_cown if learn_non_evidence else ts.gd_ctch
             for c in range(C):
@@ -816,14 +853,44 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
                 else:
                     start = c * gB + ti.off + r0
                     own = v_both[start:start + rc]
-                phi = _phi_streams(v_both, own, ts, ti, c, r0, rc, present,
-                                   modes, info.all_boolean)
+                phi, nbrv = _phi_streams(v_both, own, ts, ti, c, r0, rc,
+                                         present, modes, info.all_boolean)
                 sl = slice((c * Bl + r0) * D, (c * Bl + r0 + rc) * D)
-                diff = (phi[..., :NC] - phi[..., NC:]).mean(dim=-1) \
-                    * ts.cs_feat[sl].view(rc, D)
-                diff = torch.where(gsrc[sl].view(rc, D), diff, 0.0)
+                feat = ts.cs_feat[sl].view(rc, D)
+                gm = gsrc[sl].view(rc, D)
+                diff = (phi[..., :NC] - phi[..., NC:]).mean(dim=-1) * feat
+                if info.has_sparse_cw:
+                    issp = ts.cs_issparse[sl].view(rc, D)
+                    diff = torch.where(gm & ~issp, diff, 0.0)
+                else:
+                    diff = torch.where(gm, diff, 0.0)
                 grad = grad + segment_reduce(diff, ts.cs_wid[sl], W)
+                if info.has_sparse_cw:
+                    grad = grad + _sparse_grad_rows(
+                        dg, ts, C, c, r0, rc, D, A, own, nbrv,
+                        torch.where(gm & issp, feat, 0.0) / NC, W)
+    if info.has_sparse_cw:
+        grad[W - 1] = 0.0               # keep the reserved slot inert
     return grad
+
+
+def _sparse_grad_rows(dg, ts, C, c, r0, rc, D, A, own, nbrv, sel, W):
+    """The sparse factors' gradient of one row chunk, both worlds side by
+    side on the chain axis of ``own`` [rc, 2NC] and ``nbrv``
+    [rc, D, A-1, 2NC]: ``sel`` [rc, D] (feat / NC on sparse owner records,
+    else 0) at the evidence world's table weights and -sel at the free
+    world's."""
+    NC2 = own.shape[-1]
+    NC = NC2 // 2
+    stride = _rows(ts.cs_cwstride, C, c, r0, rc, D, A)
+    ismine = _rows(ts.cs_ismine, C, c, r0, rc, D, A)
+    s_own = torch.where(ismine, stride, 0).sum(dim=-1, dtype=torch.int32)
+    m = (_rows(ts.cs_cwbase, C, c, r0, rc, D)[..., None]
+         + _stride_sum(stride, nbrv, A - 1, NC2)
+         + s_own[..., None] * own[:, None, :].to(torch.int32))
+    sel = sel[..., None].expand(rc, D, NC)
+    return segment_reduce(torch.cat([sel, -sel], dim=-1), _table_wid(dg, m),
+                          W)
 
 
 def mc_weight_gradient(dg, v_ev, v_free, learn_non_evidence: bool, info,

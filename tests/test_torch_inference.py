@@ -13,8 +13,9 @@
     (within 1e-5) on categorical, mixed, Potts and card-200 graphs, and
     infer_mc matches exact enumeration on the first, second and last of
     them, with int32 worlds and the band off at card 200;
-  * what the slice does not cover (sparse weights) raises
-    NotImplementedError; a hub tier beside sparse weights is refused.
+  * what the port does not cover (graph sharding) raises, naming it,
+    while sparse weights now run; a hub tier beside sparse weights is
+    refused.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -296,12 +297,24 @@ def test_cuda_mode_on_cpu_raises():
 @pytest.mark.parametrize("make", [
     lambda: fixtures.sparse_categorical_graph(),
 ], ids=["sparse_categorical"])
-def test_outside_slice_raises(make):
-    dg, info = compile_graph(make())
+def test_outside_slice_raises(make, tmp_path):
+    """Sparse per-combination weights, which raised here before they were
+    ported, run; graph sharding (the command line's --n_graph_shards
+    above 1) is what raises now, naming the missing piece."""
+    from sampler_tpu_torch import cli
+    from sampler_tpu_torch.io import binary
+
+    g = make()
+    dg, info = compile_graph(g)
     d = to_device(dg, "cpu")
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tmc.infer_mc(d, d.w_init, torch.Generator(), 1, 1, info, 4,
-                     device="cpu")
+    marg, _ = tmc.infer_mc(d, d.w_init, torch.Generator(), 1, 1, info, 4,
+                           device="cpu")
+    assert marg.shape == (g.n_vars, info.max_card)
+    meta = binary.write_graph(g, str(tmp_path))
+    with pytest.raises(SystemExit, match="graph sharding"):
+        cli.main(["gibbs", "-w", "-", "-v", "-", "-f", "-", "-m", meta,
+                  "-o", str(tmp_path / "out"), "--n_graph_shards", "2",
+                  "--device", "cpu"])
 
 
 def test_hub_graph_raises():

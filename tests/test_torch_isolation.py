@@ -17,7 +17,11 @@ MODULES = [
     "sampler_tpu_torch.ops.fused", "sampler_tpu_torch.ops.weights",
     "sampler_tpu_torch.ops._build", "sampler_tpu_torch.engine.multichain",
     "sampler_tpu_torch.engine.learn", "sampler_tpu_torch.ops.grad",
-    "sampler_tpu_torch.ops.tally",
+    "sampler_tpu_torch.ops.tally", "sampler_tpu_torch.engine.potentials",
+    "sampler_tpu_torch.engine.sweep", "sampler_tpu_torch.engine.gibbs",
+    "sampler_tpu_torch.io.binary", "sampler_tpu_torch.io.text",
+    "sampler_tpu_torch.io.results", "sampler_tpu_torch.checkpoint",
+    "sampler_tpu_torch.cli",
 ]
 
 
@@ -40,6 +44,26 @@ def test_port_imports_no_jax_and_no_sampler_tpu():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_cli_help_imports_no_jax():
+    """``python -m sampler_tpu_torch.cli --help`` runs without JAX: the
+    command line imports nothing of it or of sampler_tpu."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['dw', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('sampler_tpu_torch.cli', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib')) or m == 'sampler_tpu' "
+        "or m.startswith('sampler_tpu.'))\n"
+        "print('BAD', bad)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "gibbs" in proc.stdout and "text2bin" in proc.stdout
+    assert proc.stdout.strip().endswith("BAD []"), proc.stdout
 
 
 def test_chip_smoke_imports_no_jax():
