@@ -137,6 +137,31 @@ Phases (each prints one line with its result and elapsed seconds):
              graph with a hub tier: the two runs' largest |dp|; the two
              killed runs go side by side while this process makes the
              uninterrupted ones
+ 20 gs ising  chain and graph sharding (sampler_tpu_torch.parallel) on the
+             1024x1024 grid (align=32, shards=4), 512 chains in all, 2 +
+             10 sweeps a mesh; the ranks share this one card: mesh (1, 1)
+             over NCCL, (2, 1) over Gloo, (1, 4) over Gloo in halo and
+             all-gather modes (equal marginals, bit for bit); each mesh's
+             mean and max |dp| against an unsharded infer_mc run within
+             GS_NOISE times two unsharded seeds'; fused_color_draw on rank
+             2's local slice against its plain version and in world-write
+             mode at the rank's rows; every rank's launches; two epochs
+             of learn_sharded at (2, 1) (grad_pair_tile); the halo plan,
+             the bytes a color step exchanges, a counted sweep by part
+             (draws, exchange, tally) and each rank's peak memory
+ 21 gs kbc   phase 15's graph compiled with shards=2 on a 1 x 2 Gloo mesh
+             (all-gather; the hub tier split by chunks), 1024 chains, 2 +
+             10 sweeps: the noise bound against two unsharded runs, the
+             rate, a sweep by part, peak memory; one learn_gs epoch on
+             phase 16's graph, by part
+ 22 gs cli   the gibbs command's sharded route (--n_graph_shards 2, the
+             same 1 x 2 ranks): the 3x3 grid against exact enumeration
+             (|dp| < 0.015), the labelled coin (within 0.2), the labelled
+             256x256 Ising, Potts and triple grids (every rank launches
+             fused_color_draw, fused_cat_draw, fused_dm_draw and
+             tally_counts), and a run killed by the fault hook (a child
+             process with its own ranks) and resumed writes the bytes of
+             the uninterrupted checkpointed run
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failed check ends the run nonzero.
 The script imports neither JAX nor the JAX package.
@@ -221,6 +246,17 @@ RESUME_KBC = (5000, 15000)                # variables, factors; a hub tier
 RESUME_KBC_ARGS = ["--order", "rcm", "--band_wmax", "32768", "--hub_cap",
                    "256", "-l", "2", "-b", "10", "-i", "40", "--n_chains",
                    "256", "--checkpoint_every", "10"]
+# phases 20-22: chain and graph sharding, the ranks sharing this one card
+GS_BURN, GS_SWEEPS = 2, 10    # each mesh's burn-in and counted sweeps
+GS_NOISE = (1.1, 1.5)         # a sharded run's mean and max |dp| against an
+#                               unsharded run, over the two unsharded
+#                               seeds' mean and max |dp|, at most
+GS_ARRANGEMENT = ("the ranks share one card over Gloo, staged through host "
+                  "memory where Gloo has no CUDA path")
+GS_CHILD = ("import sys; from sampler_tpu_torch.cli import main; "
+            "from sampler_tpu_torch.parallel.comm import make_mesh; "
+            "sys.exit(main(sys.argv[1:], mesh=make_mesh("
+            "1, 2, ['cuda:0'] * 2, 'gloo')))")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2227,7 +2263,8 @@ def kbc_phase(dev, card: str) -> tuple:
     hub_cap=256), KBC_CHAINS chains, the default modes; KBC_BURN burn-in
     sweeps, then KBC_OUTER counted runs of KBC_INNER sweeps through
     run_inference_mc (bench.py's 5 x 2).  Returns the graph and the
-    counted sweeps' updates/s, for phase 17."""
+    counted sweeps' updates/s, for phase 17, and its coloring and order,
+    for phase 21."""
     import torch
 
     from sampler_tpu_torch.coloring import greedy_coloring, rcm_order
@@ -2294,7 +2331,7 @@ def kbc_phase(dev, card: str) -> tuple:
            has_hub=info.has_hub, modes=modes, host_seconds=host,
            chains=KBC_CHAINS, burn=KBC_BURN, sweeps=f"{KBC_INNER}x{KBC_OUTER}",
            run=run, sweep_breakdown=breakdown)
-    return g, run["variable_updates_per_s"]
+    return g, run["variable_updates_per_s"], colors, order
 
 
 def kbc_learn_phase(dev, card: str) -> None:
@@ -2734,6 +2771,515 @@ def cli_resume_phase(dev) -> None:
            kbc=dict(n_vars=RESUME_KBC[0], args=RESUME_KBC_ARGS, **kbc))
 
 
+# ---- phases 20-22: chain and graph sharding --------------------------------
+
+def noise_bound(m_a, m_b) -> dict:
+    """Mean and max |dp| between two unsharded runs (two seeds)."""
+    import numpy as np
+
+    d = np.abs(np.asarray(m_a, np.float64) - np.asarray(m_b, np.float64))
+    return dict(mean_abs_dp=float(d.mean()), max_abs_dp=float(d.max()))
+
+
+def within_noise(name: str, m, m_a, ref: dict) -> dict:
+    """``m``'s mean and max |dp| against the unsharded run ``m_a``, held to
+    GS_NOISE times the two unsharded seeds' (``ref``)."""
+    got = noise_bound(m, m_a)
+    require(got["mean_abs_dp"] <= GS_NOISE[0] * ref["mean_abs_dp"]
+            and got["max_abs_dp"] <= GS_NOISE[1] * ref["max_abs_dp"],
+            f"{name}: |dp| {got} against the unsharded run, beyond "
+            f"{GS_NOISE} x the two unsharded seeds' {ref}")
+    return dict(got, mean_over_unsharded=got["mean_abs_dp"]
+                / ref["mean_abs_dp"],
+                max_over_unsharded=got["max_abs_dp"] / ref["max_abs_dp"])
+
+
+def rank_launches(ranks, need) -> list:
+    """Each rank's kernel launches in the last call through ``ranks``;
+    every rank must have launched every kernel of ``need``."""
+    got = [{k: n for k, n in r.items() if n} for r in ranks.launches]
+    require(all(r.get(k, 0) > 0 for r in got for k in need),
+            f"a rank launched none of {need}: {got}")
+    return got
+
+
+def sync(dev) -> None:
+    """Wait for the card (a rank on the CPU has nothing to wait for)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def gs_timed(comm, fn, iters: int) -> float:
+    """ms a call of ``fn`` in this rank: host clock over ``iters`` calls
+    between card synchronisations, after a barrier of the ranks (their
+    exchanges go through host memory, so CUDA events would miss them)."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    sync(comm.device)
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync(comm.device)
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def gs_parts(comm, host, info, n_chains: int, halo, iters: int) -> dict:
+    """A rank body: where one counted sharded sweep's time goes in this
+    rank (the draws with the exchange left out, the exchange alone, the
+    own-run tallies), beside the counted sweep; the peak memory of every
+    rank."""
+    import torch
+    import torch.distributed as dist
+
+    from sampler_tpu_torch.engine.multichain import (init_values_mc,
+                                                     prepare_fold, sweep_mc,
+                                                     tally)
+    from sampler_tpu_torch.parallel import graph_shard as gsm
+    from sampler_tpu_torch.parallel.comm import rank_generator
+
+    dev = comm.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    dl, modes = gsm._local(comm, host, info, None)
+    n = comm.mesh.n_graph
+    shard = gsm.Shard(comm, info, halo) if n > 1 else None
+
+    class NoExchange(gsm.Shard):
+        def exchange(self, values, c, t):
+            pass
+
+    quiet = NoExchange(comm, info, halo) if n > 1 else None
+    gen = rank_generator(9, "parts", 0, dev, comm.row, comm.g)
+    values = init_values_mc(dl, gen, n_chains, info)
+    w = dl.w_init
+    folded = prepare_fold(dl, w, info, modes)
+    runs = gsm.own_runs(info, n, comm.g)
+    segs = [torch.zeros((info.max_card, r1 - r0), dtype=torch.int32,
+                        device=dev) for r0, r1 in runs]
+
+    def tallies():
+        for (r0, r1), seg in zip(runs, segs):
+            tally(seg, values[r0:r1])
+
+    def counted():
+        sweep_mc(dl, values, w, gen, False, info, folded, modes, shard)
+        tallies()
+
+    def exchange():
+        for c in range(info.n_colors):
+            for t in range(len(info.tiers)):
+                shard.exchange(values, c, t)
+
+    counted()                                                  # warm
+    parts = dict(
+        counted_sweep=gs_timed(comm, counted, iters),
+        draws=gs_timed(comm, lambda: sweep_mc(
+            dl, values, w, gen, False, info, folded, modes, quiet), iters),
+        exchange=gs_timed(comm, exchange, iters) if n > 1 else 0.0,
+        tally=gs_timed(comm, tallies, iters))
+    peaks = [None] * comm.mesh.size
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated(dev)
+                           if cuda else None)
+    return dict(rank0_ms=parts, tally_runs=len(runs),
+                peak_memory_bytes_by_rank=peaks)
+
+
+def local_draw_case(host, info, n_graph: int, g: int, dev,
+                    n_chains: int) -> dict:
+    """fused_color_draw on rank g's local slice (its bd_nbr tiles and
+    bd_start, its fold) against its plain version, every color: the
+    delta within 1e-5 and the draws differing only within DRAW_GAP of p;
+    then its world-write mode at the rank's own rows, c*B + off + g*Bl,
+    under the local cm_resample, against its output mode and the masked
+    block write, bit for bit (the plain version's too)."""
+    import torch
+
+    from sampler_tpu_torch.ops.fused import (fold_affine, fused_color_draw,
+                                             fused_color_draw_plain)
+    from sampler_tpu_torch.parallel.graph_shard import shard_device_graph
+
+    local = shard_device_graph(host, info, n_graph, g, dev)
+    ts, ti = local.tiers[0], info.tiers[0]
+    C, B, D, TB, W = (info.n_colors, info.block_size, ti.degree, ti.band_tb,
+                      ti.band_w)
+    Bl = ti.block // n_graph
+    P = local.var_card.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    values = torch.randint(0, 2, (P, n_chains), generator=gen, device=dev,
+                           dtype=torch.int8)
+    beta, base = fold_affine(ts, ti, C, local.w_init)
+    seed = torch.tensor([4242, -99], dtype=torch.int32, device=dev)
+    err, n_diff, n_draws, changed = 0.0, 0, 0, {}
+    for c in range(C):
+        args = (values, ts.bd_nbr, ts.bd_start[c], beta, base, c, seed, W,
+                TB, D)
+        out, delta = fused_color_draw(*args, return_delta=True)
+        ref, ref_delta = fused_color_draw_plain(*args, return_delta=True)
+        require(out.shape[0] == Bl, f"local draw of {out.shape[0]} rows")
+        err = max(err, float((delta - ref_delta).abs().max()))
+        n_diff += check_draws(out, ref, delta, seed, TB, n_chains)
+        n_draws += out.numel()
+        del out, delta, ref, ref_delta
+        start = c * B + ti.off + g * Bl
+        changed[f"c{c}"] = world_write_check(fused_color_draw, args, start,
+                                             ts.cm_resample[c])
+        world_write_check(fused_color_draw_plain, args, start,
+                          ts.cm_resample[c])
+    require(err < 1e-5, f"local fused delta error {err}")
+    require(n_diff <= 1e-4 * n_draws,
+            f"local draw: {n_diff} of {n_draws} draws differ")
+    return dict(rank=g, of=n_graph, local_rows=Bl, local_tiles=Bl // TB,
+                chains=n_chains, fused_delta_max_abs_err=err,
+                fused_draws_differing=n_diff, fused_draws=n_draws,
+                world_write_rows_changed=changed)
+
+
+def gs_ising_phase(dev, card: str) -> None:
+    """Phase 20: the Ising flagship sharded.  big_ising_grid(GRID, GRID)
+    compiled with align=32, shards=4; CHAINS chains in all, GS_BURN +
+    GS_SWEEPS sweeps each mesh: (1, 1) over NCCL, (2, 1) over Gloo (chain
+    parallelism) and (1, 4) over Gloo in halo and all-gather modes (equal
+    marginals, bit for bit), each within the noise bound of two unsharded
+    infer_mc runs; one rank's local fused_color_draw against its plain
+    version; the halo plan, the bytes a color step exchanges, a counted
+    sweep by part and each rank's peak memory."""
+    import numpy as np
+    import torch
+
+    from sampler_tpu_torch.benchgraphs import big_ising_grid
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.engine.learn import LearnConfig
+    from sampler_tpu_torch.engine.multichain import infer_mc
+    from sampler_tpu_torch.parallel.chains import learn_sharded
+    from sampler_tpu_torch.parallel.comm import make_mesh
+    from sampler_tpu_torch.parallel.graph_shard import (exchange_bytes,
+                                                        halo_plan, infer_gs)
+    from sampler_tpu_torch.parallel.launch import Ranks
+
+    t20 = time.perf_counter()
+    g, colors = big_ising_grid(GRID, GRID)
+    tc = time.perf_counter()
+    dg, info = compile_graph(g, colors=colors, align=32, shards=4)
+    compile_s = time.perf_counter() - tc
+    host = to_device(dg, "cpu")
+    del dg
+    d = to_device(host, dev)
+    refs = [infer_mc(d, d.w_init, torch.Generator(device=dev).manual_seed(s),
+                     GS_BURN, GS_SWEEPS, info, CHAINS, device=dev)[0]
+            for s in (101, 102)]
+    del d
+    torch.cuda.empty_cache()
+    ref = noise_bound(*refs)
+    halo = halo_plan(host, info, 4)
+    require(halo is not None, "the flagship has no halo plan at 4 ranks")
+    local = local_draw_case(host, info, 4, 2, dev, CHAINS)
+    meshes = {}
+    marg = {}
+    one = "nccl" if dev.type == "cuda" else "gloo"   # a CPU rehearsal
+    for shape, backend in (((1, 1), one), ((2, 1), "gloo"),
+                           ((1, 4), "gloo")):
+        name = f"{shape[0]}x{shape[1]}_{backend}"
+        ts = time.perf_counter()
+        with Ranks(make_mesh(*shape, [str(dev)] * (shape[0] * shape[1]),
+                             backend)) as ranks:
+            start_s = time.perf_counter() - ts
+            modes = ("auto", None) if shape == (1, 4) else ("auto",)
+            for h in modes:
+                key = name if len(modes) == 1 else f"{name}_{h or 'gather'}"
+                tr = time.perf_counter()
+                marg[key] = infer_gs(host, host.w_init, 7, GS_BURN, GS_SWEEPS,
+                                     info, ranks, CHAINS // shape[0], halo=h)
+                wall = time.perf_counter() - tr
+                meshes[key] = dict(
+                    ranks_start_s=start_s, wall_s=wall,
+                    launches_by_rank=rank_launches(
+                        ranks, ("fused_color_draw", "tally_counts")),
+                    noise=within_noise(key, marg[key], refs[0], ref))
+            if shape == (2, 1):
+                # chain-parallel learning: grad_pair_tile in every rank
+                tr = time.perf_counter()
+                w = learn_sharded(host, host.w_init, 8, LearnConfig(
+                    n_epochs=2, n_sweeps_per_epoch=1, stepsize=0.01),
+                    info, ranks, LEARN_CHAINS)
+                require(bool(torch.isfinite(w).all()),
+                        "learn_sharded: weights not finite")
+                meshes[name + "_learn"] = dict(
+                    epochs=2, chains_a_rank=LEARN_CHAINS,
+                    wall_s=time.perf_counter() - tr,
+                    launches_by_rank=rank_launches(
+                        ranks, ("fused_color_draw", "grad_pair_tile")))
+            if shape == (1, 4):
+                meshes[name + "_parts"] = dict(
+                    halo=ranks.run(gs_parts, host, info, CHAINS, halo, 3),
+                    gather=ranks.run(gs_parts, host, info, CHAINS, None, 3))
+    require(np.array_equal(marg["1x4_gloo_auto"],
+                           marg["1x4_gloo_gather"]),
+            "halo and all-gather marginals differ")
+    report("20 gs ising", t20, card=card, arrangement=GS_ARRANGEMENT,
+           grid=f"{GRID}x{GRID}", chains=CHAINS, burn=GS_BURN,
+           sweeps=GS_SWEEPS, compile_graph_s=compile_s, halo_plan=halo,
+           exchange_bytes_a_color_step=dict(
+               halo=exchange_bytes(info, 4, halo, CHAINS),
+               all_gather=exchange_bytes(info, 4, None, CHAINS)),
+           halo_equals_all_gather=True, unsharded_seeds=ref,
+           local_fused_color_draw=local, meshes=meshes)
+
+
+def gs_learn_parts(comm, host, info, n_chains: int, cfg) -> dict:
+    """A rank body: one learn_gs epoch in this rank, by part (fold, both
+    worlds' sweeps, the local gradient, its reduce over both groups, the
+    update), host clock between card synchronisations."""
+    from sampler_tpu_torch.engine.learn import apply_update
+    from sampler_tpu_torch.engine.multichain import (init_values_mc,
+                                                     mc_weight_gradient_cs,
+                                                     prepare_fold, sweep_mc)
+    from sampler_tpu_torch.parallel import graph_shard as gsm
+    from sampler_tpu_torch.parallel.comm import rank_generator
+
+    dev = comm.device
+    dl, modes = gsm._local(comm, host, info, None)
+    n = comm.mesh.n_graph
+    shard = gsm.Shard(comm, info, None) if n > 1 else None
+    gen = rank_generator(5, "parts", 0, dev, comm.row, comm.g)
+    v_ev = init_values_mc(dl, gen, n_chains, info)
+    v_free = init_values_mc(dl, gen, n_chains, info)
+    w = dl.w_init
+    out = {}
+
+    def part(name, fn):
+        sync(dev)
+        t = time.perf_counter()
+        res = fn()
+        sync(dev)
+        out[name] = (time.perf_counter() - t) * 1e3
+        return res
+
+    folded = part("fold", lambda: prepare_fold(dl, w, info, modes))
+
+    def sweeps():
+        for _ in range(cfg.n_sweeps_per_epoch):
+            sweep_mc(dl, v_ev, w, gen, False, info, folded, modes, shard)
+            sweep_mc(dl, v_free, w, gen, True, info, folded, modes, shard)
+
+    part("sweeps", sweeps)
+    grad = part("gradient", lambda: mc_weight_gradient_cs(
+        dl, v_ev, v_free, False, info, modes, n_graph=n, g=comm.g))
+
+    def reduce():
+        if shard is not None:
+            shard.psum(grad)
+        comm.mean_(grad, "chains")
+
+    part("reduce", reduce)
+    part("update", lambda: apply_update(w, grad, dl.w_fixed, cfg.stepsize,
+                                        cfg.regularization, cfg.reg_param))
+    return dict(rank0_ms=out, epoch_ms=sum(out.values()))
+
+
+def gs_kbc_phase(dev, card: str, g, colors, order, ranks) -> None:
+    """Phase 21: the KBC class sharded.  Phase 15's graph (its coloring
+    and RCM order), compiled with shards=2, KBC_CHAINS chains, GS_BURN +
+    GS_SWEEPS sweeps on ``ranks`` (1 x 2 over Gloo: all-gather, since no
+    tier bands; the hub tier split by chunks): the marginals within the
+    noise bound of two unsharded infer_mc runs, the rate, a counted sweep
+    by part and each rank's peak memory; then one learn_gs epoch on phase
+    16's KBC learning graph (LEARN_CHAINS chains a world), and its parts."""
+    import dataclasses
+
+    import torch
+
+    from sampler_tpu_torch.coloring import greedy_coloring
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.engine.learn import LearnConfig
+    from sampler_tpu_torch.engine.multichain import infer_mc
+    from sampler_tpu_torch.parallel.graph_shard import (exchange_bytes,
+                                                        halo_plan, infer_gs,
+                                                        learn_gs)
+
+    t21 = time.perf_counter()
+    tc = time.perf_counter()
+    dg, info = compile_graph(g, colors=colors, order=order, band_wmax=32768,
+                             hub_cap=256, align=16, shards=2)
+    compile_s = time.perf_counter() - tc
+    require(info.has_hub and halo_plan(dg, info, 2) is None,
+            f"sharded KBC tiers {info.tiers}")
+    host = to_device(dg, "cpu")
+    del dg
+    d = to_device(host, dev)
+    refs = [infer_mc(d, d.w_init, torch.Generator(device=dev).manual_seed(s),
+                     GS_BURN, GS_SWEEPS, info, KBC_CHAINS, device=dev)[0]
+            for s in (201, 202)]
+    del d
+    torch.cuda.empty_cache()
+    ref = noise_bound(*refs)
+    tr = time.perf_counter()
+    marg = infer_gs(host, host.w_init, 3, GS_BURN, GS_SWEEPS, info, ranks,
+                    KBC_CHAINS)
+    wall = time.perf_counter() - tr
+    run = dict(wall_s=wall,
+               variable_updates_per_s=info.n_vars * KBC_CHAINS
+               * (GS_BURN + GS_SWEEPS) / wall,
+               launches_by_rank=rank_launches(ranks, ("tally_counts",)),
+               noise=within_noise("kbc 1x2", marg, refs[0], ref),
+               parts=ranks.run(gs_parts, host, info, KBC_CHAINS, None, 2),
+               exchange_bytes_a_color_step=exchange_bytes(
+                   info, 2, None, KBC_CHAINS))
+    del host
+    # one learning epoch on the KBC learning graph
+    gl = kbc_graph(KBC_LEARN_VARS, 10_000, 1)
+    label_half(gl)
+    dgl, infol = compile_graph(gl, colors=greedy_coloring(gl),
+                               band_wmax=32768, hub_cap=256, align=16,
+                               shards=2)
+    hostl = to_device(dgl, "cpu")
+    del dgl
+    cfg = LearnConfig(n_epochs=1, n_sweeps_per_epoch=LEARN_SWEEPS,
+                      stepsize=0.01, diminish=0.99, regularization="l2",
+                      reg_param=0.01)
+    tr = time.perf_counter()
+    w = learn_gs(hostl, hostl.w_init, 4, cfg, infol, ranks, LEARN_CHAINS)
+    learn_wall = time.perf_counter() - tr
+    nw = gl.n_weights
+    require(bool(torch.isfinite(w).all()) and int(
+        (w[:nw] != hostl.w_init[:nw]).sum()) > nw // 2,
+        "KBC learn_gs: weights not finite, or most did not move")
+    learn = dict(chains=LEARN_CHAINS, sweeps_per_epoch=LEARN_SWEEPS,
+                 wall_s=learn_wall, launches_by_rank=rank_launches(ranks, ()),
+                 parts=ranks.run(gs_learn_parts, hostl, infol, LEARN_CHAINS,
+                                 dataclasses.replace(cfg)))
+    report("21 gs kbc", t21, card=card, arrangement=GS_ARRANGEMENT,
+           n_vars=info.n_vars, tiers=len(info.tiers), chains=KBC_CHAINS,
+           burn=GS_BURN, sweeps=GS_SWEEPS, compile_graph_s=compile_s,
+           unsharded_seeds=ref, run=run, learning=learn)
+
+
+def gs_cli(dev, ranks, flags, out: str, args) -> dict:
+    """The gibbs command with --n_graph_shards 2 in this process on
+    ``ranks``: returns its log's kernel launches by rank."""
+    import contextlib
+    import io
+    import re
+
+    from sampler_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["gibbs", *flags, "-o", out, *args, "--n_graph_shards",
+                       "2", "--device", dev.type], mesh=ranks)
+    require(rc == 0, f"sharded gibbs exited {rc}")
+    m = re.search(r"^kernel launches by rank: (.*)$", buf.getvalue(),
+                  flags=re.M)
+    # the command logs launches on the card (a CPU rehearsal logs none)
+    require(m is not None or dev.type != "cuda",
+            f"no launches in the log: {buf.getvalue()}")
+    return json.loads(m.group(1)) if m else [{}, {}]
+
+
+def gs_cli_phase(dev, card: str, ranks) -> None:
+    """Phase 22: the gibbs command's sharded route (_run_gibbs_sharded,
+    --n_graph_shards 2) on ``ranks`` (1 x 2 over Gloo, one card): the 3x3
+    Ising grid against exact enumeration (|dp| < 0.015) and the labelled
+    coin (within 0.2 of the labels' log-odds); the labelled CLI_GRID²
+    Ising, Potts and triple grids, whose ranks must each launch
+    fused_color_draw, fused_cat_draw, fused_dm_draw and tally_counts; and
+    the labelled RESUME_GRID² grid killed by the fault hook (a child
+    process with its own ranks, started first) and resumed writes the
+    uninterrupted checkpointed run's bytes."""
+    import tempfile
+
+    import numpy as np
+
+    from sampler_tpu_torch import fixtures
+    from sampler_tpu_torch.benchgraphs import big_potts_grid, big_triple_grid
+
+    t22 = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dk = os.path.join(tmp, "resume")
+        gk = label_half(big_grid(RESUME_GRID))
+        base = [*graph_flags(gk, dk), *RESUME_GRID_ARGS]
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""),
+                   SAMPLER_TPU_FAULT_AFTER="5")
+        out_b = os.path.join(dk, "b")
+        child = subprocess.Popen(
+            [sys.executable, "-c", GS_CHILD, "gibbs", *base, "-o", out_b,
+             "--n_graph_shards", "2", "--device", dev.type], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            d = os.path.join(tmp, "ising_3x3")
+            g = fixtures.ising_grid(3, 3, w_pair=0.4, w_bias=0.3)
+            gs_cli(dev, ranks, graph_flags(g, d), os.path.join(d, "out"),
+                   ["-i", "1000", "-b", "100", "--n_chains", "128"])
+            err = cli_marginal_err(g, os.path.join(d, "out"))
+            require(err < 0.015, f"sharded gibbs 3x3: |dp| = {err}")
+            res["ising_3x3"] = dict(max_abs_dp=err, bound=0.015)
+            d = os.path.join(tmp, "coin")
+            g = fixtures.labeled_coin_graph(n_flips=300, p_heads=0.8, seed=5)
+            gs_cli(dev, ranks, graph_flags(g, d), os.path.join(d, "out"),
+                   ["-l", "300", "-a", "0.02", "-d", "0.995", "-i", "10"])
+            _, w = check_cli_outputs(g, os.path.join(d, "out"))
+            p_hat = float(g.var_init.mean())
+            w_star = float(np.log(p_hat / (1 - p_hat)))
+            require(abs(w[0] - w_star) < 0.2,
+                    f"sharded coin: w {w[0]} vs {w_star}")
+            res["labelled_coin"] = dict(weight=float(w[0]), log_odds=w_star)
+            grids = {
+                "ising_grid": lambda: label_half(big_grid(CLI_GRID)),
+                "potts_grid": lambda: label_half(big_potts_grid(
+                    CLI_GRID, CLI_GRID, card=4)[0]),
+                "triple_grid": lambda: label_half(big_triple_grid(
+                    CLI_GRID, CLI_GRID)[0])}
+            total = None
+            for name, make in grids.items():
+                d = os.path.join(tmp, name)
+                g = make()
+                got = gs_cli(dev, ranks, graph_flags(g, d),
+                             os.path.join(d, "out"), CLI_GRID_ARGS)
+                check_cli_outputs(g, os.path.join(d, "out"))
+                print(f"  22 {name}: launches by rank {json.dumps(got)}",
+                      flush=True)
+                res[name] = dict(launches_by_rank=got)
+                total = got if total is None else [
+                    {k: a.get(k, 0) + b.get(k, 0) for k in {*a, *b}}
+                    for a, b in zip(total, got)]
+            need = ("fused_color_draw", "fused_cat_draw", "fused_dm_draw",
+                    "tally_counts")
+            require(all(r.get(k, 0) > 0 for r in total for k in need),
+                    f"a rank launched none of {need}: {total}")
+            out_a = os.path.join(dk, "a")
+            gs_cli(dev, ranks, base, out_a, [])
+            try:
+                _, err = child.communicate(timeout=CLI_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.communicate()
+                raise
+            require(child.returncode == 3, f"killed sharded run exited "
+                    f"{child.returncode}: {err[-2000:]}")
+            gs_cli(dev, ranks, base, out_b, ["--resume"])
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+        same = {}
+        for fname in ("inference_result.out.text",
+                      "inference_result.out.weights.text"):
+            with open(os.path.join(out_a, fname), "rb") as fa, \
+                    open(os.path.join(out_b, fname), "rb") as fb:
+                same[fname] = fa.read() == fb.read()
+        require(all(same.values()), f"sharded resume differs: {same}")
+        res["resume"] = dict(grid=RESUME_GRID, args=RESUME_GRID_ARGS,
+                             bytes_equal=same)
+    report("22 gs cli", t22, card=card, arrangement=GS_ARRANGEMENT,
+           graphs=res)
+
+
 def main() -> int:
     import torch
 
@@ -2997,14 +3543,23 @@ def main() -> int:
 
     # ---- 14, 15, 16: the KBC class (the hub tier) --------------------------
     kbc_oracle_phase(dev)
-    g_kbc, kbc_rate = kbc_phase(dev, card)
+    g_kbc, kbc_rate, kbc_colors, kbc_order = kbc_phase(dev, card)
     kbc_learn_phase(dev, card)
 
     # ---- 17, 18, 19: the gibbs command on the card -----------------------
     cli_kbc_phase(dev, card, g_kbc, kbc_rate)
-    del g_kbc
     cli_oracle_phase(dev)
     cli_resume_phase(dev)
+
+    # ---- 20, 21, 22: chain and graph sharding, ranks sharing the card ----
+    from sampler_tpu_torch.parallel.comm import make_mesh
+    from sampler_tpu_torch.parallel.launch import Ranks
+
+    gs_ising_phase(dev, card)
+    with Ranks(make_mesh(1, 2, [str(dev)] * 2, "gloo")) as pair:
+        gs_kbc_phase(dev, card, g_kbc, kbc_colors, kbc_order, pair)
+        del g_kbc
+        gs_cli_phase(dev, card, pair)
 
     sources = {"fused_color_draw": ("sampler_tpu_torch/csrc/"
                                     "fused_color_draw.cu",

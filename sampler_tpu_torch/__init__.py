@@ -12,8 +12,9 @@ mixed, arity-3, multi-window and hub-tier (KBC) graphs, with dense or
 sparse per-combination weights, through seven CUDA kernels (``ops/``);
 the single-chain ``engine.gibbs.infer`` and ``engine.learn.learn``; the
 binary and text graph files (``io/``), checkpoints (``checkpoint``) and
-the ``dw``-compatible command line (``python -m sampler_tpu_torch.cli``).
-Chain and graph sharding across devices are not ported yet.
+the ``dw``-compatible command line (``python -m sampler_tpu_torch.cli``);
+chain and graph sharding over ``torch.distributed`` (``parallel/``: a
+mesh of ranks, one process a rank, NCCL or Gloo).
 """
 from .graph import FactorGraph
 from .compile import compile_graph, to_device, DeviceGraph, CompileInfo

@@ -6,7 +6,8 @@
            -l epochs -i epochs -s sweeps -a stepsize -d diminish
            -b burn_in [--n_chains N] [--regularization l1|l2]
            [--reg_param λ] [--sample_evidence] [--learn_non_evidence]
-           [--device cuda|cpu] [--checkpoint_every N [--resume]] [--quiet]
+           [--device cuda|cpu] [--n_graph_shards G]
+           [--checkpoint_every N [--resume]] [--quiet]
   python -m sampler_tpu_torch.cli text2bin {weight|variable|factor|domain}
            in.tsv out.bin
   python -m sampler_tpu_torch.cli bin2text ...
@@ -31,11 +32,17 @@ phase, absolute epoch or sweep index); with checkpoints the state is saved
 after each chunk, and a killed run restarted with ``--resume`` writes the
 same bytes as an uninterrupted run with the same N (on graphs without a
 hub tier, whose ``index_add_`` sums in a varying order).
+
+``--n_graph_shards G`` above 1 compiles with ``align=8*G, shards=G`` and
+runs learning and inference on a (chains, graph) mesh of ranks
+(``parallel.graph_shard``): the graph split over G ranks, the card count
+divided by G running chains in parallel (``--device cpu``: G CPU ranks).
+A shard count that does not divide the card count exits with a message.
+Its checkpoints are the phases "gs_learn" and "gs_infer".
 """
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import sys
@@ -89,8 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--hub_chunk", type=int, default=512,
                    help="records per hub-tier chunk")
     g.add_argument("--n_graph_shards", type=int, default=1,
-                   help="shard the graph over this many devices (not "
-                        "ported yet: values above 1 exit with a message)")
+                   help="shard the graph over this many devices (the "
+                        "remaining factor of the device count runs chains "
+                        "in parallel); with --device cpu, this many CPU "
+                        "ranks")
     g.add_argument("--regularization", choices=["l1", "l2"], default=None)
     g.add_argument("--reg_param", type=float, default=0.0)
     g.add_argument("--sample_evidence", action="store_true")
@@ -134,11 +143,9 @@ def chunk_generator(seed: int, phase: str, index: int, device):
     ("learn", "infer", "init", "burn", "run") that starts at epoch or
     sweep ``index``, seeded from a hash of (seed, phase, index): a resumed
     run draws what an uninterrupted one does."""
-    import torch
+    from .parallel.comm import rank_generator
 
-    h = hashlib.sha256(f"{seed}:{phase}:{index}".encode()).digest()
-    return torch.Generator(device=device).manual_seed(
-        int.from_bytes(h[:8], "little") & ((1 << 63) - 1))
+    return rank_generator(seed, phase, index, device)
 
 
 def _sync(device) -> None:
@@ -148,19 +155,25 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def cmd_gibbs(args) -> int:
+def cmd_gibbs(args, mesh=None) -> int:
+    """The gibbs command; ``mesh`` (a parallel.comm.Mesh or open
+    parallel.launch.Ranks) replaces the mesh --n_graph_shards derives from
+    the device count, as on one card whose ranks share it over Gloo."""
     import torch
 
     from .compile import compile_graph, resolve_device, to_device
     from .engine.multichain import effective_chains
     from .io import binary
 
-    if args.n_graph_shards > 1:
-        raise SystemExit(
-            f"--n_graph_shards {args.n_graph_shards}: graph sharding "
-            "(parallel/graph_shard.py) is not ported yet; run with "
-            "--n_graph_shards 1")
     device = resolve_device(args.device)
+    n_graph = max(args.n_graph_shards, 1)
+    if n_graph > 1 and mesh is None:
+        mesh = shard_mesh(n_graph, device)
+    elif mesh is not None:
+        m = getattr(mesh, "mesh", mesh)
+        if m.n_graph != n_graph:
+            raise SystemExit(f"--n_graph_shards {n_graph}, mesh of "
+                             f"{m.n_graph} graph ranks")
     log = ((lambda *a: None) if args.quiet
            else (lambda *a: print(*a, flush=True)))
 
@@ -175,10 +188,12 @@ def cmd_gibbs(args) -> int:
     if args.order == "rcm":
         from .coloring import rcm_order
         order = rcm_order(graph)
-    dg, info = compile_graph(graph, align=8, band_wmax=args.band_wmax,
+    dg, info = compile_graph(graph, align=8 * n_graph,
+                             band_wmax=args.band_wmax, shards=n_graph,
                              max_tiers=args.max_tiers, order=order,
                              hub_cap=args.hub_cap, hub_chunk=args.hub_chunk)
-    d = to_device(dg, device)
+    # a sharded run hands the ranks the host graph; they move their slices
+    d = to_device(dg, device if n_graph == 1 else "cpu")
     del dg
     _sync(device)
     log(f"compiled: {info.n_colors} colors, block {info.block_size}, "
@@ -207,8 +222,10 @@ def cmd_gibbs(args) -> int:
         from . import checkpoint
         state = checkpoint.load(ckpt_path)
         sig = dict(n_vars=info.n_vars, n_factors=info.n_factors,
-                   seed=args.seed, n_chains=n_chains)
-        if {k: state.meta.get(k) for k in sig} != sig:
+                   seed=args.seed, n_chains=n_chains, n_graph=n_graph)
+        got = {k: state.meta.get(k) for k in sig}
+        got["n_graph"] = state.meta.get("n_graph", 1)
+        if got != sig:
             raise SystemExit(
                 f"checkpoint {ckpt_path} was written by a different run "
                 f"(meta {state.meta} vs {sig})")
@@ -224,10 +241,16 @@ def cmd_gibbs(args) -> int:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
         prof.__enter__()
+    launches = None
     try:
-        weights, marg = _run_gibbs_phases(
-            args, log, graph, d, info, weights, n_chains, every, ckpt_path,
-            state, device)
+        if n_graph > 1:
+            weights, marg, launches = _run_gibbs_sharded(
+                args, log, d, info, weights, n_chains, n_graph, every,
+                ckpt_path, state, device, mesh)
+        else:
+            weights, marg = _run_gibbs_phases(
+                args, log, graph, d, info, weights, n_chains, every,
+                ckpt_path, state, device)
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -238,7 +261,10 @@ def cmd_gibbs(args) -> int:
     if device.type == "cuda":
         log(f"peak device memory "
             f"{torch.cuda.max_memory_allocated(device)} bytes")
-        log(f"kernel launches: {json.dumps(kernel_launches())}")
+        if launches is None:
+            log(f"kernel launches: {json.dumps(kernel_launches())}")
+        else:
+            log(f"kernel launches by rank: {json.dumps(launches)}")
 
     _write_outputs(args, log, graph, info, weights, marg)
     return 0
@@ -246,14 +272,9 @@ def cmd_gibbs(args) -> int:
 
 def kernel_launches() -> dict:
     """Each CUDA kernel's launch count in this process."""
-    from .ops.banded import banded_gather, banded_gather_multi
-    from .ops.fused import fused_cat_draw, fused_color_draw, fused_dm_draw
-    from .ops.grad import grad_pair_tile
-    from .ops.tally import tally_counts
+    from .parallel.launch import kernel_launches as counts
 
-    return {k.__name__: k.launches for k in (
-        fused_color_draw, banded_gather, grad_pair_tile, fused_dm_draw,
-        banded_gather_multi, fused_cat_draw, tally_counts)}
+    return counts()
 
 
 def _write_outputs(args, log, graph, info, weights, marg):
@@ -420,6 +441,111 @@ def _run_gibbs_phases(args, log, graph, d, info, weights, n_chains, every,
     return weights, marg
 
 
+def shard_mesh(n_graph: int, device):
+    """The (chains, graph) mesh of ``--n_graph_shards n_graph``: every card
+    (with --device cpu, n_graph CPU ranks), n_graph to a chains row; exits
+    when n_graph does not divide the card count."""
+    import torch
+
+    from .parallel.comm import make_mesh
+
+    cuda = device.type == "cuda"
+    n_dev = torch.cuda.device_count() if cuda else n_graph
+    if n_dev % n_graph or n_dev < n_graph:
+        raise SystemExit(f"--n_graph_shards {n_graph} does not divide the "
+                         f"{n_dev} available devices")
+    return make_mesh(n_dev // n_graph, n_graph,
+                     [f"cuda:{i}" for i in range(n_dev)] if cuda
+                     else ["cpu"] * n_dev)
+
+
+def _run_gibbs_sharded(args, log, host, info, weights, n_chains, n_graph,
+                       every, ckpt_path, state, device, mesh):
+    """Learn and infer on ``mesh`` (a parallel.comm.Mesh or open
+    parallel.launch.Ranks): the graph's streams split over the ``n_graph``
+    ranks of a chains row, the rows running chains in parallel
+    (``n_chains`` chains a rank), one set of ranks for both phases.  With
+    ``every`` set, both snapshot at chunk boundaries (phases "gs_learn"
+    and "gs_infer"); the ranks derive their generators from the absolute
+    epoch or sweep, so a killed and resumed run writes the bytes of an
+    uninterrupted checkpointed one.  Returns (weights, marginals, each
+    rank's kernel launches)."""
+    import contextlib
+
+    import torch
+
+    from . import checkpoint
+    from .engine.learn import LearnConfig
+    from .parallel.graph_shard import infer_gs, learn_gs
+    from .parallel.launch import Ranks
+
+    m = mesh.mesh if isinstance(mesh, Ranks) else mesh
+    log(f"mesh: chains={m.n_chains} x graph={m.n_graph} over "
+        f"{m.backend}, {n_chains} chains/device")
+    meta = dict(n_vars=info.n_vars, n_factors=info.n_factors,
+                seed=args.seed, n_chains=n_chains, n_graph=n_graph)
+
+    def save(phase, values, counts=None, sweep=0, epoch=0, w=None):
+        checkpoint.save(checkpoint.SamplerState(
+            values=values, weights=np.asarray(w),
+            rng_key=seed_words(args.seed), counts=counts, sweep=sweep,
+            epoch=epoch, meta={**meta, "phase": phase}), ckpt_path)
+        _fault_hook()
+
+    phase = None if state is None else state.meta.get("phase")
+    opened = (contextlib.nullcontext(mesh) if isinstance(mesh, Ranks)
+              else Ranks(mesh))
+    launches = None
+    with opened as ranks:
+        n_epochs = args.n_learning_epoch
+        if phase == "gs_infer":
+            weights = torch.as_tensor(state.weights)
+        elif n_epochs > 0:
+            cfg = LearnConfig(
+                n_epochs=n_epochs,
+                n_sweeps_per_epoch=args.n_samples_per_learning_epoch,
+                stepsize=args.alpha, diminish=args.diminish,
+                regularization=args.regularization or "none",
+                reg_param=args.reg_param,
+                learn_non_evidence=args.learn_non_evidence)
+            resume = None
+            if phase == "gs_learn":
+                resume = (state.epoch, state.weights, state.values[0],
+                          state.values[1])
+            on_ckpt = None
+            if every:
+                def on_ckpt(done, w, v_ev, v_free):
+                    save("gs_learn", np.stack([v_ev, v_free]), epoch=done,
+                         w=w)
+            t0 = time.time()
+            weights = learn_gs(host, weights, args.seed, cfg, info, ranks,
+                               n_chains, checkpoint_every=every,
+                               on_checkpoint=on_ckpt, resume_state=resume)
+            launches = ranks.launches
+            log(f"learning: {n_epochs} epochs [{time.time()-t0:.3f}s]")
+        resume = None
+        if phase == "gs_infer":
+            resume = (state.sweep, state.values,
+                      state.counts.astype(np.int64))
+        on_ckpt = None
+        if every:
+            def on_ckpt(done, values, counts):
+                save("gs_infer", values, counts=counts, sweep=done,
+                     w=weights)
+        t0 = time.time()
+        marg = infer_gs(host, weights, args.seed, args.burn_in,
+                        args.n_inference_epoch, info, ranks, n_chains,
+                        sample_evidence=args.sample_evidence,
+                        checkpoint_every=every, on_checkpoint=on_ckpt,
+                        resume_state=resume)
+        launches = ([{k: a[k] + b[k] for k in a}
+                     for a, b in zip(launches, ranks.launches)]
+                    if launches else ranks.launches)
+        log(f"inference: {args.n_inference_epoch} sweeps "
+            f"(+{args.burn_in} burn-in) [{time.time()-t0:.3f}s]")
+    return weights, marg, launches
+
+
 def cmd_text2bin(args) -> int:
     # Single-relation conversion: TSV lines → binary records, serialized
     # directly (no cross-relation validation — a lone factor file cannot
@@ -473,10 +599,11 @@ def cmd_bin2text(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def main(argv=None, mesh=None) -> int:
+    """Run a command; ``mesh``: as in cmd_gibbs."""
     args = build_parser().parse_args(argv)
     if args.cmd == "gibbs":
-        return cmd_gibbs(args)
+        return cmd_gibbs(args, mesh)
     if args.cmd == "text2bin":
         return cmd_text2bin(args)
     if args.cmd == "bin2text":

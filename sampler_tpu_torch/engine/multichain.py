@@ -46,6 +46,13 @@ single-window and multi-window banded alike, hub tiers included:
     table index is clipped to the table, and a miss lands on the reserved
     zero weight at index W, whose gradient is held at 0.
 
+Graph sharding (``parallel.graph_shard``) runs the same color step on a
+rank's slice of the streams: ``color_step_mc`` and ``sweep_mc`` take a
+``shard`` (the rank's index on the graph axis, the hub tier's partial-sum
+reduce and the exchange after each tier), the fused draws write the
+rank's rows at c*B + off + g*Bl, and ``mc_weight_gradient_cs`` takes
+(n_graph, g) to find a local record's own row.
+
 ``modes = (band, fused)``, each "cuda" (the kernel), "plain" (its plain
 PyTorch version) or "off"; the default is "cuda" on a CUDA device and
 "plain" on the CPU, gated by what the compiled graph supports, as the JAX
@@ -464,15 +471,16 @@ def prepare_fold(dg, weights, info, modes):
     return tuple(fold_one(ts, ti) for ts, ti in zip(dg.tiers, info.tiers))
 
 
-def hub_color_draw(dg, ts, ti, values, weights, generator, c, info,
-                   modes=("off", "off"), folded_t=None) -> torch.Tensor:
-    """Draw new values [B_t, NC] for a chunked-CSR hub tier of color ``c``:
-    its [M, G, A] chunk streams are evaluated with the dense tiers' code (a
-    chunk is a row of D = G records), and the chunks' deltas (boolean) or
-    logits (categorical) are summed onto their rows with ``index_add_``
-    into [B_t + 1, ...]: the pad chunks, whose ``hb_row`` is B_t, land in
-    the extra row, which is dropped.  Then the Bernoulli or Gumbel-argmax
-    draw, as on the unfused dense tiers."""
+def hub_partial(dg, ts, ti, values, weights, c, info, modes=("off", "off"),
+                folded_t=None) -> torch.Tensor:
+    """The chunk sums of a chunked-CSR hub tier of color ``c`` on its rows:
+    its [M, G, A] chunk streams are evaluated with the dense tiers' code
+    (a chunk is a row of D = G records), and the chunks' deltas [B_t, NC]
+    (boolean) or logits [B_t, K, NC] (categorical) are summed onto their
+    rows with ``index_add_`` into [B_t + 1, ...]: the pad chunks, whose
+    ``hb_row`` is B_t, land in the extra row, which is dropped.  Under
+    graph sharding ``ts`` holds a rank's run of chunks, and the result is
+    that rank's partial sums over the whole tier block."""
     Bh = ti.block
     NC = values.shape[-1]
     dev = values.device
@@ -485,10 +493,7 @@ def hub_color_draw(dg, ts, ti, values, weights, generator, c, info,
             dchunk = color_delta_bool(ts, ti, values, weights, c, info,
                                       modes)
         delta = torch.zeros((Bh + 1, NC), dtype=dchunk.dtype, device=dev)
-        delta = delta.index_add_(0, row, dchunk)[:Bh]
-        u = torch.rand(delta.shape, generator=generator, device=dev,
-                       dtype=delta.dtype)
-        return (u < torch.sigmoid(delta)).to(values.dtype)
+        return delta.index_add_(0, row, dchunk)[:Bh]
     K = info.max_card
     M, G, A = tier_geom(ts, ti, info.n_colors)
     logits = torch.zeros((Bh + 1, K, NC), dtype=torch.float32, device=dev)
@@ -497,7 +502,39 @@ def hub_color_draw(dg, ts, ti, values, weights, generator, c, info,
         logits.index_add_(0, row[r0:r0 + rc],
                           color_logits_mc(dg, ts, ti, values, weights, c,
                                           info, modes, r0, rc))
-    masked = logits[:Bh] + _tc(ts.cm_kmask, c, (Bh, K))[:, :, None]
+    return logits[:Bh]
+
+
+def hub_color_draw(dg, ts, ti, values, weights, generator, c, info,
+                   modes=("off", "off"), folded_t=None,
+                   psum=None) -> torch.Tensor:
+    """Draw new values [B_t, NC] for a chunked-CSR hub tier of color ``c``:
+    ``hub_partial``'s sums, then the Bernoulli or Gumbel-argmax draw, as
+    on the unfused dense tiers.
+
+    Under graph sharding ``psum`` sums a tensor over the graph group in
+    place: the ranks' partial sums are combined, and each rank draws the
+    whole block with its own noise (the caller keeps its row slice).
+    cm_kmask is split by rows there, so the K mask of the whole block is
+    rebuilt from var_card (as the JAX package does)."""
+    Bh = ti.block
+    dev = values.device
+    sums = hub_partial(dg, ts, ti, values, weights, c, info, modes, folded_t)
+    if psum is not None:
+        psum(sums)
+    if sums.dim() == 2:
+        u = torch.rand(sums.shape, generator=generator, device=dev,
+                       dtype=sums.dtype)
+        return (u < torch.sigmoid(sums)).to(values.dtype)
+    K = info.max_card
+    if psum is not None:
+        start = c * info.block_size + ti.off
+        card = dg.var_card[start:start + Bh]
+        kmask = torch.where(torch.arange(K, device=dev)[None, :]
+                            < card[:, None], 0.0, -1e30)
+    else:
+        kmask = _tc(ts.cm_kmask, c, (Bh, K))
+    masked = sums + kmask[:, :, None]
     masked += _gumbel(masked.shape, generator, dev)
     return masked.argmax(dim=1).to(values.dtype)
 
@@ -509,13 +546,15 @@ def _fused(ti, folded_t, modes) -> bool:
 
 
 def color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
-                    folded_t=None, modes=("off", "off"), write=None):
+                    folded_t=None, modes=("off", "off"), write=None,
+                    psum=None):
     """Draw new values [B_t, NC] for one tier of color ``c``.  A fused tier
     given ``write = (row0, mask)`` draws straight into the world's block
-    instead (the kernels' world-write mode) and returns ``values``."""
+    instead (the kernels' world-write mode) and returns ``values``.
+    ``psum`` goes to a hub tier's draw (graph sharding)."""
     if ti.hub:
         return hub_color_draw(dg, ts, ti, values, weights, generator, c,
-                              info, modes, folded_t)
+                              info, modes, folded_t, psum)
     if _fused(ti, folded_t, modes):
         seed = torch.randint(-(1 << 31), 1 << 31, (2,), generator=generator,
                              device=values.device, dtype=torch.int32)
@@ -550,36 +589,52 @@ def color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
 
 
 def color_step_mc(dg, values, weights, generator, c, sample_evidence: bool,
-                  info, folded=None, modes=("off", "off")) -> torch.Tensor:
+                  info, folded=None, modes=("off", "off"),
+                  shard=None) -> torch.Tensor:
     """Resample color ``c`` in all chains, writing into ``values`` in place
     (tiers of one color share no factor, so tier by tier is the
     simultaneous block update); returns ``values``.  A fused tier's kernel
     writes its draws into the block itself, under the resample mask; the
-    other tiers' draws are written under it here."""
+    other tiers' draws are written under it here.
+
+    Under graph sharding ``shard`` (``parallel.graph_shard.Shard``) is
+    this rank's place on the graph axis: ``dg`` holds the rank's stream
+    slices, the rank draws rows g*Bl .. (g+1)*Bl of each tier segment
+    (Bl = block / n_graph; a hub tier's block comes whole from
+    ``shard.psum`` and is cut to them), and ``shard.exchange`` brings the
+    other ranks' slices in after each tier."""
     B = info.block_size
+    n, g = (1, 0) if shard is None else (shard.n_graph, shard.g)
+    psum = None if shard is None else shard.psum
     if folded is None:
         folded = (None,) * len(dg.tiers)
     for t, (ts, ti) in enumerate(zip(dg.tiers, info.tiers)):
         resample = (ts.cm_resample_ev[c] if sample_evidence
                     else ts.cm_resample[c])
-        start = c * B + ti.off
+        Bl = ti.block // n
+        start = c * B + ti.off + g * Bl
         if _fused(ti, folded[t], modes):
             color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
                             folded[t], modes, write=(start, resample))
-            continue
-        drawn = color_draw_tier(dg, ts, ti, values, weights, generator, c,
-                                info, folded[t], modes)
-        old = values[start:start + ti.block]
-        old.copy_(torch.where(resample[:, None], drawn, old))
+        else:
+            drawn = color_draw_tier(dg, ts, ti, values, weights, generator,
+                                    c, info, folded[t], modes, psum=psum)
+            if ti.hub and n > 1:
+                drawn = drawn[g * Bl:(g + 1) * Bl]
+            old = values[start:start + Bl]
+            old.copy_(torch.where(resample[:, None], drawn, old))
+        if shard is not None:
+            shard.exchange(values, c, t)
     return values
 
 
 def sweep_mc(dg, values, weights, generator, sample_evidence: bool, info,
-             folded=None, modes=("off", "off")) -> torch.Tensor:
-    """One sweep over the colors, in place; returns ``values``."""
+             folded=None, modes=("off", "off"), shard=None) -> torch.Tensor:
+    """One sweep over the colors, in place; returns ``values``.  ``shard``:
+    as in color_step_mc."""
     for c in range(info.n_colors):
         color_step_mc(dg, values, weights, generator, c, sample_evidence,
-                      info, folded, modes)
+                      info, folded, modes, shard)
     return values
 
 
@@ -797,7 +852,8 @@ def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes,
 
 def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
                           modes=("off", "off"),
-                          row_chunk: int | None = None) -> torch.Tensor:
+                          row_chunk: int | None = None, n_graph: int = 1,
+                          g: int = 0) -> torch.Tensor:
     """Weight gradient [W] on the cs streams: each factor counted once via
     its compile-time owner record (cs_gowner, or cs_gtouch unless
     ``learn_non_evidence``), averaged over the NC chains.
@@ -811,7 +867,15 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
     rows are its chunks, each with its row's own value.  A sparse factor's
     owner record adds +feat at the table weight of its evidence world's
     combination and -feat at its free world's, the draw's table lookup
-    with the own value as the candidate."""
+    with the own value as the candidate.
+
+    Under graph sharding ``dg`` holds rank ``g``'s stream slices of
+    ``n_graph`` while the worlds are whole: a local record's own row is
+    c*B + ti.off + g*(ti.block // n_graph) + r (a hub chunk's comes from
+    hb_row, which names rows of the whole block).  Owner records are
+    disjoint across the ranks, so their gradients sum over the graph
+    group.  ``grad_pair_tile`` runs at n_graph 1 only, as in the JAX
+    package: sharded learning takes the chunked route."""
     W = dg.w_init.shape[0]
     NC = v_ev.shape[-1]
     gB = info.block_size
@@ -822,7 +886,8 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
         Bl, D, A = tier_geom(ts, ti, C)
         band = tier_modes(ti, modes)[0]
         if (ti.affine2 and W <= GRAD_W_MAX and band != "off"
-                and not info.has_sparse_cw and row_chunk is None):
+                and not info.has_sparse_cw and row_chunk is None
+                and n_graph == 1):
             kernel = grad_pair_tile if band == "cuda" else grad_pair_tile_plain
             coef = ts.gd_cown if learn_non_evidence else ts.gd_ctch
             for c in range(C):
@@ -851,7 +916,7 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
                     own = v_both.index_select(
                         0, c * gB + ti.off + hrow.to(torch.int64))
                 else:
-                    start = c * gB + ti.off + r0
+                    start = c * gB + ti.off + g * (ti.block // n_graph) + r0
                     own = v_both[start:start + rc]
                 phi, nbrv = _phi_streams(v_both, own, ts, ti, c, r0, rc,
                                          present, modes, info.all_boolean)

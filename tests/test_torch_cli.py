@@ -14,8 +14,11 @@ mirroring tests/test_cli.py: binary graph files written by the port, then
   * the checkpoint keeps the JAX package's .npz layout and the worlds'
     dtype; the chain rounding of the card; a resume from another run's
     checkpoint is refused;
-  * --n_graph_shards 2 exits naming graph sharding; the default device
-    raises without a card.
+  * --n_graph_shards 2 --device cpu (two CPU ranks over Gloo) against
+    exact enumeration, with learning; killed in learning or inference and
+    resumed, it writes the bytes of an uninterrupted checkpointed run; a
+    shard count that does not divide the card count exits with the JAX
+    command's message; the default device raises without a card.
 """
 import os
 import subprocess
@@ -262,11 +265,65 @@ def test_chain_rounding_and_generators(monkeypatch):
                            torch.rand(5, generator=b))
 
 
-def test_graph_sharding_exits_with_message(tmp_path):
+def test_graph_sharding_exits_with_message(tmp_path, monkeypatch):
+    """A shard count that does not divide the card count exits with the
+    JAX command's message, before anything is loaded (three cards
+    pretended; nothing reaches them)."""
     g = fixtures.ising_grid(2, 2)
-    with pytest.raises(SystemExit, match="graph sharding"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    with pytest.raises(SystemExit, match="--n_graph_shards 2 does not "
+                       "divide the 3 available devices"):
         main(["gibbs", *_files(g, tmp_path), "-o", str(tmp_path / "o"),
-              "--n_graph_shards", "2", "--device", "cpu"])
+              "--n_graph_shards", "2"])
+    assert not (tmp_path / "o").exists()
+
+
+def test_graph_sharded_gibbs_matches_oracle(tmp_path):
+    g = fixtures.ising_grid(3, 3, w_pair=0.4, w_bias=0.3)
+    out = tmp_path / "out"
+    assert main(["gibbs", *_files(g, tmp_path), "-o", str(out), "-i", "2000",
+                 "-b", "200", "-l", "2", "-a", "0.001", "--n_chains", "8",
+                 "--n_graph_shards", "2", "--device", "cpu",
+                 "--quiet"]) == 0
+    learned = _learned(out)
+    assert len(learned) == g.n_weights
+    assert _oracle_err(g, out, learned) < 0.015
+
+
+SHARDED_RESUME = {
+    # arguments, checkpoint saves before the kill, the phase it kills
+    "learn": (["-l", "40", "-a", "0.02", "-d", "0.97", "-b", "20", "-i",
+               "60", "--checkpoint_every", "15"], 1, "gs_learn"),
+    "infer": (["-b", "20", "-i", "60", "--checkpoint_every", "15"], 2,
+              "gs_infer"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED_RESUME))
+def test_graph_sharded_kill_and_resume(name, tmp_path):
+    """--n_graph_shards 2 killed by the fault hook (rank 0 ends its
+    process; the other rank ends with it) and resumed writes the bytes of
+    an uninterrupted checkpointed run."""
+    args, kill_after, phase = SHARDED_RESUME[name]
+    g = fixtures.labeled_coin_graph(n_flips=60, p_heads=0.75, seed=7)
+    base = ["gibbs", *_files(g, tmp_path), *args, "--n_chains", "4",
+            "--n_graph_shards", "2", "--device", "cpu", "--quiet"]
+    out_a, out_b = tmp_path / "a", tmp_path / "b"
+    r = _dw(base + ["-o", str(out_a)])
+    assert r.returncode == 0, r.stderr
+    r = _dw(base + ["-o", str(out_b)],
+            {"SAMPLER_TPU_FAULT_AFTER": str(kill_after)})
+    assert r.returncode == 3, (r.returncode, r.stderr)
+    state = checkpoint.load(str(out_b / "checkpoint.npz"))
+    assert state.meta["phase"] == phase and state.meta["n_graph"] == 2
+    assert not (out_b / "inference_result.out.text").exists()
+    r = _dw(base + ["-o", str(out_b), "--resume"])
+    assert r.returncode == 0, r.stderr
+    for fname in ["inference_result.out.text",
+                  "inference_result.out.weights.text"]:
+        assert (out_a / fname).read_bytes() == (out_b / fname).read_bytes(), \
+            fname
 
 
 def test_default_device_raises_without_card(tmp_path):

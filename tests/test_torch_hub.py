@@ -1,7 +1,7 @@
 """The port's chunked-CSR hub tier and rcm_order against the JAX package.
 
-tests/test_hub.py's checks, on the port, minus its two graph-sharded
-tests (graph sharding is not ported):
+tests/test_hub.py's checks, on the port (its two graph-sharded tests are
+in tests/test_torch_graph_shard.py):
 
   * compile_graph's hub streams (hb_row and the chunked cs_* records
     [C, M, G, A]) and every other stream are array-equal to the JAX

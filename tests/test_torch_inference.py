@@ -13,9 +13,9 @@
     (within 1e-5) on categorical, mixed, Potts and card-200 graphs, and
     infer_mc matches exact enumeration on the first, second and last of
     them, with int32 worlds and the band off at card 200;
-  * what the port does not cover (graph sharding) raises, naming it,
-    while sparse weights now run; a hub tier beside sparse weights is
-    refused.
+  * sparse weights and graph sharding, which once raised here, run; a
+    shard count that does not divide the card count exits; a hub tier
+    beside sparse weights is refused.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -297,12 +297,14 @@ def test_cuda_mode_on_cpu_raises():
 @pytest.mark.parametrize("make", [
     lambda: fixtures.sparse_categorical_graph(),
 ], ids=["sparse_categorical"])
-def test_outside_slice_raises(make, tmp_path):
+def test_outside_slice_raises(make, tmp_path, monkeypatch):
     """Sparse per-combination weights, which raised here before they were
-    ported, run; graph sharding (the command line's --n_graph_shards
-    above 1) is what raises now, naming the missing piece."""
+    ported, run, and so does graph sharding (the command line's
+    --n_graph_shards above 1), which raised until it was ported; what
+    still exits is a shard count that does not divide the card count
+    (three cards pretended)."""
     from sampler_tpu_torch import cli
-    from sampler_tpu_torch.io import binary
+    from sampler_tpu_torch.io import binary, results
 
     g = make()
     dg, info = compile_graph(g)
@@ -311,10 +313,17 @@ def test_outside_slice_raises(make, tmp_path):
                            device="cpu")
     assert marg.shape == (g.n_vars, info.max_card)
     meta = binary.write_graph(g, str(tmp_path))
-    with pytest.raises(SystemExit, match="graph sharding"):
-        cli.main(["gibbs", "-w", "-", "-v", "-", "-f", "-", "-m", meta,
-                  "-o", str(tmp_path / "out"), "--n_graph_shards", "2",
-                  "--device", "cpu"])
+    args = ["gibbs", "-w", "-", "-v", "-", "-f", "-", "-m", meta, "-o",
+            str(tmp_path / "out"), "--n_graph_shards", "2", "-i", "50",
+            "--quiet"]
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    parsed = results.read_marginals(
+        str(tmp_path / "out" / "inference_result.out.text"))
+    assert {v for v, _, _ in parsed} == set(range(g.n_vars))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    with pytest.raises(SystemExit, match="does not divide the 3"):
+        cli.main(args)
 
 
 def test_hub_graph_raises():

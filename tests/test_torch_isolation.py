@@ -21,7 +21,10 @@ MODULES = [
     "sampler_tpu_torch.engine.sweep", "sampler_tpu_torch.engine.gibbs",
     "sampler_tpu_torch.io.binary", "sampler_tpu_torch.io.text",
     "sampler_tpu_torch.io.results", "sampler_tpu_torch.checkpoint",
-    "sampler_tpu_torch.cli",
+    "sampler_tpu_torch.cli", "sampler_tpu_torch.parallel.comm",
+    "sampler_tpu_torch.parallel.launch", "sampler_tpu_torch.parallel.chains",
+    "sampler_tpu_torch.parallel.multihost",
+    "sampler_tpu_torch.parallel.graph_shard",
 ]
 
 
