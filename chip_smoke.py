@@ -141,25 +141,33 @@ Phases (each prints one line with its result and elapsed seconds):
              1024x1024 grid (align=32, shards=4), 512 chains in all, 2 +
              10 sweeps a mesh; the ranks share this one card: mesh (1, 1)
              over NCCL, (2, 1) over Gloo, (1, 4) over Gloo in halo and
-             all-gather modes (equal marginals, bit for bit); each mesh's
-             mean and max |dp| against an unsharded infer_mc run within
-             GS_NOISE times two unsharded seeds'; fused_color_draw on rank
-             2's local slice against its plain version and in world-write
-             mode at the rank's rows; every rank's launches; two epochs
-             of learn_sharded at (2, 1) (grad_pair_tile); the halo plan,
+             all-gather modes (equal marginals, bit for bit, and equal
+             checkpointed worlds); each mesh's mean and max |dp| against
+             an unsharded infer_mc run within GS_NOISE times two
+             unsharded seeds'; fused_color_draw on rank 2's local slice
+             against its plain version and in world-write mode at the
+             rank's rows; every rank's launches; two epochs of
+             learn_sharded at (2, 1) (grad_pair_tile); the mesh's reduced
+             gradient at (2, 1) and at (1, 4) under halo against the
+             unsharded graph's on the same worlds; the halo plan,
              the bytes a color step exchanges, a counted sweep by part
              (draws, exchange, tally) and each rank's peak memory
  21 gs kbc   phase 15's graph compiled with shards=2 on a 1 x 2 Gloo mesh
              (all-gather; the hub tier split by chunks), 1024 chains, 2 +
              10 sweeps: the noise bound against two unsharded runs, the
              rate, a sweep by part, peak memory; one learn_gs epoch on
-             phase 16's graph, by part
+             phase 16's graph, by part, and the mesh's reduced gradient
+             there against the unsharded graph's
  22 gs cli   the gibbs command's sharded route (--n_graph_shards 2, the
              same 1 x 2 ranks): the 3x3 grid against exact enumeration
              (|dp| < 0.015), the labelled coin (within 0.2), the labelled
              256x256 Ising, Potts and triple grids (every rank launches
              fused_color_draw, fused_cat_draw, fused_dm_draw and
-             tally_counts), and a run killed by the fault hook (a child
+             tally_counts); the same grids at shards=2 through infer_gs
+             within the noise bound of two unsharded runs, and the Potts
+             and triple grids' fused draws on rank 1's local slice
+             against their plain versions and in world-write mode at its
+             rows; and a run killed by the fault hook (a child
              process with its own ranks) and resumed writes the bytes of
              the uninterrupted checkpointed run
 Then one JSON line with every kernel's numbers, and as the last line
@@ -2838,7 +2846,7 @@ def gs_parts(comm, host, info, n_chains: int, halo, iters: int) -> dict:
                                                      prepare_fold, sweep_mc,
                                                      tally)
     from sampler_tpu_torch.parallel import graph_shard as gsm
-    from sampler_tpu_torch.parallel.comm import rank_generator
+    from sampler_tpu_torch.engine.rng import chunk_generator
 
     dev = comm.device
     cuda = dev.type == "cuda"
@@ -2853,7 +2861,7 @@ def gs_parts(comm, host, info, n_chains: int, halo, iters: int) -> dict:
             pass
 
     quiet = NoExchange(comm, info, halo) if n > 1 else None
-    gen = rank_generator(9, "parts", 0, dev, comm.row, comm.g)
+    gen = chunk_generator(9, "parts", 0, dev, comm.row, comm.g)
     values = init_values_mc(dl, gen, n_chains, info)
     w = dl.w_init
     folded = prepare_fold(dl, w, info, modes)
@@ -2890,52 +2898,169 @@ def gs_parts(comm, host, info, n_chains: int, halo, iters: int) -> dict:
 
 def local_draw_case(host, info, n_graph: int, g: int, dev,
                     n_chains: int) -> dict:
-    """fused_color_draw on rank g's local slice (its bd_nbr tiles and
-    bd_start, its fold) against its plain version, every color: the
-    delta within 1e-5 and the draws differing only within DRAW_GAP of p;
-    then its world-write mode at the rank's own rows, c*B + off + g*Bl,
-    under the local cm_resample, against its output mode and the masked
-    block write, bit for bit (the plain version's too)."""
+    """The fused draw of ``host``'s one banded tier (fused_color_draw,
+    fused_cat_draw or fused_dm_draw, by the tier's class) on rank g's
+    local slice (its bd_ tiles and bd_start, its fold) against its plain
+    version, every color: the delta within 1e-5 and the draws differing
+    only within DRAW_GAP of p (the categorical draw: its logits exact and
+    the draws differing only within CAT_GAP of a tie, as cat_case holds
+    it); then its world-write mode at the rank's own rows, c*B + off +
+    g*Bl, under the local cm_resample, against its output mode and the
+    masked block write, bit for bit (the plain version's too)."""
     import torch
 
-    from sampler_tpu_torch.ops.fused import (fold_affine, fused_color_draw,
-                                             fused_color_draw_plain)
+    from sampler_tpu_torch.ops.fused import (fold_affine, fold_affine_cat,
+                                             fold_deltam_tiles,
+                                             fused_cat_draw,
+                                             fused_cat_draw_plain,
+                                             fused_color_draw,
+                                             fused_color_draw_plain,
+                                             fused_dm_draw,
+                                             fused_dm_draw_plain)
     from sampler_tpu_torch.parallel.graph_shard import shard_device_graph
 
     local = shard_device_graph(host, info, n_graph, g, dev)
     ts, ti = local.tiers[0], info.tiers[0]
     C, B, D, TB, W = (info.n_colors, info.block_size, ti.degree, ti.band_tb,
                       ti.band_w)
+    K = info.max_card
     Bl = ti.block // n_graph
     P = local.var_card.shape[0]
     gen = torch.Generator(device=dev).manual_seed(21)
-    values = torch.randint(0, 2, (P, n_chains), generator=gen, device=dev,
-                           dtype=torch.int8)
-    beta, base = fold_affine(ts, ti, C, local.w_init)
+    if K == 2:
+        values = torch.randint(0, 2, (P, n_chains), generator=gen,
+                               device=dev, dtype=torch.int8)
+    else:
+        values = (torch.randint(0, 1 << 20, (P, n_chains), generator=gen,
+                                device=dev, dtype=torch.int32)
+                  % local.var_card.clamp(min=1)[:, None]).to(torch.int8)
     seed = torch.tensor([4242, -99], dtype=torch.int32, device=dev)
+    if ti.affinek:
+        fold = fold_affine_cat(ts, ti, C, local.w_init)
+        draw, plain = fused_cat_draw, fused_cat_draw_plain
+
+        def make(c):
+            return (values, ts.bd_nbr, ts.bd_start[c], ts.bd_eqo, ts.bd_eqn,
+                    *fold, c, seed, W, TB, D, K)
+    elif ti.fusedm:
+        fold = fold_deltam_tiles(ts, ti, C, local.w_init)
+        draw, plain = fused_dm_draw, fused_dm_draw_plain
+
+        def make(c):
+            return (values, ts.bd_dmnbr, ts.bd_start[c], *fold, c, seed, W,
+                    TB, D, ti.arity - 1, ti.band_k)
+    else:
+        fold = fold_affine(ts, ti, C, local.w_init)
+        draw, plain = fused_color_draw, fused_color_draw_plain
+
+        def make(c):
+            return (values, ts.bd_nbr, ts.bd_start[c], *fold, c, seed, W,
+                    TB, D)
+    cat = dict(logits_max_abs_err=0.0, draws_differing=0, draws=0,
+               max_score_gap_of_differing=0.0)
     err, n_diff, n_draws, changed = 0.0, 0, 0, {}
     for c in range(C):
-        args = (values, ts.bd_nbr, ts.bd_start[c], beta, base, c, seed, W,
-                TB, D)
-        out, delta = fused_color_draw(*args, return_delta=True)
-        ref, ref_delta = fused_color_draw_plain(*args, return_delta=True)
+        args = make(c)
+        if ti.affinek:
+            out = cat_compare(args, seed, TB, n_chains, cat)
+        else:
+            out, delta = draw(*args, return_delta=True)
+            ref, ref_delta = plain(*args, return_delta=True)
+            err = max(err, float((delta - ref_delta).abs().max()))
+            n_diff += check_draws(out, ref, delta, seed, TB, n_chains)
+            n_draws += out.numel()
+            del delta, ref, ref_delta
         require(out.shape[0] == Bl, f"local draw of {out.shape[0]} rows")
-        err = max(err, float((delta - ref_delta).abs().max()))
-        n_diff += check_draws(out, ref, delta, seed, TB, n_chains)
-        n_draws += out.numel()
-        del out, delta, ref, ref_delta
+        del out
         start = c * B + ti.off + g * Bl
-        changed[f"c{c}"] = world_write_check(fused_color_draw, args, start,
+        changed[f"c{c}"] = world_write_check(draw, args, start,
                                              ts.cm_resample[c])
-        world_write_check(fused_color_draw_plain, args, start,
-                          ts.cm_resample[c])
-    require(err < 1e-5, f"local fused delta error {err}")
-    require(n_diff <= 1e-4 * n_draws,
-            f"local draw: {n_diff} of {n_draws} draws differ")
-    return dict(rank=g, of=n_graph, local_rows=Bl, local_tiles=Bl // TB,
-                chains=n_chains, fused_delta_max_abs_err=err,
-                fused_draws_differing=n_diff, fused_draws=n_draws,
+        world_write_check(plain, args, start, ts.cm_resample[c])
+    if ti.affinek:
+        cat_verdict(cat)
+        numbers = cat
+    else:
+        require(err < 1e-5, f"local {draw.__name__} delta error {err}")
+        require(n_diff <= 1e-4 * n_draws,
+                f"local {draw.__name__}: {n_diff} of {n_draws} draws differ")
+        numbers = dict(delta_max_abs_err=err, draws_differing=n_diff,
+                       draws=n_draws)
+    return dict(kernel=draw.__name__, rank=g, of=n_graph, local_rows=Bl,
+                local_tiles=Bl // TB, chains=n_chains, **numbers,
                 world_write_rows_changed=changed)
+
+
+def gs_grad_case(comm, host, info, n_chains: int, halo):
+    """A rank body: this rank's worlds (the evidence world after two
+    sweeps, graph-sharded where the mesh has a graph axis; the free world
+    as it starts), the mesh's gradient on them as learning reduces it
+    (chains.reduced_gradient), and the worlds gathered whole
+    (graph_shard._canonical: under halo, the own rows summed over the
+    graph group).  Rank 0 returns (the gradients without and with
+    learn_non_evidence, the evidence world, the free world) on the host;
+    the evidence world moved away from the start, so a gradient over
+    factors that touch no evidence is far from zero."""
+    from sampler_tpu_torch.engine.multichain import (init_values_mc,
+                                                     prepare_fold, sweep_mc)
+    from sampler_tpu_torch.engine.rng import chunk_generator
+    from sampler_tpu_torch.parallel import chains
+    from sampler_tpu_torch.parallel import graph_shard as gsm
+
+    dev = comm.device
+    if comm.mesh.n_graph > 1:
+        d, modes = gsm._local(comm, host, info, None)
+        shard = gsm.Shard(comm, info, halo)
+    else:
+        d, _, modes = chains._rank_setup(comm, host, host.w_init, info, None)
+        shard = None
+    gen = chunk_generator(13, "grad_check_init", 0, dev, comm.row)
+    v_ev = init_values_mc(d, gen, n_chains, info)
+    v_free = init_values_mc(d, gen, n_chains, info)
+    gen = chunk_generator(13, "grad_check", 0, dev, comm.row, comm.g)
+    folded = prepare_fold(d, d.w_init, info, modes)
+    for _ in range(2):
+        sweep_mc(d, v_ev, d.w_init, gen, False, info, folded, modes, shard)
+    grads = [chains.reduced_gradient(comm, d, v_ev, v_free, lne, info, modes,
+                                     shard).cpu() for lne in (False, True)]
+    ev = gsm._canonical(comm, v_ev, info, halo)
+    free = gsm._canonical(comm, v_free, info, halo)
+    return (grads, ev.cpu(), free.cpu()) if comm.rank == 0 else None
+
+
+def grad_check(name: str, ranks, host, info, n_chains: int, halo,
+               dev) -> dict:
+    """The mesh's reduced gradients (gs_grad_case) against
+    mc_weight_gradient_cs of the unsharded graph, on this process's card,
+    on the chains rows' worlds side by side, without and with
+    learn_non_evidence: each within GRAD_RTOL of its largest |value|
+    (exactly zero where that is, as without evidence)."""
+    import torch
+
+    from sampler_tpu_torch.engine.multichain import (mc_weight_gradient_cs,
+                                                     resolve_modes)
+    from sampler_tpu_torch.parallel.chains import to_device_graph
+
+    grads, ev, free = ranks.run(gs_grad_case, host, info, n_chains, halo)
+    d = to_device_graph(host, dev)
+    ev, free = ev.to(dev), free.to(dev)
+    modes = resolve_modes(info, dev)
+    res = dict(mesh=f"{ranks.mesh.n_chains}x{ranks.mesh.n_graph}",
+               halo=halo, chains=n_chains * ranks.mesh.n_chains,
+               rtol=GRAD_RTOL)
+    for lne, grad in zip((False, True), grads):
+        want = mc_weight_gradient_cs(d, ev, free, lne, info, modes).cpu()
+        scale = float(want.abs().max())
+        err = float((grad - want).abs().max())
+        require(err <= GRAD_RTOL * scale,
+                f"{name} (learn_non_evidence {lne}): the mesh's gradient is "
+                f"{err} from the unsharded one (largest |value| {scale})")
+        res[f"learn_non_evidence_{lne}"] = dict(max_abs_err=err,
+                                                largest_abs=scale)
+    require(res["learn_non_evidence_True"]["largest_abs"] > 0,
+            f"{name}: the unsharded gradient is zero")
+    del d, ev, free
+    torch.cuda.empty_cache()
+    return res
 
 
 def gs_ising_phase(dev, card: str) -> None:
@@ -2943,9 +3068,11 @@ def gs_ising_phase(dev, card: str) -> None:
     compiled with align=32, shards=4; CHAINS chains in all, GS_BURN +
     GS_SWEEPS sweeps each mesh: (1, 1) over NCCL, (2, 1) over Gloo (chain
     parallelism) and (1, 4) over Gloo in halo and all-gather modes (equal
-    marginals, bit for bit), each within the noise bound of two unsharded
-    infer_mc runs; one rank's local fused_color_draw against its plain
-    version; the halo plan, the bytes a color step exchanges, a counted
+    marginals and checkpointed worlds, bit for bit), each within the noise
+    bound of two unsharded infer_mc runs; one rank's local
+    fused_color_draw against its plain version; the reduced gradient of
+    the (2, 1) and the halo (1, 4) mesh against the unsharded one
+    (grad_check); the halo plan, the bytes a color step exchanges, a counted
     sweep by part and each rank's peak memory."""
     import numpy as np
     import torch
@@ -2979,6 +3106,8 @@ def gs_ising_phase(dev, card: str) -> None:
     local = local_draw_case(host, info, 4, 2, dev, CHAINS)
     meshes = {}
     marg = {}
+    worlds = {}
+    grads = {}
     one = "nccl" if dev.type == "cuda" else "gloo"   # a CPU rehearsal
     for shape, backend in (((1, 1), one), ((2, 1), "gloo"),
                            ((1, 4), "gloo")):
@@ -2990,9 +3119,18 @@ def gs_ising_phase(dev, card: str) -> None:
             modes = ("auto", None) if shape == (1, 4) else ("auto",)
             for h in modes:
                 key = name if len(modes) == 1 else f"{name}_{h or 'gather'}"
+                # at (1, 4): checkpoints, whose worlds the two modes must
+                # give alike (halo: each rank's own rows, summed over the
+                # graph group)
+                kept = worlds.setdefault(key, []) if len(modes) > 1 else None
                 tr = time.perf_counter()
-                marg[key] = infer_gs(host, host.w_init, 7, GS_BURN, GS_SWEEPS,
-                                     info, ranks, CHAINS // shape[0], halo=h)
+                marg[key] = infer_gs(
+                    host, host.w_init, 7, GS_BURN, GS_SWEEPS, info, ranks,
+                    CHAINS // shape[0], halo=h,
+                    checkpoint_every=GS_SWEEPS if kept is not None else 0,
+                    on_checkpoint=None if kept is None else (
+                        lambda done, v, cnt, kept=kept: kept.append(
+                            (done, v))))
                 wall = time.perf_counter() - tr
                 meshes[key] = dict(
                     ranks_start_s=start_s, wall_s=wall,
@@ -3012,13 +3150,29 @@ def gs_ising_phase(dev, card: str) -> None:
                     wall_s=time.perf_counter() - tr,
                     launches_by_rank=rank_launches(
                         ranks, ("fused_color_draw", "grad_pair_tile")))
+                grads[name] = grad_check(name, ranks, host, info,
+                                         LEARN_CHAINS, None, dev)
             if shape == (1, 4):
+                grads[name + "_halo"] = grad_check(
+                    name + " halo", ranks, host, info, LEARN_CHAINS, halo,
+                    dev)
                 meshes[name + "_parts"] = dict(
                     halo=ranks.run(gs_parts, host, info, CHAINS, halo, 3),
                     gather=ranks.run(gs_parts, host, info, CHAINS, None, 3))
     require(np.array_equal(marg["1x4_gloo_auto"],
                            marg["1x4_gloo_gather"]),
             "halo and all-gather marginals differ")
+    ck_halo, ck_gather = worlds["1x4_gloo_auto"], worlds["1x4_gloo_gather"]
+    require([d for d, _ in ck_halo] == [GS_SWEEPS, GS_BURN + GS_SWEEPS]
+            and [d for d, _ in ck_gather] == [d for d, _ in ck_halo]
+            and all(np.array_equal(a, b) for (_, a), (_, b) in
+                    zip(ck_halo, ck_gather)),
+            "the halo run's checkpointed worlds differ from the all-gather "
+            "run's")
+    checkpoints = dict(sweeps_done=[d for d, _ in ck_halo],
+                       world_shape=list(ck_halo[-1][1].shape),
+                       halo_equals_all_gather=True)
+    del worlds, ck_halo, ck_gather
     report("20 gs ising", t20, card=card, arrangement=GS_ARRANGEMENT,
            grid=f"{GRID}x{GRID}", chains=CHAINS, burn=GS_BURN,
            sweeps=GS_SWEEPS, compile_graph_s=compile_s, halo_plan=halo,
@@ -3026,6 +3180,7 @@ def gs_ising_phase(dev, card: str) -> None:
                halo=exchange_bytes(info, 4, halo, CHAINS),
                all_gather=exchange_bytes(info, 4, None, CHAINS)),
            halo_equals_all_gather=True, unsharded_seeds=ref,
+           checkpointed_worlds_1x4=checkpoints, reduced_gradients=grads,
            local_fused_color_draw=local, meshes=meshes)
 
 
@@ -3038,13 +3193,13 @@ def gs_learn_parts(comm, host, info, n_chains: int, cfg) -> dict:
                                                      mc_weight_gradient_cs,
                                                      prepare_fold, sweep_mc)
     from sampler_tpu_torch.parallel import graph_shard as gsm
-    from sampler_tpu_torch.parallel.comm import rank_generator
+    from sampler_tpu_torch.engine.rng import chunk_generator
 
     dev = comm.device
     dl, modes = gsm._local(comm, host, info, None)
     n = comm.mesh.n_graph
     shard = gsm.Shard(comm, info, None) if n > 1 else None
-    gen = rank_generator(5, "parts", 0, dev, comm.row, comm.g)
+    gen = chunk_generator(5, "parts", 0, dev, comm.row, comm.g)
     v_ev = init_values_mc(dl, gen, n_chains, info)
     v_free = init_values_mc(dl, gen, n_chains, info)
     w = dl.w_init
@@ -3087,7 +3242,8 @@ def gs_kbc_phase(dev, card: str, g, colors, order, ranks) -> None:
     tier bands; the hub tier split by chunks): the marginals within the
     noise bound of two unsharded infer_mc runs, the rate, a counted sweep
     by part and each rank's peak memory; then one learn_gs epoch on phase
-    16's KBC learning graph (LEARN_CHAINS chains a world), and its parts."""
+    16's KBC learning graph (LEARN_CHAINS chains a world), and its parts;
+    the mesh's reduced gradient there against the unsharded graph's."""
     import dataclasses
 
     import torch
@@ -3150,11 +3306,67 @@ def gs_kbc_phase(dev, card: str, g, colors, order, ranks) -> None:
     learn = dict(chains=LEARN_CHAINS, sweeps_per_epoch=LEARN_SWEEPS,
                  wall_s=learn_wall, launches_by_rank=rank_launches(ranks, ()),
                  parts=ranks.run(gs_learn_parts, hostl, infol, LEARN_CHAINS,
-                                 dataclasses.replace(cfg)))
+                                 dataclasses.replace(cfg)),
+                 reduced_gradient=grad_check("kbc learn 1x2", ranks, hostl,
+                                             infol, LEARN_CHAINS, None, dev))
     report("21 gs kbc", t21, card=card, arrangement=GS_ARRANGEMENT,
            n_vars=info.n_vars, tiers=len(info.tiers), chains=KBC_CHAINS,
            burn=GS_BURN, sweeps=GS_SWEEPS, compile_graph_s=compile_s,
            unsharded_seeds=ref, run=run, learning=learn)
+
+
+def gs_grid_checks(dev, ranks) -> dict:
+    """Phase 22's labelled CLI_GRID² Ising, Potts and triple grids,
+    compiled with shards=2, straight through infer_gs on ``ranks`` (1 x
+    2): CHAINS chains, GS_BURN + GS_SWEEPS sweeps, the marginals within
+    the noise bound of two unsharded infer_mc runs and every rank
+    launching the tier's fused draw and tally_counts; the Potts and
+    triple grids' fused draw on rank 1's local slice against its plain
+    version and in world-write mode (local_draw_case)."""
+    import torch
+
+    from sampler_tpu_torch.benchgraphs import (big_ising_grid,
+                                               big_potts_grid,
+                                               big_triple_grid)
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.engine.multichain import infer_mc
+    from sampler_tpu_torch.parallel.graph_shard import infer_gs
+
+    res = {}
+    for name, make, draw in (
+            ("ising_grid", lambda: big_ising_grid(CLI_GRID, CLI_GRID),
+             "fused_color_draw"),
+            ("potts_grid", lambda: big_potts_grid(CLI_GRID, CLI_GRID, card=4),
+             "fused_cat_draw"),
+            ("triple_grid", lambda: big_triple_grid(CLI_GRID, CLI_GRID),
+             "fused_dm_draw")):
+        g, colors = make()
+        label_half(g)
+        dg, info = compile_graph(g, colors=colors, align=16, shards=2)
+        ti = info.tiers[0]
+        kind = ("fused_cat_draw" if ti.affinek else "fused_dm_draw"
+                if ti.fusedm else "fused_color_draw")
+        require(len(info.tiers) == 1 and ti.band_w > 0 and kind == draw,
+                f"{name} at shards=2: tiers {info.tiers}")
+        host = to_device(dg, "cpu")
+        del dg
+        d = to_device(host, dev)
+        refs = [infer_mc(d, d.w_init,
+                         torch.Generator(device=dev).manual_seed(s), GS_BURN,
+                         GS_SWEEPS, info, CHAINS, device=dev)[0]
+                for s in (301, 302)]
+        del d
+        ref = noise_bound(*refs)
+        m = infer_gs(host, host.w_init, 9, GS_BURN, GS_SWEEPS, info, ranks,
+                     CHAINS)
+        res[name] = dict(
+            chains=CHAINS, unsharded_seeds=ref,
+            noise=within_noise(f"sharded {name}", m, refs[0], ref),
+            launches_by_rank=rank_launches(ranks, (draw, "tally_counts")))
+        if draw != "fused_color_draw":
+            res[name]["local_draw"] = local_draw_case(host, info, 2, 1, dev,
+                                                      CHAINS)
+    return res
 
 
 def gs_cli(dev, ranks, flags, out: str, args) -> dict:
@@ -3185,7 +3397,9 @@ def gs_cli_phase(dev, card: str, ranks) -> None:
     Ising grid against exact enumeration (|dp| < 0.015) and the labelled
     coin (within 0.2 of the labels' log-odds); the labelled CLI_GRID²
     Ising, Potts and triple grids, whose ranks must each launch
-    fused_color_draw, fused_cat_draw, fused_dm_draw and tally_counts; and
+    fused_color_draw, fused_cat_draw, fused_dm_draw and tally_counts, and
+    the same grids through infer_gs (gs_grid_checks: the noise bound, the
+    local Potts and triple draws against their plain versions); and
     the labelled RESUME_GRID² grid killed by the fault hook (a child
     process with its own ranks, started first) and resumed writes the
     uninterrupted checkpointed run's bytes."""
@@ -3252,6 +3466,7 @@ def gs_cli_phase(dev, card: str, ranks) -> None:
                     "tally_counts")
             require(all(r.get(k, 0) > 0 for r in total for k in need),
                     f"a rank launched none of {need}: {total}")
+            res["grids_through_infer_gs"] = gs_grid_checks(dev, ranks)
             out_a = os.path.join(dk, "a")
             gs_cli(dev, ranks, base, out_a, [])
             try:

@@ -5,7 +5,7 @@ The whole sampler state (worlds, weights, tallies, epoch and sweep
 counters, the run's seed words) is a handful of flat arrays in one .npz
 file.  Where the JAX package keeps its PRNG key, the port keeps
 ``rng_key``: the seed words from which the run derives a fresh
-torch.Generator for each chunk (``cli.chunk_generator``), so nothing of a
+torch.Generator for each chunk (``engine.rng.chunk_generator``), so nothing of a
 generator's state needs saving.  The worlds keep their dtype (int8, or
 int32 above card 127).
 """

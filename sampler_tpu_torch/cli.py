@@ -50,6 +50,9 @@ import time
 
 import numpy as np
 
+from .engine.rng import chunk_generator
+from .ops import kernel_launches
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dw", description=__doc__,
@@ -136,16 +139,6 @@ def seed_words(seed: int) -> np.ndarray:
     """The run's --seed as two uint32 words (the checkpoint's rng_key)."""
     return np.array([seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF],
                     np.uint32)
-
-
-def chunk_generator(seed: int, phase: str, index: int, device):
-    """A fresh torch.Generator on ``device`` for the chunk of ``phase``
-    ("learn", "infer", "init", "burn", "run") that starts at epoch or
-    sweep ``index``, seeded from a hash of (seed, phase, index): a resumed
-    run draws what an uninterrupted one does."""
-    from .parallel.comm import rank_generator
-
-    return rank_generator(seed, phase, index, device)
 
 
 def _sync(device) -> None:
@@ -268,13 +261,6 @@ def cmd_gibbs(args, mesh=None) -> int:
 
     _write_outputs(args, log, graph, info, weights, marg)
     return 0
-
-
-def kernel_launches() -> dict:
-    """Each CUDA kernel's launch count in this process."""
-    from .parallel.launch import kernel_launches as counts
-
-    return counts()
 
 
 def _write_outputs(args, log, graph, info, weights, marg):

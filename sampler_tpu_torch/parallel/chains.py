@@ -26,11 +26,12 @@ from ..engine.multichain import (check_modes, init_values_mc,
                                  mc_weight_gradient_cs, prepare_fold,
                                  resolve_modes, run_inference_mc,
                                  run_sweeps_mc, sweep_mc)
+from ..engine.rng import chunk_generator
 from . import launch
-from .comm import make_mesh, rank_generator
+from .comm import make_mesh
 
 __all__ = ["make_mesh", "infer_sharded", "learn_sharded",
-           "learn_step_sharded"]
+           "learn_step_sharded", "reduced_gradient"]
 
 
 def host_graph(dg):
@@ -73,7 +74,7 @@ def _infer_rank(comm, host, weights, seed, n_burn, n_sweeps, info,
     """One rank of infer_sharded: (marginals [V, K], this rank's world)."""
     d, w, modes = _rank_setup(comm, host, weights, info, modes)
     dev = comm.device
-    gen = rank_generator(seed, "infer", 0, dev, comm.row)
+    gen = chunk_generator(seed, "infer", 0, dev, comm.row)
     values = init_values_mc(d, gen, n_chains, info)
     if n_burn:
         values = run_sweeps_mc(d, values, w, gen, n_burn, sample_evidence,
@@ -126,27 +127,37 @@ def learn_step_sharded(comm, d, w, v_ev, v_free, generator, alpha: float,
     for _ in range(cfg.n_sweeps_per_epoch):
         sweep_mc(d, v_ev, w, generator, False, info, folded, modes, shard)
         sweep_mc(d, v_free, w, generator, True, info, folded, modes, shard)
-    n, g = (1, 0) if shard is None else (shard.n_graph, shard.g)
-    grad = mc_weight_gradient_cs(d, v_ev, v_free, cfg.learn_non_evidence,
-                                 info, modes, n_graph=n, g=g)
-    if shard is not None:
-        shard.psum(grad)
-    comm.mean_(grad, "chains")
+    grad = reduced_gradient(comm, d, v_ev, v_free, cfg.learn_non_evidence,
+                            info, modes, shard)
     return apply_update(w, grad, d.w_fixed, alpha, cfg.regularization,
                         cfg.reg_param)
+
+
+def reduced_gradient(comm, d, v_ev, v_free, learn_non_evidence: bool, info,
+                     modes, shard=None) -> torch.Tensor:
+    """The weight gradient of the whole mesh's chains: this rank's, on its
+    local streams (its own records under graph sharding), summed over the
+    graph group and averaged over the chains group; the gradient of the
+    unsharded graph on the chains rows' worlds side by side."""
+    n, g = (1, 0) if shard is None else (shard.n_graph, shard.g)
+    grad = mc_weight_gradient_cs(d, v_ev, v_free, learn_non_evidence, info,
+                                 modes, n_graph=n, g=g)
+    if shard is not None:
+        shard.psum(grad)
+    return comm.mean_(grad, "chains")
 
 
 def _learn_rank(comm, host, weights, seed, cfg, info, n_chains, modes):
     """One rank of learn_sharded; returns the weights (every rank)."""
     d, w, modes = _rank_setup(comm, host, weights, info, modes)
     dev = comm.device
-    gen = rank_generator(seed, "learn_init", 0, dev, comm.row)
+    gen = chunk_generator(seed, "learn_init", 0, dev, comm.row)
     v_ev = init_values_mc(d, gen, n_chains, info)
     v_free = init_values_mc(d, gen, n_chains, info)
     for e in range(cfg.n_epochs):
         w = learn_step_sharded(
             comm, d, w, v_ev, v_free,
-            rank_generator(seed, "learn", e, dev, comm.row),
+            chunk_generator(seed, "learn", e, dev, comm.row),
             learn_alpha(cfg, e), cfg, info, modes)
     return w.cpu()
 

@@ -12,23 +12,17 @@ row, which split a graph's streams and exchange the drawn slices).
 The backend is named, never picked on failure: ``nccl`` for distinct
 cards, ``gloo`` for the CPU and for a mesh that repeats a card (NCCL
 refuses two ranks on one card).  Under Gloo with CUDA tensors, the
-operations that Gloo has no CUDA path for go through pinned host
-buffers (``GLOO_CUDA``): the neighbour shift (Gloo's send and receive
-abort on a CUDA tensor: "writev ... Bad address", PyTorch 2.11 on an
-H100); Gloo's all-reduce and all-gather take CUDA tensors themselves.
+neighbour shift goes through pinned host buffers: Gloo's send and
+receive abort on a CUDA tensor ("writev ... Bad address", PyTorch 2.11
+on an H100), while its all-reduce and all-gather take CUDA tensors
+themselves.
 """
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 
 import torch
 import torch.distributed as dist
-
-# operations that Gloo runs on CUDA tensors itself (checked on the card);
-# the others are staged through pinned host memory under Gloo with a card
-GLOO_CUDA = frozenset({"all_reduce", "all_gather"})
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -85,18 +79,6 @@ def make_mesh(n_chains: int, n_graph: int, devices=None,
     return Mesh(n_chains, n_graph, tuple(str(d) for d in devs), backend)
 
 
-def rank_generator(seed: int, phase: str, index: int, device, *coords):
-    """A fresh torch.Generator on ``device`` seeded from a hash of
-    (seed, phase, index, *coords): the chunk or sweep ``index`` of
-    ``phase``, and where given the rank's mesh coordinates, so every rank
-    draws its own noise and a chunked or resumed run draws what a single
-    call does."""
-    key = ":".join(str(x) for x in (seed, phase, index, *coords))
-    h = hashlib.sha256(key.encode()).digest()
-    return torch.Generator(device=device).manual_seed(
-        int.from_bytes(h[:8], "little") & ((1 << 63) - 1))
-
-
 class Comm:
     """One rank's view of a mesh inside its process group: its
     coordinates (row, g), its device and the two groups it belongs to.
@@ -127,9 +109,6 @@ class Comm:
                 if rank in members(j):
                     self._groups[kind] = grp
 
-    def _host(self, t: torch.Tensor, op: str) -> bool:
-        return self.stage and t.device.type == "cuda" and op not in GLOO_CUDA
-
     def sum_(self, t: torch.Tensor, kind: str) -> torch.Tensor:
         """Sum ``t`` over the ``kind`` group, in place; returns ``t``."""
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._groups[kind])
@@ -148,15 +127,8 @@ class Comm:
         ``all_gather(..., tiled=True)``), in place."""
         n = len(self._ranks[kind])
         j = self._ranks[kind].index(self.rank)
-        host = self._host(out, "all_gather")
-        buf = _pinned(out.shape, out.dtype) if host else out
-        mine = out.chunk(n)[j]
-        inp = _pinned(mine.shape, mine.dtype) if host else torch.empty_like(
-            mine)
-        inp.copy_(mine)
-        dist.all_gather(list(buf.chunk(n)), inp, group=self._groups[kind])
-        if host:
-            out.copy_(buf)
+        mine = out.chunk(n)[j].clone()
+        dist.all_gather(list(out.chunk(n)), mine, group=self._groups[kind])
 
     def shift(self, send: torch.Tensor, recv: torch.Tensor, j: int,
               kind: str) -> bool:
@@ -166,21 +138,22 @@ class Comm:
         those exist.  Returns whether ``recv`` was written."""
         ranks = self._ranks[kind]
         me = ranks.index(self.rank)
-        host = self._host(send, "shift")
+        # Gloo's send/recv abort on CUDA tensors (probed on the card):
+        # under Gloo on a card both go through pinned host buffers
         ops, rbuf = [], None
         if 0 <= me + j < len(ranks):
-            sbuf = _pinned(send.shape, send.dtype).copy_(send) if host \
-                else send
+            sbuf = _pinned(send.shape, send.dtype).copy_(send) \
+                if self.stage else send
             ops.append(dist.P2POp(dist.isend, sbuf, ranks[me + j],
                                   self._groups[kind]))
         if 0 <= me - j < len(ranks):
-            rbuf = _pinned(recv.shape, recv.dtype) if host else recv
+            rbuf = _pinned(recv.shape, recv.dtype) if self.stage else recv
             ops.append(dist.P2POp(dist.irecv, rbuf, ranks[me - j],
                                   self._groups[kind]))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        if rbuf is not None and host:
+        if rbuf is not None and self.stage:
             recv.copy_(rbuf)
         return rbuf is not None
 

@@ -21,7 +21,7 @@ each run, and sum over both groups.
 
 Randomness: each sweep (or learning epoch) of each rank draws from a
 generator derived from (seed, phase, absolute index, chains row, graph
-index) (``comm.rank_generator``): the graph index MUST enter, or the
+index) (``engine.rng.chunk_generator``): the graph index MUST enter, or the
 ranks of a row would draw a block with the same noise.  A run in
 checkpoint chunks, or resumed from one, draws what a single call does,
 bit for bit.
@@ -34,10 +34,11 @@ import torch
 from ..compile import FLAT_TIER_FIELDS, TierStreams
 from ..engine.multichain import (check_modes, init_values_mc, prepare_fold,
                                  resolve_modes, sweep_mc, tally)
+from ..engine.rng import chunk_generator
 from . import launch
 from .chains import (host_graph, learn_alpha, learn_step_sharded,
                      to_device_graph)
-from .comm import make_mesh, rank_generator
+from .comm import make_mesh
 
 __all__ = ["make_mesh", "check_shardable", "halo_plan", "shard_device_graph",
            "own_runs", "infer_gs", "learn_gs", "Shard"]
@@ -305,7 +306,7 @@ def _infer_gs_rank(comm, host, weights, seed, n_burn, n_sweeps, info,
     else:
         done = 0
         values = init_values_mc(
-            dl, rank_generator(seed, "gs_init", 0, dev, comm.row), n_chains,
+            dl, chunk_generator(seed, "gs_init", 0, dev, comm.row), n_chains,
             info)
         counts_acc = np.zeros((P, K), np.int64)
     runs = own_runs(info, n, comm.g)
@@ -316,7 +317,7 @@ def _infer_gs_rank(comm, host, weights, seed, n_burn, n_sweeps, info,
         segs = [torch.zeros((K, r1 - r0), dtype=torch.int32, device=dev)
                 for r0, r1 in runs]
         for i in range(done, stop):
-            gen = rank_generator(seed, "gs_sweep", i, dev, comm.row, comm.g)
+            gen = chunk_generator(seed, "gs_sweep", i, dev, comm.row, comm.g)
             sweep_mc(dl, values, w, gen, sample_evidence, info, folded,
                      modes, shard)
             if i >= n_burn:
@@ -395,13 +396,13 @@ def _learn_gs_rank(comm, host, weights, seed, cfg, info, n_chains, modes,
         v_free = _own_cols(v_free, comm, n_chains, dev)
     else:
         done, w = 0, weights.to(dev, torch.float32)
-        gen = rank_generator(seed, "gs_learn_init", 0, dev, comm.row)
+        gen = chunk_generator(seed, "gs_learn_init", 0, dev, comm.row)
         v_ev = init_values_mc(dl, gen, n_chains, info)
         v_free = init_values_mc(dl, gen, n_chains, info)
     while done < cfg.n_epochs:
         stop = min(done + (every or cfg.n_epochs), cfg.n_epochs)
         for e in range(done, stop):
-            gen = rank_generator(seed, "gs_learn", e, dev, comm.row, comm.g)
+            gen = chunk_generator(seed, "gs_learn", e, dev, comm.row, comm.g)
             w = learn_step_sharded(comm, dl, w, v_ev, v_free, gen,
                                    learn_alpha(cfg, e), cfg, info, modes,
                                    shard)

@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..ops import kernel_launches
 from .comm import Comm, Mesh
 
 TIMEOUT_S = 900        # a collective that waits longer than this fails
@@ -44,18 +45,6 @@ FAIL_WAIT_S = 2        # how long a failed call waits for the ranks' reports
 # the Ranks whose process group this process is rank 0 of (a process holds
 # one process group at a time)
 _open: list = []
-
-
-def kernel_launches() -> dict:
-    """Each CUDA kernel's launch count in this process."""
-    from ..ops.banded import banded_gather, banded_gather_multi
-    from ..ops.fused import fused_cat_draw, fused_color_draw, fused_dm_draw
-    from ..ops.grad import grad_pair_tile
-    from ..ops.tally import tally_counts
-
-    return {k.__name__: k.launches for k in (
-        fused_color_draw, banded_gather, grad_pair_tile, fused_dm_draw,
-        banded_gather_multi, fused_cat_draw, tally_counts)}
 
 
 def _join(mesh: Mesh, rank: int, path: str) -> Comm:

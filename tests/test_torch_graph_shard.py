@@ -13,7 +13,10 @@ carried across with convert.from_jax:
   * the port's mc_weight_gradient_cs on each rank's local streams, summed
     over the ranks, is JAX's unsharded gradient within 1e-4 (six graphs,
     hub and sparse among them); the ranks' hub partial sums add up to the
-    unsharded ones;
+    unsharded ones; the gradient learning applies on a mesh (summed over
+    the graph group, averaged over the chains group) is the unsharded
+    graph's on the gathered worlds, at (1, 4) under halo, (2, 2) and
+    (2, 1);
   * whole runs on CPU ranks over Gloo (one thread each, at most 4 ranks):
     infer_gs against exact enumeration at meshes (2, 2), (1, 4) and
     (4, 1) (|dp| < 0.015, JAX's bound), the all-functions graph with
@@ -382,6 +385,66 @@ def _halo_grid(labelled: bool):
                              band_tile=128, band_min_block=1)
     assert jgs.halo_plan(dgj, infoj, 4) is not None
     return from_jax(dgj, infoj)
+
+
+def _reduced_gradient_body(comm, host, info, n_chains, halo):
+    """A rank body: the evidence world after two sweeps (graph-sharded on
+    a graph axis), the free world as it starts, the mesh's gradient on
+    them as learning reduces it (without and with learn_non_evidence),
+    and both worlds gathered whole; rank 0's are returned."""
+    from sampler_tpu_torch.engine.rng import chunk_generator
+    from sampler_tpu_torch.parallel import chains
+
+    if comm.mesh.n_graph > 1:
+        d, modes = tgs._local(comm, host, info, None)
+        shard = tgs.Shard(comm, info, halo)
+    else:
+        d, _, modes = chains._rank_setup(comm, host, host.w_init, info, None)
+        shard = None
+    gen = chunk_generator(13, "init", 0, comm.device, comm.row)
+    v_ev = tmc.init_values_mc(d, gen, n_chains, info)
+    v_free = tmc.init_values_mc(d, gen, n_chains, info)
+    gen = chunk_generator(13, "sweep", 0, comm.device, comm.row, comm.g)
+    folded = tmc.prepare_fold(d, d.w_init, info, modes)
+    for _ in range(2):
+        tmc.sweep_mc(d, v_ev, d.w_init, gen, False, info, folded, modes,
+                     shard)
+    grads = [chains.reduced_gradient(comm, d, v_ev, v_free, lne, info,
+                                     modes, shard) for lne in (False, True)]
+    return (grads, tgs._canonical(comm, v_ev, info, halo),
+            tgs._canonical(comm, v_free, info, halo))
+
+
+@pytest.mark.parametrize("name,shape", [("halo", (1, 4)), ("kbc", (2, 2)),
+                                        ("ising", (2, 1))])
+def test_reduced_gradient_equals_unsharded(name, shape, ranks):
+    """The gradient learning applies on a mesh (each rank's on its local
+    streams, summed over the graph group, averaged over the chains group)
+    is the unsharded graph's on the chains rows' worlds side by side;
+    under halo the gathered worlds and the gradients equal all-gather's
+    bit for bit."""
+    if name == "halo":
+        dg, info = _halo_grid(True)
+        halos = [tgs.halo_plan(dg, info, 4), None]
+        assert halos[0] is not None
+    else:
+        _, dg, info = _port(name, shape[1])
+        halos = [None]
+    host = tgs.host_graph(dg)
+    runs = [ranks(*shape).run(_reduced_gradient_body, host, info, 4, h)
+            for h in halos]
+    grads, ev, free = runs[0]
+    assert ev.shape == (host.var_card.shape[0], 4 * shape[0])
+    assert not torch.equal(ev, free)
+    for lne, grad in zip((False, True), grads):
+        want = tmc.mc_weight_gradient_cs(host, ev, free, lne, info,
+                                         tmc.resolve_modes(info, "cpu"))
+        assert float(want.abs().max()) > 0
+        np.testing.assert_allclose(grad.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    for other in runs[1:]:
+        for a, b in zip(grads + [ev, free], other[0] + list(other[1:])):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("modes", [None, ("plain", "off"), ("off", "off")])

@@ -19,6 +19,7 @@ MODULES = [
     "sampler_tpu_torch.engine.learn", "sampler_tpu_torch.ops.grad",
     "sampler_tpu_torch.ops.tally", "sampler_tpu_torch.engine.potentials",
     "sampler_tpu_torch.engine.sweep", "sampler_tpu_torch.engine.gibbs",
+    "sampler_tpu_torch.engine.rng", "sampler_tpu_torch.ops",
     "sampler_tpu_torch.io.binary", "sampler_tpu_torch.io.text",
     "sampler_tpu_torch.io.results", "sampler_tpu_torch.checkpoint",
     "sampler_tpu_torch.cli", "sampler_tpu_torch.parallel.comm",
