@@ -154,7 +154,9 @@ Phases (each prints one line with its result and elapsed seconds):
              (draws, exchange, tally) and each rank's peak memory
  21 gs kbc   phase 15's graph compiled with shards=2 on a 1 x 2 Gloo mesh
              (all-gather; the hub tier split by chunks), 1024 chains, 2 +
-             10 sweeps: the noise bound against two unsharded runs, the
+             10 sweeps: the noise bound against two unsharded runs (on the
+             numpy colorer's coloring; on the native one the mean bound,
+             the max reported beside three unsharded seeds'), the
              rate, a sweep by part, peak memory; one learn_gs epoch on
              phase 16's graph, by part, and the mesh's reduced gradient
              there against the unsharded graph's
@@ -170,6 +172,33 @@ Phases (each prints one line with its result and elapsed seconds):
              rows; and a run killed by the fault hook (a child
              process with its own ranks) and resumed writes the bytes of
              the uninterrupted checkpointed run
+ 23 host     the native host library against its numpy plain versions:
+             host seconds by part on phase 15's KBC graph (generation,
+             greedy coloring by each route, RCM, compile_graph and its
+             stream fill alone); the two routes' compiled graphs equal,
+             every array
+ 24 scale ising  python -m sampler_tpu_torch.scale_gpu at its defaults:
+             the 5120x5120 grid at 128 chains (worlds of 3.4e9 elements,
+             past 2^31): its compile fills every tier by both routes
+             (equal, timed apart: the grid's host seconds by part); rate,
+             peak memory, memory_budget, launches;
+             fused_color_draw against its plain version on tiles around
+             and past world element 2^31 (output and world-write modes),
+             tally_counts exactly equal to its plain version on the whole
+             world, both kernels' ms a launch beside their bounds
+ 25 scale kbc  python -m sampler_tpu_torch.scale_kbc, cut for time to 2e6
+             variables and 2 + 5 x 1 sweeps (its defaults: 4e6 and 2 + 5 x
+             2), 1024 chains: rate, peak memory beside the bytes of the
+             worlds and the graph, a sweep by part
+ 26 scale demo  python -m sampler_tpu_torch.scale_demo on a 2048x2048 grid
+             (cut from its 3200x3200 default for time) over 4 graph ranks
+             sharing the card (Gloo), 6 sweeps: the
+             marginals' shape and finiteness, the halo plan engaged, every
+             rank's launches, memory_budget and sharded bytes a variable
+ 27 profile learn  python -m sampler_tpu_torch.profile_learn at its
+             defaults (the labelled 1024x1024 grid, 256 chains): a
+             prefolded sweep, the fold and the gradient alone, the implied
+             epoch
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failed check ends the run nonzero.
 The script imports neither JAX nor the JAX package.
@@ -265,6 +294,21 @@ GS_CHILD = ("import sys; from sampler_tpu_torch.cli import main; "
             "from sampler_tpu_torch.parallel.comm import make_mesh; "
             "sys.exit(main(sys.argv[1:], mesh=make_mesh("
             "1, 2, ['cuda:0'] * 2, 'gloo')))")
+# phases 23-27: the native host library and the large-graph entry points
+SCALE_ARGS: list = []         # scale_gpu.main at its defaults: 5120^2, 128
+#                               chains, 4 sweeps x (1 warm-up + 3 timed)
+# scale_kbc.main at 1024 chains, cut for the script's time limit (PERF.md
+# §4): its counted sweeps from 5 x 2 to 5 x 1, then its variables from
+# 4e6 to 2e6 (python -m sampler_tpu_torch.scale_kbc runs the 4e6 point)
+KBC_SCALE_ARGS = ["--vars", "2000000", "--outer", "1"]
+# scale_demo's grid: 2048^2, cut from its 3200^2 default to keep the
+# script inside its time limit (PERF.md §4)
+DEMO_ARGS = ["--rows", "2048", "--cols", "2048", "--graph-axis", "4",
+             "--sweeps", "6"]
+DEMO_RANKS = 4                # scale_demo's graph ranks, sharing the card
+PROFILE_ARGS: list = []       # profile_learn.main at its defaults
+EDGE_TILES = 4                # tiles checked each side of world element
+#                               2^31, and at the end of the world
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2271,12 +2315,13 @@ def kbc_phase(dev, card: str) -> tuple:
     hub_cap=256), KBC_CHAINS chains, the default modes; KBC_BURN burn-in
     sweeps, then KBC_OUTER counted runs of KBC_INNER sweeps through
     run_inference_mc (bench.py's 5 x 2).  Returns the graph and the
-    counted sweeps' updates/s, for phase 17, and its coloring and order,
-    for phase 21."""
+    counted sweeps' updates/s, for phase 17, and its order, for phase
+    21."""
     import torch
 
     from sampler_tpu_torch.coloring import greedy_coloring, rcm_order
-    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.compile import compile_graph, iter_arrays, \
+        to_device
     from sampler_tpu_torch.engine.multichain import (init_values_mc,
                                                      resolve_modes,
                                                      run_inference_mc,
@@ -2327,6 +2372,8 @@ def kbc_phase(dev, card: str) -> tuple:
                * KBC_OUTER / wall,
                peak_memory_bytes=torch.cuda.max_memory_allocated(),
                world_bytes=vals.numel() * vals.element_size(),
+               graph_bytes=sum(a.numel() * a.element_size()
+                               for _, a in iter_arrays(d)),
                tally_counts_launches=launches)
     breakdown = kbc_sweep_parts(d, vals, info, modes, gen)
     tiers = [dict(block=ti.block, degree=ti.degree, arity=ti.arity,
@@ -2339,7 +2386,7 @@ def kbc_phase(dev, card: str) -> tuple:
            has_hub=info.has_hub, modes=modes, host_seconds=host,
            chains=KBC_CHAINS, burn=KBC_BURN, sweeps=f"{KBC_INNER}x{KBC_OUTER}",
            run=run, sweep_breakdown=breakdown)
-    return g, run["variable_updates_per_s"], colors, order
+    return g, run["variable_updates_per_s"], order
 
 
 def kbc_learn_phase(dev, card: str) -> None:
@@ -3235,9 +3282,46 @@ def gs_learn_parts(comm, host, info, n_chains: int, cfg) -> dict:
     return dict(rank0_ms=out, epoch_ms=sum(out.values()))
 
 
-def gs_kbc_phase(dev, card: str, g, colors, order, ranks) -> None:
-    """Phase 21: the KBC class sharded.  Phase 15's graph (its coloring
-    and RCM order), compiled with shards=2, KBC_CHAINS chains, GS_BURN +
+def kbc_native_noise(dev, g, order, ranks) -> dict:
+    """Phase 21's sharded run on the native coloring: its mean |dp|
+    against an unsharded run held to GS_NOISE[0] times two unsharded
+    seeds', its max |dp| reported beside three unsharded seeds' against
+    the same run (the hub variables set the max)."""
+    import torch
+
+    from sampler_tpu_torch.coloring import greedy_coloring
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.engine.multichain import infer_mc
+    from sampler_tpu_torch.parallel.graph_shard import infer_gs
+
+    dg, info = compile_graph(g, colors=greedy_coloring(g), order=order,
+                             band_wmax=32768, hub_cap=256, align=16,
+                             shards=2)
+    host = to_device(dg, "cpu")
+    del dg
+    d = to_device(host, dev)
+    refs = [infer_mc(d, d.w_init, torch.Generator(device=dev).manual_seed(s),
+                     GS_BURN, GS_SWEEPS, info, KBC_CHAINS, device=dev)[0]
+            for s in (201, 202, 203, 204)]
+    del d
+    torch.cuda.empty_cache()
+    marg = infer_gs(host, host.w_init, 3, GS_BURN, GS_SWEEPS, info, ranks,
+                    KBC_CHAINS)
+    ref, got = noise_bound(refs[0], refs[1]), noise_bound(marg, refs[0])
+    require(got["mean_abs_dp"] <= GS_NOISE[0] * ref["mean_abs_dp"],
+            f"kbc 1x2, native coloring: mean |dp| {got} beyond "
+            f"{GS_NOISE[0]} x the unsharded seeds' {ref}")
+    return dict(n_colors=info.n_colors, sharded_vs_201=got,
+                unsharded_vs_201={s: noise_bound(m, refs[0]) for s, m in
+                                  zip((202, 203, 204), refs[1:])},
+                mean_over_unsharded=got["mean_abs_dp"] / ref["mean_abs_dp"],
+                max_over_unsharded=got["max_abs_dp"] / ref["max_abs_dp"])
+
+
+def gs_kbc_phase(dev, card: str, g, order, ranks) -> None:
+    """Phase 21: the KBC class sharded.  Phase 15's graph (its RCM order,
+    and the numpy colorer's coloring: see below), compiled with shards=2,
+    KBC_CHAINS chains, GS_BURN +
     GS_SWEEPS sweeps on ``ranks`` (1 x 2 over Gloo: all-gather, since no
     tier bands; the hub tier split by chunks): the marginals within the
     noise bound of two unsharded infer_mc runs, the rate, a counted sweep
@@ -3257,6 +3341,13 @@ def gs_kbc_phase(dev, card: str, g, colors, order, ranks) -> None:
                                                         learn_gs)
 
     t21 = time.perf_counter()
+    # The noise bound's max |dp| is set by a few hub variables, which mix
+    # slowly, and one pair of unsharded seeds gives its reference.  Under
+    # the native coloring (phase 15's since it became the default) an
+    # unsharded seed pair exceeds 1.5x another pair's maximum on this
+    # graph, at a hub variable (kbc_native_noise), so the full check
+    # keeps the coloring it was set on, the numpy colorer's.
+    colors = greedy_coloring(g, native=False)
     tc = time.perf_counter()
     dg, info = compile_graph(g, colors=colors, order=order, band_wmax=32768,
                              hub_cap=256, align=16, shards=2)
@@ -3281,6 +3372,7 @@ def gs_kbc_phase(dev, card: str, g, colors, order, ranks) -> None:
                * (GS_BURN + GS_SWEEPS) / wall,
                launches_by_rank=rank_launches(ranks, ("tally_counts",)),
                noise=within_noise("kbc 1x2", marg, refs[0], ref),
+               native_coloring=kbc_native_noise(dev, g, order, ranks),
                parts=ranks.run(gs_parts, host, info, KBC_CHAINS, None, 2),
                exchange_bytes_a_color_step=exchange_bytes(
                    info, 2, None, KBC_CHAINS))
@@ -3493,6 +3585,336 @@ def gs_cli_phase(dev, card: str, ranks) -> None:
                              bytes_equal=same)
     report("22 gs cli", t22, card=card, arrangement=GS_ARRANGEMENT,
            graphs=res)
+
+
+def arrays_equal(a, b, what: str) -> int:
+    """Require two compiled graphs' arrays to be equal, name by name,
+    dtype and shape included; returns the bytes compared."""
+    import numpy as np
+
+    from sampler_tpu_torch.compile import iter_arrays
+
+    n = 0
+    for (name, x), (other, y) in zip(iter_arrays(a), iter_arrays(b)):
+        require(name == other and x.dtype == y.dtype and x.shape == y.shape
+                and np.array_equal(x, y), f"{what}: {name} differs")
+        n += x.nbytes
+    return n
+
+
+class FillWatch:
+    """Wraps compile.fill_streams while open: adds up the seconds of every
+    tier's stream fill by the route compile_graph asks for, and with
+    ``both`` also fills each tier by the numpy plain version into arrays of
+    its own, timed apart, and requires them equal to the native fill's."""
+
+    def __init__(self, both: bool = False):
+        import sampler_tpu_torch.compile as comp
+
+        self.comp, self.fill, self.both = comp, comp.fill_streams, both
+        self.seconds = {"native": 0.0, "numpy": 0.0}
+        self.checking_s = 0.0        # the comparisons' own seconds
+        self.bytes_equal = 0
+
+    def __call__(self, outs, native, *args):
+        import numpy as np
+
+        t = time.perf_counter()
+        self.fill(outs, native, *args)
+        self.seconds["native" if native else "numpy"] += \
+            time.perf_counter() - t
+        if self.both and native:
+            plain = {k: np.empty_like(a) for k, a in outs.items()}
+            t = time.perf_counter()
+            self.fill(plain, False, *args)
+            self.seconds["numpy"] += time.perf_counter() - t
+            t = time.perf_counter()
+            for k, a in outs.items():
+                require(np.array_equal(a, plain[k]),
+                        f"{k}: the native fill differs from the numpy fill")
+                self.bytes_equal += a.nbytes
+            del plain
+            self.checking_s += time.perf_counter() - t
+
+    def __enter__(self):
+        self.comp.fill_streams = self
+        return self
+
+    def __exit__(self, *exc):
+        self.comp.fill_streams = self.fill
+
+
+def host_route(g, colors, native: bool, **kw) -> tuple:
+    """compile_graph by one route (the native host library, or its numpy
+    plain versions): (graph, info, seconds of the whole compile and of its
+    stream fill alone)."""
+    from sampler_tpu_torch.compile import compile_graph
+
+    with FillWatch() as watch:
+        t = time.perf_counter()
+        dg, info = compile_graph(g, colors=colors, native=native, **kw)
+        total = time.perf_counter() - t
+    return dg, info, dict(compile_graph_s=total,
+                          stream_fill_s=sum(watch.seconds.values()))
+
+
+def host_phase(card: str) -> None:
+    """Phase 23: host seconds by part, native route and numpy route, on
+    phase 15's KBC graph: generation, greedy coloring by each route, RCM
+    (numpy in both), compile_graph with the native coloring passed to
+    both, and its stream fill alone.  The two routes' compiled graphs must
+    be equal, every array.  (The 5120^2 grid's host seconds come from
+    phase 24's one compile of it, FillWatch(both=True).)"""
+    import gc
+
+    import numpy as np
+
+    from sampler_tpu_torch import native
+    from sampler_tpu_torch.coloring import greedy_coloring, rcm_order
+
+    t23 = time.perf_counter()
+    _, build_s = native.build()
+    routes = ("native", "numpy")
+    t = time.perf_counter()
+    g = kbc_graph(KBC_VARS, 100_000, 0)
+    kbc = dict(n_vars=g.n_vars, generate_s=time.perf_counter() - t,
+               routes={r: {} for r in routes})
+    colors = {}
+    for r in routes:
+        t = time.perf_counter()
+        colors[r] = greedy_coloring(g, native=r == "native")
+        kbc["routes"][r]["greedy_coloring_s"] = time.perf_counter() - t
+        kbc["routes"][r]["n_colors"] = int(colors[r].max()) + 1
+    kbc["colorings_equal"] = bool(np.array_equal(*colors.values()))
+    t = time.perf_counter()
+    order = rcm_order(g)
+    kbc["rcm_order_s_both_routes"] = time.perf_counter() - t
+    dgs = {}
+    for r in routes:
+        dgs[r], info, kbc["routes"][r]["compile"] = host_route(
+            g, colors["native"], r == "native", order=order,
+            band_wmax=32768, hub_cap=256)
+    kbc["bytes_equal"] = arrays_equal(dgs["native"], dgs["numpy"], "KBC")
+    kbc["tiers"] = len(info.tiers)
+    del g, dgs, colors, order
+    gc.collect()
+    report("23 host", t23, card=card, native_build_s=build_s,
+           host_cpus=os.cpu_count(), kbc=kbc)
+
+
+def edge_tiles(B: int, off: int, TB: int, nt: int, NC: int) -> list:
+    """Two runs of tiles of an affine2 tier: EDGE_TILES each side of the
+    tile that holds world row 2^31 // NC in the second color block (where
+    element 2^31 of the world lies; in the first block, the tiles whose
+    neighbours lie there), and the last EDGE_TILES of the block."""
+    row = (1 << 31) // NC - (B + off)
+    t = min(max(row // TB, EDGE_TILES), nt - EDGE_TILES)
+    return [(t - EDGE_TILES, t + EDGE_TILES), (nt - EDGE_TILES, nt)]
+
+
+def past_2_31_cases(d, info, values, seed) -> list:
+    """fused_color_draw against its plain version on edge_tiles of every
+    color of the scale world (the world whole; the streams cut to the
+    tiles): the delta within 1e-5 and draws differing only within DRAW_GAP
+    of p in output mode; in world-write mode the world equal bit for bit to
+    the output route's masked write (world_write_check), and the plain
+    version's world-write differing from the kernel's only in the block
+    written, within DRAW_GAP."""
+    import torch
+
+    from sampler_tpu_torch.ops.fused import (fold_affine, fused_color_draw,
+                                             fused_color_draw_plain)
+
+    ts, ti = d.tiers[0], info.tiers[0]
+    C, B, D, TB, W = info.n_colors, info.block_size, ti.degree, ti.band_tb, \
+        ti.band_w
+    nt = ti.block // TB
+    P, NC = values.shape
+    beta, base = fold_affine(ts, ti, C, d.w_init)
+    cases = []
+    for c in range(C):
+        for t0, t1 in edge_tiles(B, ti.off, TB, nt, NC):
+            def cut(a):
+                return a[c:c + 1, t0:t1].contiguous()
+
+            nbr = cut(ts.bd_nbr)
+            args = (values, nbr, ts.bd_start[c, t0:t1].contiguous(),
+                    cut(beta), cut(base), 0, seed, W, TB, D)
+            out, delta = fused_color_draw(*args, return_delta=True)
+            ref, ref_delta = fused_color_draw_plain(*args, return_delta=True)
+            err = float((delta - ref_delta).abs().max())
+            n_diff = check_draws(out, ref, delta, seed, TB, NC)
+            del out, ref, ref_delta
+            start, n = c * B + ti.off + t0 * TB, (t1 - t0) * TB
+            mask = ts.cm_resample[c, t0 * TB:t1 * TB]
+            world_write_check(fused_color_draw, args, start, mask)
+            got = values.clone()
+            fused_color_draw(got, *args[1:], write=(start, mask))
+            want = values.clone()
+            fused_color_draw_plain(want, *args[1:], write=(start, mask))
+            require(torch.equal(got[:start], want[:start])
+                    and torch.equal(got[start + n:], want[start + n:]),
+                    "world-write mode wrote outside its block")
+            n_diff_w = check_draws(got[start:start + n],
+                                   want[start:start + n], delta, seed, TB,
+                                   NC)
+            del got, want, delta
+            require(err < 1e-5, f"fused delta error {err} past 2^31")
+            require(n_diff + n_diff_w <= 2e-4 * n * NC,
+                    f"{n_diff} + {n_diff_w} of {n * NC} draws differ")
+            cases.append(dict(
+                color=c, tiles=[t0, t1], delta_max_abs_err=err,
+                draws=n * NC, output_draws_differing=n_diff,
+                world_write_draws_differing=n_diff_w,
+                max_element_read=(int(nbr.max()) + 1) * NC - 1,
+                elements_written=[start * NC, (start + n) * NC - 1]))
+    if P * NC > 1 << 31:
+        require(any(k["max_element_read"] >= 1 << 31 for k in cases)
+                and any(k["elements_written"][1] >= 1 << 31
+                        for k in cases),
+                "no case read or wrote past world element 2^31")
+    return cases
+
+
+def scale_ising_phase(dev, card: str) -> None:
+    """Phase 24: scale_gpu.main at its defaults (the 5120^2 grid at 128
+    chains, worlds of 3.4e9 elements): its rate, peak memory and
+    memory_budget; fused_color_draw and tally_counts launched on its path;
+    then, on its placed graph and last worlds, fused_color_draw against
+    its plain version on tiles around and past world element 2^31
+    (past_2_31_cases), tally_counts exactly equal to its plain version on
+    the whole world, and both kernels' ms a launch beside their bounds
+    (computed as phase 4 computes them).  Its compile of the grid is the
+    grid's host measurement: every tier is filled by both routes
+    (FillWatch(both=True)), timed apart and required equal; the native
+    compile_graph is scale_gpu's compile_s less the numpy fills and the
+    comparisons."""
+    import torch
+
+    from sampler_tpu_torch import scale_gpu
+    from sampler_tpu_torch.ops.fused import fold_affine, fused_color_draw
+    from sampler_tpu_torch.ops.tally import tally_counts
+
+    t24 = time.perf_counter()
+    seen = {}
+
+    def inspect(d, info, vals, counts, modes):
+        seen["launches"] = {"fused_color_draw": fused_color_draw.launches,
+                            "tally_counts": tally_counts.launches}
+        ts, ti = d.tiers[0], info.tiers[0]
+        require(len(info.tiers) == 1 and ti.affine2 and ti.band_k == 1,
+                f"scale grid tiers {info.tiers}")
+        C, D, TB, W = info.n_colors, ti.degree, ti.band_tb, ti.band_w
+        nt = ti.block // TB
+        NC = vals.shape[1]
+        seed = torch.tensor([12345, -67890], dtype=torch.int32,
+                            device=vals.device)
+        seen["past_2_31"] = past_2_31_cases(d, info, vals, seed)
+        seen["tally_whole_world"] = tally_case(vals, info.max_card)
+        beta, base = fold_affine(ts, ti, C, d.w_init)
+        starts0, f_nbr = ts.bd_start[0], ts.bd_nbr[0, :nt]
+        f_bytes = (rows_read(f_nbr.reshape(nt, D, TB), starts0, W) * NC
+                   + 2 * f_nbr.numel() * 4 + nt * TB * 4 + nt * 4 + 8
+                   + nt * TB * NC)
+        f_ops = nt * TB * NC * (2 * D + 4 + 24)
+        fargs = (vals, ts.bd_nbr, starts0, beta, base, 0, seed, W, TB, D)
+        seen["fused_color_draw"] = dict(
+            ms=time_ms(lambda: fused_color_draw(*fargs), iters=10),
+            **kernel_bound(f_bytes, f_ops))
+        seen["tally_counts"] = tally_numbers(vals, info.max_card)
+        for k in ("fused_color_draw", "tally_counts"):
+            seen[k]["bound_share"] = seen[k]["bound_ms"] / seen[k]["ms"]
+
+    fused_color_draw.launches = 0
+    tally_counts.launches = 0
+    with FillWatch(both=True) as watch:
+        out = scale_gpu.main(SCALE_ARGS + ["--device", str(dev)],
+                             inspect=inspect)
+    require(all(n > 0 for n in seen["launches"].values()),
+            f"scale_gpu: launches {seen['launches']}")
+    host = dict(generate_s=out["gen_s"],
+                native_compile_graph_s=out["compile_s"]
+                - watch.seconds["numpy"] - watch.checking_s,
+                stream_fill_s=watch.seconds, checking_s=watch.checking_s,
+                stream_bytes_equal=watch.bytes_equal)
+    report("24 scale ising", t24, card=card, scale_gpu=out, host=host,
+           world_elements_over_2_31=out["world_elements"] / (1 << 31),
+           launches=seen["launches"], past_2_31=seen["past_2_31"],
+           tally_whole_world=seen["tally_whole_world"],
+           kernels={k: seen[k] for k in ("fused_color_draw",
+                                         "tally_counts")})
+
+
+def scale_kbc_phase(dev, card: str) -> None:
+    """Phase 25: scale_kbc.main with KBC_SCALE_ARGS (the KBC graph at 1024
+    chains, cut to 2e6 variables): its rate, peak memory beside the bytes
+    of the worlds and the device graph, tally_counts launched on its path,
+    and a sweep by part (kbc_sweep_parts)."""
+    from sampler_tpu_torch import scale_kbc
+    from sampler_tpu_torch.ops.tally import tally_counts
+
+    t25 = time.perf_counter()
+    seen = {}
+
+    def inspect(d, info, vals, modes, gen):
+        seen["tally_counts_launches"] = tally_counts.launches
+        seen["sweep_breakdown"] = kbc_sweep_parts(d, vals, info, modes, gen)
+
+    tally_counts.launches = 0
+    out = scale_kbc.main(KBC_SCALE_ARGS + ["--device", str(dev)],
+                         inspect=inspect)
+    require(seen["tally_counts_launches"] > 0,
+            "scale_kbc launched no tally_counts")
+    report("25 scale kbc", t25, card=card, scale_kbc=out, **seen)
+
+
+def scale_demo_phase(dev, card: str) -> None:
+    """Phase 26: scale_demo.main on DEMO_RANKS graph ranks sharing the
+    card over Gloo: the marginals' shape and finiteness, the halo plan
+    engaged (fewer slices shifted than an all-gather), every rank's
+    launches of fused_color_draw and tally_counts, memory_budget and
+    sharded_bytes_per_var."""
+    import math
+
+    from sampler_tpu_torch import scale_demo
+    from sampler_tpu_torch.parallel.comm import make_mesh
+    from sampler_tpu_torch.parallel.launch import Ranks
+
+    t26 = time.perf_counter()
+    with Ranks(make_mesh(1, DEMO_RANKS, [str(dev)] * DEMO_RANKS,
+                         "gloo")) as ranks:
+        out = scale_demo.main(DEMO_ARGS + ["--device", str(dev)],
+                              mesh=ranks)
+        launches = rank_launches(ranks, ("fused_color_draw",
+                                         "tally_counts"))
+    m = out["marginals"]
+    require(m["shape"] == [out["n_vars"], 2] and math.isfinite(m["entropy"])
+            and 0 < m["mean_p1"] < 1, f"scale_demo marginals {m}")
+    require(out["halo"] is not None
+            and sum(out["halo"]) < out["mesh"]["graph"] - 1,
+            f"scale_demo: the halo plan did not engage ({out['halo']})")
+    report("26 scale demo", t26, card=card, arrangement=GS_ARRANGEMENT,
+           scale_demo=out, launches_by_rank=launches)
+
+
+def profile_learn_phase(dev, card: str) -> None:
+    """Phase 27: profile_learn.main at its defaults (the labelled 1024^2
+    grid at 256 chains): the epoch breakdown, with fused_color_draw and
+    grad_pair_tile launched on its path."""
+    from sampler_tpu_torch import profile_learn
+    from sampler_tpu_torch.ops.fused import fused_color_draw
+    from sampler_tpu_torch.ops.grad import grad_pair_tile
+
+    t27 = time.perf_counter()
+    fused_color_draw.launches = 0
+    grad_pair_tile.launches = 0
+    out = profile_learn.main(PROFILE_ARGS + ["--device", str(dev)])
+    launches = {"fused_color_draw": fused_color_draw.launches,
+                "grad_pair_tile": grad_pair_tile.launches}
+    require(all(n > 0 for n in launches.values()),
+            f"profile_learn: launches {launches}")
+    report("27 profile learn", t27, card=card, profile_learn=out,
+           launches=launches)
 
 
 def main() -> int:
@@ -3758,7 +4180,7 @@ def main() -> int:
 
     # ---- 14, 15, 16: the KBC class (the hub tier) --------------------------
     kbc_oracle_phase(dev)
-    g_kbc, kbc_rate, kbc_colors, kbc_order = kbc_phase(dev, card)
+    g_kbc, kbc_rate, kbc_order = kbc_phase(dev, card)
     kbc_learn_phase(dev, card)
 
     # ---- 17, 18, 19: the gibbs command on the card -----------------------
@@ -3772,9 +4194,16 @@ def main() -> int:
 
     gs_ising_phase(dev, card)
     with Ranks(make_mesh(1, 2, [str(dev)] * 2, "gloo")) as pair:
-        gs_kbc_phase(dev, card, g_kbc, kbc_colors, kbc_order, pair)
+        gs_kbc_phase(dev, card, g_kbc, kbc_order, pair)
         del g_kbc
         gs_cli_phase(dev, card, pair)
+
+    # ---- 23-27: the native host library and the large-graph entry points
+    host_phase(card)
+    scale_ising_phase(dev, card)
+    scale_kbc_phase(dev, card)
+    scale_demo_phase(dev, card)
+    profile_learn_phase(dev, card)
 
     sources = {"fused_color_draw": ("sampler_tpu_torch/csrc/"
                                     "fused_color_draw.cu",

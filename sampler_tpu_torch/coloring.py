@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import native as native_mod
 from .graph import FactorGraph
 
 
@@ -48,7 +49,7 @@ def variable_adjacency(graph: FactorGraph):
     return indptr, indices
 
 
-def greedy_coloring(graph: FactorGraph) -> np.ndarray:
+def greedy_coloring(graph: FactorGraph, native: bool = True) -> np.ndarray:
     """Color variables greedily (largest-first order), LOAD-BALANCED;
     returns int32 [V].
 
@@ -59,9 +60,19 @@ def greedy_coloring(graph: FactorGraph) -> np.ndarray:
     (compile.py) — first-fit on KBC-shaped graphs put ~1e6 variables in
     color 0 and a handful in the last, inflating padded stream volume by
     the color count.  No two variables sharing a factor get the same color
-    (validated by tests/test_coloring.py).  The JAX package's native C++
-    colorer is not carried over: this is its numpy specification.
+    (validated by tests/test_coloring.py).
+
+    ``native`` (the default, as in the JAX package): the native host
+    library's colorer (``native.greedy_color``), which orders variables by
+    the sum of arity - 1 over their factor slots.  ``native=False``: the
+    numpy plain version below, which orders them by their count of
+    co-member pairs.  Both give proper colorings; they differ where a
+    factor names one variable twice (random_kbc_graph's skewed draws do),
+    since the pair count leaves out the variable's pairs with itself.
     """
+    if native:
+        return native_mod.greedy_color(graph.n_vars, graph.f_ptr,
+                                       graph.e_vid)
     indptr, indices = variable_adjacency(graph)
     V = graph.n_vars
     degree = np.diff(indptr)

@@ -1,10 +1,13 @@
 """Compile a host FactorGraph into the padded, rectangular device layout.
 
-Copy of the host part of sampler_tpu/compile.py (numpy only; the port
-imports nothing of the JAX package), the chunked-CSR hub tier included.
-Left out: the JAX package's native multithreaded C++ stream code (its numpy
-specification is kept, so the streams are identical).  to_device moves the
-streams to torch tensors.
+Copy of the host part of sampler_tpu/compile.py (the port imports nothing
+of the JAX package), the chunked-CSR hub tier included.  As in the JAX
+package, the dense tiers' color-major streams are filled by the native
+host library (``native.build_streams``, many threads) except on graphs
+with sparse per-combination weights; the hub tier stays on numpy.  The
+chunked numpy loop is the plain version the native fill is held to: it
+runs with ``compile_graph(native=False)``, which also colors with the
+numpy colorer.  to_device moves the streams to torch tensors.
 
 Equivalent role to the reference's FactorGraph::compile() →
 CompiledFactorGraph (ref: src/factor_graph.cc — recalled), but the layout is
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from . import format_spec as fs
+from . import native as native_mod
 from .coloring import greedy_coloring
 from .graph import FactorGraph
 
@@ -367,8 +371,8 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
                   shards: int = 1,
                   order: np.ndarray | None = None,
                   hub_cap: int = 2048,
-                  hub_chunk: int = 512) -> tuple[DeviceGraph,
-                                                 CompileInfo]:
+                  hub_chunk: int = 512,
+                  native: bool = True) -> tuple[DeviceGraph, CompileInfo]:
     """Build the padded color-major, degree-tiered device layout.
 
     band_*: parameters of the banded (MXU one-hot matmul) gather plan — see
@@ -386,6 +390,9 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
     instead of a dense [B, D, A] tier — a power-law head variable must not
     inflate the padded stream volume by its own degree (SURVEY.md §7
     hard-part 2).
+    native: color (when ``colors`` is None) and fill the dense tiers'
+    streams with the native host library (the default); False runs their
+    numpy plain versions, which give the same streams.
     """
     graph.validate()
     V, F, E = graph.n_vars, graph.n_factors, graph.n_edges
@@ -394,7 +401,7 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
 
     # --- coloring --------------------------------------------------------
     if colors is None:
-        colors = greedy_coloring(graph)
+        colors = greedy_coloring(graph, native=native)
     C = int(colors.max()) + 1 if V else 1
 
     # --- per-variable degree / max incident arity (factor-distinct) ------
@@ -571,7 +578,7 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
                 f_feat, f_minpos, f_touch, f_cwbase, f_cwstride,
                 var_card, var_role,
                 A, K, eq_dtype, all_boolean, has_cw,
-                bool(try_band_t[t]), band_tile, band_wmax)
+                bool(try_band_t[t]), band_tile, band_wmax, native)
         tiers.append(ts)
         tier_infos.append(ti)
 
@@ -612,13 +619,15 @@ def _build_tier(t: int, off_t: int, Bt: int, C: int, B: int, P: int,
                 var_card, var_role,
                 A: int, K: int, eq_dtype, all_boolean: bool, has_cw: bool,
                 try_band: bool, band_tile: int,
-                band_wmax: int) -> tuple[TierStreams, TierInfo]:
+                band_wmax: int,
+                native: bool) -> tuple[TierStreams, TierInfo]:
     """Assemble one tier's streams.
 
     (up, uf, rloc): this tier's (position, factor, row-in-color-block)
     incidence pairs; f_* arrays are the GLOBAL padded factor arrays with
     row stride A — this tier only reads the leading A_t columns (its
-    incident factors all have arity <= A_t by construction).
+    incident factors all have arity <= A_t by construction).  ``native``:
+    as ``fill_streams`` takes it.
     """
     # degree per tier-local row
     rows_t = (up // B) * Bt + (rloc - off_t)   # [n_pairs] in [0, C*Bt)
@@ -662,75 +671,21 @@ def _build_tier(t: int, off_t: int, Bt: int, C: int, B: int, P: int,
     affine_cand = bool(try_band and all_boolean and A_t == 2)
     ab_a = np.empty((C, Bt, D), np.float32) if affine_cand else None
     ab_b = np.empty((C, Bt, D), np.float32) if affine_cand else None
+
+    outs = dict(cs_nbr=cs_nbr, cs_ismine=cs_ismine, cs_hmask=cs_hmask,
+                cs_pos=cs_pos, cs_mask=cs_mask, cs_type=cs_type,
+                cs_arity=cs_arity, cs_wid=cs_wid, cs_feat=cs_feat,
+                cs_gowner=cs_gowner, cs_gtouch=cs_gtouch)
+    if not all_boolean:
+        outs["cs_eq"] = cs_eq
     if affine_cand:
-        from .ops.fused import affine_pairwise
-
-    take = np.take_along_axis
-    iota_a = np.arange(A_t, dtype=np.int16)[None, None, :]
-    CHUNK = max(1, (1 << 24) // max(D * A_t, 1))
-    n_rows = C * Bt
-    for r0 in range(0, n_rows, CHUNK):
-        r1 = min(r0 + CHUNK, n_rows)
-        fi = v_fidx[r0:r1]                          # [n, D]
-        mv = f_vids[fi][..., :A_t]                  # [n, D, A_t]
-        c_of = np.arange(r0, r1, dtype=np.int64) // Bt
-        own = (c_of * B + off_t
-               + (np.arange(r0, r1, dtype=np.int64) % Bt)
-               ).astype(np.int32)[:, None, None]
-        ismine = mv == own
-        ar = f_arity[fi]                            # [n, D] int16
-        msk = f_mask[fi][..., :A_t]
-        # head slot = original slot arity-1, pre-permutation
-        hm = (iota_a == ar[..., None] - 1) & msk
-        pos = f_ispos[fi][..., :A_t]
-        eq = None if all_boolean else f_eqpred[fi][..., :A_t]
-        cw = f_cwstride[fi][..., :A_t] if has_cw else None
-
-        # permute each (variable, factor) slot list OWN-LAST (stable:
-        # neighbor slots keep their relative order); slot A_t-1 is then
-        # always own for real incident factors (n_own >= 1), so the
-        # gather needs only slots :A_t-1
-        if A_t == 2:
-            # stable own-last = swap iff exactly slot 0 is own
-            sw = (ismine[..., 0] & ~ismine[..., 1])[..., None]
-
-            def permute(x):
-                return np.where(sw, x[..., ::-1], x)
-        else:
-            perm = np.argsort(ismine, axis=-1, kind="stable")
-
-            def permute(x):
-                return take(x, perm, axis=-1)
-
-        mv_p = permute(mv)
-        ismine_p = permute(ismine)
-        sl = slice(r0, r1)
-        flat = lambda a: a.reshape(C * Bt, *a.shape[2:])
-        flat(cs_nbr)[sl] = np.where(ismine_p, np.int32(DUMMY),
-                                    mv_p)[..., :A1]
-        flat(cs_ismine)[sl] = ismine_p
-        flat(cs_hmask)[sl] = permute(hm)
-        flat(cs_pos)[sl] = permute(pos)
-        flat(cs_mask)[sl] = permute(msk)
-        if not all_boolean:
-            flat(cs_eq)[sl] = permute(eq)
-        flat(cs_type)[sl] = f_type[fi]
-        flat(cs_arity)[sl] = ar
-        flat(cs_wid)[sl] = f_wid[fi]
-        flat(cs_feat)[sl] = f_feat[fi]
-        flat(cs_gowner)[sl] = f_minpos[fi] == own[..., 0]
-        flat(cs_gtouch)[sl] = flat(cs_gowner)[sl] & f_touch[fi]
-        if has_cw:
-            base_fi = f_cwbase[fi]
-            flat(cs_issparse)[sl] = base_fi >= 0
-            flat(cs_cwbase)[sl] = np.maximum(base_fi, 0)
-            flat(cs_cwstride)[sl] = permute(cw)
-        if affine_cand:
-            aa, bb = affine_pairwise(
-                flat(cs_pos)[sl], flat(cs_mask)[sl], ismine_p,
-                flat(cs_hmask)[sl], flat(cs_type)[sl], present_t)
-            flat(ab_a)[sl] = aa
-            flat(ab_b)[sl] = bb
+        outs.update(ab_a=ab_a, ab_b=ab_b)
+    if has_cw:
+        outs.update(cs_issparse=cs_issparse, cs_cwbase=cs_cwbase,
+                    cs_cwstride=cs_cwstride)
+    fill_streams(outs, native, v_fidx, f_vids, f_ispos, f_eqpred, f_mask,
+                 f_type, f_arity, f_wid, f_feat, f_minpos, f_touch, f_cwbase,
+                 f_cwstride, P, B, off_t, DUMMY, present_t)
 
     # --- banded-gather window plan / true read bounds ----------------------
     from .ops.banded import plan_banding, plan_banding_multi
@@ -1092,6 +1047,120 @@ def _build_hub_tier(off_t: int, Bt: int, C: int, B: int, P: int,
     return ts, ti
 
 
+def fill_streams(outs: dict, native: bool, v_fidx, f_vids, f_ispos,
+                 f_eqpred, f_mask, f_type, f_arity, f_wid, f_feat, f_minpos,
+                 f_touch, f_cwbase, f_cwstride, P: int, B: int, off_t: int,
+                 DUMMY: int, present_t: tuple) -> None:
+    """Fill one tier's color-major streams ``outs`` (as in
+    ``fill_streams_numpy``): with ``native``, on graphs without sparse
+    per-combination weights, by the native library on many threads; else
+    by ``fill_streams_numpy``, its plain version.  Both give the same
+    arrays."""
+    C, Bt, _, A_t = outs["cs_ismine"].shape
+    if native and "cs_cwstride" not in outs:
+        # tier rows index the GLOBAL position space: position of tier row
+        # r = (r // Bt) * B + off_t + (r % Bt)
+        native_mod.build_streams(
+            v_fidx, f_vids, f_ispos, f_eqpred, f_mask, f_type, f_arity,
+            f_wid, f_feat, np.ascontiguousarray(f_minpos, np.int32), f_touch,
+            {k: a.reshape(C * Bt, *a.shape[2:]) for k, a in outs.items()},
+            P, DUMMY, do_affine="ab_a" in outs, a_cols=A_t,
+            row_to_pos=(B, Bt, off_t))
+    else:
+        fill_streams_numpy(v_fidx, f_vids, f_ispos, f_eqpred, f_mask,
+                           f_type, f_arity, f_wid, f_feat, f_minpos, f_touch,
+                           f_cwbase, f_cwstride, outs, B, off_t, DUMMY,
+                           present_t)
+
+
+def fill_streams_numpy(v_fidx, f_vids, f_ispos, f_eqpred, f_mask, f_type,
+                       f_arity, f_wid, f_feat, f_minpos, f_touch, f_cwbase,
+                       f_cwstride, outs: dict, B: int, off_t: int,
+                       DUMMY: int, present_t: tuple) -> None:
+    """The plain version of ``native.build_streams``: fill one tier's
+    color-major streams ``outs`` ([C, Bt, D(, A)] arrays by field name;
+    cs_eq only on graphs that are not all-boolean, ab_a/ab_b on affine
+    candidates, cs_issparse/cs_cwbase/cs_cwstride on sparse-weight graphs)
+    in numpy, a chunk of rows at a time."""
+    C, Bt, D, A_t = outs["cs_ismine"].shape
+    A1 = A_t - 1
+    all_boolean = "cs_eq" not in outs
+    has_cw = "cs_cwstride" in outs
+    affine_cand = "ab_a" in outs
+    if affine_cand:
+        from .ops.fused import affine_pairwise
+
+    def flat(name):
+        a = outs[name]
+        return a.reshape(C * Bt, *a.shape[2:])
+
+    take = np.take_along_axis
+    iota_a = np.arange(A_t, dtype=np.int16)[None, None, :]
+    CHUNK = max(1, (1 << 24) // max(D * A_t, 1))
+    n_rows = C * Bt
+    for r0 in range(0, n_rows, CHUNK):
+        r1 = min(r0 + CHUNK, n_rows)
+        fi = v_fidx[r0:r1]                          # [n, D]
+        mv = f_vids[fi][..., :A_t]                  # [n, D, A_t]
+        c_of = np.arange(r0, r1, dtype=np.int64) // Bt
+        own = (c_of * B + off_t
+               + (np.arange(r0, r1, dtype=np.int64) % Bt)
+               ).astype(np.int32)[:, None, None]
+        ismine = mv == own
+        ar = f_arity[fi]                            # [n, D] int16
+        msk = f_mask[fi][..., :A_t]
+        # head slot = original slot arity-1, pre-permutation
+        hm = (iota_a == ar[..., None] - 1) & msk
+        pos = f_ispos[fi][..., :A_t]
+        eq = None if all_boolean else f_eqpred[fi][..., :A_t]
+        cw = f_cwstride[fi][..., :A_t] if has_cw else None
+
+        # permute each (variable, factor) slot list OWN-LAST (stable:
+        # neighbor slots keep their relative order); slot A_t-1 is then
+        # always own for real incident factors (n_own >= 1), so the
+        # gather needs only slots :A_t-1
+        if A_t == 2:
+            # stable own-last = swap iff exactly slot 0 is own
+            sw = (ismine[..., 0] & ~ismine[..., 1])[..., None]
+
+            def permute(x):
+                return np.where(sw, x[..., ::-1], x)
+        else:
+            perm = np.argsort(ismine, axis=-1, kind="stable")
+
+            def permute(x):
+                return take(x, perm, axis=-1)
+
+        mv_p = permute(mv)
+        ismine_p = permute(ismine)
+        sl = slice(r0, r1)
+        flat("cs_nbr")[sl] = np.where(ismine_p, np.int32(DUMMY),
+                                      mv_p)[..., :A1]
+        flat("cs_ismine")[sl] = ismine_p
+        flat("cs_hmask")[sl] = permute(hm)
+        flat("cs_pos")[sl] = permute(pos)
+        flat("cs_mask")[sl] = permute(msk)
+        if not all_boolean:
+            flat("cs_eq")[sl] = permute(eq)
+        flat("cs_type")[sl] = f_type[fi]
+        flat("cs_arity")[sl] = ar
+        flat("cs_wid")[sl] = f_wid[fi]
+        flat("cs_feat")[sl] = f_feat[fi]
+        flat("cs_gowner")[sl] = f_minpos[fi] == own[..., 0]
+        flat("cs_gtouch")[sl] = flat("cs_gowner")[sl] & f_touch[fi]
+        if has_cw:
+            base_fi = f_cwbase[fi]
+            flat("cs_issparse")[sl] = base_fi >= 0
+            flat("cs_cwbase")[sl] = np.maximum(base_fi, 0)
+            flat("cs_cwstride")[sl] = permute(cw)
+        if affine_cand:
+            aa, bb = affine_pairwise(
+                flat("cs_pos")[sl], flat("cs_mask")[sl], ismine_p,
+                flat("cs_hmask")[sl], flat("cs_type")[sl], present_t)
+            flat("ab_a")[sl] = aa
+            flat("ab_b")[sl] = bb
+
+
 def _deltam_streams(cs_ismine, cs_pos, cs_mask, cs_hmask, cs_type,
                     present_t, A: int):
     """Multilinear delta-φ coefficients (dm_a, dm_b1, dm_b2, dm_x) from
@@ -1127,6 +1196,18 @@ def _deltam_streams(cs_ismine, cs_pos, cs_mask, cs_hmask, cs_type,
     return (d00.astype(np.float32), (d10 - d00).astype(np.float32),
             (d01 - d00).astype(np.float32),
             (d11 - d10 - d01 + d00).astype(np.float32))
+
+
+def iter_arrays(dg: DeviceGraph):
+    """Yield (name, array) over every array in the DeviceGraph, tiers
+    included (names are 'tier{t}.{field}')."""
+    for name in dg._fields:
+        if name == "tiers":
+            for t, ts in enumerate(dg.tiers):
+                for f in ts._fields:
+                    yield f"tier{t}.{f}", getattr(ts, f)
+        else:
+            yield name, getattr(dg, name)
 
 
 # Per-record arrays stored FLAT (1-D) on device: XLA tiles the last two

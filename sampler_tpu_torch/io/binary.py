@@ -12,9 +12,10 @@ The factors file holds variable-length records (a member list inline), so
 its record starts form a chain: one pass over the 10-byte record headers
 finds them (and raises on a truncated or implausible header), then every
 field of every record is read, or written, at once through big-endian
-views of the bytes.  The JAX package parses this file with a native C++
-library, which the port does not carry; ``read_factors_loop`` is the
-record-by-record reader the vectorised one is held to.
+views of the bytes.  ``read_factors`` parses the file with the native host
+library, as the JAX package does; the vectorised reader is its plain
+version (``read_factors(native=False)``), and ``read_factors_loop`` the
+record-by-record reader both are held to.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
 
 from .. import format_spec as fs
+from .. import native as native_mod
 from ..graph import FactorGraph
 
 _CATEGORICAL = np.array(sorted(fs.CATEGORICAL_FUNCS), np.int64)
@@ -249,13 +251,22 @@ def _factor_starts(buf: bytes):
             np.asarray(arities, np.int64))
 
 
-def read_factors(path: str):
-    """Factor records, every field read at once.
+def read_factors(path: str, native: bool = True):
+    """Factor records: (f_type, f_wid, f_feat, f_ptr, e_vid, e_ispos,
+    e_eqpred_sparse), exactly as ``read_factors_loop`` returns them.
 
-    Returns (f_type, f_wid, f_feat, f_ptr, e_vid, e_ispos, e_eqpred_sparse)
-    exactly as ``read_factors_loop`` does."""
+    ``native`` (the default): the native host library's parser; a file it
+    finds malformed is read again by the vectorised reader, which raises
+    the ValueError with its byte offset.  ``native=False``: the vectorised
+    reader alone (the plain version)."""
     with open(path, "rb") as fp:
         buf = fp.read()
+    if native:
+        out = native_mod.parse_factors(buf)
+        if out is not None:
+            return out
+        _factor_starts(buf)
+        raise ValueError(f"malformed factors file {path}")
     starts, f_type, arity = _factor_starts(buf)
     raw = np.frombuffer(buf, np.uint8)
     F = len(starts)
@@ -279,7 +290,7 @@ def read_factors(path: str):
 
 def read_factors_loop(path: str):
     """The record-by-record reader (the JAX package's Python loop): the
-    plain version ``read_factors`` is held to."""
+    reference both routes of ``read_factors`` are held to."""
     with open(path, "rb") as fp:
         buf = memoryview(fp.read())
     pos = 0

@@ -1,8 +1,9 @@
 """The port's host compile against the JAX package's.
 
-sampler_tpu_torch.compile is a numpy copy of sampler_tpu.compile (without
-the native C++ stream code): on the same graph and coloring
-both must give array-equal streams and equal static info.  from_jax carries
+sampler_tpu_torch.compile is a copy of sampler_tpu.compile (its native
+stream fill is held to its numpy route in tests/test_torch_native.py): on
+the same graph and coloring both must give array-equal streams and equal
+static info.  from_jax carries
 a JAX-compiled graph across unchanged.
 """
 import dataclasses

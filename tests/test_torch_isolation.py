@@ -25,7 +25,10 @@ MODULES = [
     "sampler_tpu_torch.cli", "sampler_tpu_torch.parallel.comm",
     "sampler_tpu_torch.parallel.launch", "sampler_tpu_torch.parallel.chains",
     "sampler_tpu_torch.parallel.multihost",
-    "sampler_tpu_torch.parallel.graph_shard",
+    "sampler_tpu_torch.parallel.graph_shard", "sampler_tpu_torch.native",
+    "sampler_tpu_torch.observe", "sampler_tpu_torch.scale_demo",
+    "sampler_tpu_torch.scale_gpu", "sampler_tpu_torch.scale_kbc",
+    "sampler_tpu_torch.profile_learn",
 ]
 
 
@@ -192,3 +195,60 @@ def test_launcher_signatures_match_their_argtypes():
         m = re.search(rf'extern "C" int {launcher}\(([^)]*)\)', text)
         assert m, launcher
         assert len(m.group(1).split(",")) == len(argtypes), launcher
+
+
+def test_native_library_is_the_ports_own():
+    """The port builds and loads its own copy of the host library, from
+    csrc/host/, into its _build/ directory; it never reads the root
+    native/ directory (the JAX package's copy and its committed .so)."""
+    code = (
+        "import os, sampler_tpu_torch.native as n\n"
+        "n.build()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print(sorted({l.split()[-1] for l in maps.splitlines()\n"
+        "              if 'sampler_native' in l}))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    pkg = os.path.join(REPO, "sampler_tpu_torch")
+    loaded = eval(proc.stdout.strip())
+    assert len(loaded) == 1, loaded
+    assert loaded[0].startswith(os.path.join(pkg, "_build",
+                                             "libsampler_native_")), loaded
+    from sampler_tpu_torch import native
+
+    assert native.SOURCE == os.path.join(pkg, "csrc", "host",
+                                         "sampler_native.cpp")
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(pkg):
+        sources += [os.path.join(root, f) for f in files
+                    if f.endswith((".py", ".cpp", ".cu"))]
+    for path in sources:
+        with open(path) as f:
+            src = f.read()
+        assert "libsampler_native.so" not in src, path
+        assert not re.search(r"""join\([^)]*["']native["']""", src), path
+
+
+def test_scale_entry_points_raise_without_card():
+    """The large-graph entry points run on the card unless asked for the
+    CPU (--device cpu): without a card their default raises."""
+    code = (
+        "import torch\n"
+        "from sampler_tpu_torch import profile_learn, scale_demo, "
+        "scale_gpu, scale_kbc\n"
+        "if torch.cuda.is_available():\n"
+        "    print('card'); raise SystemExit(0)\n"
+        "for mod, argv in ((scale_gpu, ['--rows', '8', '--cols', '8']),\n"
+        "                  (scale_kbc, ['--vars', '100']),\n"
+        "                  (profile_learn, ['--grid', '8']),\n"
+        "                  (scale_demo, ['--rows', '8', '--cols', '8'])):\n"
+        "    try:\n"
+        "        mod.main(argv)\n"
+        "    except RuntimeError as e:\n"
+        "        print('raised', str(e).split(';')[0])\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    if proc.stdout.startswith("card"):
+        pytest.skip("a CUDA device is present")
+    assert proc.stdout.splitlines() == ["raised no CUDA device is "
+                                        "available"] * 4, proc.stdout
