@@ -109,13 +109,32 @@ Phases (each prints one line with its result and elapsed seconds):
  15 kbc      bench.py's KBC inference cell: random_kbc_graph(500000,
              1500000, skew 1.1, windows of 2000, 1e5 weights), greedy
              coloring, RCM order, compile_graph(band_wmax=32768,
-             hub_cap=256), 1024 chains, the default modes; host seconds,
-             colors, tiers, rate over bench.py's 5 x 2 counted sweeps,
-             peak memory, and a sweep by part (gathers, the hub's
-             index_add_, draws, masked writes, tally)
+             hub_cap=256), 1024 chains, the default modes ("off", "cuda":
+             dm_gather_draw on every deltam tier, the hub's chunks in its
+             delta mode); host seconds, colors, tiers, rate over
+             bench.py's 5 x 2 counted sweeps, peak memory,
+             dm_gather_draw's launches (colors x deltam tiers x sweeps)
+             and no eager color_delta_multilin call; a sweep by part on
+             the kernel route (dm_gather_draw, the hub's delta mode,
+             index_add_ and draw, masked writes, tally) beside the eager
+             route's (fused off: gathers, the hub's index_add_, draws,
+             masked writes, tally)
+ 15b dm gather  dm_gather_draw against its plain version at phase 15's
+             shapes: every deltam tier and color on a random world of
+             1024 chains (dense tiers in the draw mode, the hub's chunks
+             in the delta mode): the deltas exact, the draws equal but
+             within DRAW_GAP of p (counted); the world-write mode against
+             the output mode and the masked block write, bit for bit;
+             random streams (DM_GATHER_STREAMS: D = 1..9, 12, 16, 256 and
+             512, A1 1 and 2, NC not a multiple of 16, values off the
+             16-byte grid, indices at the world's last row and outside
+             it); each tier's ms a launch, bounds (bytes: distinct rows;
+             the SASS issue bound), the gathered rows' bytes, and the
+             plain version's ms
  16 kbc learn  bench.py's KBC learning cell: random_kbc_graph(200000,
              600000, 1e4 weights), half labelled, 256 chains a world, 10
-             epochs of 2 sweeps: rate, peak memory, an epoch by part
+             epochs of 2 sweeps: rate, peak memory, an epoch by part;
+             dm_gather_draw's launches, no eager color_delta_multilin
  17 cli kbc  the dw gibbs command (python -m sampler_tpu_torch.cli, a child
              process) on phase 15's graph, written by the port's binary
              writer, with phase 15's compile settings, 1024 chains, 2
@@ -124,7 +143,8 @@ Phases (each prints one line with its result and elapsed seconds):
              command's rate (its whole inference, and its counted sweeps
              alone) beside phase 15's, peak memory, the output
              files checked (one line a variable and category, one a
-             weight)
+             weight); dm_gather_draw launched once a deltam tier, color
+             and sweep
  18 cli oracle  the command in this process (cli.main) against exact
              enumeration: a 3x3 Ising grid (|dp| < 0.015), the labelled coin
              (within 0.2 of its log-odds), sparse-weight graphs (|dp| <
@@ -157,7 +177,10 @@ Phases (each prints one line with its result and elapsed seconds):
              10 sweeps: the noise bound against two unsharded runs (on the
              numpy colorer's coloring; on the native one the mean bound,
              the max reported beside three unsharded seeds'), the
-             rate, a sweep by part, peak memory; one learn_gs epoch on
+             rate, a sweep by part, peak memory, every rank's
+             dm_gather_draw launches, and dm_gather_draw on rank 1's
+             local slice against its plain version and in world-write
+             mode at its rows; one learn_gs epoch on
              phase 16's graph, by part, and the mesh's reduced gradient
              there against the unsharded graph's
  22 gs cli   the gibbs command's sharded route (--n_graph_shards 2, the
@@ -189,7 +212,8 @@ Phases (each prints one line with its result and elapsed seconds):
  25 scale kbc  python -m sampler_tpu_torch.scale_kbc, cut for time to 2e6
              variables and 2 + 5 x 1 sweeps (its defaults: 4e6 and 2 + 5 x
              2), 1024 chains: rate, peak memory beside the bytes of the
-             worlds and the graph, a sweep by part
+             worlds and the graph, dm_gather_draw's launches, a sweep by
+             part on the kernel and the eager route
  26 scale demo  python -m sampler_tpu_torch.scale_demo on a 2048x2048 grid
              (cut from its 3200x3200 default for time) over 4 graph ranks
              sharing the card (Gloo), 6 sweeps: the
@@ -205,6 +229,7 @@ The script imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -267,9 +292,22 @@ KBC_VARS, KBC_CHAINS = 500_000, 1024      # bench.py's bench_kbc
 KBC_BURN = 2
 KBC_INNER, KBC_OUTER = 5, 2               # bench.py's counted sweeps
 KBC_LEARN_VARS = 200_000                  # bench.py's KBC learning cell
+# (rows, D, A1, NC, values off the 16-byte grid): dm_gather_draw's
+# variants on random streams: D unrolled 1..8 and chunked (9, 12, 16, and
+# the KBC cell's widest dense tier and hub chunks, 256 and 512), A1 2 and
+# 1, 16-byte rows (48, 64, 512, 1024 chains) and byte rows (37 chains, or
+# values one byte off the 16-byte grid)
+DM_GATHER_STREAMS = ([(300, d, 2, 48, False) for d in range(1, 10)]
+                     + [(300, 12, 2, 512, False), (300, 16, 1, 48, False),
+                        (88, 256, 2, 64, False), (42, 512, 2, 1024, False),
+                        (300, 5, 2, 37, False), (300, 3, 1, 37, False),
+                        (300, 5, 2, 1024, True), (300, 9, 1, 48, True),
+                        (257, 4, 1, 1024, False)])
 CLI_KBC_ARGS = ["--order", "rcm", "--band_wmax", "32768", "--hub_cap", "256",
                 "--n_chains", str(KBC_CHAINS), "-l", "2", "-s", "2", "-b", "2",
                 "-i", "10", "--seed", "0"]
+CLI_KBC_SWEEPS = 2 * 2 * 2 + 2 + 10        # learning (2 worlds), burn-in,
+#                                           counted: CLI_KBC_ARGS' sweeps
 CLI_TIMEOUT_S = 600
 CLI_GRID = 256                # a labelled boolean grid that bands
 CLI_GRID_EPOCHS, CLI_GRID_BURN, CLI_GRID_SWEEPS = 5, 5, 20
@@ -1701,6 +1739,14 @@ def sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
+@functools.lru_cache(maxsize=None)
+def sass_dump(tool: str, library: str) -> str:
+    """cuobjdump's SASS of every kernel of ``library`` (once a library:
+    its name holds the sources' hash)."""
+    return subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
 def sass_code(library: str, fragment: str):
     """The SASS, as (address, instruction) pairs, of the one kernel of
     ``library`` whose mangled name contains ``fragment`` (from cuobjdump
@@ -1713,8 +1759,7 @@ def sass_code(library: str, fragment: str):
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", library], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
+    sass = sass_dump(tool, library)
     found = [f for f in re.split(r"\n\s+Function : ", sass)[1:]
              if fragment in f.split("\n", 1)[0]]
     require(len(found) == 1, f"{len(found)} kernels named like {fragment}")
@@ -2244,69 +2289,140 @@ def kbc_graph(n_vars: int, n_weights: int, seed: int):
 
 
 def kbc_sweep_parts(d, world, info, modes, gen) -> dict:
-    """Where an unfused KBC sweep's time goes, summed over its colors and
-    tiers (CUDA events, a few calls each): the neighbour gathers, the hub
-    tier's index_add_ of its chunks' deltas, the rest of the draws
-    (log-odds arithmetic and Bernoulli), the masked block writes, and the
-    tally; beside one whole counted sweep."""
+    """Where a counted KBC sweep's time goes, summed over its colors and
+    tiers (CUDA events, a few calls each), on ``modes`` (the kernel route
+    where they are the defaults) and with the fused mode off (the eager
+    route), each beside one whole counted sweep.  No KBC tier bands, so
+    a tier that draws in a fused kernel draws in dm_gather_draw (its
+    draws and their world-writes); a hub tier's parts are its chunk
+    deltas (the kernel's delta mode, or the eager arithmetic), their
+    index_add_, and its Bernoulli draw; the other tiers' parts are their
+    gathers, the rest of their draws (the log-odds arithmetic and the
+    Bernoulli) and their masked block writes; then the tally."""
+    return {"kernel_route" if m[1] != "off" else "eager_route":
+            _sweep_parts(d, world, info, m, gen)
+            for m in (modes, (modes[0], "off"))}
+
+
+def _sweep_parts(d, world, info, modes, gen) -> dict:
     import torch
 
     from sampler_tpu_torch.compile import tier_geom
-    from sampler_tpu_torch.engine.multichain import (_gather_nbr, _tc,
+    from sampler_tpu_torch.engine.multichain import (_dm_streams, _fused,
+                                                     _gather_nbr, _tc,
                                                      color_delta_bool,
                                                      color_delta_multilin,
                                                      color_draw_tier,
+                                                     hub_partial,
                                                      prepare_fold, sweep_mc,
-                                                     tally)
+                                                     tally, tier_modes)
+    from sampler_tpu_torch.ops.fused import dm_gather_draw
 
     folded = prepare_fold(d, d.w_init, info, modes)
     C, B = info.n_colors, info.block_size
     counts = torch.zeros((info.max_card, world.shape[0]), dtype=torch.int32,
                          device=world.device)
-    parts = dict(gathers=0.0, hub_index_add=0.0, draws=0.0,
-                 masked_writes=0.0)
+    parts = {}
+
+    def add(key, ms):
+        parts[key] = parts.get(key, 0.0) + ms
+
     reps = dict(iters=2, warmup=1)
     for c in range(C):
         for t, (ts, ti) in enumerate(zip(d.tiers, info.tiers)):
+            start = c * B + ti.off
+            mask = ts.cm_resample[c]
+            if _fused(ti, folded[t], modes):
+                add("dm_gather_draw", time_ms(lambda: color_draw_tier(
+                    d, ts, ti, world, d.w_init, gen, c, info, folded[t],
+                    modes, write=(start, mask)), **reps))
+                continue
             rows, D, A = tier_geom(ts, ti, C)
-            if A > 1:
+            kernel_hub = (ti.hub and ti.deltam and folded[t] is not None
+                          and tier_modes(ti, modes)[1] != "off")
+            if A > 1 and not kernel_hub:
                 nbr = _tc(ts.cs_nbr, c, (rows, D, A - 1))
-                parts["gathers"] += time_ms(lambda: _gather_nbr(
-                    ts, ti, world, nbr, c, modes), **reps)
+                add("gathers", time_ms(lambda: _gather_nbr(
+                    ts, ti, world, nbr, c, modes), **reps))
             draw_ms = time_ms(lambda: color_draw_tier(
                 d, ts, ti, world, d.w_init, gen, c, info, folded[t], modes),
                 **reps)
             if ti.hub:
-                dchunk = (color_delta_multilin(ts, ti, world, c, info,
-                                               folded[t], modes)
-                          if ti.deltam and folded[t] is not None else
-                          color_delta_bool(ts, ti, world, d.w_init, c, info,
-                                           modes))
+                if kernel_hub:
+                    partial_ms = time_ms(lambda: hub_partial(
+                        d, ts, ti, world, d.w_init, c, info, modes,
+                        folded[t]), **reps)
+                    streams = _dm_streams(ts, ti, c, info, folded[t])
+                    add("hub_dm_gather_delta_mode", time_ms(
+                        lambda: dm_gather_draw(world, *streams, None),
+                        **reps))
+                    dchunk = dm_gather_draw(world, *streams, None)
+                else:
+                    dchunk = (color_delta_multilin(ts, ti, world, c, info,
+                                                   folded[t], modes)
+                              if ti.deltam and folded[t] is not None else
+                              color_delta_bool(ts, ti, world, d.w_init, c,
+                                               info, modes))
                 row = ts.hb_row[c].to(torch.int64)
                 add_ms = time_ms(lambda: torch.zeros(
                     (ti.block + 1, world.shape[1]), device=world.device)
                     .index_add_(0, row, dchunk), **reps)
-                parts["hub_index_add"] += add_ms
-                draw_ms -= add_ms
+                add("hub_index_add", add_ms)
                 del dchunk
-            parts["draws"] += draw_ms
+                if kernel_hub:
+                    add("hub_draw", draw_ms - partial_ms)
+                else:
+                    add("draws", draw_ms - add_ms)
+            else:
+                add("draws", draw_ms)
             drawn = color_draw_tier(d, ts, ti, world, d.w_init, gen, c, info,
                                     folded[t], modes)
-            start = c * B + ti.off
             old = world[start:start + ti.block]
-            mask = ts.cm_resample[c]
-            parts["masked_writes"] += time_ms(lambda: old.copy_(torch.where(
-                mask[:, None], drawn, old)), **reps)
+            add("masked_writes", time_ms(lambda: old.copy_(torch.where(
+                mask[:, None], drawn, old)), **reps))
             del drawn
-    parts["draws"] -= parts["gathers"]          # the draws include them
+    if "draws" in parts and "gathers" in parts:
+        parts["draws"] -= parts["gathers"]      # the draws include them
     parts["tally"] = time_ms(lambda: tally(counts, world), **reps)
 
     def counted():
         sweep_mc(d, world, d.w_init, gen, False, info, folded, modes)
         tally(counts, world)
 
-    return dict(counted_sweep_ms=time_ms(counted, iters=3, warmup=1),
+    return dict(modes=list(modes),
+                counted_sweep_ms=time_ms(counted, iters=3, warmup=1),
                 parts_ms=parts, parts_sum_ms=sum(parts.values()))
+
+
+def dm_launches_a_sweep(info) -> int:
+    """dm_gather_draw's launches a sweep on the default modes: one a
+    color and deltam tier without a banded plan (a hub tier's in its
+    delta mode)."""
+    return info.n_colors * sum(ti.deltam and not (ti.affine2 or ti.fusedm)
+                               for ti in info.tiers)
+
+
+class EagerCalls:
+    """Counts the eager color_delta_multilin calls of the engine while it
+    is entered (the route a deltam tier takes with the fused mode off)."""
+
+    def __enter__(self):
+        from sampler_tpu_torch.engine import multichain
+
+        self.calls = 0
+        self.orig = multichain.color_delta_multilin
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.orig(*args, **kw)
+
+        multichain.color_delta_multilin = counted
+        return self
+
+    def __exit__(self, *exc):
+        from sampler_tpu_torch.engine import multichain
+
+        multichain.color_delta_multilin = self.orig
 
 
 def kbc_phase(dev, card: str) -> tuple:
@@ -2314,9 +2430,11 @@ def kbc_phase(dev, card: str) -> tuple:
     variables, greedy coloring, RCM order, compile_graph(band_wmax=32768,
     hub_cap=256), KBC_CHAINS chains, the default modes; KBC_BURN burn-in
     sweeps, then KBC_OUTER counted runs of KBC_INNER sweeps through
-    run_inference_mc (bench.py's 5 x 2).  Returns the graph and the
-    counted sweeps' updates/s, for phase 17, and its order, for phase
-    21."""
+    run_inference_mc (bench.py's 5 x 2): dm_gather_draw launched once a
+    color and deltam tier a sweep, no eager color_delta_multilin.
+    Returns the graph and the counted sweeps' updates/s, for phase 17,
+    its order, for phase 21, its device graph and info, for phase 15b,
+    and dm_gather_draw's launches in the counted sweeps."""
     import torch
 
     from sampler_tpu_torch.coloring import greedy_coloring, rcm_order
@@ -2326,6 +2444,7 @@ def kbc_phase(dev, card: str) -> tuple:
                                                      resolve_modes,
                                                      run_inference_mc,
                                                      run_sweeps_mc)
+    from sampler_tpu_torch.ops.fused import dm_gather_draw
     from sampler_tpu_torch.ops.tally import tally_counts
 
     t15 = time.perf_counter()
@@ -2351,17 +2470,27 @@ def kbc_phase(dev, card: str) -> tuple:
     vals = init_values_mc(d, gen, KBC_CHAINS, info)
     vals = run_sweeps_mc(d, vals, d.w_init, gen, KBC_BURN, False, info,
                          modes, device=dev)
+    require(modes == ("off", "cuda"), f"KBC default modes {modes}")
     tally_counts.launches = 0
+    dm_gather_draw.launches = 0
     torch.cuda.synchronize()
-    tr = time.perf_counter()
-    for _ in range(KBC_OUTER):
-        vals, counts = run_inference_mc(d, vals, d.w_init, gen, KBC_INNER,
-                                        False, info, modes, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - tr
+    with EagerCalls() as eager:
+        tr = time.perf_counter()
+        for _ in range(KBC_OUTER):
+            vals, counts = run_inference_mc(d, vals, d.w_init, gen,
+                                            KBC_INNER, False, info, modes,
+                                            device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tr
     launches = tally_counts.launches
     require(launches == KBC_OUTER * KBC_INNER,
             f"KBC: tally_counts launches {launches}")
+    dm_want = dm_launches_a_sweep(info) * KBC_OUTER * KBC_INNER
+    require(dm_gather_draw.launches == dm_want and dm_want > 0,
+            f"KBC: dm_gather_draw launches {dm_gather_draw.launches}, "
+            f"{dm_want} expected")
+    require(eager.calls == 0,
+            f"KBC: {eager.calls} eager color_delta_multilin calls")
     P, K = vals.shape[0], info.max_card
     per_pos = counts.reshape(K, P).sum(dim=0)
     require(bool((per_pos == KBC_INNER * KBC_CHAINS).all()),
@@ -2374,26 +2503,264 @@ def kbc_phase(dev, card: str) -> tuple:
                world_bytes=vals.numel() * vals.element_size(),
                graph_bytes=sum(a.numel() * a.element_size()
                                for _, a in iter_arrays(d)),
-               tally_counts_launches=launches)
+               tally_counts_launches=launches,
+               dm_gather_draw_launches=dm_gather_draw.launches,
+               eager_color_delta_multilin_calls=eager.calls)
     breakdown = kbc_sweep_parts(d, vals, info, modes, gen)
     tiers = [dict(block=ti.block, degree=ti.degree, arity=ti.arity,
                   band_w=ti.band_w, band_k=ti.band_k, deltam=ti.deltam,
                   hub=ti.hub, chunks=ti.chunks, chunk_g=ti.chunk_g)
              for ti in info.tiers]
-    del d, vals, counts
+    del vals, counts
     report("15 kbc", t15, card=card, n_vars=info.n_vars,
            n_factors=info.n_factors, colors=info.n_colors, tiers=tiers,
            has_hub=info.has_hub, modes=modes, host_seconds=host,
            chains=KBC_CHAINS, burn=KBC_BURN, sweeps=f"{KBC_INNER}x{KBC_OUTER}",
            run=run, sweep_breakdown=breakdown)
-    return g, run["variable_updates_per_s"], order
+    return (g, run["variable_updates_per_s"], order, d, info,
+            run["dm_gather_draw_launches"])
+
+
+def dm_issue_bound(dev, D: int, A1: int, pairs: int) -> dict:
+    """dm_gather_draw's issue bound at a tier's shapes: the SASS of its
+    16-byte variant for D (unrolled for D <= 8, else the chunked one,
+    whose loop over chunks of 4 records runs ceil(D / 4) times), over
+    ``pairs`` (row, chain) pairs; None where the SASS is missing or its
+    loops are not the one expected."""
+    import math
+
+    from sampler_tpu_torch.ops import _build
+
+    DS = D if D <= 8 else 0
+    code = sass_code(_build.library_path(),
+                     f"dm_gather_draw_kernelILi16ELi{DS}ELi{A1}E")
+    if code is None:
+        return issue_bound(dev, None, pairs)
+    loops = sass_loops(code)
+    if not loops:
+        sass = len(code)
+    elif len(loops) == 1:
+        chunk = D if D < 4 else 4
+        body = sum(1 for a, _ in code if loops[0][0] <= a <= loops[0][1])
+        sass = len(code) + (math.ceil(D / chunk) - 1) * body
+    else:
+        return dict(issue_bound(dev, None, pairs), sass_loops=len(loops))
+    return issue_bound(dev, sass, pairs)
+
+
+def dm_bound(values, nbr, mask, n_coef: int, delta_mode: bool) -> dict:
+    """The least time of one dm_gather_draw launch on these inputs: the
+    distinct world rows its records read (this run's data), its index and
+    coefficient streams, the seed and the mask read once, and its output
+    written once (the draws of the rows the mask selects into the world,
+    or the float32 deltas); per (row, chain) D adds and, when drawing,
+    about 30 operations of the hash, the exponential and the compare, at
+    the f32 rate.  Beside it, the bytes of every record's rows (what the
+    kernel gathers, mostly through L2)."""
+    import torch
+
+    P, NC = values.shape
+    B, D, A1 = nbr.shape
+    valid = (nbr >= 0) & (nbr < P)
+    distinct = int(torch.unique(nbr[valid]).numel())
+    out = B * NC * 4 if delta_mode else int(mask.sum()) * NC
+    nbytes = (distinct * NC + nbr.numel() * 4 + B * 4 + n_coef * B * D * 4
+              + (0 if delta_mode else 8 + B) + out)
+    ops = B * NC * (D + (0 if delta_mode else 30))
+    gathered = int(valid.sum()) * NC
+    return dict(kernel_bound(nbytes, ops), rows_read=distinct,
+                gathered_bytes=gathered,
+                gathered_ms_at_hbm=gathered / HBM_BYTES_PER_S * 1e3)
+
+
+def dm_gather_tier(dev, d, info, t: int, values, seed) -> dict:
+    """dm_gather_draw against its plain version on every color of tier
+    ``t`` of ``d`` (a deltam tier without a banded plan; a hub tier in the
+    delta mode): deltas exactly equal (the delta mode's and the draw's
+    too), draws equal but within DRAW_GAP of p; on a dense tier the
+    world-write mode against the output mode and the masked block write,
+    bit for bit.  Then its times: ms a launch summed over the colors
+    (world-write mode, the main path's; a hub tier's delta mode), the
+    plain version's, the bounds, the SASS issue bound."""
+    import torch
+
+    from sampler_tpu_torch.engine.multichain import _dm_streams, prepare_fold
+    from sampler_tpu_torch.ops.fused import (DM_TILE_ROWS, dm_gather_draw,
+                                             dm_gather_draw_plain)
+
+    ts, ti = d.tiers[t], info.tiers[t]
+    C, B = info.n_colors, info.block_size
+    NC = values.shape[1]
+    fold = prepare_fold(d, d.w_init, info, ("off", "cuda"))[t]
+    err, n_diff, n_draws, changed = 0.0, 0, 0, {}
+    sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, ops=0,
+                gathered_bytes=0, gathered_ms_at_hbm=0.0, t_bytes_ms=0.0,
+                t_ops_ms=0.0)
+    rows = 0
+    for c in range(C):
+        streams = _dm_streams(ts, ti, c, info, fold)
+        rows = streams[0].shape[0]
+        if ti.hub:
+            args = (values, *streams, None)
+            got = dm_gather_draw(*args)
+            ref = dm_gather_draw_plain(*args)
+            err = max(err, float((got - ref).abs().max()))
+            require(torch.equal(got, ref), f"dm_gather_draw delta mode "
+                    f"differs from its plain version (tier {t}, c={c})")
+            del got, ref
+
+            def kernel():
+                dm_gather_draw(*args)
+        else:
+            args = (values, *streams, seed)
+            out, delta = dm_gather_draw(*args, return_delta=True)
+            ref, ref_delta = dm_gather_draw_plain(*args, return_delta=True)
+            err = max(err, float((delta - ref_delta).abs().max()))
+            require(torch.equal(delta, ref_delta),
+                    f"dm_gather_draw delta differs from its plain version "
+                    f"(tier {t}, c={c}, NC={NC})")
+            require(torch.equal(dm_gather_draw(values, *streams, None),
+                                delta), "dm_gather_draw: the delta mode "
+                    "differs from the draw's delta")
+            n_diff += check_draws(out, ref, delta, seed, DM_TILE_ROWS, NC)
+            n_draws += out.numel()
+            del out, delta, ref, ref_delta
+            start = c * B + ti.off
+            mask = ts.cm_resample[c]
+            changed[f"c{c}"] = world_write_check(dm_gather_draw, args, start,
+                                                 mask)
+
+            def kernel():
+                dm_gather_draw(*args, write=(start, mask))
+        sums["ms"] += time_ms(kernel, iters=5, warmup=1)
+        sums["plain_ms"] += time_ms(
+            lambda: dm_gather_draw_plain(*args), iters=2, warmup=1)
+        bound = dm_bound(values, streams[0], ts.cm_resample[c] if not ti.hub
+                         else None, 1 if streams[3] is None else 3, ti.hub)
+        for k in ("bound_ms", "bytes", "ops", "gathered_bytes",
+                  "gathered_ms_at_hbm"):
+            sums[k] += bound[k]
+        sums["t_bytes_ms"] += bound["bytes"] / HBM_BYTES_PER_S * 1e3
+        sums["t_ops_ms"] += bound["ops"] / F32_OPS_PER_S * 1e3
+        del streams, args
+    # every color's launch has the tier's rows: one SASS count serves all
+    issue = dm_issue_bound(dev, ti.chunk_g if ti.hub else ti.degree,
+                           ti.arity - 1, rows * NC)
+    sums["issue_bound_ms"] = (None if issue["issue_bound_ms"] is None
+                              else C * issue["issue_bound_ms"])
+    require(n_diff <= 1e-4 * max(n_draws, 1),
+            f"dm_gather_draw: {n_diff} of {n_draws} draws differ (tier {t})")
+    return dict(tier=t, hub=ti.hub, mode="delta" if ti.hub else "draw",
+                rows=rows, D=ti.chunk_g if ti.hub else ti.degree,
+                A1=ti.arity - 1, launches=C, delta_max_abs_err=err,
+                draws_differing=n_diff, draws=n_draws,
+                world_write_rows_changed=changed,
+                sass_instructions_a_thread=issue.get(
+                    "sass_instructions_a_thread"),
+                sums_over_colors=sums)
+
+
+def dm_gather_stream_case(dev, B: int, D: int, A1: int, NC: int,
+                          misaligned: bool) -> dict:
+    """dm_gather_draw against its plain version on random streams: B rows
+    of D records over a world of 5000 rows, neighbour positions in
+    [-3, P + 3) (outside the world they read 0) with 5% at the world's
+    last row, random coefficients: the delta exact (draw and delta
+    modes), the draws equal but within DRAW_GAP of p."""
+    import torch
+
+    from sampler_tpu_torch.ops.fused import (DM_TILE_ROWS, dm_gather_draw,
+                                             dm_gather_draw_plain)
+
+    P = 5000
+    gen = torch.Generator(device=dev).manual_seed(
+        7 * B + 31 * D + 5 * A1 + NC)
+    nbr = torch.randint(-3, P + 3, (B, D, A1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    nbr[torch.rand(nbr.shape, generator=gen, device=dev) < 0.05] = P - 1
+    values = torch.randint(0, 2, (P, NC), generator=gen, device=dev,
+                           dtype=torch.int8)
+    if misaligned:
+        values = off_grid(values)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    b2, bx = (rn(B, D), rn(B, D)) if A1 == 2 else (None, None)
+    args = (values, nbr, rn(B), rn(B, D), b2, bx)
+    seed = torch.tensor([D * 1009 + A1, -NC - B], dtype=torch.int32,
+                        device=dev)
+    out, delta = dm_gather_draw(*args, seed, return_delta=True)
+    ref, ref_delta = dm_gather_draw_plain(*args, seed, return_delta=True)
+    require(torch.equal(delta, ref_delta)
+            and torch.equal(dm_gather_draw(*args, None), ref_delta)
+            and torch.equal(dm_gather_draw(*args, seed), out),
+            f"dm_gather_draw differs from its plain version on streams "
+            f"(B={B}, D={D}, A1={A1}, NC={NC}, misaligned={misaligned})")
+    n_diff = check_draws(out, ref, delta, seed, DM_TILE_ROWS, NC)
+    require(n_diff <= 1e-4 * out.numel() + 1,
+            f"dm_gather_draw streams: {n_diff} draws differ")
+    return dict(B=B, D=D, A1=A1, NC=NC, misaligned=misaligned,
+                delta_max_abs_err=0.0, draws_differing=n_diff,
+                draws=out.numel())
+
+
+def dm_gather_phase(dev, card: str, d, info) -> dict:
+    """Phase 15b: dm_gather_draw against its plain version at phase 15's
+    shapes (every deltam tier and color, on a random world of KBC_CHAINS
+    chains; dm_gather_tier) and on random streams (DM_GATHER_STREAMS);
+    each tier's numbers.  Returns the kernel's numbers for the kernels
+    line: a launch's mean ms, plain ms and bound over a sweep's
+    launches."""
+    import torch
+
+    from sampler_tpu_torch.ops.fused import dm_gather_draw
+
+    t15b = time.perf_counter()
+    P = d.var_card.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(15)
+    values = torch.randint(0, 2, (P, KBC_CHAINS), generator=gen, device=dev,
+                           dtype=torch.int8)
+    seed = torch.tensor([1515, -1516], dtype=torch.int32, device=dev)
+    saved = dm_gather_draw.launches
+    tiers = [dm_gather_tier(dev, d, info, t, values, seed)
+             for t, ti in enumerate(info.tiers)
+             if ti.deltam and not (ti.affine2 or ti.fusedm)]
+    require(len(tiers) >= 2 and any(x["hub"] for x in tiers),
+            f"KBC deltam tiers {[(x['tier'], x['hub']) for x in tiers]}")
+    del values
+    streams = [dm_gather_stream_case(dev, *case) for case in DM_GATHER_STREAMS]
+    dm_gather_draw.launches = saved     # comparisons count no launch
+    n = sum(x["launches"] for x in tiers)
+    tot = {k: sum(x["sums_over_colors"][k] for x in tiers)
+           for k in ("ms", "plain_ms", "bound_ms", "bytes", "ops",
+                     "gathered_bytes", "gathered_ms_at_hbm", "t_bytes_ms",
+                     "t_ops_ms")}
+    issue = [x["sums_over_colors"]["issue_bound_ms"] for x in tiers]
+    kern = dict(ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
+                bound_ms=tot["bound_ms"] / n,
+                bound_by="bytes" if tot["t_bytes_ms"] >= tot["t_ops_ms"]
+                else "operations", library_ms=None,
+                max_abs_err=max(x["delta_max_abs_err"] for x in tiers),
+                launches_a_sweep=n, sweep_ms=tot["ms"],
+                sweep_plain_ms=tot["plain_ms"], sweep_bound_ms=tot["bound_ms"],
+                sweep_bytes=tot["bytes"],
+                sweep_gathered_bytes=tot["gathered_bytes"],
+                sweep_gathered_ms_at_hbm=tot["gathered_ms_at_hbm"],
+                sweep_issue_bound_ms=None if None in issue else sum(issue))
+    report("15b dm gather", t15b, card=card, chains=KBC_CHAINS, P=P,
+           colors=info.n_colors, tiers=tiers, stream_cases=streams,
+           kernel=kern)
+    return kern
 
 
 def kbc_learn_phase(dev, card: str) -> None:
     """Phase 16: bench.py's KBC learning cell (bench.py:274-288):
     KBC_LEARN_VARS variables, greedy coloring, every other variable
     labelled, band_wmax=32768, hub_cap=256, LEARN_CHAINS chains a world,
-    LEARN_EPOCHS epochs of LEARN_SWEEPS sweeps."""
+    LEARN_EPOCHS epochs of LEARN_SWEEPS sweeps: dm_gather_draw launched
+    once a color and deltam tier a sweep of each world, no eager
+    color_delta_multilin."""
     import dataclasses
 
     import torch
@@ -2403,6 +2770,7 @@ def kbc_learn_phase(dev, card: str) -> None:
     from sampler_tpu_torch.compile import compile_graph, to_device
     from sampler_tpu_torch.engine.learn import LearnConfig
     from sampler_tpu_torch.engine.multichain import learn_mc, resolve_modes
+    from sampler_tpu_torch.ops.fused import dm_gather_draw
 
     t16 = time.perf_counter()
     g = kbc_graph(KBC_LEARN_VARS, 10_000, 1)
@@ -2422,13 +2790,20 @@ def kbc_learn_phase(dev, card: str) -> None:
              device=dev)                                # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tr = time.perf_counter()
-    w, v_ev, v_free = learn_mc(d, d.w_init,
-                               torch.Generator(device=dev).manual_seed(2),
-                               cfg, info, LEARN_CHAINS, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - tr
+    dm_gather_draw.launches = 0
+    with EagerCalls() as eager:
+        tr = time.perf_counter()
+        w, v_ev, v_free = learn_mc(d, d.w_init,
+                                   torch.Generator(device=dev).manual_seed(2),
+                                   cfg, info, LEARN_CHAINS, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tr
     n_sw = cfg.n_epochs * cfg.n_sweeps_per_epoch
+    dm_want = dm_launches_a_sweep(info) * n_sw * 2
+    require(dm_gather_draw.launches == dm_want and eager.calls == 0,
+            f"KBC learning: dm_gather_draw launches "
+            f"{dm_gather_draw.launches} ({dm_want} expected), "
+            f"{eager.calls} eager color_delta_multilin calls")
     nw = g.n_weights
     require(bool(torch.isfinite(w).all()), "KBC learning: weights not finite")
     require(int((w[:nw] != d.w_init[:nw]).sum()) > nw // 2,
@@ -2444,7 +2819,9 @@ def kbc_learn_phase(dev, card: str) -> None:
                  * LEARN_CHAINS / wall,
                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
                  weights_moved=int((w[:nw] != d.w_init[:nw]).sum()),
-                 max_abs_weight=float(w.abs().max()))
+                 max_abs_weight=float(w.abs().max()),
+                 dm_gather_draw_launches=dm_want,
+                 eager_color_delta_multilin_calls=eager.calls)
     learn["epoch_breakdown_ms"] = epoch_parts(
         d, w, info, resolve_modes(info, dev), v_ev, v_free, cfg,
         torch.Generator(device=dev).manual_seed(3), reps=1)
@@ -2548,10 +2925,14 @@ def check_cli_outputs(g, outdir: str) -> dict:
     return marg, w
 
 
-def cli_kbc_phase(dev, card: str, g, kbc_rate: float) -> None:
+def cli_kbc_phase(dev, card: str, g, kbc_rate: float,
+                  dm_a_sweep: int) -> None:
     """Phase 17: the gibbs command on phase 15's KBC graph at full size:
     written by the port's binary writer, then learning and inference in a
-    child process with phase 15's compile settings (CLI_KBC_ARGS)."""
+    child process with phase 15's compile settings (CLI_KBC_ARGS).  Its
+    dm_gather_draw launches must be phase 15's a sweep (``dm_a_sweep``:
+    every deltam tier and color through the kernel, none through the
+    eager arithmetic) times its sweeps, CLI_KBC_SWEEPS."""
     import tempfile
 
     import torch
@@ -2573,6 +2954,10 @@ def cli_kbc_phase(dev, card: str, g, kbc_rate: float) -> None:
         check_cli_outputs(g, out)
     require(log.get("launches", {}).get("tally_counts", 0) > 0,
             f"KBC gibbs launched no tally_counts: {log}")
+    require(log["launches"].get("dm_gather_draw") == dm_a_sweep
+            * CLI_KBC_SWEEPS, f"KBC gibbs: dm_gather_draw launches "
+            f"{log['launches'].get('dm_gather_draw')}, "
+            f"{dm_a_sweep * CLI_KBC_SWEEPS} expected")
     ratio = log["infer_vars_per_s"] / kbc_rate
     report("17 cli kbc", t17, card=card, args=CLI_KBC_ARGS,
            write_graph_s=write_s, command_wall_s=wall, cli=log,
@@ -2945,10 +3330,12 @@ def gs_parts(comm, host, info, n_chains: int, halo, iters: int) -> dict:
 
 def local_draw_case(host, info, n_graph: int, g: int, dev,
                     n_chains: int) -> dict:
-    """The fused draw of ``host``'s one banded tier (fused_color_draw,
-    fused_cat_draw or fused_dm_draw, by the tier's class) on rank g's
-    local slice (its bd_ tiles and bd_start, its fold) against its plain
-    version, every color: the delta within 1e-5 and the draws differing
+    """The fused draw of ``host``'s first tier (fused_color_draw,
+    fused_cat_draw or fused_dm_draw, by the banded tier's class, or
+    dm_gather_draw on a deltam tier without a banded plan) on rank g's
+    local slice (its bd_ tiles and bd_start or its cs_nbr rows, its fold)
+    against its plain version, every color: the delta within 1e-5 and the
+    draws differing
     only within DRAW_GAP of p (the categorical draw: its logits exact and
     the draws differing only within CAT_GAP of a tie, as cat_case holds
     it); then its world-write mode at the rank's own rows, c*B + off +
@@ -2956,8 +3343,11 @@ def local_draw_case(host, info, n_graph: int, g: int, dev,
     masked block write, bit for bit (the plain version's too)."""
     import torch
 
-    from sampler_tpu_torch.ops.fused import (fold_affine, fold_affine_cat,
-                                             fold_deltam_tiles,
+    from sampler_tpu_torch.engine.multichain import _dm_streams
+    from sampler_tpu_torch.ops.fused import (DM_TILE_ROWS, dm_gather_draw,
+                                             dm_gather_draw_plain,
+                                             fold_affine, fold_affine_cat,
+                                             fold_deltam, fold_deltam_tiles,
                                              fused_cat_draw,
                                              fused_cat_draw_plain,
                                              fused_color_draw,
@@ -2996,6 +3386,14 @@ def local_draw_case(host, info, n_graph: int, g: int, dev,
         def make(c):
             return (values, ts.bd_dmnbr, ts.bd_start[c], *fold, c, seed, W,
                     TB, D, ti.arity - 1, ti.band_k)
+    elif not ti.affine2:                 # a deltam tier, no band plan
+        require(ti.deltam, f"local draw: tier {ti}")
+        fold = fold_deltam(ts, ti, C, local.w_init)
+        draw, plain = dm_gather_draw, dm_gather_draw_plain
+        TB = DM_TILE_ROWS
+
+        def make(c):
+            return (values, *_dm_streams(ts, ti, c, info, fold), seed)
     else:
         fold = fold_affine(ts, ti, C, local.w_init)
         draw, plain = fused_color_draw, fused_color_draw_plain
@@ -3033,7 +3431,7 @@ def local_draw_case(host, info, n_graph: int, g: int, dev,
         numbers = dict(delta_max_abs_err=err, draws_differing=n_diff,
                        draws=n_draws)
     return dict(kernel=draw.__name__, rank=g, of=n_graph, local_rows=Bl,
-                local_tiles=Bl // TB, chains=n_chains, **numbers,
+                local_tiles=-(-Bl // TB), chains=n_chains, **numbers,
                 world_write_rows_changed=changed)
 
 
@@ -3325,9 +3723,12 @@ def gs_kbc_phase(dev, card: str, g, order, ranks) -> None:
     GS_SWEEPS sweeps on ``ranks`` (1 x 2 over Gloo: all-gather, since no
     tier bands; the hub tier split by chunks): the marginals within the
     noise bound of two unsharded infer_mc runs, the rate, a counted sweep
-    by part and each rank's peak memory; then one learn_gs epoch on phase
-    16's KBC learning graph (LEARN_CHAINS chains a world), and its parts;
-    the mesh's reduced gradient there against the unsharded graph's."""
+    by part and each rank's peak memory, every rank's dm_gather_draw
+    launches, and dm_gather_draw on rank 1's local slice (local_draw_case)
+    against its plain version and in world-write mode at its rows; then
+    one learn_gs epoch on phase 16's KBC learning graph (LEARN_CHAINS
+    chains a world), and its parts; the mesh's reduced gradient there
+    against the unsharded graph's."""
     import dataclasses
 
     import torch
@@ -3370,12 +3771,14 @@ def gs_kbc_phase(dev, card: str, g, order, ranks) -> None:
     run = dict(wall_s=wall,
                variable_updates_per_s=info.n_vars * KBC_CHAINS
                * (GS_BURN + GS_SWEEPS) / wall,
-               launches_by_rank=rank_launches(ranks, ("tally_counts",)),
+               launches_by_rank=rank_launches(ranks, ("tally_counts",
+                                                      "dm_gather_draw")),
                noise=within_noise("kbc 1x2", marg, refs[0], ref),
                native_coloring=kbc_native_noise(dev, g, order, ranks),
                parts=ranks.run(gs_parts, host, info, KBC_CHAINS, None, 2),
                exchange_bytes_a_color_step=exchange_bytes(
                    info, 2, None, KBC_CHAINS))
+    run["local_draw"] = local_draw_case(host, info, 2, 1, dev, KBC_CHAINS)
     del host
     # one learning epoch on the KBC learning graph
     gl = kbc_graph(KBC_LEARN_VARS, 10_000, 1)
@@ -3396,7 +3799,8 @@ def gs_kbc_phase(dev, card: str, g, order, ranks) -> None:
         (w[:nw] != hostl.w_init[:nw]).sum()) > nw // 2,
         "KBC learn_gs: weights not finite, or most did not move")
     learn = dict(chains=LEARN_CHAINS, sweeps_per_epoch=LEARN_SWEEPS,
-                 wall_s=learn_wall, launches_by_rank=rank_launches(ranks, ()),
+                 wall_s=learn_wall, launches_by_rank=rank_launches(
+                     ranks, ("dm_gather_draw",)),
                  parts=ranks.run(gs_learn_parts, hostl, infol, LEARN_CHAINS,
                                  dataclasses.replace(cfg)),
                  reduced_gradient=grad_check("kbc learn 1x2", ranks, hostl,
@@ -3849,8 +4253,10 @@ def scale_kbc_phase(dev, card: str) -> None:
     """Phase 25: scale_kbc.main with KBC_SCALE_ARGS (the KBC graph at 1024
     chains, cut to 2e6 variables): its rate, peak memory beside the bytes
     of the worlds and the device graph, tally_counts launched on its path,
-    and a sweep by part (kbc_sweep_parts)."""
+    dm_gather_draw once a color and deltam tier a sweep, and a sweep by
+    part on the kernel and the eager route (kbc_sweep_parts)."""
     from sampler_tpu_torch import scale_kbc
+    from sampler_tpu_torch.ops.fused import dm_gather_draw
     from sampler_tpu_torch.ops.tally import tally_counts
 
     t25 = time.perf_counter()
@@ -3858,13 +4264,21 @@ def scale_kbc_phase(dev, card: str) -> None:
 
     def inspect(d, info, vals, modes, gen):
         seen["tally_counts_launches"] = tally_counts.launches
+        seen["dm_gather_draw_launches"] = dm_gather_draw.launches
+        seen["dm_gather_draw_a_sweep"] = dm_launches_a_sweep(info)
         seen["sweep_breakdown"] = kbc_sweep_parts(d, vals, info, modes, gen)
 
     tally_counts.launches = 0
+    dm_gather_draw.launches = 0
     out = scale_kbc.main(KBC_SCALE_ARGS + ["--device", str(dev)],
                          inspect=inspect)
     require(seen["tally_counts_launches"] > 0,
             "scale_kbc launched no tally_counts")
+    want = seen["dm_gather_draw_a_sweep"] * (scale_kbc.WARM_SWEEPS
+                                             + out["sweeps"])
+    require(seen["dm_gather_draw_launches"] == want > 0,
+            f"scale_kbc: dm_gather_draw launches "
+            f"{seen['dm_gather_draw_launches']}, {want} expected")
     report("25 scale kbc", t25, card=card, scale_kbc=out, **seen)
 
 
@@ -4180,11 +4594,15 @@ def main() -> int:
 
     # ---- 14, 15, 16: the KBC class (the hub tier) --------------------------
     kbc_oracle_phase(dev)
-    g_kbc, kbc_rate, kbc_order = kbc_phase(dev, card)
+    g_kbc, kbc_rate, kbc_order, d_kbc, info_kbc, dm_launches = kbc_phase(
+        dev, card)
+    kern["dm_gather_draw"] = dm_gather_phase(dev, card, d_kbc, info_kbc)
+    kern["dm_gather_draw"]["launches"] = dm_launches
+    del d_kbc
     kbc_learn_phase(dev, card)
 
     # ---- 17, 18, 19: the gibbs command on the card -----------------------
-    cli_kbc_phase(dev, card, g_kbc, kbc_rate)
+    cli_kbc_phase(dev, card, g_kbc, kbc_rate, dm_launches_a_sweep(info_kbc))
     cli_oracle_phase(dev)
     cli_resume_phase(dev)
 
@@ -4222,7 +4640,11 @@ def main() -> int:
                # no Pallas kernel: the tallies XLA fuses into the jitted
                # sweep loop of _run_inference_mc
                "tally_counts": ("sampler_tpu_torch/csrc/tally_counts.cu",
-                                "sampler_tpu/engine/multichain.py:676")}
+                                "sampler_tpu/engine/multichain.py:676"),
+               # no Pallas kernel: color_delta_multilin and the Bernoulli
+               # draw, which XLA fuses into the jitted sweep
+               "dm_gather_draw": ("sampler_tpu_torch/csrc/dm_gather_draw.cu",
+                                  "sampler_tpu/engine/multichain.py:405")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": k["launches"],

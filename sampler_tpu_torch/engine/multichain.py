@@ -21,6 +21,11 @@ single-window and multi-window banded alike, hub tiers included:
   * affinek tiers (categorical or mixed, arity <= 2, one own slot a
     factor, one window a tile, 2 <= K <= 32) with the fused mode on draw a
     whole color in ``ops.fused.fused_cat_draw`` (one CUDA kernel);
+  * the other deltam tiers (boolean, arity 2 or 3, multilinear
+    coefficients, no banded plan: the KBC class's dense tiers) with the
+    fused mode on draw a whole color in ``ops.fused.dm_gather_draw`` (one
+    CUDA kernel, gathering by global position), and a deltam hub tier's
+    chunk log-odds come from the same kernel's delta mode;
   * the other tiers, and every tier with the fused mode off, compute the
     log-odds with ``color_delta_multilin`` (deltam tiers) or
     ``color_delta_bool`` on all-boolean graphs, and the K candidates'
@@ -81,11 +86,11 @@ from .. import format_spec as fs
 from ..compile import factor_records, resolve_device, tier_geom
 from ..ops.banded import (banded_gather, banded_gather_multi,
                           banded_gather_multi_plain, banded_gather_plain)
-from ..ops.fused import (fold_affine, fold_affine_cat, fold_deltam,
-                         fold_deltam_tiles, fused_cat_draw,
-                         fused_cat_draw_plain, fused_color_draw,
-                         fused_color_draw_plain, fused_dm_draw,
-                         fused_dm_draw_plain)
+from ..ops.fused import (dm_gather_draw, dm_gather_draw_plain, fold_affine,
+                         fold_affine_cat, fold_deltam, fold_deltam_tiles,
+                         fused_cat_draw, fused_cat_draw_plain,
+                         fused_color_draw, fused_color_draw_plain,
+                         fused_dm_draw, fused_dm_draw_plain)
 from ..ops.grad import GRAD_W_MAX, grad_pair_tile, grad_pair_tile_plain
 from ..ops.tally import tally_counts, tally_plain
 from ..ops.weights import expand_wf, segment_reduce
@@ -104,11 +109,15 @@ def values_dtype(info) -> torch.dtype:
 def resolve_modes(info, device) -> tuple:
     """Default (band, fused) mechanisms for this graph on ``device``: band
     on where the graph has a banding plan and int8-sized values, fused
-    following band where a tier has a fused plan (JAX resolve_band and
-    resolve_fused in their "auto" setting)."""
+    following band where a tier has a banded fused plan (JAX resolve_band
+    and resolve_fused in their "auto" setting), and on wherever a tier
+    has multilinear coefficients (deltam), banded or not: dm_gather_draw
+    takes those tiers where XLA fuses the JAX package's draw."""
     mech = "cuda" if torch.device(device).type == "cuda" else "plain"
     band = mech if info.band_w > 0 and info.max_card <= 127 else "off"
     fused = band if (info.affine2 or info.affinek or info.fusedm) else "off"
+    if any(ti.deltam for ti in info.tiers):
+        fused = mech
     return band, fused
 
 
@@ -123,12 +132,13 @@ def check_modes(modes, device) -> tuple:
 
 def tier_modes(ti, modes) -> tuple:
     """Per-tier gating: a tier without a banding plan gathers with
-    index_select; a tier without a fused plan never routes to a fused
+    index_select; a tier without a fused plan (a banded one, or the
+    multilinear coefficients of dm_gather_draw) never routes to a fused
     kernel."""
     band, fused = modes
     if ti.band_w <= 0:
         band = "off"
-    if not (ti.affine2 or ti.affinek or ti.fusedm):
+    if not (ti.affine2 or ti.affinek or ti.fusedm or ti.deltam):
         fused = "off"
     return band, fused
 
@@ -305,7 +315,9 @@ def color_delta_multilin(ts, ti, values, c, info, folded_t, modes):
     """Boolean log-odds from the compile-time multilinear φ fold:
     delta[b] = base[b] + Σ_d (b1·n1 + b2·n2 + bx·n1·n2), with
     (base, b1, b2, bx) = fold_deltam's weight-scaled streams.  Exact in
-    exact arithmetic; differs from color_delta_bool only in rounding."""
+    exact arithmetic; differs from color_delta_bool only in rounding.
+    The eager route of a deltam tier with the fused mode off (the JAX
+    package's arithmetic, pass by pass); with it on, dm_gather_draw."""
     B, D, A = tier_geom(ts, ti, info.n_colors)
     A1 = A - 1
     base_f, b1_f, b2_f, bx_f = folded_t
@@ -475,9 +487,10 @@ def hub_partial(dg, ts, ti, values, weights, c, info, modes=("off", "off"),
                 folded_t=None) -> torch.Tensor:
     """The chunk sums of a chunked-CSR hub tier of color ``c`` on its rows:
     its [M, G, A] chunk streams are evaluated with the dense tiers' code
-    (a chunk is a row of D = G records), and the chunks' deltas [B_t, NC]
-    (boolean) or logits [B_t, K, NC] (categorical) are summed onto their
-    rows with ``index_add_`` into [B_t + 1, ...]: the pad chunks, whose
+    (a chunk is a row of D = G records; a deltam tier's with the fused
+    mode on by dm_gather_draw's delta mode), and the chunks' deltas
+    [M, NC] (boolean) or logits [M, K, NC] (categorical) are summed onto
+    their rows with ``index_add_`` into [B_t + 1, ...]: the pad chunks, whose
     ``hb_row`` is B_t, land in the extra row, which is dropped.  Under
     graph sharding ``ts`` holds a rank's run of chunks, and the result is
     that rank's partial sums over the whole tier block."""
@@ -486,7 +499,13 @@ def hub_partial(dg, ts, ti, values, weights, c, info, modes=("off", "off"),
     dev = values.device
     row = ts.hb_row[c].to(torch.int64)                          # [M]
     if info.all_boolean and info.max_card == 2:
-        if ti.deltam and folded_t is not None:
+        fused = tier_modes(ti, modes)[1]
+        if ti.deltam and folded_t is not None and fused != "off":
+            delta_of = (dm_gather_draw if fused == "cuda"
+                        else dm_gather_draw_plain)
+            dchunk = delta_of(values, *_dm_streams(ts, ti, c, info,
+                                                   folded_t), None)
+        elif ti.deltam and folded_t is not None:
             dchunk = color_delta_multilin(ts, ti, values, c, info, folded_t,
                                           modes)
         else:
@@ -545,6 +564,19 @@ def _fused(ti, folded_t, modes) -> bool:
             and tier_modes(ti, modes)[1] != "off")
 
 
+def _dm_streams(ts, ti, c, info, folded_t) -> tuple:
+    """dm_gather_draw's streams of color ``c`` of a deltam tier (a hub
+    tier's chunks as rows): (nbr [B, D, A1], base [B], b1, b2, bx [B, D];
+    b2, bx None on pairwise tiers), views of cs_nbr and of fold_deltam's
+    flat coefficients."""
+    B, D, A = tier_geom(ts, ti, info.n_colors)
+    base, b1, b2, bx = folded_t                 # fold_deltam layout
+    cross = (None, None) if b2 is None else (_tc(b2, c, (B, D)),
+                                             _tc(bx, c, (B, D)))
+    return (_tc(ts.cs_nbr, c, (B, D, A - 1)), _tc(base, c, (B,)),
+            _tc(b1, c, (B, D)), *cross)
+
+
 def color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
                     folded_t=None, modes=("off", "off"), write=None,
                     psum=None):
@@ -570,6 +602,10 @@ def color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
             return draw(values, ts.bd_nbr, ts.bd_start[c], ts.bd_eqo,
                         ts.bd_eqn, av, bv, kmask, c, seed, ti.band_w,
                         ti.band_tb, ti.degree, info.max_card, write=write)
+        if not ti.fusedm:                    # a deltam tier, no band plan
+            draw = dm_gather_draw if cuda else dm_gather_draw_plain
+            return draw(values, *_dm_streams(ts, ti, c, info, folded_t),
+                        seed, write=write)
         base, b1, b2, bx = folded_t          # fold_deltam_tiles layout
         draw = fused_dm_draw if cuda else fused_dm_draw_plain
         return draw(values, ts.bd_dmnbr, ts.bd_start[c], base, b1, b2, bx,

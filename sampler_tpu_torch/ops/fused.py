@@ -21,6 +21,14 @@ log-odds is
 over the one or two neighbour values n1, n2 of each incident factor, with
 coefficients folded by fold_deltam_tiles; fused_dm_draw computes it and
 draws in one CUDA kernel (csrc/fused_dm_draw.cu) or its plain version.
+The boolean tiers with multilinear coefficients but no banding plan (the
+KBC class's dense tiers, and the hub tier's chunks) take the same
+log-odds with fold_deltam's coefficients and the global neighbour
+positions of cs_nbr: dm_gather_draw gathers, sums and draws in one CUDA
+kernel (csrc/dm_gather_draw.cu) or its plain version, and in its delta
+mode writes the hub chunks' log-odds instead of drawing.  The JAX package
+has no Pallas kernel there: XLA fuses its color_delta_multilin and the
+Bernoulli draw into the jitted sweep.
 
 For a categorical or mixed tier of arity <= 2 in which every factor has
 one own slot (affinek), the log-potential of candidate k is
@@ -32,10 +40,10 @@ of affine_cat folded with the weights by fold_affine_cat; fused_cat_draw
 computes every l_k and draws by Gumbel-argmax in one CUDA kernel
 (csrc/fused_cat_draw.cu) or its plain version.
 
-The uniforms of all three draws come from the same counter hash
-(portable_bits) that the JAX kernels use in interpret mode, so the kernel,
-its plain version and the JAX kernel draw the same bits for the same seed
-words.
+The uniforms of all four draws come from the same counter hash
+(portable_bits) that the JAX kernels use in interpret mode, so a kernel,
+its plain version and the JAX kernel (where there is one) draw the same
+bits for the same seed words.
 """
 from __future__ import annotations
 
@@ -608,6 +616,156 @@ def fused_dm_draw(values, dm_nbr, starts, base, b1, b2, bx, c: int, seed,
 
 
 fused_dm_draw.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the multilinear gather-draw of the unbanded deltam tiers
+# --------------------------------------------------------------------------
+
+DM_TILE_ROWS = 128      # rows a tile of dm_gather_draw's counter hash
+
+
+def _dm_check(values, nbr, base, b1, b2, bx, seed, write) -> None:
+    """Raise unless the shapes of a dm_gather_draw call agree."""
+    B, D, A1 = nbr.shape
+    NC = values.shape[1]
+    cross = (b2, bx) if A1 == 2 else ()
+    if (A1 not in (1, 2) or tuple(base.shape) != (B,)
+            or any(x is None or tuple(x.shape) != (B, D)
+                   for x in (b1, *cross))
+            or (A1 == 1 and (b2 is not None or bx is not None))
+            or (seed is None and write is not None)
+            or DM_TILE_ROWS * NC > 1 << 32):
+        raise ValueError(
+            f"dm_gather_draw: nbr {tuple(nbr.shape)}, base "
+            f"{tuple(base.shape)}, coefficients "
+            f"{[None if x is None else tuple(x.shape) for x in (b1, b2, bx)]}"
+            f", NC={NC}, seed {'absent' if seed is None else 'given'}, "
+            f"write {'given' if write is not None else 'absent'}")
+
+
+def dm_gather_draw_plain(values, nbr, base, b1, b2, bx, seed,
+                         return_delta: bool = False, write=None):
+    """Plain PyTorch version of :func:`dm_gather_draw`, over chunks of rows
+    whose gathered [rows, D, A1, NC] values hold about PLAIN_CHUNK_ELEMS
+    elements, so its temporaries stay bounded (~0.2 GB as float32 terms)
+    whatever the degree and the chain count."""
+    _dm_check(values, nbr, base, b1, b2, bx, seed, write)
+    B, D, A1 = nbr.shape
+    P, NC = values.shape
+    dev = values.device
+    f32 = torch.float32
+    draw = seed is not None
+    out = (torch.empty((B, NC), dtype=values.dtype, device=dev)
+           if draw and write is None else values)
+    delta_all = (torch.empty((B, NC), dtype=f32, device=dev)
+                 if return_delta or not draw else None)
+    if draw:
+        s0, s1 = u32(seed[0]), u32(seed[1])
+    lanes = torch.arange(NC, dtype=torch.int64, device=dev)
+    chunk = max(1, PLAIN_CHUNK_ELEMS // max(1, D * A1 * NC))
+    for r0 in range(0, B, chunk):
+        r1 = min(B, r0 + chunk)
+        n = r1 - r0
+        idx = nbr[r0:r1].to(torch.int64)
+        valid = (idx >= 0) & (idx < P)
+        v = values.index_select(0, torch.where(valid, idx, 0).reshape(-1))
+        v = v.reshape(n, D, A1, NC).to(f32).masked_fill_(~valid[..., None],
+                                                         0.0)
+        n1 = v[:, :, 0]
+        terms = b1[r0:r1, :, None] * n1
+        if A1 == 2:
+            n2 = v[:, :, 1]
+            terms = (terms + b2[r0:r1, :, None] * n2
+                     + bx[r0:r1, :, None] * (n1 * n2))
+        del v
+        acc = terms[:, 0]
+        for d in range(1, D):                   # in the order d = 0..D-1
+            acc = acc + terms[:, d]
+        delta = acc + base[r0:r1, None]
+        del terms, acc
+        if delta_all is not None:
+            delta_all[r0:r1] = delta
+        if not draw:
+            continue
+        rows = torch.arange(r0, r1, dtype=torch.int64, device=dev)
+        cnt = (rows % DM_TILE_ROWS)[:, None] * NC + lanes
+        u = uniform24(hash_bits(cnt, s0, tile_seed(
+            s1, rows // DM_TILE_ROWS)[:, None]))
+        _put(values, out, write, r0, r1,
+             (u < torch.sigmoid(delta)).to(values.dtype))
+    if not draw:
+        return delta_all
+    return (out, delta_all) if return_delta else out
+
+
+def dm_gather_draw(values, nbr, base, b1, b2, bx, seed,
+                   return_delta: bool = False, write=None):
+    """Draw one color of a deltam tier from its global neighbour positions,
+    or (``seed`` None, the delta mode) return its log-odds.
+
+    values int8 [P, NC]; nbr int32 [B, D, A1] (this color's rows of
+    cs_nbr: global positions, A1 = arity - 1 = 1 or 2; a position outside
+    [0, P) reads 0); base f32 [B] and b1, b2, bx f32 [B, D] (this color's
+    rows of fold_deltam; b2, bx None when A1 == 1); seed int32 [2] (a
+    tensor on values' device) or None.  Slot 0 of a record is n1, slot 1
+    is n2, and
+
+        delta = base + sum_d (b1*n1 + b2*n2 + bx*n1*n2),
+
+    each record's term rounded one operation at a time and the terms
+    summed in the order d = 0 .. D-1, then base added.  The draw is
+    ``u < sigmoid(delta)`` with u the counter hash's uniform over tiles of
+    DM_TILE_ROWS rows: row g is row g % DM_TILE_ROWS of tile
+    g // DM_TILE_ROWS, as in fused_dm_draw.  Returns int8 [B, NC], and
+    with ``return_delta`` also the f32 delta [B, NC]; in world-write mode
+    (``write``, as in fused_color_draw) ``values``; in the delta mode the
+    f32 delta [B, NC] alone (a hub tier's chunk log-odds).
+
+    A CPU tensor goes to the plain version; a CUDA tensor to the kernel
+    (the launch adds one to ``dm_gather_draw.launches``)."""
+    if values.device.type == "cpu":
+        return dm_gather_draw_plain(values, nbr, base, b1, b2, bx, seed,
+                                    return_delta, write)
+    if values.device.type != "cuda":
+        raise ValueError(f"dm_gather_draw: no kernel for {values.device}")
+    dev = values.device
+    check_tensor(values, "values", torch.int8, dev, 2)
+    check_tensor(nbr, "nbr", torch.int32, dev, 3)
+    check_tensor(base, "base", torch.float32, dev, 1)
+    _dm_check(values, nbr, base, b1, b2, bx, seed, write)
+    B, D, A1 = nbr.shape
+    coefs = (b1, b2, bx) if A1 == 2 else (b1,)
+    for name, x in zip(("b1", "b2", "bx"), coefs):
+        check_tensor(x, name, torch.float32, dev, 2)
+    draw = seed is not None
+    if draw:
+        check_tensor(seed, "seed", torch.int32, dev, 1)
+        if seed.shape[0] != 2:
+            raise ValueError(f"dm_gather_draw: seed {tuple(seed.shape)}")
+        out, out_ptr, mask_ptr, n_write = _write_target(
+            "dm_gather_draw", values, write, B, return_delta)
+    else:
+        out, out_ptr, mask_ptr, n_write = None, None, None, 0
+    P, NC = values.shape
+    delta = (torch.empty((B, NC), dtype=torch.float32, device=dev)
+             if return_delta or not draw else None)
+    b2p, bxp = (b2.data_ptr(), bx.data_ptr()) if A1 == 2 else (None, None)
+    if B and NC:
+        with torch.cuda.device(dev):
+            launch("dm_gather_draw_launch", values.data_ptr(), NC, P,
+                   nbr.data_ptr(), b1.data_ptr(), b2p, bxp, base.data_ptr(),
+                   seed.data_ptr() if draw else None, B, D, A1,
+                   DM_TILE_ROWS, out_ptr,
+                   None if delta is None else delta.data_ptr(), mask_ptr,
+                   n_write, torch.cuda.current_stream(dev).cuda_stream)
+        dm_gather_draw.launches += 1
+    if not draw:
+        return delta
+    return (out, delta) if return_delta else out
+
+
+dm_gather_draw.launches = 0
 
 
 # --------------------------------------------------------------------------

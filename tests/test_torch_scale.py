@@ -125,7 +125,7 @@ def test_scale_kbc_runs_on_cpu():
             "vs_north_star"} <= set(out)
     assert out["n_vars"] == 5000 and out["n_factors"] == 15000
     assert out["has_hub"] and out["sweeps"] == 10
-    assert out["modes"] == ["off", "off"]
+    assert out["modes"] == ["off", "plain"]     # dm_gather_draw, plain
     assert out["world_bytes"] > 5000 * 16
 
 
