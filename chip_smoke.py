@@ -33,7 +33,8 @@ Phases (each prints one line with its result and elapsed seconds):
              variable labelled evidence, 256 chains a world): grad_pair_tile
              against its plain version (both colors, both coefficient
              streams, two launches bit for bit), and the whole kernel-route
-             gradient against the chunked route (banded_gather) and the
+             gradient against the chunked route (banded_gather), the
+             records route (a row_chunk: one grad_records launch) and the
              per-factor gradient; every variant of the kernel on random
              streams (GRAD_STREAM_CASES: 256, 512, 48 and 37 chains and a
              world off the 16-byte grid, D = 1..9 and 24, 1, 2 and 64
@@ -48,9 +49,11 @@ Phases (each prints one line with its result and elapsed seconds):
              epoch's time goes (with one fused_color_draw launch at this
              width); the bytes init_values_mc allocates and the
              run's peak, each with the unchunked int32 draw it had before
-             and with the chunked draw; then the kernel and chunked gradient
-             routes learn the same weights on a 16x16 grid, and a labelled
-             coin reaches its log-odds
+             and with the chunked draw; then the grad_pair_tile and
+             grad_records gradient routes learn the same weights on a
+             16x16 grid, and a labelled coin (no fused draw) reaches its
+             log-odds with grad_records once an epoch and no row chunk of
+             the chunked gradient
   7 dm kernels  fused_dm_draw and banded_gather_multi against their plain
              versions at the triple flagship's shapes (big_triple_grid(512,
              512): 3 colors, band_k 2, arity 3; 1024 random chains, every
@@ -69,7 +72,9 @@ Phases (each prints one line with its result and elapsed seconds):
              default modes, the main path of this class) and unfused
              (fused off): launches, rates, peak memory and where a fused
              sweep's time goes; then one learn_mc epoch on the labelled
-             triple flagship at 256 chains a world, by part
+             triple flagship at 256 chains a world, by part, with the
+             gradient on grad_records (one launch, no banded_gather_multi)
+             and on the chunked route
  10 cat kernel  fused_cat_draw against its plain version at the Potts
              flagship's shapes (big_potts_grid(512, 512, card=4): 2 colors,
              one affinek tier; 512 random chains, both colors): logits
@@ -92,9 +97,11 @@ Phases (each prints one line with its result and elapsed seconds):
              launches, rates, peak memory and a fused sweep by part; then
              learn_mc on the labelled flagship (bench.py's categorical
              learning configuration: 512 chains a world, 10 epochs of 2
-             sweeps): launches, rate, peak memory and an epoch by part;
-             one banded_gather launch at the chunked gradient's shapes,
-             and its launches' share of an epoch
+             sweeps): launches (grad_records once an epoch, no
+             banded_gather), rate, peak memory and an epoch by part with
+             the gradient on grad_records and on the chunked route; one
+             banded_gather launch at the chunked gradient's shapes, and
+             its launches' share of the chunked epoch
  13 tally    tally_counts against its plain version, exactly, on the three
              flagships' worlds (phases 4, 9, 12) and on random worlds
              (TALLY_CASES: K = 2, 4, 17 and 200 at 37, 48 and 512 chains,
@@ -103,9 +110,10 @@ Phases (each prints one line with its result and elapsed seconds):
              grid)
  14 kbc oracle  the hub tier: infer_mc on tests/test_hub.py's star graphs
              (boolean, hub_cap 6; card 3, hub_cap 5; chunks of 4) against
-             exact enumeration (|dp| < 0.01 and 0.012), and the chunked
-             gradient over dense and hub tiers against the per-factor one
-             (within 1e-4) on random_kbc_graph(300, 900, ...)
+             exact enumeration (|dp| < 0.01 and 0.012), and the gradient
+             over dense and hub tiers, on grad_records and on the chunked
+             route, against the per-factor one (within 1e-4) on
+             random_kbc_graph(300, 900, ...)
  15 kbc      bench.py's KBC inference cell: random_kbc_graph(500000,
              1500000, skew 1.1, windows of 2000, 1e5 weights), greedy
              coloring, RCM order, compile_graph(band_wmax=32768,
@@ -133,8 +141,19 @@ Phases (each prints one line with its result and elapsed seconds):
              plain version's ms
  16 kbc learn  bench.py's KBC learning cell: random_kbc_graph(200000,
              600000, 1e4 weights), half labelled, 256 chains a world, 10
-             epochs of 2 sweeps: rate, peak memory, an epoch by part;
-             dm_gather_draw's launches, no eager color_delta_multilin
+             epochs of 2 sweeps: rate, peak memory, an epoch by part with
+             the gradient on grad_records and on the chunked route;
+             dm_gather_draw's launches, no eager color_delta_multilin;
+             grad_records once a tier an epoch, no chunked row chunk
+ 16b grad records  grad_records against its plain version at the
+             learning shapes of phases 16, 9 and 12 (every tier that takes
+             it, all its colors in one launch, random worlds, both owner
+             masks) and on random streams (GRAD_RECORD_STREAMS: A-1 = 0,
+             1, 2 and 4, D 1..9, 256 and 512, the nine boolean types, NC
+             not a multiple of 16, a world off the 16-byte grid, int32
+             worlds, hub chunks, 1-3 colors): bit for bit without RATIO,
+             within RECORD_RATIO_TOL with it, two launches byte-equal;
+             each tier's ms a launch, bound and plain ms
  17 cli kbc  the dw gibbs command (python -m sampler_tpu_torch.cli, a child
              process) on phase 15's graph, written by the port's binary
              writer, with phase 15's compile settings, 1024 chains, 2
@@ -239,6 +258,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12      # H100 SXM int8 tensor cores, dense
+# int32 outside the tensor cores: 64 a clock an SM (NVIDIA's Hopper
+# architecture paper) on 132 SMs at the 1.98 GHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 GRID = 1024
 CHAINS = 512
 BURN, SWEEPS = 3, 20
@@ -651,10 +673,12 @@ def tally_numbers(values, K: int) -> dict:
 
 
 def epoch_parts(d, w, info, modes, v_ev, v_free, cfg, gen,
-                reps: int = 3) -> dict:
+                reps: int = 3, grad_modes=None) -> dict:
     """Where a learning epoch's time goes: the epoch body of
     _learn_mc_from, with CUDA events between its parts (mean of
-    ``reps``); the worlds are updated in place."""
+    ``reps``); the worlds are updated in place.  ``grad_modes``, when
+    given, are the gradient's modes (the chunked route's, to time it
+    beside the kernel's)."""
     import torch
 
     from sampler_tpu_torch.engine.learn import apply_update
@@ -671,7 +695,8 @@ def epoch_parts(d, w, info, modes, v_ev, v_free, cfg, gen,
             sweep_mc(d, v_ev, w, gen, False, info, folded, modes)
             sweep_mc(d, v_free, w, gen, True, info, folded, modes)
         ev_t[2].record()
-        grad = mc_weight_gradient(d, v_ev, v_free, False, info, modes)
+        grad = mc_weight_gradient(d, v_ev, v_free, False, info,
+                                  grad_modes or modes)
         ev_t[3].record()
         apply_update(w, grad, d.w_fixed, cfg.stepsize, cfg.regularization,
                      cfg.reg_param)
@@ -817,7 +842,8 @@ def grad_phase(dev) -> tuple:
         mc_weight_gradient_cs)
     from sampler_tpu_torch.ops.banded import banded_gather
     from sampler_tpu_torch.ops.grad import (GRAD_W_MAX, grad_pair_tile,
-                                            grad_pair_tile_plain)
+                                            grad_pair_tile_plain,
+                                            grad_records)
 
     t5 = time.perf_counter()
     chains = LEARN_CHAINS
@@ -865,17 +891,27 @@ def grad_phase(dev) -> tuple:
     for lne in (False, True):
         banded_gather.launches = 0
         chunked = mc_weight_gradient_cs(d, v_ev, v_free, lne, info,
-                                        ("cuda", "cuda"),
+                                        ("cuda", "off"),
                                         row_chunk=row_chunk)
         gathers = banded_gather.launches
         require(gathers == C * (ti.block // row_chunk),
                 f"chunked route: {gathers} banded_gather launches")
+        # a row_chunk keeps grad_pair_tile off: the tier takes grad_records
+        saved = grad_records.launches
+        records = mc_weight_gradient_cs(d, v_ev, v_free, lne, info,
+                                        ("cuda", "cuda"),
+                                        row_chunk=row_chunk)
+        require(grad_records.launches - saved == 1,
+                f"records route: {grad_records.launches - saved} "
+                f"grad_records launches")
+        grad_records.launches = saved   # a comparison counts no launch
         kernel = mc_weight_gradient_cs(d, v_ev, v_free, lne, info,
                                        ("cuda", "cuda"))
         factors = _mc_weight_gradient_factors(d, v_ev, v_free, lne, info)
         scale = float(factors.abs().max())
         diffs = {name: float((kernel - ref).abs().max())
                  for name, ref in (("chunked", chunked),
+                                   ("records", records),
                                    ("factors", factors))}
         for name, e in diffs.items():
             require(e <= GRAD_RTOL * scale,
@@ -883,7 +919,7 @@ def grad_phase(dev) -> tuple:
         routes[f"learn_non_evidence={lne}"] = dict(
             grad=kernel.tolist(), max_abs_diff=diffs, scale=scale,
             chunked_banded_gather_launches=gathers)
-        del chunked, kernel, factors
+        del chunked, records, kernel, factors
 
     k = dict(ms=time_ms(lambda: grad_pair_tile(*args(0, ts.gd_ctch)),
                         iters=20),
@@ -948,7 +984,7 @@ def learn_phase(dev, g, d, info) -> dict:
     from sampler_tpu_torch.engine.multichain import init_values_mc, learn_mc
     from sampler_tpu_torch.ops.banded import banded_gather
     from sampler_tpu_torch.ops.fused import fold_affine, fused_color_draw
-    from sampler_tpu_torch.ops.grad import grad_pair_tile
+    from sampler_tpu_torch.ops.grad import grad_pair_tile, grad_records
 
     t6 = time.perf_counter()
     chains = LEARN_CHAINS
@@ -1042,8 +1078,9 @@ def learn_phase(dev, g, d, info) -> dict:
         an_epoch=draw_ms * 2 * C * cfg.n_sweeps_per_epoch)
     del v_ev, v_free
 
-    # the kernel route and the chunked index_select route learn the same
-    # weights from the same draws (tests/test_grad_kernel.py's grid)
+    # the grad_pair_tile route and, with the band mode off, the
+    # grad_records route learn the same weights from the same draws
+    # (tests/test_grad_kernel.py's grid)
     gs, colors_s = big_ising_grid(16, 16, w_pair=0.35, w_bias=0.2)
     rng = np.random.default_rng(7)
     gs.var_role[:] = rng.random(gs.n_vars) < 0.5
@@ -1054,38 +1091,52 @@ def learn_phase(dev, g, d, info) -> dict:
     cfg_s = LearnConfig(n_epochs=10, n_sweeps_per_epoch=2, stepsize=0.05,
                         diminish=0.98, regularization="l2", reg_param=0.01)
     small = {}
-    for label, m in (("kernel", ("cuda", "cuda")),
-                     ("chunked", ("off", "cuda"))):
-        grad_pair_tile.launches = 0
+    for label, m in (("pair", ("cuda", "cuda")),
+                     ("records", ("off", "cuda"))):
+        grad_pair_tile.launches = grad_records.launches = 0
         ws, _, _ = learn_mc(ds, ds.w_init,
                             torch.Generator(device=dev).manual_seed(1),
                             cfg_s, infos, 4, m, device=dev)
-        small[label] = (ws, grad_pair_tile.launches)
-    require(small["kernel"][1] == infos.n_colors * cfg_s.n_epochs
-            and small["chunked"][1] == 0,
-            f"16x16 routes: grad_pair_tile launches "
-            f"{small['kernel'][1]}, {small['chunked'][1]}")
-    dw = float((small["kernel"][0] - small["chunked"][0]).abs().max())
-    require(dw <= 1e-4, f"16x16: kernel and chunked routes differ by {dw}")
+        small[label] = (ws, (grad_pair_tile.launches, grad_records.launches))
+    E = cfg_s.n_epochs
+    require(small["pair"][1] == (infos.n_colors * E, 0)
+            and small["records"][1] == (0, E),
+            f"16x16 routes: (grad_pair_tile, grad_records) launches "
+            f"{small['pair'][1]}, {small['records'][1]}")
+    dw = float((small["pair"][0] - small["records"][0]).abs().max())
+    require(dw <= 1e-4, f"16x16: pair and records routes differ by {dw}")
 
     gc = fixtures.labeled_coin_graph(n_flips=400, p_heads=0.75, seed=2)
     p_hat = gc.var_init.mean()
     w_star = float(np.log(p_hat / (1 - p_hat)))
     dgc, infoc = compile_graph(gc)
     dc = to_device(dgc, dev)
-    wc, _, _ = learn_mc(dc, dc.w_init, torch.Generator(device=dev)
-                        .manual_seed(0),
-                        LearnConfig(n_epochs=300, stepsize=0.03,
-                                    diminish=0.995, regularization="none"),
-                        infoc, 8, device=dev)
+    # a graph without a fused draw: its gradient takes grad_records too,
+    # once a tier an epoch, and no row chunk of the chunked route
+    coin_epochs = 300
+    grad_records.launches = 0
+    with EagerCalls("_phi_streams") as chunks:
+        wc, _, _ = learn_mc(dc, dc.w_init, torch.Generator(device=dev)
+                            .manual_seed(0),
+                            LearnConfig(n_epochs=coin_epochs, stepsize=0.03,
+                                        diminish=0.995,
+                                        regularization="none"),
+                            infoc, 8, device=dev)
+    coin_launches = grad_records.launches
+    require(coin_launches == len(infoc.tiers) * coin_epochs
+            == grad_launches_an_epoch(infoc, dev) * coin_epochs
+            and chunks.calls == 0,
+            f"coin: grad_records launches {coin_launches}, {chunks.calls} "
+            f"chunked gradient row chunks")
     coin_err = abs(float(wc[0]) - w_star)
     require(coin_err < 0.12, f"coin: learned {float(wc[0])}, want {w_star}")
     report("6 learn", t6, chains=chains, epochs=cfg.n_epochs,
            sweeps_per_epoch=cfg.n_sweeps_per_epoch, run=run,
-           grid16_kernel_vs_chunked_max_abs_dw=dw,
-           grid16_weights=small["kernel"][0].tolist(),
+           grid16_pair_vs_records_max_abs_dw=dw,
+           grid16_weights=small["pair"][0].tolist(),
            coin_learned=float(wc[0]), coin_log_odds=w_star,
-           coin_abs_err=coin_err)
+           coin_abs_err=coin_err, coin_grad_records_launches=coin_launches,
+           coin_chunked_gradient_row_chunks=chunks.calls)
     return launches
 
 
@@ -1442,10 +1493,13 @@ def oracle_dm_phase(dev) -> dict:
     return out
 
 
-def triple_phase(dev, card: str, g, d, info, kern) -> dict:
+def triple_phase(dev, card: str, g, d, info, kern) -> tuple:
     """Phase 9: the triple flagship's main path, fused and unfused, then
-    one learning epoch on its labelled twin.  Fills in the launches of
-    ``kern``'s two entries; returns the tally check on its world."""
+    one learning epoch on its labelled twin (by part, the gradient on
+    grad_records and, beside it, on the chunked route).  Fills in the
+    launches of ``kern``'s two entries; returns the tally check on its
+    world and (device graph, info, chains) of the learning twin, for
+    phase 16b."""
     import torch
 
     from sampler_tpu_torch.engine.learn import LearnConfig
@@ -1455,6 +1509,7 @@ def triple_phase(dev, card: str, g, d, info, kern) -> dict:
                                                      resolve_modes)
     from sampler_tpu_torch.ops.banded import banded_gather_multi
     from sampler_tpu_torch.ops.fused import fused_dm_draw
+    from sampler_tpu_torch.ops.grad import grad_records
     from sampler_tpu_torch.ops.tally import tally_counts
 
     t9 = time.perf_counter()
@@ -1532,9 +1587,12 @@ def triple_phase(dev, card: str, g, d, info, kern) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fused_dm_draw.launches = 0
     banded_gather_multi.launches = 0
-    epoch = epoch_parts(dl, w, infol, resolve_modes(infol, dev), v_ev,
-                        v_free, cfg,
-                        torch.Generator(device=dev).manual_seed(5), reps=1)
+    grad_records.launches = 0
+    modes_l = resolve_modes(infol, dev)
+    with EagerCalls("_phi_streams") as chunks:
+        epoch = epoch_parts(dl, w, infol, modes_l, v_ev, v_free, cfg,
+                            torch.Generator(device=dev).manual_seed(5),
+                            reps=1)
     learn = dict(chains=LEARN_CHAINS, compile_graph_s=round(compile_l, 3),
                  epoch_breakdown_ms=epoch,
                  learning_updates_per_s=gl.n_vars * LEARN_SWEEPS * 2
@@ -1542,16 +1600,33 @@ def triple_phase(dev, card: str, g, d, info, kern) -> dict:
                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
                  launches={"fused_dm_draw": fused_dm_draw.launches,
                            "banded_gather_multi": banded_gather_multi
-                           .launches},
+                           .launches,
+                           "grad_records": grad_records.launches},
+                 chunked_gradient_row_chunks=chunks.calls,
                  weights=w.tolist())
-    require(learn["launches"]["fused_dm_draw"] == 2 * C * LEARN_SWEEPS
-            and learn["launches"]["banded_gather_multi"] > 0,
-            f"learning epoch launches {learn['launches']}")
-    del dl, v_ev, v_free
+    require(learn["launches"] == {
+        "fused_dm_draw": 2 * C * LEARN_SWEEPS, "banded_gather_multi": 0,
+        "grad_records": grad_launches_an_epoch(infol, dev)}
+        and learn["launches"]["grad_records"] > 0 and chunks.calls == 0,
+        f"learning epoch launches {learn['launches']}, {chunks.calls} "
+        f"chunked gradient row chunks")
+    torch.cuda.reset_peak_memory_stats()
+    chunked = epoch_parts(dl, w, infol, modes_l, v_ev, v_free, cfg,
+                          torch.Generator(device=dev).manual_seed(5), reps=1,
+                          grad_modes=(modes_l[0], "off"))
+    learn["chunked_gradient"] = dict(
+        epoch_breakdown_ms=chunked,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        learning_updates_per_s=gl.n_vars * LEARN_SWEEPS * 2 * LEARN_CHAINS
+        / (chunked["epoch"] / 1e3))
+    learn["gradient_share"] = {"kernel": epoch["gradient"] / epoch["epoch"],
+                               "chunked": chunked["gradient"]
+                               / chunked["epoch"]}
+    del v_ev, v_free
     report("9 triple", t9, card=card, grid=f"{TRI_GRID}x{TRI_GRID}",
            chains=TRI_CHAINS, burn=BURN, sweeps=SWEEPS, runs=runs,
            fused_sweep_breakdown=breakdown, learning_epoch=learn)
-    return tally_check
+    return tally_check, (dl, infol, LEARN_CHAINS)
 
 
 def potts_flagship(dev, labelled: bool = False, grid: int | None = None,
@@ -2013,10 +2088,12 @@ def oracle_cat_phase(dev) -> dict:
     return out
 
 
-def potts_phase(dev, card: str, g, d, info, kern) -> dict:
+def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
     """Phase 12: the Potts flagship's main path, fused and unfused, then
-    learn_mc on its labelled twin.  Fills in the launches of ``kern``;
-    returns the tally check on its world."""
+    learn_mc on its labelled twin (the epoch by part, the gradient on
+    grad_records and, beside it, on the chunked route).  Fills in the
+    launches of ``kern``; returns the tally check on its world and (device
+    graph, info, chains) of the learning twin, for phase 16b."""
     import dataclasses
 
     import torch
@@ -2030,6 +2107,7 @@ def potts_phase(dev, card: str, g, d, info, kern) -> dict:
     from sampler_tpu_torch.ops.banded import (banded_gather,
                                               banded_gather_plain)
     from sampler_tpu_torch.ops.fused import fused_cat_draw
+    from sampler_tpu_torch.ops.grad import grad_records
     from sampler_tpu_torch.ops.tally import tally_counts
 
     t12 = time.perf_counter()
@@ -2111,18 +2189,24 @@ def potts_phase(dev, card: str, g, d, info, kern) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fused_cat_draw.launches = 0
     banded_gather.launches = 0
-    tr = time.perf_counter()
-    w, v_ev, v_free = learn_mc(dl, dl.w_init,
-                               torch.Generator(device=dev).manual_seed(2),
-                               cfg, infol, CAT_CHAINS, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - tr
+    grad_records.launches = 0
+    with EagerCalls("_phi_streams") as chunks:
+        tr = time.perf_counter()
+        w, v_ev, v_free = learn_mc(dl, dl.w_init,
+                                   torch.Generator(device=dev).manual_seed(2),
+                                   cfg, infol, CAT_CHAINS, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tr
     launches = {"fused_cat_draw": fused_cat_draw.launches,
-                "banded_gather": banded_gather.launches}
+                "banded_gather": banded_gather.launches,
+                "grad_records": grad_records.launches}
     n_sw = cfg.n_epochs * cfg.n_sweeps_per_epoch
-    require(launches == {"fused_cat_draw": 2 * C * n_sw,
-                         "banded_gather": C * cfg.n_epochs * grad_blocks},
-            f"learning launches {launches}")
+    require(launches == {"fused_cat_draw": 2 * C * n_sw, "banded_gather": 0,
+                         "grad_records": cfg.n_epochs}
+            and grad_launches_an_epoch(infol, dev) == 1
+            and chunks.calls == 0,
+            f"learning launches {launches}, {chunks.calls} chunked "
+            f"gradient row chunks")
     nw = gl.n_weights
     require(bool(torch.isfinite(w).all()), f"weights {w.tolist()}")
     require(bool((w[:nw] != dl.w_init[:nw]).all()),
@@ -2137,14 +2221,26 @@ def potts_phase(dev, card: str, g, d, info, kern) -> dict:
                  learning_updates_per_s=gl.n_vars * n_sw * 2 * CAT_CHAINS
                  / wall,
                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                 launches=launches, gradient_row_blocks_a_color=grad_blocks,
+                 launches=launches, chunked_gradient_row_chunks=chunks.calls,
                  weights=w.tolist(), w_init=dl.w_init.tolist())
+    modes_l = resolve_modes(infol, dev)
     learn["epoch_breakdown_ms"] = epoch_parts(
-        dl, w, infol, resolve_modes(infol, dev), v_ev, v_free, cfg,
+        dl, w, infol, modes_l, v_ev, v_free, cfg,
         torch.Generator(device=dev).manual_seed(3))
-    # one banded_gather launch at the chunked gradient's shapes (both
-    # worlds side by side, the first row block of color 0), and the share
-    # of an epoch that its C * grad_blocks launches take
+    torch.cuda.reset_peak_memory_stats()
+    learn["epoch_breakdown_chunked_gradient_ms"] = epoch_parts(
+        dl, w, infol, modes_l, v_ev, v_free, cfg,
+        torch.Generator(device=dev).manual_seed(3),
+        grad_modes=(modes_l[0], "off"))
+    learn["chunked_gradient_peak_memory_bytes"] = \
+        torch.cuda.max_memory_allocated()
+    learn["gradient_share"] = {
+        k: learn[k]["gradient"] / learn[k]["epoch"]
+        for k in ("epoch_breakdown_ms", "epoch_breakdown_chunked_gradient_ms")}
+    # the chunked route's gradient (with the fused mode off): one
+    # banded_gather launch at its shapes (both worlds side by side, the
+    # first row block of color 0), and the share of that route's epoch
+    # that its C * grad_blocks launches take
     tsl, rc = dl.tiers[0], til.block // grad_blocks
     nbr = tsl.cs_nbr[:rc * til.degree * (til.arity - 1)].view(
         rc // til.band_tb, -1)
@@ -2155,18 +2251,18 @@ def potts_phase(dev, card: str, g, d, info, kern) -> dict:
             "banded_gather differs from its plain version (Potts gradient)")
     gather_ms = time_ms(lambda: banded_gather(v_both, nbr, st, til.band_w),
                         iters=50)
-    learn["gradient_gather"] = dict(
+    learn["chunked_gradient_gather"] = dict(
         ms=gather_ms, gathered_rows=nbr.numel(), NC=v_both.shape[1],
         launches_an_epoch=C * grad_blocks,
         ms_an_epoch=gather_ms * C * grad_blocks,
         share_of_epoch=gather_ms * C * grad_blocks
-        / learn["epoch_breakdown_ms"]["epoch"])
-    del dl, v_ev, v_free, v_both
+        / learn["epoch_breakdown_chunked_gradient_ms"]["epoch"])
+    del v_ev, v_free, v_both
     report("12 potts", t12, card=card, grid=f"{CAT_GRID}x{CAT_GRID}",
            K=K, chains=CAT_CHAINS, burn=BURN, sweeps=SWEEPS,
            unfused_row_blocks_a_color=blocks, runs=runs,
            fused_sweep_breakdown=breakdown, learning=learn)
-    return tally_check
+    return tally_check, (dl, infol, CAT_CHAINS)
 
 
 def tally_phase(dev, checks: dict) -> dict:
@@ -2217,8 +2313,9 @@ def kbc_oracle_phase(dev) -> dict:
     """Phase 14: the hub tier on the card.  infer_mc on tests/test_hub.py's
     star graphs against exact enumeration (|dp| < 0.01 boolean with
     hub_cap 6 and chunks of 4; < 0.012 on the card-3 star with hub_cap 5,
-    the JAX package's bound); then the chunked gradient over dense and hub
-    tiers against the per-factor gradient (within 1e-4) on
+    the JAX package's bound); then the gradient over dense and hub tiers,
+    on grad_records (the default modes) and on the chunked route (fused
+    off), against the per-factor gradient (within 1e-4) on
     random_kbc_graph(300, 900, ...) with hub_cap 8 and chunks of 4."""
     import torch
 
@@ -2263,15 +2360,18 @@ def kbc_oracle_phase(dev) -> dict:
     v_ev = init_values_mc(d, gen, 64, info)
     v_free = init_values_mc(d, gen, 64, info)
     grads = {}
+    modes = resolve_modes(info, dev)
     for lne in (False, True):
-        g_cs = mc_weight_gradient(d, v_ev, v_free, lne, info,
-                                  resolve_modes(info, dev))
         g_ref = mc_weight_gradient(d, v_ev, v_free, lne, info, None)
-        err = float((g_cs - g_ref).abs().max())
-        require(err < 1e-4, f"hub gradient (learn_non_evidence={lne}) "
-                f"differs from the per-factor one by {err}")
+        errs = {}
+        for route, m in (("records", modes), ("chunked", (modes[0], "off"))):
+            g_cs = mc_weight_gradient(d, v_ev, v_free, lne, info, m)
+            errs[route] = float((g_cs - g_ref).abs().max())
+            require(errs[route] < 1e-4,
+                    f"hub gradient ({route}, learn_non_evidence={lne}) "
+                    f"differs from the per-factor one by {errs[route]}")
         grads[f"learn_non_evidence_{lne}"] = dict(
-            max_abs_err=err, max_abs_grad=float(g_ref.abs().max()))
+            max_abs_err=errs, max_abs_grad=float(g_ref.abs().max()))
     out["kbc300_gradient"] = grads
     report("14 kbc oracle", t14, chains=KBC_ORACLE_CHAINS,
            burn=KBC_ORACLE_BURN, sweeps=KBC_ORACLE_SWEEPS, graphs=out)
@@ -2403,26 +2503,31 @@ def dm_launches_a_sweep(info) -> int:
 
 
 class EagerCalls:
-    """Counts the eager color_delta_multilin calls of the engine while it
-    is entered (the route a deltam tier takes with the fused mode off)."""
+    """Counts the calls of an engine function while it is entered: by
+    default the eager color_delta_multilin (the route a deltam tier's draw
+    takes with the fused mode off); "_phi_streams" counts the row chunks
+    of the chunked gradient."""
+
+    def __init__(self, name: str = "color_delta_multilin"):
+        self.name = name
 
     def __enter__(self):
         from sampler_tpu_torch.engine import multichain
 
         self.calls = 0
-        self.orig = multichain.color_delta_multilin
+        self.orig = getattr(multichain, self.name)
 
         def counted(*args, **kw):
             self.calls += 1
             return self.orig(*args, **kw)
 
-        multichain.color_delta_multilin = counted
+        setattr(multichain, self.name, counted)
         return self
 
     def __exit__(self, *exc):
         from sampler_tpu_torch.engine import multichain
 
-        multichain.color_delta_multilin = self.orig
+        setattr(multichain, self.name, self.orig)
 
 
 def kbc_phase(dev, card: str) -> tuple:
@@ -2754,13 +2859,262 @@ def dm_gather_phase(dev, card: str, d, info) -> dict:
     return kern
 
 
-def kbc_learn_phase(dev, card: str) -> None:
+def grad_launches_an_epoch(info, dev, n_graph: int = 1) -> int:
+    """grad_records launches of one gradient with the default modes: one a
+    tier that ``gradient_route`` sends there."""
+    from sampler_tpu_torch.engine.multichain import (gradient_route,
+                                                     resolve_modes)
+
+    modes = resolve_modes(info, dev)
+    W = info.n_weights + 1
+    return sum(1 for ti in info.tiers if gradient_route(
+        ti, info, modes, W, n_graph=n_graph)[0] == "records")
+
+
+def grad_record_bound(args) -> dict:
+    """The least time of one grad_records launch on these inputs: the
+    world rows its owner records read in both worlds (the distinct own and
+    neighbour rows of the records whose mask is set: this run's data),
+    the streams read once and the output written once; per (owner record,
+    chain, world) some 4A + 10 operations, nearly all integer compares
+    and adds, at the int32 rate."""
+    import torch
+
+    (v_ev, _, nbr, pos, ismine, _, _, eq, _, _, _, gsel, own_base, stride,
+     own_idx) = args[:15]
+    P, NC = v_ev.shape
+    C, B, D, A = pos.shape
+    dev = v_ev.device
+    rows = (own_idx.to(torch.int64) if own_idx is not None else
+            torch.arange(B, device=dev).expand(C, B)) + (
+        own_base + stride * torch.arange(C, device=dev)[:, None])
+    read = [rows[gsel.any(dim=-1)]]
+    if A > 1:
+        nb = ismine[..., :A - 1] | ~gsel[..., None]
+        read.append(nbr[~nb].to(torch.int64))
+    idx = torch.cat(read)
+    distinct = int(torch.unique(idx[(idx >= 0) & (idx < P)]).numel())
+    per_rec = 4 * (A - 1) + 4 * A + (0 if eq is None else
+                                     eq.element_size() * A) + 1 + 2 + 4 + 1
+    n_rec = C * B * D
+    nbytes = (2 * distinct * NC * v_ev.element_size() + n_rec * per_rec
+              + n_rec * 4 + (0 if own_idx is None else 4 * C * B))
+    ops = int(gsel.sum()) * NC * 2 * (4 * A + 10)
+    return dict(kernel_bound(nbytes, ops, INT32_OPS_PER_S),
+                rows_read=distinct)
+
+
+def grad_records_tier(dev, d, info, t: int, NC: int, seed: int) -> dict:
+    """grad_records against its plain version on tier ``t`` of ``d`` (all
+    its colors in one launch) on random worlds of NC chains
+    (learn_non_evidence on, and off, the learning cells' setting): bit for
+    bit where the tier has no RATIO factor, else within the stated bound,
+    and two launches equal byte for byte; then its ms a launch, the plain
+    version's and the bound."""
+    import torch
+
+    from sampler_tpu_torch import format_spec as fs
+    from sampler_tpu_torch.engine.multichain import (_record_streams,
+                                                     values_dtype)
+    from sampler_tpu_torch.ops.grad import grad_records, grad_records_plain
+
+    ts, ti = d.tiers[t], info.tiers[t]
+    C, gB = info.n_colors, info.block_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    card = d.var_card.clamp(min=1).to(torch.int64)[:, None]
+    worlds = [(torch.randint(0, 1 << 20, (card.shape[0], NC), generator=gen,
+                             device=dev) % card).to(values_dtype(info))
+              for _ in range(2)]
+    present = ti.present_funcs or info.present_funcs
+    ratio = fs.FUNC_RATIO in present
+    err = 0.0
+    for lne in (True, False):           # timed below: False, as learning
+        gsrc = ts.cs_gowner if lne else ts.cs_gtouch
+        args = (*worlds, *_record_streams(ts, ti, C, gB, gsrc, 1, 0,
+                                          info.all_boolean),
+                present, info.all_boolean)
+        got, again = grad_records(*args), grad_records(*args)
+        ref = grad_records_plain(*args)
+        require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                f"grad_records: two launches differ (tier {t})")
+        e = float((got - ref).abs().max())
+        err = max(err, e)
+        if ratio:
+            require(e <= RECORD_RATIO_TOL * max(1.0, float(
+                ref.abs().max())), f"grad_records: RATIO tier {t} "
+                f"differs by {e}")
+        else:
+            require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                    f"grad_records differs from its plain version "
+                    f"(tier {t}, lne={lne}, max {e})")
+        del got, again, ref
+    bound = grad_record_bound(args)
+    _, B, D, A = args[3].shape
+    return dict(tier=t, hub=ti.hub, colors=C, rows=B, D=D, A=A, NC=NC,
+                dtype=str(worlds[0].dtype), ratio=ratio, launches=1,
+                max_abs_err=err, exact=not ratio,
+                ms=time_ms(lambda: grad_records(*args), iters=10),
+                plain_ms=time_ms(lambda: grad_records_plain(*args), iters=2,
+                                 warmup=1),
+                t_bytes_ms=bound["bytes"] / HBM_BYTES_PER_S * 1e3,
+                t_ops_ms=bound["ops"] / INT32_OPS_PER_S * 1e3, **bound)
+
+
+FUNCS9 = (0, 1, 2, 3, 4, 7, 8, 9, 13)     # the boolean factor types
+# (B, D, A, NC, card, types, int32 worlds, hub own rows, world off grid):
+# A-1 = 0, 1, 2 and 4 (the looped variant), D 1..9 and 256 / 512, the
+# nine boolean types, NC not a multiple of 16, a world one byte off the
+# 16-byte grid, int32 worlds (card 200) and hub chunks' own rows; case i
+# has 1 + i % 3 colors
+GRAD_RECORD_STREAMS = (
+    [(300, d, a, nc, 2, FUNCS9, False, False, False)
+     for a in (1, 2, 3, 5) for d in (1, 2, 3, 5, 9) for nc in (48, 37)]
+    + [(200, d, 3, 256, 2, FUNCS9, False, False, False)
+       for d in (4, 6, 7, 8)]
+    + [(64, 256, 3, 256, 2, FUNCS9, False, True, False),
+       (16, 512, 3, 512, 2, FUNCS9[:6], False, True, False),
+       (300, 5, 2, 512, 4, (3, 12), False, False, False),
+       (300, 5, 2, 48, 200, (12,), True, False, False),
+       (300, 5, 3, 36, 200, (3, 12), True, False, False),
+       (300, 3, 3, 48, 2, FUNCS9, False, False, True),
+       (300, 3, 2, 512, 4, (3, 12), False, False, True)])
+RECORD_RATIO_TOL = 1e-6         # RATIO: relative to the largest |out|
+
+
+def record_streams(dev, B, D, A, NC, seed, card, types, int32, hub,
+                   off_grid, C=1, P=3000) -> tuple:
+    """Random grad_records arguments for C colors in compile's invariants:
+    the ismine slots a non-empty suffix (slot A-1 always own) of the
+    masked slots, one head slot, a masked one; arity the masked count;
+    neighbour positions in [0, P); a color's own rows B apart, the last
+    color's ending at P; hub=True gives them through an index array."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = (C, B, D)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def ints(lo, hi, *shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    slots = torch.arange(A, device=dev)
+    ismine = slots >= (A - ints(1, A + 1, *S))[..., None]
+    mask = (rand(*S, A) < 0.8) | ismine
+    # one head slot a record, a masked one (a record without a head
+    # would give RATIO log1p(-1))
+    masked = torch.where(mask, rand(*S, A), -1.0)
+    hmask = slots == masked.argmax(dim=-1, keepdim=True)
+    pos = rand(*S, A) < 0.6
+    eq = None if card == 2 else ints(0, card, *S, A, dtype=torch.int16)
+    tys = torch.tensor(types, dtype=torch.int8, device=dev)
+    vt = torch.int32 if int32 else torch.int8
+    worlds = [ints(0, card, P, NC, dtype=vt) for _ in range(2)]
+    if off_grid:            # the evidence world one byte past the grid
+        buf = torch.empty(P * NC * worlds[0].element_size() + 1,
+                          dtype=torch.int8, device=dev)
+        view = buf[1:].view(vt).view(P, NC) if vt == torch.int8 else None
+        if view is not None:
+            view.copy_(worlds[0])
+            worlds[0] = view
+    return (*worlds, ints(0, P, *S, A - 1, dtype=torch.int32), pos,
+            ismine, mask, hmask, eq, tys[ints(0, len(types), *S)],
+            mask.sum(-1).to(torch.int16),
+            torch.tensor([0.5, 1.0, 2.0, -1.5], device=dev)[
+                ints(0, 4, *S)], rand(*S) < 0.6,
+            P - C * B, B,
+            ints(0, B, C, B, dtype=torch.int32) if hub else None,
+            tuple(sorted(set(types))), card == 2)
+
+
+def grad_record_stream_case(dev, case, seed: int) -> dict:
+    """grad_records against its plain version on random streams of
+    1 + seed % 3 colors: bit for bit without RATIO, within
+    RECORD_RATIO_TOL with it, two launches equal."""
+    import torch
+
+    from sampler_tpu_torch.ops.grad import grad_records, grad_records_plain
+
+    B, D, A, NC, card, types, int32, hub, off = case
+    C = 1 + seed % 3
+    args = record_streams(dev, B, D, A, NC, seed, card, types, int32, hub,
+                          off, C)
+    got, again = grad_records(*args), grad_records(*args)
+    ref = grad_records_plain(*args)
+    err = float((got - ref).abs().max())
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if 8 in types:
+        ok = err <= RECORD_RATIO_TOL * max(1.0, float(ref.abs().max()))
+    else:
+        ok = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    require(same and ok and all(bool((ref[c] != 0).any()) for c in range(C)),
+            f"grad_records on streams {case} ({C} colors): max |diff| {err},"
+            f" two launches equal: {same}")
+    return dict(B=B, D=D, A=A, NC=NC, C=C, card=card, ratio=8 in types,
+                int32=int32, hub=hub, off_grid=off and not int32,
+                max_abs_err=err)
+
+
+def grad_records_phase(dev, card: str, graphs: dict) -> dict:
+    """Phase 16b: grad_records against its plain version at the learning
+    shapes of phases 16, 9 and 12 (``graphs``: name -> (device graph,
+    info, chains a world); every tier that takes it, all its colors in one
+    launch, on random worlds; grad_records_tier) and on random streams
+    (GRAD_RECORD_STREAMS); each tier's numbers.  Returns the kernel's
+    numbers for the kernels line: a launch's mean ms, plain ms and bound
+    over the learning cells' launches of one gradient."""
+    from sampler_tpu_torch.engine.multichain import (gradient_route,
+                                                     resolve_modes)
+    from sampler_tpu_torch.ops.grad import grad_records
+
+    t16b = time.perf_counter()
+    saved = grad_records.launches
+    cells = {}
+    for name, (d, info, NC) in graphs.items():
+        modes = resolve_modes(info, dev)
+        W = d.w_init.shape[0]
+        tiers = [grad_records_tier(dev, d, info, t, NC, 16 + t)
+                 for t, ti in enumerate(info.tiers)
+                 if gradient_route(ti, info, modes, W)[0] == "records"]
+        require(len(tiers) == grad_launches_an_epoch(info, dev) > 0,
+                f"{name}: grad_records tiers {len(tiers)}")
+        cells[name] = tiers
+    streams = [grad_record_stream_case(dev, case, i)
+               for i, case in enumerate(GRAD_RECORD_STREAMS)]
+    grad_records.launches = saved       # comparisons count no launch
+    every = [x for tiers in cells.values() for x in tiers]
+    n = len(every)
+    tot = {k: sum(x[k] for x in every)
+           for k in ("ms", "plain_ms", "bound_ms", "t_bytes_ms", "t_ops_ms",
+                     "bytes")}
+    kern = dict(ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
+                bound_ms=tot["bound_ms"] / n,
+                bound_by="bytes" if tot["t_bytes_ms"] >= tot["t_ops_ms"]
+                else "operations", library_ms=None,
+                max_abs_err=max(x["max_abs_err"] for x in every),
+                launches_a_gradient={k: len(v) for k, v in cells.items()},
+                gradient_ms={k: sum(x["ms"] for x in v)
+                             for k, v in cells.items()},
+                gradient_bound_ms={k: sum(x["bound_ms"] for x in v)
+                                   for k, v in cells.items()})
+    report("16b grad records", t16b, card=card, cells=cells,
+           stream_cases=streams, kernel=kern)
+    return kern
+
+
+def kbc_learn_phase(dev, card: str) -> tuple:
     """Phase 16: bench.py's KBC learning cell (bench.py:274-288):
     KBC_LEARN_VARS variables, greedy coloring, every other variable
     labelled, band_wmax=32768, hub_cap=256, LEARN_CHAINS chains a world,
     LEARN_EPOCHS epochs of LEARN_SWEEPS sweeps: dm_gather_draw launched
-    once a color and deltam tier a sweep of each world, no eager
-    color_delta_multilin."""
+    once a color and deltam tier a sweep of each world, grad_records once
+    a tier an epoch, no eager color_delta_multilin and no row chunk of
+    the chunked gradient.  The epoch by part with the gradient on
+    the kernel and, beside it, on the chunked route.  Returns the device
+    graph, its info and grad_records' launches in the counted run, for
+    phase 16b and the kernels line."""
     import dataclasses
 
     import torch
@@ -2771,6 +3125,7 @@ def kbc_learn_phase(dev, card: str) -> None:
     from sampler_tpu_torch.engine.learn import LearnConfig
     from sampler_tpu_torch.engine.multichain import learn_mc, resolve_modes
     from sampler_tpu_torch.ops.fused import dm_gather_draw
+    from sampler_tpu_torch.ops.grad import grad_records
 
     t16 = time.perf_counter()
     g = kbc_graph(KBC_LEARN_VARS, 10_000, 1)
@@ -2791,7 +3146,8 @@ def kbc_learn_phase(dev, card: str) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dm_gather_draw.launches = 0
-    with EagerCalls() as eager:
+    grad_records.launches = 0
+    with EagerCalls() as eager, EagerCalls("_phi_streams") as chunks:
         tr = time.perf_counter()
         w, v_ev, v_free = learn_mc(d, d.w_init,
                                    torch.Generator(device=dev).manual_seed(2),
@@ -2800,10 +3156,17 @@ def kbc_learn_phase(dev, card: str) -> None:
         wall = time.perf_counter() - tr
     n_sw = cfg.n_epochs * cfg.n_sweeps_per_epoch
     dm_want = dm_launches_a_sweep(info) * n_sw * 2
+    gr_want = grad_launches_an_epoch(info, dev) * cfg.n_epochs
     require(dm_gather_draw.launches == dm_want and eager.calls == 0,
             f"KBC learning: dm_gather_draw launches "
             f"{dm_gather_draw.launches} ({dm_want} expected), "
             f"{eager.calls} eager color_delta_multilin calls")
+    require(grad_records.launches == gr_want
+            == len(info.tiers) * cfg.n_epochs
+            and chunks.calls == 0,
+            f"KBC learning: grad_records launches {grad_records.launches} "
+            f"({gr_want} expected), {chunks.calls} chunked gradient row "
+            f"chunks")
     nw = g.n_weights
     require(bool(torch.isfinite(w).all()), "KBC learning: weights not finite")
     require(int((w[:nw] != d.w_init[:nw]).sum()) > nw // 2,
@@ -2821,14 +3184,25 @@ def kbc_learn_phase(dev, card: str) -> None:
                  weights_moved=int((w[:nw] != d.w_init[:nw]).sum()),
                  max_abs_weight=float(w.abs().max()),
                  dm_gather_draw_launches=dm_want,
-                 eager_color_delta_multilin_calls=eager.calls)
+                 grad_records_launches=gr_want,
+                 eager_color_delta_multilin_calls=eager.calls,
+                 chunked_gradient_row_chunks=chunks.calls)
+    modes = resolve_modes(info, dev)
     learn["epoch_breakdown_ms"] = epoch_parts(
-        d, w, info, resolve_modes(info, dev), v_ev, v_free, cfg,
+        d, w, info, modes, v_ev, v_free, cfg,
         torch.Generator(device=dev).manual_seed(3), reps=1)
-    del d, v_ev, v_free
+    learn["epoch_breakdown_chunked_gradient_ms"] = epoch_parts(
+        d, w, info, modes, v_ev, v_free, cfg,
+        torch.Generator(device=dev).manual_seed(3), reps=1,
+        grad_modes=(modes[0], "off"))
+    learn["gradient_share"] = {
+        k: learn[k]["gradient"] / learn[k]["epoch"]
+        for k in ("epoch_breakdown_ms", "epoch_breakdown_chunked_gradient_ms")}
+    del v_ev, v_free
     report("16 kbc learn", t16, card=card, n_vars=info.n_vars,
            colors=info.n_colors, tiers=len(info.tiers), has_hub=info.has_hub,
            learning=learn)
+    return d, info, gr_want
 
 
 def graph_flags(g, outdir: str) -> list:
@@ -2926,13 +3300,14 @@ def check_cli_outputs(g, outdir: str) -> dict:
 
 
 def cli_kbc_phase(dev, card: str, g, kbc_rate: float,
-                  dm_a_sweep: int) -> None:
+                  dm_a_sweep: int, grad_an_epoch: int) -> None:
     """Phase 17: the gibbs command on phase 15's KBC graph at full size:
     written by the port's binary writer, then learning and inference in a
     child process with phase 15's compile settings (CLI_KBC_ARGS).  Its
     dm_gather_draw launches must be phase 15's a sweep (``dm_a_sweep``:
     every deltam tier and color through the kernel, none through the
-    eager arithmetic) times its sweeps, CLI_KBC_SWEEPS."""
+    eager arithmetic) times its sweeps, CLI_KBC_SWEEPS, and its
+    grad_records launches ``grad_an_epoch`` times its epochs."""
     import tempfile
 
     import torch
@@ -2958,6 +3333,11 @@ def cli_kbc_phase(dev, card: str, g, kbc_rate: float,
             * CLI_KBC_SWEEPS, f"KBC gibbs: dm_gather_draw launches "
             f"{log['launches'].get('dm_gather_draw')}, "
             f"{dm_a_sweep * CLI_KBC_SWEEPS} expected")
+    epochs = int(CLI_KBC_ARGS[CLI_KBC_ARGS.index("-l") + 1])
+    require(log["launches"].get("grad_records") == grad_an_epoch * epochs,
+            f"KBC gibbs: grad_records launches "
+            f"{log['launches'].get('grad_records')}, "
+            f"{grad_an_epoch * epochs} expected")
     ratio = log["infer_vars_per_s"] / kbc_rate
     report("17 cli kbc", t17, card=card, args=CLI_KBC_ARGS,
            write_graph_s=write_s, command_wall_s=wall, cli=log,
@@ -3082,12 +3462,12 @@ def cli_kernels() -> dict:
                                               banded_gather_multi)
     from sampler_tpu_torch.ops.fused import (fused_cat_draw, fused_color_draw,
                                              fused_dm_draw)
-    from sampler_tpu_torch.ops.grad import grad_pair_tile
+    from sampler_tpu_torch.ops.grad import grad_pair_tile, grad_records
     from sampler_tpu_torch.ops.tally import tally_counts
 
     return {k.__name__: k for k in (
         fused_color_draw, banded_gather, grad_pair_tile, fused_dm_draw,
-        banded_gather_multi, fused_cat_draw, tally_counts)}
+        banded_gather_multi, fused_cat_draw, tally_counts, grad_records)}
 
 
 def cli_kernel_paths() -> dict:
@@ -3096,26 +3476,28 @@ def cli_kernel_paths() -> dict:
     CLI_GRID² grids of the three classes that band, run through the
     command with CLI_GRID_ARGS (learning, burn-in, counted sweeps): the
     labelled Ising grid (2 colors; fused_color_draw in both worlds' sweeps
-    and inference, grad_pair_tile a color an epoch), the Potts grid (2
-    colors, fused_cat_draw) and the triple grid (3 colors,
-    fused_dm_draw); tally_counts once a counted sweep."""
+    and inference, grad_pair_tile a color an epoch, no grad_records),
+    the Potts grid (2 colors, fused_cat_draw) and the triple grid (3
+    colors, fused_dm_draw), each one tier with grad_records once an
+    epoch; tally_counts once a counted sweep."""
     from sampler_tpu_torch.benchgraphs import big_potts_grid, big_triple_grid
 
     E, B, S = CLI_GRID_EPOCHS, CLI_GRID_BURN, CLI_GRID_SWEEPS
     return {
         "ising_grid": (lambda: label_half(big_grid(CLI_GRID)), CLI_GRID_ARGS,
                        {"fused_color_draw": 2 * (2 * E + B + S),
-                        "grad_pair_tile": 2 * E, "tally_counts": S}),
+                        "grad_pair_tile": 2 * E, "grad_records": 0,
+                        "tally_counts": S}),
         "potts_grid": (lambda: label_half(big_potts_grid(CLI_GRID, CLI_GRID,
                                                          card=4)[0]),
                        CLI_GRID_ARGS,
                        {"fused_cat_draw": 2 * (2 * E + B + S),
-                        "tally_counts": S}),
+                        "grad_records": E, "tally_counts": S}),
         "triple_grid": (lambda: label_half(big_triple_grid(CLI_GRID,
                                                            CLI_GRID)[0]),
                         CLI_GRID_ARGS,
                         {"fused_dm_draw": 3 * (2 * E + B + S),
-                         "tally_counts": S}),
+                         "grad_records": E, "tally_counts": S}),
     }
 
 
@@ -3800,7 +4182,7 @@ def gs_kbc_phase(dev, card: str, g, order, ranks) -> None:
         "KBC learn_gs: weights not finite, or most did not move")
     learn = dict(chains=LEARN_CHAINS, sweeps_per_epoch=LEARN_SWEEPS,
                  wall_s=learn_wall, launches_by_rank=rank_launches(
-                     ranks, ("dm_gather_draw",)),
+                     ranks, ("dm_gather_draw", "grad_records")),
                  parts=ranks.run(gs_learn_parts, hostl, infol, LEARN_CHAINS,
                                  dataclasses.replace(cfg)),
                  reduced_gradient=grad_check("kbc learn 1x2", ranks, hostl,
@@ -4578,15 +4960,16 @@ def main() -> int:
     g, d, info, dm_kern = dm_kernels_phase(dev)
     kern.update(dm_kern)
     oracle_dm_phase(dev)
-    tally_checks["triple_flagship"] = triple_phase(dev, card, g, d, info,
-                                                   kern)
+    learn_graphs = {}
+    tally_checks["triple_flagship"], learn_graphs["triple"] = triple_phase(
+        dev, card, g, d, info, kern)
     del d
 
     # ---- 10, 11, 12: the categorical class ------------------------------
     g, d, info, kern["fused_cat_draw"] = cat_kernel_phase(dev)
     oracle_cat_phase(dev)
-    tally_checks["potts_flagship"] = potts_phase(dev, card, g, d, info,
-                                                 kern["fused_cat_draw"])
+    tally_checks["potts_flagship"], learn_graphs["potts"] = potts_phase(
+        dev, card, g, d, info, kern["fused_cat_draw"])
     del d
 
     # ---- 13: the tally kernel ---------------------------------------------
@@ -4599,10 +4982,16 @@ def main() -> int:
     kern["dm_gather_draw"] = dm_gather_phase(dev, card, d_kbc, info_kbc)
     kern["dm_gather_draw"]["launches"] = dm_launches
     del d_kbc
-    kbc_learn_phase(dev, card)
+    d_kbc, info_l, grad_records_launches = kbc_learn_phase(dev, card)
+    learn_graphs = {"kbc": (d_kbc, info_l, LEARN_CHAINS), **learn_graphs}
+    del d_kbc
+    kern["grad_records"] = grad_records_phase(dev, card, learn_graphs)
+    kern["grad_records"]["launches"] = grad_records_launches
+    del learn_graphs
 
     # ---- 17, 18, 19: the gibbs command on the card -----------------------
-    cli_kbc_phase(dev, card, g_kbc, kbc_rate, dm_launches_a_sweep(info_kbc))
+    cli_kbc_phase(dev, card, g_kbc, kbc_rate, dm_launches_a_sweep(info_kbc),
+                  grad_launches_an_epoch(info_kbc, dev))
     cli_oracle_phase(dev)
     cli_resume_phase(dev)
 
@@ -4644,7 +5033,12 @@ def main() -> int:
                # no Pallas kernel: color_delta_multilin and the Bernoulli
                # draw, which XLA fuses into the jitted sweep
                "dm_gather_draw": ("sampler_tpu_torch/csrc/dm_gather_draw.cu",
-                                  "sampler_tpu/engine/multichain.py:405")}
+                                  "sampler_tpu/engine/multichain.py:405"),
+               # no Pallas kernel: the row-chunk body of
+               # mc_weight_gradient_cs, which XLA fuses into the jitted
+               # learning epoch
+               "grad_records": ("sampler_tpu_torch/csrc/grad_records.cu",
+                                "sampler_tpu/engine/multichain.py:1002")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": k["launches"],

@@ -9,7 +9,7 @@ reference that the tests hold the port to.
 Ported so far: multi-chain marginal inference and weight learning
 (``engine.multichain.infer_mc``, ``learn_mc``) on boolean, categorical,
 mixed, arity-3, multi-window and hub-tier (KBC) graphs, with dense or
-sparse per-combination weights, through seven CUDA kernels (``ops/``);
+sparse per-combination weights, through nine CUDA kernels (``ops/``);
 the single-chain ``engine.gibbs.infer`` and ``engine.learn.learn``; the
 binary and text graph files (``io/``), checkpoints (``checkpoint``) and
 the ``dw``-compatible command line (``python -m sampler_tpu_torch.cli``);

@@ -40,10 +40,14 @@ single-window and multi-window banded alike, hub tiers included:
   * the tallies of inference go through ``ops.tally.tally_counts`` (one
     CUDA kernel a sweep);
   * ``learn_mc`` runs contrastive SGD over an evidence and a free world of
-    NC chains each; its gradient (``mc_weight_gradient_cs``) goes through
-    ``ops.grad.grad_pair_tile`` (one CUDA kernel a color) on affine2 tiers
-    with the band mode on, and through the chunked cs-stream route
-    (``_phi_streams``, with the same gathers as the draw) elsewhere;
+    NC chains each; its gradient (``mc_weight_gradient_cs``) goes, tier by
+    tier as ``gradient_route`` says, through ``ops.grad.grad_pair_tile``
+    (one CUDA kernel a color) on affine2 tiers with the band mode on,
+    through ``ops.grad.grad_records`` (one CUDA kernel a tier: each
+    record's contribution, then a segment sum) on the other tiers while
+    the fused mode is on, and through the chunked cs-stream route
+    (``_phi_streams``, with the same gathers as the draw) with it off and
+    on graphs with sparse per-combination weights;
   * sparse per-combination weights (a factor whose weight is looked up by
     its members' joint values in ``cwt_wid``; compile turns the affine
     and fused plans off beside them) take the candidate route
@@ -60,8 +64,10 @@ rank's rows at c*B + off + g*Bl, and ``mc_weight_gradient_cs`` takes
 
 ``modes = (band, fused)``, each "cuda" (the kernel), "plain" (its plain
 PyTorch version) or "off"; the default is "cuda" on a CUDA device and
-"plain" on the CPU, gated by what the compiled graph supports, as the JAX
-package's resolve_band / resolve_fused gate them.  The fused draws write
+"plain" on the CPU, the band mode gated by what the compiled graph
+supports, as the JAX package's resolve_band gates it, and the fused mode
+gated tier by tier (``tier_modes`` for the draws, ``gradient_route`` for
+the gradient).  The fused draws write
 straight into the world's block (their world-write mode); the other tiers
 draw a block and write it under the resample mask.
 
@@ -91,7 +97,9 @@ from ..ops.fused import (dm_gather_draw, dm_gather_draw_plain, fold_affine,
                          fused_cat_draw, fused_cat_draw_plain,
                          fused_color_draw, fused_color_draw_plain,
                          fused_dm_draw, fused_dm_draw_plain)
-from ..ops.grad import GRAD_W_MAX, grad_pair_tile, grad_pair_tile_plain
+from ..ops.grad import (GRAD_W_MAX, grad_pair_tile, grad_pair_tile_plain,
+                        grad_records, grad_records_plain, record_phi,
+                        records_diff)
 from ..ops.tally import tally_counts, tally_plain
 from ..ops.weights import expand_wf, segment_reduce
 from .learn import apply_update
@@ -108,17 +116,20 @@ def values_dtype(info) -> torch.dtype:
 
 def resolve_modes(info, device) -> tuple:
     """Default (band, fused) mechanisms for this graph on ``device``: band
-    on where the graph has a banding plan and int8-sized values, fused
-    following band where a tier has a banded fused plan (JAX resolve_band
-    and resolve_fused in their "auto" setting), and on wherever a tier
-    has multilinear coefficients (deltam), banded or not: dm_gather_draw
-    takes those tiers where XLA fuses the JAX package's draw."""
+    on where the graph has a banding plan and int8-sized values (JAX
+    resolve_band in its "auto" setting), fused on wherever XLA fuses the
+    JAX package's draws or gradient.  A tier draws through a fused kernel
+    only where ``tier_modes`` finds it a plan (a banded affine2 / affinek
+    / fusedm tier, whose band is then on, as JAX resolve_fused follows
+    band, or the multilinear coefficients of dm_gather_draw); every tier
+    that ``gradient_route`` reaches takes grad_records.  A graph with
+    sparse per-combination weights and no deltam tier has neither: its
+    fused mode is off."""
     mech = "cuda" if torch.device(device).type == "cuda" else "plain"
     band = mech if info.band_w > 0 and info.max_card <= 127 else "off"
-    fused = band if (info.affine2 or info.affinek or info.fusedm) else "off"
-    if any(ti.deltam for ti in info.tiers):
-        fused = mech
-    return band, fused
+    if info.has_sparse_cw and not any(ti.deltam for ti in info.tiers):
+        return band, "off"
+    return band, mech
 
 
 def check_modes(modes, device) -> tuple:
@@ -826,64 +837,76 @@ def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes,
     current ``values``, with the variable's own value ``ownv`` [rc, NC] as
     the candidate.  Neighbour values come through the same gather as the
     draw (``_gather_nbr``); the sparse-weight gradient reuses them for its
-    table lookup.  On all-boolean graphs φ is counts-based: the slot axis
-    is reduced at once, so no [rc, D, A, NC] literal tensor is made;
-    elsewhere a literal is ``value == cs_eq`` and that tensor is made (the
-    caller's row chunk bounds it)."""
+    table lookup.  φ is ``ops.grad.record_phi``, the math of
+    ``grad_records``' plain version."""
     C = ts.bd_start.shape[0]
     _, D, A = tier_geom(ts, ti, C)
     A1 = A - 1
-    NC = values.shape[-1]
 
     def rows(arr, *tail):
         return _rows(arr, C, c, r0, rc, *tail)
 
-    pos = rows(ts.cs_pos, D, A)
-    ismine = rows(ts.cs_ismine, D, A)
-    msk = rows(ts.cs_mask, D, A)
-    hmask = rows(ts.cs_hmask, D, A)
-    n = rows(ts.cs_arity, D).to(torch.int32)[..., None]
-    typ = rows(ts.cs_type, D)[..., None]
-    if not all_boolean:
-        eq = rows(ts.cs_eq, D, A).to(values.dtype)
-        own_lit = (ownv[:, None, None, :] == eq[..., None]) == pos[..., None]
-        vals = None
-        if A1 > 0:
-            vals = _gather_nbr(ts, ti, values, rows(ts.cs_nbr, D, A1), c,
-                               modes, r0)
-            nbr_lit = (vals == eq[..., :A1, None]) == pos[..., :A1, None]
-            lit_head = torch.where(ismine[..., :A1, None],
-                                   own_lit[..., :A1, :], nbr_lit)
-            lit = torch.cat([lit_head, own_lit[..., A1:, :]], dim=-2)
-        else:
-            lit = own_lit
-        return _eval_phi_ax2(lit, msk[..., None], typ, n, present,
-                             hmask=hmask[..., None]), vals    # [rc, D, NC]
     vals = None
     if A1 > 0:
         vals = _gather_nbr(ts, ti, values, rows(ts.cs_nbr, D, A1), c, modes,
                            r0)
-        nbr_lit = (vals == 1) == pos[..., :A1, None]
-        nbrm = (msk & ~ismine)[..., :A1, None]
-        nl = (nbr_lit & nbrm).sum(dim=-2, dtype=torch.int32)
+    eq = None if all_boolean else rows(ts.cs_eq, D, A)
+    phi = record_phi(ownv, vals, rows(ts.cs_pos, D, A),
+                     rows(ts.cs_ismine, D, A), rows(ts.cs_mask, D, A),
+                     rows(ts.cs_hmask, D, A), eq, rows(ts.cs_arity, D),
+                     rows(ts.cs_type, D), present, all_boolean)
+    return phi, vals
+
+
+def _record_streams(ts, ti, C: int, gB: int, gsrc, n_graph: int, g: int,
+                    all_boolean: bool) -> tuple:
+    """The arguments of ``grad_records`` for one tier after the two worlds
+    and before ``present``: its streams, color-major, and its own rows (a
+    dense row r of color c at c*gB + off + g*(block // n_graph) + r; a hub
+    chunk's row from hb_row, which names rows of the whole block, a pad
+    chunk's clamped into it, where gsrc masks it)."""
+    Bl, D, A = tier_geom(ts, ti, C)
+
+    def rows(arr, *tail):
+        return arr.view((C, Bl) + tail)
+
+    if ti.hub:
+        own_base = ti.off
+        own_idx = ts.hb_row.clamp(max=ti.block - 1)
     else:
-        nbr_lit = None
-        nl = torch.zeros((rc, D, NC), dtype=torch.int32, device=values.device)
-    ownm = ismine & msk
-    o1 = (ownm & pos).sum(dim=-1, dtype=torch.int32)            # [rc, D]
-    o0 = ownm.sum(dim=-1, dtype=torch.int32) - o1
-    v1 = (ownv == 1)[:, None, :]                                # [rc, 1, NC]
-    nown = torch.where(v1, o1[..., None], o0[..., None])
-    head = None
-    if _need_head(present):
-        head_own = (hmask & ismine).any(dim=-1)[..., None]
-        headpos = (hmask & ismine & pos).any(dim=-1)[..., None]
-        if nbr_lit is not None:
-            hl = (nbr_lit & (hmask & ~ismine)[..., :A1, None]).any(dim=-2)
-        else:
-            hl = torch.zeros(nl.shape, dtype=torch.bool, device=nl.device)
-        head = torch.where(head_own, torch.where(v1, headpos, ~headpos), hl)
-    return _phi_from_counts(nl + nown, head, n, typ, present), vals
+        own_base = ti.off + g * (ti.block // n_graph)
+        own_idx = None
+    nbr = (rows(ts.cs_nbr, D, A - 1) if A > 1 else torch.empty(
+        (C, Bl, D, 0), dtype=torch.int32, device=ts.cs_type.device))
+    return (nbr, rows(ts.cs_pos, D, A), rows(ts.cs_ismine, D, A),
+            rows(ts.cs_mask, D, A), rows(ts.cs_hmask, D, A),
+            None if all_boolean else rows(ts.cs_eq, D, A),
+            rows(ts.cs_type, D), rows(ts.cs_arity, D), rows(ts.cs_feat, D),
+            rows(gsrc, D), own_base, gB, own_idx)
+
+
+def gradient_route(ti, info, modes, W: int, row_chunk: int | None = None,
+                   n_graph: int = 1) -> tuple:
+    """(route, mechanism) of one tier's gradient under ``modes``:
+
+      * ("pair", band): an affine2 tier with W <= GRAD_W_MAX, its band
+        mode on, no ``row_chunk`` and no graph sharding (as in the JAX
+        package) takes ``grad_pair_tile``;
+      * ("records", fused): with the fused mode on, every other tier takes
+        ``grad_records`` ("cuda") or ``grad_records_plain`` ("plain");
+      * ("chunked", "off"): the fused mode off, or a graph with sparse
+        per-combination weights (dense and sparse records alike), takes
+        the chunked route."""
+    band, fused = modes
+    if info.has_sparse_cw:
+        return "chunked", "off"
+    tband = tier_modes(ti, modes)[0]
+    if (ti.affine2 and W <= GRAD_W_MAX and tband != "off"
+            and row_chunk is None and n_graph == 1):
+        return "pair", tband
+    if fused != "off":
+        return "records", fused
+    return "chunked", "off"
 
 
 def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
@@ -892,26 +915,29 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
                           g: int = 0) -> torch.Tensor:
     """Weight gradient [W] on the cs streams: each factor counted once via
     its compile-time owner record (cs_gowner, or cs_gtouch unless
-    ``learn_non_evidence``), averaged over the NC chains.
+    ``learn_non_evidence``), averaged over the NC chains.  Each tier takes
+    its ``gradient_route``:
 
-    An affine2 tier with W <= GRAD_W_MAX and its band mode on ("cuda" or
-    "plain") and no ``row_chunk`` goes through ``grad_pair_tile`` (the
-    kernel, or its plain version), one call a color.  Every other tier
-    runs the chunked route: both worlds side by side on the chain axis,
-    rows in chunks of ``row_chunk`` (default ``_row_chunk``), φ from
-    ``_phi_streams`` and a segment sum per weight.  A hub tier's stream
-    rows are its chunks, each with its row's own value.  A sparse factor's
-    owner record adds +feat at the table weight of its evidence world's
-    combination and -feat at its free world's, the draw's table lookup
-    with the own value as the candidate.
+      * "pair": ``grad_pair_tile`` (the kernel, or its plain version), one
+        call a color;
+      * "records": ``grad_records`` (one launch a tier, all its colors) or
+        ``grad_records_plain`` (in chunks of ``row_chunk`` rows): each
+        record's contribution, then one segment sum per weight;
+      * "chunked": both worlds side by side on the chain axis, rows in
+        chunks of ``row_chunk`` (default ``_row_chunk``), φ from
+        ``_phi_streams`` (the same ``record_phi``) and ``records_diff``,
+        then the segment sum.  A sparse factor's owner record adds +feat
+        at the table weight of its evidence world's combination and -feat
+        at its free world's, the draw's table lookup with the own value as
+        the candidate.
 
-    Under graph sharding ``dg`` holds rank ``g``'s stream slices of
-    ``n_graph`` while the worlds are whole: a local record's own row is
+    A hub tier's stream rows are its chunks, each with its row's own
+    value.  Under graph sharding ``dg`` holds rank ``g``'s stream slices
+    of ``n_graph`` while the worlds are whole: a local record's own row is
     c*B + ti.off + g*(ti.block // n_graph) + r (a hub chunk's comes from
     hb_row, which names rows of the whole block).  Owner records are
     disjoint across the ranks, so their gradients sum over the graph
-    group.  ``grad_pair_tile`` runs at n_graph 1 only, as in the JAX
-    package: sharded learning takes the chunked route."""
+    group."""
     W = dg.w_init.shape[0]
     NC = v_ev.shape[-1]
     gB = info.block_size
@@ -920,11 +946,9 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
     v_both = None
     for ts, ti in zip(dg.tiers, info.tiers):
         Bl, D, A = tier_geom(ts, ti, C)
-        band = tier_modes(ti, modes)[0]
-        if (ti.affine2 and W <= GRAD_W_MAX and band != "off"
-                and not info.has_sparse_cw and row_chunk is None
-                and n_graph == 1):
-            kernel = grad_pair_tile if band == "cuda" else grad_pair_tile_plain
+        route, mech = gradient_route(ti, info, modes, W, row_chunk, n_graph)
+        if route == "pair":
+            kernel = grad_pair_tile if mech == "cuda" else grad_pair_tile_plain
             coef = ts.gd_cown if learn_non_evidence else ts.gd_ctch
             for c in range(C):
                 parts = kernel(v_ev, v_free, ts.bd_nbr, ts.bd_start[c],
@@ -934,15 +958,24 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
                 grad = grad + (parts.sum(dim=0, dtype=torch.float64)
                                / NC).to(torch.float32)
             continue
+        present = ti.present_funcs or info.present_funcs
+        gsrc = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
+        if route == "records":
+            args = (v_ev, v_free, *_record_streams(
+                ts, ti, C, gB, gsrc, n_graph, g, info.all_boolean), present,
+                info.all_boolean)
+            out = (grad_records(*args) if mech == "cuda"
+                   else grad_records_plain(*args, row_chunk=row_chunk))
+            grad = grad + segment_reduce(out, ts.cs_wid, W)
+            continue
         if v_both is None:
             # one gather a chunk serves both worlds
             v_both = torch.cat([v_ev, v_free], dim=-1)
+        band = tier_modes(ti, modes)[0]
         rc = min(row_chunk or _row_chunk(ti, Bl, D, A, 2 * NC), Bl)
         if Bl % rc or (ti.band_w and band != "off" and rc % ti.band_tb):
             raise ValueError(f"row_chunk {rc} must divide tier block {Bl}"
                              " (and be a multiple of its band tile)")
-        present = ti.present_funcs or info.present_funcs
-        gsrc = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
         for c in range(C):
             for r0 in range(0, Bl, rc):
                 if ti.hub:
@@ -959,12 +992,11 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
                 sl = slice((c * Bl + r0) * D, (c * Bl + r0 + rc) * D)
                 feat = ts.cs_feat[sl].view(rc, D)
                 gm = gsrc[sl].view(rc, D)
-                diff = (phi[..., :NC] - phi[..., NC:]).mean(dim=-1) * feat
                 if info.has_sparse_cw:
                     issp = ts.cs_issparse[sl].view(rc, D)
-                    diff = torch.where(gm & ~issp, diff, 0.0)
+                    diff = records_diff(phi, feat, gm & ~issp)
                 else:
-                    diff = torch.where(gm, diff, 0.0)
+                    diff = records_diff(phi, feat, gm)
                 grad = grad + segment_reduce(diff, ts.cs_wid[sl], W)
                 if info.has_sparse_cw:
                     grad = grad + _sparse_grad_rows(

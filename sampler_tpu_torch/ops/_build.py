@@ -26,7 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("fused_color_draw.cu", "banded_gather.cu", "grad_pair_tile.cu",
            "banded_gather_multi.cu", "fused_dm_draw.cu", "fused_cat_draw.cu",
-           "tally_counts.cu", "dm_gather_draw.cu")
+           "tally_counts.cu", "dm_gather_draw.cu", "grad_records.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 300
@@ -50,6 +50,9 @@ LAUNCHERS = {
     "tally_counts_launch": (_P, _L, _I, _I, _P, _I, _P),
     "dm_gather_draw_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _P, _P, _P, _I, _P),
+    "grad_records_launch": (_P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _I,
+                            _P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
+                            _I, _P, _P),
 }
 
 

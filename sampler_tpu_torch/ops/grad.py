@@ -1,5 +1,11 @@
-"""Moment-factored contrastive gradient of one color of an affine2 tier
-(counterpart of sampler_tpu/ops/grad.py, ``grad_pair_tile``).
+"""The weight gradient's kernels: ``grad_pair_tile``, the moment-factored
+contrastive gradient of one color of an affine2 tier (counterpart of
+sampler_tpu/ops/grad.py, ``grad_pair_tile``), and ``grad_records``, each
+record's contribution to the gradient on the cs streams of any other tier
+(the row-chunk body of the JAX package's mc_weight_gradient_cs, which XLA
+fuses; csrc/grad_records.cu).
+
+``grad_pair_tile``:
 
 For an affine2 tier (pairwise boolean) φ of one incidence record is
 bilinear in the binary own value o and the neighbour value n:
@@ -30,12 +36,15 @@ float64 rounding before that one float32 rounding.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import format_spec as fs
 from ._build import check_tensor, launch
 
 GRAD_W_MAX = 64                 # weights a kernel launch accumulates
 PLAIN_CHUNK_TILES = 64
+RECORD_CHUNK_ELEMS = 1 << 26    # (row, record, slot, chain) a plain chunk
 
 
 def _check_shapes(v_ev, v_free, nbr_dmaj, starts, streams, c, own0, W, TB,
@@ -151,3 +160,253 @@ def grad_pair_tile(v_ev, v_free, nbr_dmaj, starts, wid, coef, ao, an, ax,
 
 
 grad_pair_tile.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# grad_records: each record's contribution on the cs streams
+# ---------------------------------------------------------------------------
+
+def inv_chains(NC: int) -> float:
+    """1/NC rounded to float32, the factor of the chain mean."""
+    return float(np.float32(1.0) / np.float32(NC))
+
+
+def record_phi(own, nbrv, pos, ismine, msk, hmask, eq, arity, typ, present,
+               all_boolean: bool) -> torch.Tensor:
+    """φ float32 [rc, D, NC] of rows of cs-stream records, with ``own``
+    [rc, NC] the rows' own values and ``nbrv`` [rc, D, A-1, NC] (None on a
+    unary tier) the values at their neighbour slots; pos, ismine, msk,
+    hmask [rc, D, A], eq [rc, D, A] (None on all-boolean graphs), arity
+    and typ [rc, D].  On all-boolean graphs φ is counts-based: the slot
+    axis is reduced at once, so no [rc, D, A, NC] literal tensor is made;
+    elsewhere a literal is ``value == eq`` and that tensor is made (the
+    caller's row chunk bounds it)."""
+    # engine/__init__ imports the engine, which imports this module
+    from ..engine.potentials import _eval_phi_ax2, _need_head, \
+        _phi_from_counts
+
+    D, A = pos.shape[1], pos.shape[2]
+    A1 = A - 1
+    n = arity.to(torch.int32)[..., None]
+    typ = typ[..., None]
+    if not all_boolean:
+        eq = eq.to(own.dtype)
+        own_lit = (own[:, None, None, :] == eq[..., None]) == pos[..., None]
+        if A1 > 0:
+            nbr_lit = (nbrv == eq[..., :A1, None]) == pos[..., :A1, None]
+            lit_head = torch.where(ismine[..., :A1, None],
+                                   own_lit[..., :A1, :], nbr_lit)
+            lit = torch.cat([lit_head, own_lit[..., A1:, :]], dim=-2)
+        else:
+            lit = own_lit
+        return _eval_phi_ax2(lit, msk[..., None], typ, n, present,
+                             hmask=hmask[..., None])
+    rc, NC = own.shape
+    if A1 > 0:
+        nbr_lit = (nbrv == 1) == pos[..., :A1, None]
+        nbrm = (msk & ~ismine)[..., :A1, None]
+        nl = (nbr_lit & nbrm).sum(dim=-2, dtype=torch.int32)
+    else:
+        nbr_lit = None
+        nl = torch.zeros((rc, D, NC), dtype=torch.int32, device=own.device)
+    ownm = ismine & msk
+    o1 = (ownm & pos).sum(dim=-1, dtype=torch.int32)            # [rc, D]
+    o0 = ownm.sum(dim=-1, dtype=torch.int32) - o1
+    v1 = (own == 1)[:, None, :]                                 # [rc, 1, NC]
+    nown = torch.where(v1, o1[..., None], o0[..., None])
+    head = None
+    if _need_head(present):
+        head_own = (hmask & ismine).any(dim=-1)[..., None]
+        headpos = (hmask & ismine & pos).any(dim=-1)[..., None]
+        if nbr_lit is not None:
+            hl = (nbr_lit & (hmask & ~ismine)[..., :A1, None]).any(dim=-2)
+        else:
+            hl = torch.zeros(nl.shape, dtype=torch.bool, device=nl.device)
+        head = torch.where(head_own, torch.where(v1, headpos, ~headpos), hl)
+    return _phi_from_counts(nl + nown, head, n, typ, present)
+
+
+def records_diff(phi, feat, gsel) -> torch.Tensor:
+    """A record's gradient contribution [rc, D] from φ [rc, D, 2NC] of both
+    worlds side by side (the evidence world's NC chains first):
+    ((Σ_n φ_ev − φ_free) · (1/NC)) · feat where ``gsel``, else 0."""
+    NC = phi.shape[-1] // 2
+    s = (phi[..., :NC] - phi[..., NC:]).sum(dim=-1)
+    return torch.where(gsel, s * inv_chains(NC) * feat, 0.0)
+
+
+def _present_bits(present) -> tuple:
+    present = tuple(int(t) for t in present)
+    if not present or any(t not in fs.ALL_FACTOR_FUNCS for t in present):
+        raise ValueError(f"grad_records: present types {present}")
+    bits = 0
+    for t in present:
+        bits |= 1 << t
+    return bits, (present[0] if len(present) == 1 else -1)
+
+
+def _check_records(v_ev, v_free, nbr, pos, ismine, mask, hmask, eq, typ,
+                   arity, feat, gsel, own_base, color_stride, own_idx,
+                   present, all_boolean) -> None:
+    P = v_ev.shape[0] if v_ev.dim() == 2 else 0
+    ok = (v_ev.dim() == 2 and v_free.shape == v_ev.shape
+          and v_free.dtype == v_ev.dtype
+          and v_ev.dtype in (torch.int8, torch.int32) and pos.dim() == 4
+          and v_ev.shape[1] > 0)
+    if ok:
+        C, B, D, A = pos.shape
+        ok = (A >= 1 and D >= 1
+              and all(t.shape == pos.shape for t in (ismine, mask, hmask))
+              and tuple(nbr.shape) == (C, B, D, A - 1)
+              and all(t.shape == (C, B, D) for t in (typ, arity, feat, gsel))
+              and (eq is None) == bool(all_boolean)
+              and (eq is None or eq.shape == pos.shape)
+              and (not all_boolean or v_ev.dtype == torch.int8)
+              and own_base >= 0 and color_stride >= 0
+              and (own_idx is None or tuple(own_idx.shape) == (C, B))
+              and (own_idx is not None or C == 0
+                   or own_base + (C - 1) * color_stride + B <= P))
+    if not ok:
+        def shapes(*ts):
+            return [None if t is None else tuple(t.shape) for t in ts]
+
+        raise ValueError(
+            f"grad_records: worlds {tuple(v_ev.shape)} {v_ev.dtype} and "
+            f"{tuple(v_free.shape)} {v_free.dtype}, nbr {tuple(nbr.shape)}, "
+            f"slot streams {shapes(pos, ismine, mask, hmask, eq)}, record "
+            f"streams {shapes(typ, arity, feat, gsel)}, own_base={own_base}"
+            f", color_stride={color_stride}, own_idx {shapes(own_idx)}, "
+            f"all_boolean={all_boolean}")
+    _present_bits(present)
+
+
+def _rows_or_zero(world, idx) -> torch.Tensor:
+    """world[idx] with a row outside [0, P) read as 0, as the kernel reads
+    it."""
+    P = world.shape[0]
+    valid = (idx >= 0) & (idx < P)
+    rows = world.index_select(0, torch.where(valid, idx, 0).reshape(-1))
+    rows = rows.reshape(idx.shape + (world.shape[1],))
+    return torch.where(valid[..., None], rows, 0)
+
+
+def _out(out, shape: tuple, dev) -> torch.Tensor:
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    check_tensor(out, "out", torch.float32, dev, len(shape))
+    if tuple(out.shape) != shape:
+        raise ValueError(f"grad_records: out {tuple(out.shape)}, expected "
+                         f"{shape}")
+    return out
+
+
+def grad_records_plain(v_ev, v_free, nbr, pos, ismine, mask, hmask, eq, typ,
+                       arity, feat, gsel, own_base: int, color_stride: int,
+                       own_idx, present, all_boolean: bool,
+                       row_chunk: int | None = None,
+                       out=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`grad_records`: the chunked
+    gradient's per-record math (``record_phi``, then ``records_diff``) a
+    color at a time, over chunks of ``row_chunk`` rows (default:
+    ~RECORD_CHUNK_ELEMS elements of the [rows, D, A, 2NC] temporaries),
+    the neighbour and own values gathered from each world by position."""
+    _check_records(v_ev, v_free, nbr, pos, ismine, mask, hmask, eq, typ,
+                   arity, feat, gsel, own_base, color_stride, own_idx,
+                   present, all_boolean)
+    C, B, D, A = pos.shape
+    NC = v_ev.shape[1]
+    dev = v_ev.device
+    rc = row_chunk or max(1, RECORD_CHUNK_ELEMS // (D * A * 2 * NC))
+    out = _out(out, (C, B, D), dev)
+    for c in range(C):
+        base = own_base + c * color_stride
+        for r0 in range(0, B, rc):
+            r1 = min(B, r0 + rc)
+            rows = (own_idx[c, r0:r1].to(torch.int64) if own_idx is not None
+                    else torch.arange(r0, r1, device=dev)) + base
+            own = torch.cat([_rows_or_zero(v_ev, rows),
+                             _rows_or_zero(v_free, rows)], dim=-1)
+            nbrv = None
+            if A > 1:
+                idx = nbr[c, r0:r1].to(torch.int64)
+                nbrv = torch.cat([_rows_or_zero(v_ev, idx),
+                                  _rows_or_zero(v_free, idx)], dim=-1)
+            phi = record_phi(own, nbrv, pos[c, r0:r1], ismine[c, r0:r1],
+                             mask[c, r0:r1], hmask[c, r0:r1],
+                             None if eq is None else eq[c, r0:r1],
+                             arity[c, r0:r1], typ[c, r0:r1], present,
+                             all_boolean)
+            out[c, r0:r1] = records_diff(phi, feat[c, r0:r1],
+                                         gsel[c, r0:r1])
+    return out
+
+
+def grad_records(v_ev, v_free, nbr, pos, ismine, mask, hmask, eq, typ,
+                 arity, feat, gsel, own_base: int, color_stride: int,
+                 own_idx, present, all_boolean: bool,
+                 out=None) -> torch.Tensor:
+    """Each record's gradient contribution, f32 [C, B, D], of a tier's
+    colors: ((Σ_n φ_ev − φ_free) · (1/NC)) · feat where the owner mask
+    ``gsel`` is set, else 0; the caller sums it per weight id.  Written
+    into ``out`` (contiguous f32 [C, B, D]) when given.
+
+    v_ev, v_free [P, NC] int8 or int32 (the evidence and the free worlds);
+    the tier's streams, color-major: nbr int32 [C, B, D, A-1] (global
+    positions), pos, ismine, mask, hmask bool [C, B, D, A], eq int16 or
+    int32 [C, B, D, A] (None on all-boolean graphs, whose worlds are
+    int8), typ int8, arity int16, feat f32, gsel bool [C, B, D]; row r of
+    color c has its own value at position ``own_base + c*color_stride +
+    r``, or ``own_base + c*color_stride + own_idx[c, r]`` with ``own_idx``
+    int32 [C, B] (a hub tier's chunks); ``present`` the tier's factor
+    types.  A position outside [0, P) reads 0.
+
+    A CPU tensor goes to the plain version; a CUDA tensor to the kernel,
+    one launch for all colors (it adds one to ``grad_records.launches``)."""
+    if v_ev.device.type == "cpu":
+        return grad_records_plain(v_ev, v_free, nbr, pos, ismine, mask,
+                                  hmask, eq, typ, arity, feat, gsel,
+                                  own_base, color_stride, own_idx, present,
+                                  all_boolean, out=out)
+    if v_ev.device.type != "cuda":
+        raise ValueError(f"grad_records: no kernel for {v_ev.device}")
+    dev = v_ev.device
+    _check_records(v_ev, v_free, nbr, pos, ismine, mask, hmask, eq, typ,
+                   arity, feat, gsel, own_base, color_stride, own_idx,
+                   present, all_boolean)
+    check_tensor(v_ev, "v_ev", v_ev.dtype, dev, 2)
+    check_tensor(v_free, "v_free", v_ev.dtype, dev, 2)
+    check_tensor(nbr, "nbr", torch.int32, dev, 4)
+    for name, t in (("pos", pos), ("ismine", ismine), ("mask", mask),
+                    ("hmask", hmask)):
+        check_tensor(t, name, torch.bool, dev, 4)
+    if eq is not None:
+        if eq.dtype not in (torch.int16, torch.int32):
+            raise TypeError(f"eq has dtype {eq.dtype}, expected int16 or "
+                            "int32")
+        check_tensor(eq, "eq", eq.dtype, dev, 4)
+    for name, t, dt in (("typ", typ, torch.int8), ("arity", arity,
+                                                   torch.int16),
+                        ("feat", feat, torch.float32),
+                        ("gsel", gsel, torch.bool)):
+        check_tensor(t, name, dt, dev, 3)
+    if own_idx is not None:
+        check_tensor(own_idx, "own_idx", torch.int32, dev, 2)
+    bits, single = _present_bits(present)
+    C, B, D, A = pos.shape
+    P, NC = v_ev.shape
+    out = _out(out, (C, B, D), dev)
+    with torch.cuda.device(dev):
+        launch("grad_records_launch", v_ev.data_ptr(), v_free.data_ptr(),
+               v_ev.element_size(), NC, P, nbr.data_ptr() if A > 1 else None,
+               pos.data_ptr(), ismine.data_ptr(), mask.data_ptr(),
+               hmask.data_ptr(), None if eq is None else eq.data_ptr(),
+               0 if eq is None else eq.element_size(), typ.data_ptr(),
+               arity.data_ptr(), feat.data_ptr(), gsel.data_ptr(), own_base,
+               color_stride, None if own_idx is None else own_idx.data_ptr(),
+               C, B, D, A, bits, single, out.data_ptr(),
+               torch.cuda.current_stream(dev).cuda_stream)
+    grad_records.launches += 1
+    return out
+
+
+grad_records.launches = 0

@@ -164,8 +164,9 @@ def _split(name: str, a: torch.Tensor, C: int, n_graph: int,
     return part.reshape(-1) if flat else part
 
 
-def shard_device_graph(dg, info, n_graph: int, g: int, device="cpu"):
-    """Rank g's local DeviceGraph on ``device``: for each tier and color,
+def shard_device_graph(dg, info, n_graph: int, g: int, device="cuda"):
+    """Rank g's local DeviceGraph on ``device`` (the card by default, as
+    ``compile.to_device``; pass "cpu" for the CPU): for each tier and color,
     the contiguous 1/n_graph run of every record stream (cs_, cm_, ab_,
     dm_, hb_; re-flattened, so tier_geom and the engine read a local
     block of block / n_graph rows, or chunks / n_graph hub chunks), the

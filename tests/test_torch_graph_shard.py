@@ -148,7 +148,7 @@ def test_local_streams_equal_jax_split(name, n_graph):
     specs = jgs._dg_specs(two_d)
     split = 0
     for g in range(n_graph):
-        local = tgs.shard_device_graph(dg, info, n_graph, g)
+        local = tgs.shard_device_graph(dg, info, n_graph, g, "cpu")
         for t, (ts, tsj, sp) in enumerate(zip(local.tiers, two_d.tiers,
                                                specs.tiers)):
             for f in ts._fields:
@@ -215,7 +215,7 @@ def test_sharded_gradient_sums_to_jax(name, n_graph, band, lne):
         infoj, ("off", "off")))
     total = np.zeros_like(want)
     for g in range(n_graph):
-        local = tgs.shard_device_graph(dg, info, n_graph, g)
+        local = tgs.shard_device_graph(dg, info, n_graph, g, "cpu")
         total += tmc.mc_weight_gradient_cs(
             local, torch.from_numpy(v_ev), torch.from_numpy(v_free), lne,
             info, (band, "off"), n_graph=n_graph, g=g).numpy()
@@ -250,7 +250,7 @@ def test_hub_partial_sums_add_up(name):
                                 folded_t=folded and folded[t])
         parts = 0
         for g in range(n_graph):
-            local = tgs.shard_device_graph(dg, info, n_graph, g)
+            local = tgs.shard_device_graph(dg, info, n_graph, g, "cpu")
             fl = tmc.prepare_fold(local, local.w_init, info, ("off", "off"))
             parts = parts + tmc.hub_partial(local, local.tiers[t], ti,
                                             values, local.w_init, c, info,

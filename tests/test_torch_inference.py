@@ -456,7 +456,7 @@ def test_card200_worlds_are_int32_and_band_off():
     dg, info = compile_graph(g)
     assert info.max_card == 200
     assert tmc.values_dtype(info) == torch.int32
-    assert tmc.resolve_modes(info, "cpu") == ("off", "off")
+    assert tmc.resolve_modes(info, "cpu") == ("off", "plain")
     d = to_device(dg, "cpu")
     v = tmc.init_values_mc(d, torch.Generator().manual_seed(0), 512, info)
     assert v.dtype == torch.int32
