@@ -22,10 +22,13 @@ single-window and multi-window banded alike, hub tiers included:
     factor, one window a tile, 2 <= K <= 32) with the fused mode on draw a
     whole color in ``ops.fused.fused_cat_draw`` (one CUDA kernel);
   * the other deltam tiers (boolean, arity 2 or 3, multilinear
-    coefficients, no banded plan: the KBC class's dense tiers) with the
-    fused mode on draw a whole color in ``ops.fused.dm_gather_draw`` (one
-    CUDA kernel, gathering by global position), and a deltam hub tier's
-    chunk log-odds come from the same kernel's delta mode;
+    coefficients, no banded plan: the KBC class's dense tiers and its hub
+    tier) with the fused mode on draw a whole color, all those tiers of it
+    together, in ``ops.fused.dm_gather_draw_tiers`` (one CUDA kernel a
+    color, gathering by global position; a hub row's chunks summed as one
+    deep row in a fixed order and drawn in the kernel); under graph
+    sharding a tier at a time, a hub tier's chunk log-odds from the same
+    kernel's delta mode;
   * the other tiers, and every tier with the fused mode off, compute the
     log-odds with ``color_delta_multilin`` (deltam tiers) or
     ``color_delta_bool`` on all-boolean graphs, and the K candidates'
@@ -33,10 +36,10 @@ single-window and multi-window banded alike, hub tiers included:
     of rows at a time) on the others, gathering neighbour values with
     ``ops.banded.banded_gather`` (band_k 1), ``banded_gather_multi``
     (band_k >= 2) or ``index_select`` (band off);
-  * a hub tier (the variables of more than ``hub_cap`` factors) draws in
-    ``hub_color_draw``: its chunks of records are evaluated like rows of a
-    dense tier, and their deltas or logits summed onto their rows with
-    ``index_add_``;
+  * a hub tier (the variables of more than ``hub_cap`` factors) that the
+    kernel does not draw draws in ``hub_color_draw``: its chunks of
+    records are evaluated like rows of a dense tier, and their deltas or
+    logits summed onto their rows with ``index_add_``;
   * the tallies of inference go through ``ops.tally.tally_counts`` (one
     CUDA kernel a sweep);
   * ``learn_mc`` runs contrastive SGD over an evidence and a free world of
@@ -46,14 +49,15 @@ single-window and multi-window banded alike, hub tiers included:
     through ``ops.grad.grad_records`` (one CUDA kernel a tier: each
     record's contribution, then a segment sum) on the other tiers while
     the fused mode is on, and through the chunked cs-stream route
-    (``_phi_streams``, with the same gathers as the draw) with it off and
-    on graphs with sparse per-combination weights;
+    (``_phi_streams``, with the same gathers as the draw) with it off;
   * sparse per-combination weights (a factor whose weight is looked up by
     its members' joint values in ``cwt_wid``; compile turns the affine
     and fused plans off beside them) take the candidate route
-    (``color_logits_mc``'s sparse branch) and the chunked gradient; every
-    table index is clipped to the table, and a miss lands on the reserved
-    zero weight at index W, whose gradient is held at 0.
+    (``color_logits_mc``'s sparse branch); in the gradient their dense
+    records take ``grad_records`` and their sparse owner records the
+    table lookup beside it, over a list of those records built once a
+    graph; every table index is clipped to the table, and a miss lands on
+    the reserved zero weight at index W, whose gradient is held at 0.
 
 Graph sharding (``parallel.graph_shard``) runs the same color step on a
 rank's slice of the streams: ``color_step_mc`` and ``sweep_mc`` take a
@@ -87,16 +91,20 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import format_spec as fs
 from ..compile import factor_records, resolve_device, tier_geom
 from ..ops.banded import (banded_gather, banded_gather_multi,
                           banded_gather_multi_plain, banded_gather_plain)
-from ..ops.fused import (dm_gather_draw, dm_gather_draw_plain, fold_affine,
-                         fold_affine_cat, fold_deltam, fold_deltam_tiles,
-                         fused_cat_draw, fused_cat_draw_plain,
-                         fused_color_draw, fused_color_draw_plain,
-                         fused_dm_draw, fused_dm_draw_plain)
+from ..ops.fused import (DM_MAX_TIERS, DmTier, dm_gather_draw,
+                         dm_gather_draw_plain, dm_gather_draw_table,
+                         dm_gather_draw_tiers_plain, dm_tier_table,
+                         fold_affine, fold_affine_cat, fold_deltam,
+                         fold_deltam_tiles, fused_cat_draw,
+                         fused_cat_draw_plain, fused_color_draw,
+                         fused_color_draw_plain, fused_dm_draw,
+                         fused_dm_draw_plain)
 from ..ops.grad import (GRAD_W_MAX, grad_pair_tile, grad_pair_tile_plain,
                         grad_records, grad_records_plain, record_phi,
                         records_diff)
@@ -121,14 +129,13 @@ def resolve_modes(info, device) -> tuple:
     JAX package's draws or gradient.  A tier draws through a fused kernel
     only where ``tier_modes`` finds it a plan (a banded affine2 / affinek
     / fusedm tier, whose band is then on, as JAX resolve_fused follows
-    band, or the multilinear coefficients of dm_gather_draw); every tier
-    that ``gradient_route`` reaches takes grad_records.  A graph with
-    sparse per-combination weights and no deltam tier has neither: its
-    fused mode is off."""
+    band, or the multilinear coefficients of dm_gather_draw): a graph with
+    sparse per-combination weights has none, and its tiers draw eagerly
+    (the table lookup) whatever the fused mode.  Every tier that
+    ``gradient_route`` reaches takes grad_records, the dense records of
+    sparse-weight graphs too."""
     mech = "cuda" if torch.device(device).type == "cuda" else "plain"
     band = mech if info.band_w > 0 and info.max_card <= 127 else "off"
-    if info.has_sparse_cw and not any(ti.deltam for ti in info.tiers):
-        return band, "off"
     return band, mech
 
 
@@ -464,15 +471,22 @@ def color_draw_categorical(dg, ts, ti, values, weights, generator, c, info,
     return out
 
 
-def prepare_fold(dg, weights, info, modes):
+class Folded(tuple):
+    """prepare_fold's per-tier folded streams; ``dm`` is the plan of
+    dm_gather_draw's launches a color step (_DmPlan), or None."""
+    dm = None
+
+
+def prepare_fold(dg, weights, info, modes, plan: bool = True):
     """Per-tier folded coefficient streams (None for tiers no folded path
-    covers), or None when nothing folds: with the fused mode on,
-    fold_affine for affine2 tiers, fold_affine_cat for affinek tiers and
-    fold_deltam_tiles (the kernel's tile layout) for fusedm tiers;
-    fold_deltam for the other deltam tiers.
+    covers), as a Folded tuple, or None when nothing folds: with the fused
+    mode on, fold_affine for affine2 tiers, fold_affine_cat for affinek
+    tiers and fold_deltam_tiles (the kernel's tile layout) for fusedm
+    tiers; fold_deltam for the other deltam tiers.
     color_draw_tier routes a tier to a fused draw under the same
-    condition, so a layout never reaches the wrong path.  Called once per
-    weights value, outside the sweep loop."""
+    condition, so a layout never reaches the wrong path.  With ``plan``
+    (an unsharded graph) the Folded also carries dm_gather_draw's plan
+    (``dm``).  Called once per weights value, outside the sweep loop."""
     use_fused = modes[1] != "off" and (info.affine2 or info.affinek
                                        or info.fusedm)
     if not (use_fused or any(ti.deltam for ti in info.tiers)):
@@ -491,7 +505,11 @@ def prepare_fold(dg, weights, info, modes):
             return fold_deltam(ts, ti, C, w)
         return None
 
-    return tuple(fold_one(ts, ti) for ts, ti in zip(dg.tiers, info.tiers))
+    folded = Folded(fold_one(ts, ti) for ts, ti in zip(dg.tiers, info.tiers))
+    if plan and modes[1] != "off":
+        dm = _DmPlan(dg, info, folded, modes)
+        folded.dm = dm if dm.tiers else None
+    return folded
 
 
 def hub_partial(dg, ts, ti, values, weights, c, info, modes=("off", "off"),
@@ -540,7 +558,9 @@ def hub_color_draw(dg, ts, ti, values, weights, generator, c, info,
                    psum=None) -> torch.Tensor:
     """Draw new values [B_t, NC] for a chunked-CSR hub tier of color ``c``:
     ``hub_partial``'s sums, then the Bernoulli or Gumbel-argmax draw, as
-    on the unfused dense tiers.
+    on the unfused dense tiers.  The color step takes it for a hub tier
+    that dm_gather_draw does not draw: the categorical hubs, the fused
+    mode off, and under graph sharding.
 
     Under graph sharding ``psum`` sums a tensor over the graph group in
     place: the ranks' partial sums are combined, and each rank draws the
@@ -573,6 +593,137 @@ def _fused(ti, folded_t, modes) -> bool:
     """A tier that draws in a fused kernel (or its plain version)."""
     return (not ti.hub and folded_t is not None
             and tier_modes(ti, modes)[1] != "off")
+
+
+def _dm_tier(ti, folded_t, modes) -> bool:
+    """A tier that dm_gather_draw draws: a deltam tier without a banded
+    plan (the hub tier too) with its fold and the fused mode on."""
+    return (ti.deltam and not (ti.affine2 or ti.fusedm)
+            and folded_t is not None and tier_modes(ti, modes)[1] != "off")
+
+
+# derived device arrays of a graph, built once: keyed by the stream they
+# come from, so they live as long as the graph
+_DERIVED = WeakIdKeyDictionary()
+
+
+def _derived(key: torch.Tensor, make):
+    got = _DERIVED.get(key)
+    if got is None:
+        got = _DERIVED[key] = make()
+    return got
+
+
+def hub_rows(ts, ti, c: int) -> torch.Tensor:
+    """The chunk offsets int32 [block + 1] of color ``c``'s hub rows: row r
+    is chunks rows[r] .. rows[r+1]-1 of the color's [M, G] chunk streams.
+    A row's chunks are consecutive and in row order; the pad chunks, whose
+    hb_row is the block, come last and belong to no row.  Built once a
+    graph (unsharded: a rank's run of chunks is not a color's)."""
+    def make():
+        row = ts.hb_row.to(torch.int64)                     # [C, M]
+        C = row.shape[0]
+        n = torch.zeros((C, ti.block + 1), dtype=torch.int64,
+                        device=row.device)
+        n.scatter_add_(1, row, torch.ones_like(row))
+        offs = torch.zeros((C, ti.block + 1), dtype=torch.int64,
+                           device=row.device)
+        offs[:, 1:] = n[:, :ti.block].cumsum(dim=1)
+        return offs.to(torch.int32)
+    return _derived(ts.hb_row, make)[c]
+
+
+def _dm_tier_list(dg, info, tiers, folded, c: int, ev: bool) -> list:
+    """The DmTier of color ``c`` of each planned tier, drawing into the world
+    under its resample mask (``ev``: the sample-evidence one)."""
+    out = []
+    for t in tiers:
+        ts, ti = dg.tiers[t], info.tiers[t]
+        mask = ts.cm_resample_ev[c] if ev else ts.cm_resample[c]
+        out.append(DmTier(*_dm_streams(ts, ti, c, info, folded[t]),
+                          rows=hub_rows(ts, ti, c) if ti.hub else None,
+                          write=(c * info.block_size + ti.off, mask)))
+    return out
+
+
+def _dm_tables(dg, info, tiers, folded) -> tuple:
+    """The planned tiers' launch tables, int64 [C, 2, T, 16] (color, mask
+    of the resample or the sample-evidence mode, tier), and the graph's
+    streams they point into: a template built once a graph
+    (dm_tier_table: its streams checked, its rows and masks), kept with
+    those streams and rebuilt when a tier's stream is another tensor, with
+    this fold's coefficient pointers written in, so a fold costs a few
+    numpy writes."""
+    C = info.n_colors
+    refs = tuple(x for t in tiers for x in (
+        dg.tiers[t].cs_nbr, dg.tiers[t].cm_resample,
+        dg.tiers[t].cm_resample_ev, dg.tiers[t].hb_row))
+    cache = _derived(dg.var_card, dict)
+    key = tuple(tiers)
+    got = cache.get(key)
+    if got is None or any(a is not b for a, b in zip(got[0], refs)):
+        got = cache[key] = (refs, np.stack([np.stack([
+            dm_tier_table(_dm_tier_list(dg, info, tiers, folded, c, ev))
+            for ev in (False, True)]) for c in range(C)]))
+    tab = got[1].copy()
+    colors = np.arange(C, dtype=np.int64)[:, None]
+    for i, t in enumerate(tiers):
+        B, D, _ = tier_geom(dg.tiers[t], info.tiers[t], C)
+        base, b1, b2, bx = folded[t]                 # fold_deltam layout
+        for col, x, n in ((4, base, B), (1, b1, B * D), (2, b2, B * D),
+                          (3, bx, B * D)):
+            if x is None:
+                continue
+            if (x.dtype != torch.float32 or not x.is_contiguous()
+                    or x.numel() != C * n or x.device != dg.var_card.device):
+                raise ValueError(f"dm_gather_draw: folded stream {col} of "
+                                 f"tier {t}: {x.dtype} {tuple(x.shape)}")
+            tab[:, :, i, col] = x.data_ptr() + colors * (4 * n)
+    return tab, refs
+
+
+class _DmPlan:
+    """dm_gather_draw's launches a color step, built by prepare_fold: the
+    tiers it draws (``_dm_tier``: the KBC class's dense tiers and its hub
+    tier), at most DM_MAX_TIERS a launch, each drawing into the world under
+    its resample mask or, in the sample-evidence mode, the other one.  On
+    the card their launch tables (``_dm_tables``), holding the fold's
+    coefficient streams and the graph's streams the tables point into; on
+    the CPU the DmTier lists of each (color, mode) for the plain version.
+    It holds no Folded, so it adds no reference cycle."""
+
+    def __init__(self, dg, info, folded, modes):
+        self.tiers = [t for t, (ti, f) in enumerate(zip(info.tiers, folded))
+                      if _dm_tier(ti, f, modes)]
+        self.tables = self.lists = None
+        if not self.tiers:
+            return
+        if modes[1] == "cuda":
+            self.tables, graph = _dm_tables(dg, info, self.tiers, folded)
+            self.streams = (graph, [folded[t] for t in self.tiers])
+        else:
+            self.lists = {(c, ev): _dm_tier_list(dg, info, self.tiers, folded,
+                                                 c, ev)
+                          for c in range(info.n_colors)
+                          for ev in (False, True)}
+
+    def draw(self, values, c: int, sample_evidence: bool, generator):
+        """Draw color ``c`` of every planned tier into ``values``: two
+        int32 seed words a tier from ``generator``, one launch (a launch
+        for each DM_MAX_TIERS tiers)."""
+        T, M = len(self.tiers), DM_MAX_TIERS
+        seeds = torch.randint(-(1 << 31), 1 << 31, (T, 2),
+                              generator=generator, device=values.device,
+                              dtype=torch.int32)
+        for i in range(0, T, M):
+            if self.tables is not None:
+                dm_gather_draw_table(
+                    values, self.tables[c, int(sample_evidence), i:i + M],
+                    seeds[i:i + M])
+            else:
+                dm_gather_draw_tiers_plain(
+                    values, self.lists[c, sample_evidence][i:i + M],
+                    seeds[i:i + M])
 
 
 def _dm_streams(ts, ti, c, info, folded_t) -> tuple:
@@ -642,7 +793,9 @@ def color_step_mc(dg, values, weights, generator, c, sample_evidence: bool,
     (tiers of one color share no factor, so tier by tier is the
     simultaneous block update); returns ``values``.  A fused tier's kernel
     writes its draws into the block itself, under the resample mask; the
-    other tiers' draws are written under it here.
+    other tiers' draws are written under it here.  Unsharded, the tiers
+    that dm_gather_draw takes (the KBC class's, its hub tier included)
+    draw first, all in one launch (``_DmPlan``).
 
     Under graph sharding ``shard`` (``parallel.graph_shard.Shard``) is
     this rank's place on the graph axis: ``dg`` holds the rank's stream
@@ -653,9 +806,14 @@ def color_step_mc(dg, values, weights, generator, c, sample_evidence: bool,
     B = info.block_size
     n, g = (1, 0) if shard is None else (shard.n_graph, shard.g)
     psum = None if shard is None else shard.psum
+    plan = None if shard is not None else getattr(folded, "dm", None)
+    if plan is not None:
+        plan.draw(values, c, sample_evidence, generator)
     if folded is None:
         folded = (None,) * len(dg.tiers)
     for t, (ts, ti) in enumerate(zip(dg.tiers, info.tiers)):
+        if plan is not None and t in plan.tiers:
+            continue
         resample = (ts.cm_resample_ev[c] if sample_evidence
                     else ts.cm_resample[c])
         Bl = ti.block // n
@@ -893,13 +1051,11 @@ def gradient_route(ti, info, modes, W: int, row_chunk: int | None = None,
         mode on, no ``row_chunk`` and no graph sharding (as in the JAX
         package) takes ``grad_pair_tile``;
       * ("records", fused): with the fused mode on, every other tier takes
-        ``grad_records`` ("cuda") or ``grad_records_plain`` ("plain");
-      * ("chunked", "off"): the fused mode off, or a graph with sparse
-        per-combination weights (dense and sparse records alike), takes
-        the chunked route."""
+        ``grad_records`` ("cuda") or ``grad_records_plain`` ("plain"); on
+        a graph with sparse per-combination weights its dense records, the
+        sparse owner records going to ``_sparse_grad_records`` beside it;
+      * ("chunked", "off"): with the fused mode off, the chunked route."""
     band, fused = modes
-    if info.has_sparse_cw:
-        return "chunked", "off"
     tband = tier_modes(ti, modes)[0]
     if (ti.affine2 and W <= GRAD_W_MAX and tband != "off"
             and row_chunk is None and n_graph == 1):
@@ -922,7 +1078,11 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
         call a color;
       * "records": ``grad_records`` (one launch a tier, all its colors) or
         ``grad_records_plain`` (in chunks of ``row_chunk`` rows): each
-        record's contribution, then one segment sum per weight;
+        record's contribution, then one segment sum per weight.  On a
+        graph with sparse per-combination weights the kernel takes the
+        dense owner records (``_sparse_owners``), and the sparse ones take
+        ``_sparse_grad_records``: the table lookup of each world's
+        combination over a list of those records, one pass a tier;
       * "chunked": both worlds side by side on the chain axis, rows in
         chunks of ``row_chunk`` (default ``_row_chunk``), φ from
         ``_phi_streams`` (the same ``record_phi``) and ``records_diff``,
@@ -961,12 +1121,19 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
         present = ti.present_funcs or info.present_funcs
         gsrc = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
         if route == "records":
+            gsel, sparse = gsrc, None
+            if info.has_sparse_cw:
+                gsel, sparse = _sparse_owners(ts, gsrc)
             args = (v_ev, v_free, *_record_streams(
-                ts, ti, C, gB, gsrc, n_graph, g, info.all_boolean), present,
+                ts, ti, C, gB, gsel, n_graph, g, info.all_boolean), present,
                 info.all_boolean)
             out = (grad_records(*args) if mech == "cuda"
                    else grad_records_plain(*args, row_chunk=row_chunk))
             grad = grad + segment_reduce(out, ts.cs_wid, W)
+            if sparse is not None and sparse.numel():
+                grad = grad + _sparse_grad_records(
+                    dg, ts, ti, C, gB, v_ev, v_free, sparse,
+                    ti.off + g * (ti.block // n_graph), W)
             continue
         if v_both is None:
             # one gather a chunk serves both worlds
@@ -1005,6 +1172,48 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
     if info.has_sparse_cw:
         grad[W - 1] = 0.0               # keep the reserved slot inert
     return grad
+
+
+def _sparse_owners(ts, gsrc) -> tuple:
+    """(the dense owner records ``gsrc & ~cs_issparse``, bool like gsrc;
+    the sparse owner records' flat indices into the tier's [C, B, D]
+    records, int64 [K]) of an owner mask, built once a graph."""
+    def make():
+        issp = ts.cs_issparse.view(gsrc.shape)
+        return gsrc & ~issp, (gsrc & issp).nonzero().flatten()
+    return _derived(gsrc, make)
+
+
+def _sparse_grad_records(dg, ts, ti, C, gB, v_ev, v_free, rec, own0: int,
+                         W: int) -> torch.Tensor:
+    """The sparse owner records' gradient on one tier (a dense tier; hub
+    tiers do not combine with sparse weights): each record ``rec`` (flat
+    [C, B, D] indices) adds feat/NC at the table weight of its evidence
+    world's combination and -feat/NC at its free world's, the draw's
+    table lookup with the row's own value as the candidate.  Its own row
+    is c*gB + own0 + r."""
+    Bl, D, A = tier_geom(ts, ti, C)
+    NC = v_ev.shape[-1]
+    c, r = rec // (Bl * D), (rec // D) % Bl
+    own = c * gB + own0 + r
+    stride = ts.cs_cwstride.view(-1, A).index_select(0, rec)
+    ismine = ts.cs_ismine.view(-1, A).index_select(0, rec)
+    s_own = torch.where(ismine, stride, 0).sum(dim=-1, dtype=torch.int32)
+    base = ts.cs_cwbase.index_select(0, rec)
+    nbr = (ts.cs_nbr.view(-1, A - 1).index_select(0, rec)
+           if A > 1 else None)
+    wids = []
+    for v in (v_ev, v_free):
+        nbrv = (None if nbr is None else v.index_select(
+            0, nbr.reshape(-1)).reshape(nbr.shape + (NC,)))
+        m = (base[:, None] + _stride_sum(stride[:, None], None if nbrv is
+                                         None else nbrv[:, None], A - 1,
+                                         NC)[:, 0]
+             + s_own[:, None] * v.index_select(0, own).to(torch.int32))
+        wids.append(_table_wid(dg, m))
+    sel = (ts.cs_feat.index_select(0, rec) / NC)[:, None].expand(-1, NC)
+    return segment_reduce(torch.cat([sel, -sel], dim=-1),
+                          torch.cat(wids, dim=-1), W)
 
 
 def _sparse_grad_rows(dg, ts, C, c, r0, rc, D, A, own, nbrv, sel, W):

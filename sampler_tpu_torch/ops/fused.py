@@ -47,6 +47,8 @@ bits for the same seed words.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -181,9 +183,13 @@ def affine_cat(cs_pos, cs_mask, cs_ismine, cs_hmask, cs_type, present=None):
 # --------------------------------------------------------------------------
 
 def _row_sum(x: torch.Tensor, D: int) -> torch.Tensor:
-    """Per-row sum of a flat d-minor stream, added in the order d = 0..D-1
-    (the JAX fold's order)."""
+    """Per-row sum of a flat d-minor stream: below D = 64 added in the
+    order d = 0..D-1, from D = 64 one reduction (the JAX fold's rule,
+    _fold_base; a loop there is a launch a record, most of a KBC fold's
+    host time)."""
     x = x.reshape(-1, D)
+    if D >= 64:
+        return x.sum(dim=1)
     acc = x[:, 0]
     for d in range(1, D):
         acc = acc + x[:, d]
@@ -623,146 +629,404 @@ fused_dm_draw.launches = 0
 # --------------------------------------------------------------------------
 
 DM_TILE_ROWS = 128      # rows a tile of dm_gather_draw's counter hash
+DM_SEGMENT = 16         # records a segment of dm_gather_draw's sum
+DM_MAX_TIERS = 8        # tiers one dm_gather_draw launch takes
+DM_HUB_LANES = 64       # segments of a hub row that a block sums at once
+_DM_FIELDS = 16         # int64 fields a tier in the launch table
 
 
-def _dm_check(values, nbr, base, b1, b2, bx, seed, write) -> None:
-    """Raise unless the shapes of a dm_gather_draw call agree."""
-    B, D, A1 = nbr.shape
-    NC = values.shape[1]
+class DmTier(NamedTuple):
+    """One tier's streams of one color for :func:`dm_gather_draw_tiers`.
+
+    nbr int32 [B, D, A1] (global positions, A1 = arity - 1 = 1 or 2; a
+    position outside [0, P) reads 0), base f32 [B], b1, b2, bx f32 [B, D]
+    (this color's rows of fold_deltam; b2, bx None when A1 == 1).  A hub
+    tier's streams are its [M, G, A1] chunks and [M] chunk bases, and
+    ``rows`` int32 [Bh + 1] its rows' chunk offsets: row g is chunks
+    rows[g] .. rows[g+1]-1 (consecutive) and has Bh rows; rows None for a
+    dense tier.  ``write`` None draws into a new int8 [B, NC] output;
+    (row0, mask) draws into the world (world-write mode, as in
+    fused_color_draw)."""
+    nbr: torch.Tensor
+    base: torch.Tensor
+    b1: torch.Tensor
+    b2: torch.Tensor | None
+    bx: torch.Tensor | None
+    rows: torch.Tensor | None = None
+    write: tuple | None = None
+
+    def n_rows(self) -> int:
+        return (self.nbr.shape[0] if self.rows is None
+                else self.rows.shape[0] - 1)
+
+    def lanes(self) -> int:
+        """The kernel's lanes a row: 1 (a thread a row's chains) for a row
+        of one segment, else the segments a block sums at once."""
+        if self.rows is not None:
+            return DM_HUB_LANES
+        nseg = -(-self.nbr.shape[1] // DM_SEGMENT)
+        return 1 if nseg <= 1 else 16 if nseg <= 16 else (
+            32 if nseg <= 32 else 64)
+
+
+def _dm_check(values, tier: DmTier, draw: bool) -> None:
+    """Raise unless the shapes of one tier of a dm_gather_draw call agree."""
+    nbr, base, b1, b2, bx, rows, write = tier
+    M, D, A1 = nbr.shape
+    P, NC = values.shape
     cross = (b2, bx) if A1 == 2 else ()
-    if (A1 not in (1, 2) or tuple(base.shape) != (B,)
-            or any(x is None or tuple(x.shape) != (B, D)
-                   for x in (b1, *cross))
-            or (A1 == 1 and (b2 is not None or bx is not None))
-            or (seed is None and write is not None)
-            or DM_TILE_ROWS * NC > 1 << 32):
+    ok = (A1 in (1, 2) and tuple(base.shape) == (M,)
+          and all(x is not None and tuple(x.shape) == (M, D)
+                  for x in (b1, *cross))
+          and (A1 == 2 or (b2 is None and bx is None))
+          and (draw or write is None) and DM_TILE_ROWS * NC <= 1 << 32
+          and (rows is None or (rows.dim() == 1 and rows.shape[0] >= 1
+                                and rows.dtype == torch.int32)))
+    if ok and write is not None:
+        row0, mask = write
+        n = mask.shape[0]
+        ok = (mask.dtype == torch.bool and mask.dim() == 1 and row0 >= 0
+              and 0 < n <= tier.n_rows() and row0 + n <= P)
+    if not ok:
+        where = None if write is None else (write[0], tuple(write[1].shape))
         raise ValueError(
             f"dm_gather_draw: nbr {tuple(nbr.shape)}, base "
             f"{tuple(base.shape)}, coefficients "
             f"{[None if x is None else tuple(x.shape) for x in (b1, b2, bx)]}"
-            f", NC={NC}, seed {'absent' if seed is None else 'given'}, "
-            f"write {'given' if write is not None else 'absent'}")
+            f", rows {None if rows is None else tuple(rows.shape)}, NC={NC}, "
+            f"seed {'given' if draw else 'absent'}, write {where}, world of "
+            f"{P} rows")
 
 
-def dm_gather_draw_plain(values, nbr, base, b1, b2, bx, seed,
-                         return_delta: bool = False, write=None):
-    """Plain PyTorch version of :func:`dm_gather_draw`, over chunks of rows
-    whose gathered [rows, D, A1, NC] values hold about PLAIN_CHUNK_ELEMS
-    elements, so its temporaries stay bounded (~0.2 GB as float32 terms)
-    whatever the degree and the chain count."""
-    _dm_check(values, nbr, base, b1, b2, bx, seed, write)
-    B, D, A1 = nbr.shape
+def _dm_check_rows(rows, M: int) -> None:
+    """Raise unless a hub tier's chunk offsets ``rows`` lie in [0, M] and
+    do not decrease (the kernel reads a row's chunks unchecked)."""
+    r = rows.to("cpu", torch.int64)
+    if (r.numel() == 0 or int(r[0]) < 0 or int(r[-1]) > M
+            or bool((r[1:] < r[:-1]).any())):
+        raise ValueError(f"dm_gather_draw: hub chunk offsets outside "
+                         f"[0, {M}] or decreasing")
+
+
+def _dm_terms(values, nbr, b1, b2, bx) -> torch.Tensor:
+    """Each record's term b1*n1 + b2*n2 + bx*(n1*n2), f32 [n, D, NC], with
+    n1, n2 the world's values at its positions (0 outside [0, P))."""
+    n, D, A1 = nbr.shape
     P, NC = values.shape
+    idx = nbr.to(torch.int64)
+    valid = (idx >= 0) & (idx < P)
+    v = values.index_select(0, torch.where(valid, idx, 0).reshape(-1))
+    v = v.reshape(n, D, A1, NC).to(torch.float32).masked_fill_(
+        ~valid[..., None], 0.0)
+    n1 = v[:, :, 0]
+    terms = b1[:, :, None] * n1
+    if A1 == 2:
+        n2 = v[:, :, 1]
+        terms = terms + b2[:, :, None] * n2 + bx[:, :, None] * (n1 * n2)
+    return terms
+
+
+def ordered_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Σ over axis 1 of ``terms`` [n, R, NC] (R >= 1) in dm_gather_draw's
+    fixed order: segments of DM_SEGMENT records, each summed in the order
+    of the records, then the segments added in order,
+    ((seg0 + seg1) + seg2) + ...; R <= DM_SEGMENT is one segment, summed
+    in the order of the records."""
+    n, R, NC = terms.shape
+    S = DM_SEGMENT
+    full = R // S if R > S else 0
+    tot = None
+    if full:
+        x = terms[:, :full * S].reshape(n, full, S, NC)
+        seg = x[:, :, 0]
+        for s in range(1, S):
+            seg = seg + x[:, :, s]
+        tot = seg[:, 0]
+        for k in range(1, full):
+            tot = tot + seg[:, k]
+    if R > full * S:
+        tail = terms[:, full * S]
+        for d in range(full * S + 1, R):
+            tail = tail + terms[:, d]
+        tot = tail if tot is None else tot + tail
+    return tot
+
+
+def _hash_draw(values, delta, rows: torch.Tensor, seed) -> torch.Tensor:
+    """The draws u < sigmoid(delta) of rows ``rows`` (int64 [n]) of a tier,
+    u from the counter hash over tiles of DM_TILE_ROWS rows."""
+    NC = values.shape[1]
+    lanes = torch.arange(NC, dtype=torch.int64, device=values.device)
+    cnt = (rows % DM_TILE_ROWS)[:, None] * NC + lanes
+    u = uniform24(hash_bits(cnt, u32(seed[0]), tile_seed(
+        seed[1], rows // DM_TILE_ROWS)[:, None]))
+    return (u < torch.sigmoid(delta)).to(values.dtype)
+
+
+def _dm_dense_plain(values, tier: DmTier, seed, return_delta: bool):
+    """One dense tier of dm_gather_draw_tiers_plain, over chunks of rows
+    whose gathered [rows, D, A1, NC] values hold about PLAIN_CHUNK_ELEMS
+    elements."""
+    nbr, base, b1, b2, bx, _, write = tier
+    B, D, A1 = nbr.shape
+    NC = values.shape[1]
     dev = values.device
-    f32 = torch.float32
     draw = seed is not None
     out = (torch.empty((B, NC), dtype=values.dtype, device=dev)
            if draw and write is None else values)
-    delta_all = (torch.empty((B, NC), dtype=f32, device=dev)
+    delta_all = (torch.empty((B, NC), dtype=torch.float32, device=dev)
                  if return_delta or not draw else None)
-    if draw:
-        s0, s1 = u32(seed[0]), u32(seed[1])
-    lanes = torch.arange(NC, dtype=torch.int64, device=dev)
     chunk = max(1, PLAIN_CHUNK_ELEMS // max(1, D * A1 * NC))
     for r0 in range(0, B, chunk):
         r1 = min(B, r0 + chunk)
-        n = r1 - r0
-        idx = nbr[r0:r1].to(torch.int64)
-        valid = (idx >= 0) & (idx < P)
-        v = values.index_select(0, torch.where(valid, idx, 0).reshape(-1))
-        v = v.reshape(n, D, A1, NC).to(f32).masked_fill_(~valid[..., None],
-                                                         0.0)
-        n1 = v[:, :, 0]
-        terms = b1[r0:r1, :, None] * n1
-        if A1 == 2:
-            n2 = v[:, :, 1]
-            terms = (terms + b2[r0:r1, :, None] * n2
-                     + bx[r0:r1, :, None] * (n1 * n2))
-        del v
-        acc = terms[:, 0]
-        for d in range(1, D):                   # in the order d = 0..D-1
-            acc = acc + terms[:, d]
-        delta = acc + base[r0:r1, None]
-        del terms, acc
+        cross = (None, None) if A1 == 1 else (b2[r0:r1], bx[r0:r1])
+        delta = ordered_sum(_dm_terms(values, nbr[r0:r1], b1[r0:r1],
+                                      *cross)) + base[r0:r1, None]
         if delta_all is not None:
             delta_all[r0:r1] = delta
-        if not draw:
-            continue
-        rows = torch.arange(r0, r1, dtype=torch.int64, device=dev)
-        cnt = (rows % DM_TILE_ROWS)[:, None] * NC + lanes
-        u = uniform24(hash_bits(cnt, s0, tile_seed(
-            s1, rows // DM_TILE_ROWS)[:, None]))
-        _put(values, out, write, r0, r1,
-             (u < torch.sigmoid(delta)).to(values.dtype))
-    if not draw:
-        return delta_all
-    return (out, delta_all) if return_delta else out
+        if draw:
+            rows = torch.arange(r0, r1, dtype=torch.int64, device=dev)
+            _put(values, out, write, r0, r1,
+                 _hash_draw(values, delta, rows, seed))
+    return out, delta_all
 
 
-def dm_gather_draw(values, nbr, base, b1, b2, bx, seed,
-                   return_delta: bool = False, write=None):
-    """Draw one color of a deltam tier from its global neighbour positions,
-    or (``seed`` None, the delta mode) return its log-odds.
+def _dm_hub_plain(values, tier: DmTier, seed, return_delta: bool):
+    """One hub tier of dm_gather_draw_tiers_plain: each row's chunks as one
+    deep row, the rows padded to the most chunks a row has, over chunks of
+    rows.  A pad chunk's records and base are +0: adding them leaves every
+    sum unchanged (a -0 may become +0), so the order is the kernel's."""
+    nbr, base, b1, b2, bx, rows, write = tier
+    M, G, A1 = nbr.shape
+    NC = values.shape[1]
+    dev = values.device
+    offs = rows.to(torch.int64)
+    n_ck = offs[1:] - offs[:-1]
+    Bh = n_ck.shape[0]
+    _dm_check_rows(rows, M)
+    kmax = int(n_ck.max()) if Bh else 0
+    draw = seed is not None
+    out = (torch.empty((Bh, NC), dtype=values.dtype, device=dev)
+           if draw and write is None else values)
+    delta_all = (torch.empty((Bh, NC), dtype=torch.float32, device=dev)
+                 if return_delta or not draw else None)
+    step = max(1, PLAIN_CHUNK_ELEMS // max(1, kmax * G * A1 * NC))
+    ks = torch.arange(kmax, device=dev)
+    for r0 in range(0, Bh, step):
+        r1 = min(Bh, r0 + step)
+        n = r1 - r0
+        if kmax == 0:
+            delta = torch.zeros((n, NC), dtype=torch.float32, device=dev)
+        else:
+            valid = ks < n_ck[r0:r1, None]                  # [n, kmax]
+            ck = torch.where(valid, offs[r0:r1, None] + ks, 0).reshape(-1)
 
-    values int8 [P, NC]; nbr int32 [B, D, A1] (this color's rows of
-    cs_nbr: global positions, A1 = arity - 1 = 1 or 2; a position outside
-    [0, P) reads 0); base f32 [B] and b1, b2, bx f32 [B, D] (this color's
-    rows of fold_deltam; b2, bx None when A1 == 1); seed int32 [2] (a
-    tensor on values' device) or None.  Slot 0 of a record is n1, slot 1
-    is n2, and
+            def deep(x):            # [n*kmax, G] -> [n, kmax*G], pads +0
+                if x is None:
+                    return None
+                y = x.index_select(0, ck).reshape(n, kmax, G)
+                return torch.where(valid[..., None], y, 0.0).reshape(
+                    n, kmax * G)
+
+            tot = ordered_sum(_dm_terms(
+                values, nbr.index_select(0, ck).reshape(n, kmax * G, A1),
+                deep(b1), deep(b2), deep(bx)))
+            bb = torch.where(valid, base.index_select(0, ck).reshape(
+                n, kmax), 0.0)
+            bs = bb[:, 0]
+            for j in range(1, kmax):    # the chunks' bases in chunk order
+                bs = bs + bb[:, j]
+            delta = tot + bs[:, None]
+        if delta_all is not None:
+            delta_all[r0:r1] = delta
+        if draw:
+            g = torch.arange(r0, r1, dtype=torch.int64, device=dev)
+            _put(values, out, write, r0, r1,
+                 _hash_draw(values, delta, g, seed))
+    return out, delta_all
+
+
+def dm_gather_draw_tiers_plain(values, tiers, seeds,
+                               return_delta: bool = False) -> list:
+    """Plain PyTorch version of :func:`dm_gather_draw_tiers`: the tiers one
+    after another (in world-write mode each reads the world the earlier
+    ones wrote, which no row of another tier of the color reads)."""
+    draw = seeds is not None
+    if draw and tuple(seeds.shape) != (len(tiers), 2):
+        raise ValueError(f"dm_gather_draw: seeds {tuple(seeds.shape)} for "
+                         f"{len(tiers)} tiers")
+    results = []
+    for t, tier in enumerate(tiers):
+        tier = DmTier(*tier)
+        _dm_check(values, tier, draw)
+        if tier.write is not None and return_delta:
+            raise ValueError("dm_gather_draw: no delta output in "
+                             "world-write mode")
+        seed = seeds[t] if draw else None
+        plain = _dm_dense_plain if tier.rows is None else _dm_hub_plain
+        out, delta = plain(values, tier, seed, return_delta)
+        results.append(delta if not draw else
+                       (out, delta) if return_delta else out)
+    return results
+
+
+def dm_tier_table(tiers, outs=None, deltas=None) -> np.ndarray:
+    """The kernel's launch table, int64 [T, 16] (csrc/dm_gather_draw.cu,
+    dm_gather_draw_launch), of up to DM_MAX_TIERS tiers on one device:
+    their streams checked once (type, device, contiguity), their rows and
+    their targets: ``outs[t]`` int8 [B, NC] or None, ``deltas[t]`` f32
+    [B, NC] or None, a tier's ``write`` the world-write mode.  Built once
+    a graph for the engine's plan, so a color step checks nothing again
+    (a hub tier's chunk offsets are read back to the host here)."""
+    T = len(tiers)
+    if not 1 <= T <= DM_MAX_TIERS:
+        raise ValueError(f"dm_gather_draw: {T} tiers, 1 to {DM_MAX_TIERS} "
+                         "a launch")
+    table = np.zeros((T, _DM_FIELDS), np.int64)
+    for i, tier in enumerate(tiers):
+        tier = DmTier(*tier)
+        nbr, base, b1, b2, bx, rows, write = tier
+        dev = nbr.device
+        check_tensor(nbr, "nbr", torch.int32, dev, 3)
+        check_tensor(base, "base", torch.float32, dev, 1)
+        B, D, A1 = nbr.shape
+        coefs = (b1, b2, bx) if A1 == 2 else (b1,)
+        for name, x in zip(("b1", "b2", "bx"), coefs):
+            check_tensor(x, name, torch.float32, dev, 2)
+        if rows is not None:
+            check_tensor(rows, "rows", torch.int32, dev, 1)
+            _dm_check_rows(rows, B)
+        row0, mask, n_write = -1, None, 0
+        if write is not None:
+            row0, mask = write
+            check_tensor(mask, "mask", torch.bool, dev, 1)
+            n_write = mask.shape[0]
+        out = None if outs is None else outs[i]
+        delta = None if deltas is None else deltas[i]
+
+        def ptr(x):
+            return 0 if x is None else x.data_ptr()
+
+        table[i] = (ptr(nbr), ptr(b1), ptr(b2 if A1 == 2 else None),
+                    ptr(bx if A1 == 2 else None), ptr(base), ptr(rows),
+                    ptr(out), ptr(delta), ptr(mask), row0, tier.n_rows(),
+                    D, A1, n_write, tier.lanes(), B * D)
+    return table
+
+
+def dm_gather_draw_table(values, table: np.ndarray, seeds) -> None:
+    """Launch the kernel on a table of dm_tier_table (its tiers' streams on
+    ``values``' card): one launch for all its tiers.  ``seeds`` int32
+    [T, 2] on the card, or None in the delta mode."""
+    dev = values.device
+    check_tensor(values, "values", torch.int8, dev, 2)
+    T = table.shape[0]
+    if seeds is not None:
+        check_tensor(seeds, "seeds", torch.int32, dev, 2)
+        if tuple(seeds.shape) != (T, 2):
+            raise ValueError(f"dm_gather_draw: seeds {tuple(seeds.shape)} "
+                             f"for {T} tiers")
+    P, NC = values.shape
+    if NC == 0 or not (table[:, 10] > 0).any():
+        return
+    with torch.cuda.device(dev):
+        launch("dm_gather_draw_launch", values.data_ptr(), NC, P,
+               table.ctypes.data, T,
+               None if seeds is None else seeds.data_ptr(), DM_TILE_ROWS,
+               torch.cuda.current_stream(dev).cuda_stream)
+    dm_gather_draw.launches += 1
+
+
+def dm_gather_draw_tiers(values, tiers, seeds,
+                         return_delta: bool = False) -> list:
+    """Draw every tier of ``tiers`` (DmTier, at most DM_MAX_TIERS: the
+    deltam tiers of one color without a banded plan, whose rows share no
+    factor) in one launch, or (``seeds`` None, the delta mode) return
+    their log-odds.
+
+    values int8 [P, NC]; seeds int32 [T, 2] (a tensor on values' device),
+    a row of seed words a tier, or None.  For each tier, row g and chain n
 
         delta = base + sum_d (b1*n1 + b2*n2 + bx*n1*n2),
 
-    each record's term rounded one operation at a time and the terms
-    summed in the order d = 0 .. D-1, then base added.  The draw is
-    ``u < sigmoid(delta)`` with u the counter hash's uniform over tiles of
-    DM_TILE_ROWS rows: row g is row g % DM_TILE_ROWS of tile
-    g // DM_TILE_ROWS, as in fused_dm_draw.  Returns int8 [B, NC], and
-    with ``return_delta`` also the f32 delta [B, NC]; in world-write mode
-    (``write``, as in fused_color_draw) ``values``; in the delta mode the
-    f32 delta [B, NC] alone (a hub tier's chunk log-odds).
+    each record's term rounded one operation at a time, the records cut
+    into segments of DM_SEGMENT summed in their order, the segments added
+    in order (((seg0 + seg1) + seg2) + ...), then base.  A hub row's
+    records are its chunks' (chunk order, then slot order) and its base
+    the sum of its chunks' bases in chunk order.  The draw is
+    ``u < sigmoid(delta)`` with u the counter hash's uniform over tiles
+    of DM_TILE_ROWS rows with the tier's seed words: row g is row
+    g % DM_TILE_ROWS of tile g // DM_TILE_ROWS, as in fused_dm_draw.
+    Returns a list, a tier each: int8 [B, NC] (``values`` in world-write
+    mode), with ``return_delta`` (out, delta f32 [B, NC]), in the delta
+    mode delta.
+
+    A CPU tensor goes to the plain version; a CUDA tensor to the kernel
+    (the launch adds one to ``dm_gather_draw.launches``)."""
+    if values.device.type == "cpu":
+        return dm_gather_draw_tiers_plain(values, tiers, seeds, return_delta)
+    if values.device.type != "cuda":
+        raise ValueError(f"dm_gather_draw: no kernel for {values.device}")
+    dev = values.device
+    check_tensor(values, "values", torch.int8, dev, 2)
+    draw = seeds is not None
+    P, NC = values.shape
+    outs, deltas, results = [], [], []
+    for tier in tiers:
+        tier = DmTier(*tier)
+        _dm_check(values, tier, draw)
+        if tier.write is not None and return_delta:
+            raise ValueError("dm_gather_draw: no delta output in "
+                             "world-write mode")
+        B = tier.n_rows()
+        out = (torch.empty((B, NC), dtype=torch.int8, device=dev)
+               if draw and tier.write is None else None)
+        delta = (torch.empty((B, NC), dtype=torch.float32, device=dev)
+                 if return_delta or not draw else None)
+        outs.append(out)
+        deltas.append(delta)
+        res = values if draw and out is None else out
+        results.append(delta if not draw else
+                       (res, delta) if return_delta else res)
+    dm_gather_draw_table(values, dm_tier_table(tiers, outs, deltas), seeds)
+    return results
+
+
+def _one_tier(values, nbr, base, b1, b2, bx, seed, write, rows) -> tuple:
+    if seed is not None and tuple(seed.shape) != (2,):
+        raise ValueError(f"dm_gather_draw: seed {tuple(seed.shape)}")
+    return ([DmTier(nbr, base, b1, b2, bx, rows, write)],
+            None if seed is None else seed.reshape(1, 2))
+
+
+def dm_gather_draw_plain(values, nbr, base, b1, b2, bx, seed,
+                         return_delta: bool = False, write=None, rows=None):
+    """Plain PyTorch version of :func:`dm_gather_draw` (one tier of
+    dm_gather_draw_tiers_plain)."""
+    tiers, seeds = _one_tier(values, nbr, base, b1, b2, bx, seed, write,
+                             rows)
+    return dm_gather_draw_tiers_plain(values, tiers, seeds, return_delta)[0]
+
+
+def dm_gather_draw(values, nbr, base, b1, b2, bx, seed,
+                   return_delta: bool = False, write=None, rows=None):
+    """Draw one color of one deltam tier (:func:`dm_gather_draw_tiers` with
+    one tier and ``seed`` int32 [2] its seed words), or (``seed`` None,
+    the delta mode) return its log-odds.  ``rows`` makes it a hub tier
+    (DmTier).  Returns int8 [B, NC], with ``return_delta`` also the f32
+    delta [B, NC]; in world-write mode ``values``; in the delta mode the
+    delta alone.
 
     A CPU tensor goes to the plain version; a CUDA tensor to the kernel
     (the launch adds one to ``dm_gather_draw.launches``)."""
     if values.device.type == "cpu":
         return dm_gather_draw_plain(values, nbr, base, b1, b2, bx, seed,
-                                    return_delta, write)
+                                    return_delta, write, rows)
     if values.device.type != "cuda":
         raise ValueError(f"dm_gather_draw: no kernel for {values.device}")
-    dev = values.device
-    check_tensor(values, "values", torch.int8, dev, 2)
-    check_tensor(nbr, "nbr", torch.int32, dev, 3)
-    check_tensor(base, "base", torch.float32, dev, 1)
-    _dm_check(values, nbr, base, b1, b2, bx, seed, write)
-    B, D, A1 = nbr.shape
-    coefs = (b1, b2, bx) if A1 == 2 else (b1,)
-    for name, x in zip(("b1", "b2", "bx"), coefs):
-        check_tensor(x, name, torch.float32, dev, 2)
-    draw = seed is not None
-    if draw:
-        check_tensor(seed, "seed", torch.int32, dev, 1)
-        if seed.shape[0] != 2:
-            raise ValueError(f"dm_gather_draw: seed {tuple(seed.shape)}")
-        out, out_ptr, mask_ptr, n_write = _write_target(
-            "dm_gather_draw", values, write, B, return_delta)
-    else:
-        out, out_ptr, mask_ptr, n_write = None, None, None, 0
-    P, NC = values.shape
-    delta = (torch.empty((B, NC), dtype=torch.float32, device=dev)
-             if return_delta or not draw else None)
-    b2p, bxp = (b2.data_ptr(), bx.data_ptr()) if A1 == 2 else (None, None)
-    if B and NC:
-        with torch.cuda.device(dev):
-            launch("dm_gather_draw_launch", values.data_ptr(), NC, P,
-                   nbr.data_ptr(), b1.data_ptr(), b2p, bxp, base.data_ptr(),
-                   seed.data_ptr() if draw else None, B, D, A1,
-                   DM_TILE_ROWS, out_ptr,
-                   None if delta is None else delta.data_ptr(), mask_ptr,
-                   n_write, torch.cuda.current_stream(dev).cuda_stream)
-        dm_gather_draw.launches += 1
-    if not draw:
-        return delta
-    return (out, delta) if return_delta else out
+    tiers, seeds = _one_tier(values, nbr, base, b1, b2, bx, seed, write,
+                             rows)
+    return dm_gather_draw_tiers(values, tiers, seeds, return_delta)[0]
 
 
 dm_gather_draw.launches = 0

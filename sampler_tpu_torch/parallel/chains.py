@@ -123,7 +123,7 @@ def learn_step_sharded(comm, d, w, v_ev, v_free, generator, alpha: float,
     group under graph sharding) is averaged over the chains group, and
     the update applied.  Returns the new weights (the same on every
     rank)."""
-    folded = prepare_fold(d, w, info, modes)
+    folded = prepare_fold(d, w, info, modes, plan=shard is None)
     for _ in range(cfg.n_sweeps_per_epoch):
         sweep_mc(d, v_ev, w, generator, False, info, folded, modes, shard)
         sweep_mc(d, v_free, w, generator, True, info, folded, modes, shard)

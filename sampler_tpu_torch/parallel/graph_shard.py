@@ -311,7 +311,7 @@ def _infer_gs_rank(comm, host, weights, seed, n_burn, n_sweeps, info,
             info)
         counts_acc = np.zeros((P, K), np.int64)
     runs = own_runs(info, n, comm.g)
-    folded = prepare_fold(dl, w, info, modes)
+    folded = prepare_fold(dl, w, info, modes, plan=shard is None)
     n_total = n_burn + n_sweeps
     while done < n_total:
         stop = min(done + (every or n_total), n_total)

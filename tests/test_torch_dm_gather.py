@@ -4,21 +4,40 @@ without a banded plan, against the JAX package and the oracle.
   * the plain version's delta equals JAX color_delta_multilin's within
     1e-5 on the pairwise and arity-3 deltam tiers of six graphs (KBC
     graphs with a hub tier among them, an Ising and a triple grid that do
-    not band, the boolean hub star), and in the delta mode on the hub
-    tiers' chunks;
-  * its delta equals a float32 evaluation in the order of d exactly, and
-    its draws equal a direct evaluation of the counter hash and
-    u < sigmoid(delta), bit for bit, over several tiles of rows and in
-    chunks of any size;
+    not band, the boolean hub star), in the delta mode on the hub tiers'
+    chunks, and on random streams of 600 records a row (rows cut into
+    several segments, the last one ragged);
+  * the plain hub draw's row sums (each hub row's chunks as one deep row)
+    equal JAX hub_color_draw's segment sum within 1e-5 on three hub
+    graphs, compiled for one and for two graph shards, and the ranks'
+    partial sums add up to it;
+  * its delta equals a float32 evaluation in the kernel's fixed order
+    (segments of DM_SEGMENT records in the order of d, then the segments
+    in order) exactly, and its draws equal a direct evaluation of the
+    counter hash and u < sigmoid(delta), bit for bit, over several tiles
+    of rows and in chunks of any size;
   * the world-write mode changes only the rows its mask selects;
-  * the default modes of a KBC graph route every deltam tier to it (no
-    eager color_delta_multilin left), and infer_mc with the fused mode
-    "plain" and "off" both match exact enumeration (|dp| < 0.01; 0.012 on
-    the hub star, whose hub mixes slowly);
+  * one launch a color over every planned tier draws what the tiers drawn
+    one by one draw, given the same seeds;
+  * the default modes of a KBC graph route every deltam tier, its hub
+    tier included, to one call a color (no eager color_delta_multilin,
+    no hub_color_draw left), and infer_mc with the fused mode "plain" and
+    "off" both match exact enumeration (|dp| < 0.01; 0.012 on the hub
+    star, whose hub mixes slowly); two runs from one seed write the same
+    bytes;
   * KBC learning on the new route is deterministic for a seed;
-  * the "cuda" mode on the CPU raises, and so do shapes that disagree.
+  * the "cuda" mode on the CPU raises, and so do shapes that disagree
+    and hub chunk offsets that decrease or leave [0, M];
+  * a fold and its plan free their streams without the cycle collector,
+    and the plan's launch tables point into the streams of the graph it
+    was folded on.
 The CUDA kernel is held to the plain version on the card (gpu marker).
 """
+import gc
+import weakref
+from types import SimpleNamespace
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,9 +59,15 @@ from sampler_tpu_torch.convert import from_jax
 from sampler_tpu_torch.engine import multichain as tmc
 from sampler_tpu_torch.engine.learn import LearnConfig
 from sampler_tpu_torch.ops import fused as tfused
-from sampler_tpu_torch.ops.fused import (DM_TILE_ROWS, dm_gather_draw,
-                                         dm_gather_draw_plain, hash_bits,
-                                         tile_seed, u32, uniform24)
+from sampler_tpu_torch.ops.fused import (DM_MAX_TIERS, DM_SEGMENT,
+                                         DM_TILE_ROWS, DmTier,
+                                         dm_gather_draw,
+                                         dm_gather_draw_plain,
+                                         dm_gather_draw_tiers,
+                                         dm_gather_draw_tiers_plain,
+                                         dm_tier_table, hash_bits, tile_seed, u32,
+                                         uniform24)
+from sampler_tpu_torch.parallel import graph_shard as tgs
 
 NC = 24
 TOL = 0.01
@@ -91,10 +116,12 @@ GRAPHS = {
 }
 
 
-def _jax_graph(name):
+def _jax_graph(name, shards=1):
     make, kw = GRAPHS[name]
     g = make(jax_kbc_graph, jax_ising_grid, jax_triple_grid, JaxFactorGraph)
     colors = greedy_coloring(g)
+    if shards > 1:
+        kw = dict(kw, align=8 * shards, shards=shards)
     jdg, jinfo = jax_compile(g, colors=colors, **kw)
     assert jinfo.band_w == 0 and any(ti.deltam for ti in jinfo.tiers)
     tdg, tinfo = from_jax(jdg, jinfo)
@@ -175,6 +202,74 @@ def test_hub_chunk_deltas_match_jax(name):
                                    atol=1e-5)
 
 
+HUB_GRAPHS = ["kbc3000_hub", "kbc300_hub", "kbc_pairwise_hub"]
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("name", HUB_GRAPHS)
+def test_hub_row_sums_match_jax_segment_sum(name, shards):
+    """The plain hub draw's log-odds (each row's chunks as one deep row in
+    the kernel's order, through hub_rows) equal JAX hub_color_draw's
+    segment_sum of the chunk deltas within 1e-5; on a graph compiled for
+    two graph shards, so do the ranks' partial sums (hub_partial on each
+    rank's run of chunks, the sharded route) added up."""
+    jdg, jinfo, d, info = _jax_graph(name, shards)
+    jdgd = jax_to_device(jdg)
+    jfold = jmc.prepare_fold(jdgd, jnp.asarray(jdg.w_init), jinfo,
+                             ("off", "off"))
+    t = len(info.tiers) - 1
+    ti, ts = info.tiers[t], d.tiers[t]
+    assert ti.hub and ti.deltam
+    modes = ("off", "plain")
+    fold = tmc.prepare_fold(d, d.w_init, info, modes)
+    vals = _world(jdg.var_card.shape[0], NC, 6)
+    tv = torch.from_numpy(vals)
+    ranks = []
+    for g in range(shards if shards > 1 else 0):
+        local = tgs.shard_device_graph(d, info, shards, g, "cpu")
+        ranks.append((local, tmc.prepare_fold(local, local.w_init, info,
+                                              modes)))
+    deep = 0
+    for c in range(info.n_colors):
+        dchunk = jmc.color_delta_multilin(
+            jdgd.tiers[t], jinfo.tiers[t], jnp.asarray(vals), c, jinfo,
+            jfold[t], ("off", "off"))
+        ref = np.asarray(jax.ops.segment_sum(
+            dchunk, jnp.asarray(jdg.tiers[t].hb_row[c]),
+            num_segments=ti.block + 1))[:ti.block]
+        rows = tmc.hub_rows(ts, ti, c)
+        deep += int((rows[1:] - rows[:-1]).max()) * ti.chunk_g > DM_SEGMENT
+        got = dm_gather_draw_plain(tv, *tmc._dm_streams(ts, ti, c, info,
+                                                        fold[t]), None,
+                                   rows=rows)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+        if ranks:
+            parts = sum(tmc.hub_partial(local, local.tiers[t], ti, tv,
+                                        local.w_init, c, info, modes,
+                                        lfold[t]) for local, lfold in ranks)
+            np.testing.assert_allclose(parts.numpy(), ref, rtol=0,
+                                       atol=1e-5)
+    assert deep                     # some row spans several segments
+
+
+@pytest.mark.parametrize("name", HUB_GRAPHS + ["star_bool"])
+def test_hub_rows_are_the_chunk_offsets(name):
+    """hub_rows: a color's hub rows own consecutive chunks in row order,
+    the pad chunks (hb_row = block) last."""
+    jdg, _, d, info = _jax_graph(name)
+    t = len(info.tiers) - 1
+    ti = info.tiers[t]
+    hb = jdg.tiers[t].hb_row
+    for c in range(info.n_colors):
+        rows = tmc.hub_rows(d.tiers[t], ti, c).numpy()
+        real = hb[c][hb[c] < ti.block]
+        assert rows[0] == 0 and rows[-1] == real.size
+        np.testing.assert_array_equal(
+            np.diff(rows), np.bincount(real, minlength=ti.block))
+        assert (np.diff(real) >= 0).all()
+        assert (hb[c][real.size:] == ti.block).all()
+
+
 def _streams(B, D, A1, P, n, seed):
     """Random streams of one tier color: neighbour positions in [-2, P + 2)
     (a few outside the world, which read 0, and some at its last row), a
@@ -193,7 +288,9 @@ def _streams(B, D, A1, P, n, seed):
 
 
 def _numpy_delta(s):
-    """delta in float32, one operation at a time, summed in d order."""
+    """delta in float32, one operation at a time, summed in the kernel's
+    order: segments of DM_SEGMENT records in the order of d, then the
+    segments in order, then base."""
     v = s["values"].numpy()
     nbr = s["nbr"].numpy()
     P = v.shape[0]
@@ -205,16 +302,19 @@ def _numpy_delta(s):
         return np.where(ok[:, None], v[np.where(ok, j, 0)], 0) \
             .astype(np.float32)
 
-    acc = None
-    for d in range(D):
-        n1 = read(0, d)
-        x = s["b1"].numpy()[:, d, None] * n1
-        if A1 == 2:
-            n2 = read(1, d)
-            x = (x + s["b2"].numpy()[:, d, None] * n2) \
-                + s["bx"].numpy()[:, d, None] * (n1 * n2)
-        acc = x if acc is None else acc + x
-    return acc + s["base"].numpy()[:, None]
+    total = None
+    for d0 in range(0, D, DM_SEGMENT):
+        acc = None
+        for d in range(d0, min(D, d0 + DM_SEGMENT)):
+            n1 = read(0, d)
+            x = s["b1"].numpy()[:, d, None] * n1
+            if A1 == 2:
+                n2 = read(1, d)
+                x = (x + s["b2"].numpy()[:, d, None] * n2) \
+                    + s["bx"].numpy()[:, d, None] * (n1 * n2)
+            acc = x if acc is None else acc + x
+        total = acc if total is None else total + acc
+    return total + s["base"].numpy()[:, None]
 
 
 def _hash_draws(delta, seed, NCh):
@@ -228,7 +328,8 @@ def _hash_draws(delta, seed, NCh):
 
 @pytest.mark.parametrize("B,D,A1,n", [(300, 5, 2, 24), (300, 1, 1, 37),
                                       (150, 9, 2, 16), (40, 256, 2, 16),
-                                      (260, 3, 1, 16)])
+                                      (260, 3, 1, 16), (20, 600, 2, 8),
+                                      (30, 37, 1, 8)])
 @pytest.mark.parametrize("chunk", [None, 1000])
 def test_plain_draws_equal_the_hash_bit_for_bit(monkeypatch, B, D, A1, n,
                                                 chunk):
@@ -249,6 +350,43 @@ def test_plain_draws_equal_the_hash_bit_for_bit(monkeypatch, B, D, A1, n,
                                                      dtype=torch.int32))
     assert not torch.equal(other, out)
     assert 0.2 < float(out.double().mean()) < 0.8
+
+
+def _jax_multilin_streams(s):
+    """JAX color_delta_multilin on the random streams ``s`` as one color of
+    a deltam tier without a banded plan."""
+    B, D, A1 = s["nbr"].shape
+    ts = SimpleNamespace(cs_nbr=jnp.asarray(s["nbr"].numpy().reshape(-1)),
+                         cs_type=np.zeros(B * D, np.int8))
+    ti = SimpleNamespace(hub=False, degree=D, arity=A1 + 1, band_w=0,
+                         band_k=0, band_tb=0, affine2=False, affinek=False,
+                         fusedm=False, deltam=True)
+    fold = tuple(None if x is None else jnp.asarray(x.numpy().reshape(-1))
+                 for x in (s["base"], s["b1"], s["b2"], s["bx"]))
+    return np.asarray(jmc.color_delta_multilin(
+        ts, ti, jnp.asarray(s["values"].numpy()), 0,
+        SimpleNamespace(n_colors=1), fold, ("off", "off")))
+
+
+@pytest.mark.parametrize("D,A1", [(600, 2), (600, 1), (40, 2)])
+def test_segmented_plain_delta_matches_jax_multilin(D, A1):
+    """Rows of D records (several segments, the last one ragged): the
+    plain delta equals JAX color_delta_multilin's within 1e-5.  The
+    coefficients are multiples of 1/64 below 2 in magnitude, so every
+    partial sum is exact in float32 and the two orders of summation give
+    the same numbers: a record missed or counted twice would show."""
+    P = 300
+    s = _streams(12, D, A1, P, NC, 600 + D + A1)
+    s["nbr"] = s["nbr"].clamp(0, P - 1)
+    for k in ("base", "b1", "b2", "bx"):
+        if s[k] is not None:
+            s[k] = torch.round(s[k].clamp(-1.9, 1.9) * 64) / 64
+    delta = dm_gather_draw_plain(s["values"], s["nbr"], s["base"], s["b1"],
+                                 s["b2"], s["bx"], None)
+    np.testing.assert_allclose(delta.numpy(), _jax_multilin_streams(s),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(delta.numpy(), _numpy_delta(s))
+    assert float(delta.abs().max()) > 1.0
 
 
 @pytest.mark.parametrize("short", [0, 37])
@@ -285,34 +423,90 @@ def _kbc_port(cap=8, chunk=4):
     return g, dg, info
 
 
+def test_one_launch_a_color_draws_as_tier_by_tier():
+    """dm_gather_draw_tiers over every planned tier of a color (the dense
+    deltam tiers and the hub, world-write mode, both masks) draws what
+    the tiers drawn one by one with the same seeds draw, and its output
+    mode what each tier's output mode draws."""
+    _, dg, info = _kbc_port()
+    d = to_device(dg, "cpu")
+    modes = ("off", "plain")
+    fold = tmc.prepare_fold(d, d.w_init, info, modes)
+    plan = fold.dm
+    assert plan.tiers == [t for t, ti in enumerate(info.tiers) if ti.deltam]
+    assert info.tiers[plan.tiers[-1]].hub
+    assert plan.tables is None and len(plan.tiers) <= DM_MAX_TIERS
+    v0 = tmc.init_values_mc(d, torch.Generator().manual_seed(3), 16, info)
+    for c in range(info.n_colors):
+        for ev in (False, True):
+            tiers = plan.lists[c, ev]
+            assert tiers[-1].rows is not None
+            seeds = torch.randint(-(1 << 31), 1 << 31, (len(tiers), 2),
+                                  generator=torch.Generator().manual_seed(c),
+                                  dtype=torch.int32)
+            a, b = v0.clone(), v0.clone()
+            assert all(x is a for x in dm_gather_draw_tiers(a, tiers, seeds))
+            for t, tier in enumerate(tiers):
+                dm_gather_draw_plain(b, tier.nbr, tier.base, tier.b1,
+                                     tier.b2, tier.bx, seeds[t],
+                                     write=tier.write, rows=tier.rows)
+            assert torch.equal(a, b) and not torch.equal(a, v0)
+            outs = dm_gather_draw_tiers_plain(
+                v0, [x._replace(write=None) for x in tiers], seeds)
+            for t, tier in enumerate(tiers):
+                one = dm_gather_draw_plain(v0, tier.nbr, tier.base, tier.b1,
+                                           tier.b2, tier.bx, seeds[t],
+                                           rows=tier.rows)
+                assert torch.equal(outs[t], one)
+                row0, mask = tier.write
+                blk = a[row0:row0 + mask.shape[0]]
+                assert torch.equal(blk[mask], one[:mask.shape[0]][mask])
+
+
+def test_hub_graph_runs_repeat_bytes():
+    """Two infer_mc runs on a hub graph from one seed: equal worlds and
+    marginals, byte for byte (no unordered sum left on the route)."""
+    _, dg, info = _kbc_port()
+    d = to_device(dg, "cpu")
+    runs = [tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(7), 5,
+                         30, info, 16, device="cpu") for _ in range(2)]
+    assert runs[0][0].tobytes() == runs[1][0].tobytes()
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
 def test_default_modes_route_every_deltam_tier_to_the_kernel(monkeypatch):
     """On a KBC graph the defaults are ("off", "plain") on the CPU (and
     ("off", "cuda") on a card); a sweep then calls dm_gather_draw's plain
-    version once a dense deltam tier and color and once a hub color (its
-    delta mode), and never the eager color_delta_multilin; with the fused
-    mode off the reverse."""
+    version once a color for every deltam tier, the hub tier included,
+    and never the eager color_delta_multilin nor hub_color_draw (its
+    index_add_); with the fused mode off the reverse: the eager
+    arithmetic once a deltam tier and color, the hub's in hub_color_draw."""
     _, dg, info = _kbc_port()
     assert info.has_hub and info.band_w == 0
     assert tmc.resolve_modes(info, "cpu") == ("off", "plain")
     d = to_device(dg, "cpu")
-    calls = {"plain": 0, "eager": 0}
-    plain, eager = tmc.dm_gather_draw_plain, tmc.color_delta_multilin
+    calls = {"plain": 0, "eager": 0, "hub": 0}
+    plain, eager = tmc.dm_gather_draw_tiers_plain, tmc.color_delta_multilin
+    hub = tmc.hub_color_draw
 
-    def count_plain(*a, **k):
-        calls["plain"] += 1
-        return plain(*a, **k)
+    def count(key, fn):
+        def counted(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return counted
 
-    def count_eager(*a, **k):
-        calls["eager"] += 1
-        return eager(*a, **k)
-
-    monkeypatch.setattr(tmc, "dm_gather_draw_plain", count_plain)
-    monkeypatch.setattr(tmc, "color_delta_multilin", count_eager)
+    monkeypatch.setattr(tmc, "dm_gather_draw_tiers_plain",
+                        count("plain", plain))
+    monkeypatch.setattr(tmc, "color_delta_multilin", count("eager", eager))
+    monkeypatch.setattr(tmc, "hub_color_draw", count("hub", hub))
     n_dm = sum(ti.deltam for ti in info.tiers)
+    n_hub = sum(ti.hub for ti in info.tiers)
+    assert n_hub == 1
     v = tmc.init_values_mc(d, torch.Generator().manual_seed(0), 8, info)
-    for modes, want in ((None, {"plain": n_dm, "eager": 0}),
-                        (("off", "off"), {"plain": 0, "eager": n_dm})):
-        calls.update(plain=0, eager=0)
+    for modes, want in ((None, {"plain": 1, "eager": 0, "hub": 0}),
+                        (("off", "off"), {"plain": 0, "eager": n_dm,
+                                          "hub": n_hub})):
+        calls.update(plain=0, eager=0, hub=0)
         tmc.run_sweeps_mc(d, v, d.w_init, torch.Generator().manual_seed(1),
                           2, False, info, modes, device="cpu")
         assert calls == {k: 2 * info.n_colors * n for k, n in want.items()}
@@ -368,9 +562,9 @@ def test_kbc_learning_is_deterministic_on_the_new_route(monkeypatch):
                              hub_chunk=4)
     assert info.has_hub
     d = to_device(dg, "cpu")
-    plain = tmc.dm_gather_draw_plain
+    plain = tmc.dm_gather_draw_tiers_plain
     calls = []
-    monkeypatch.setattr(tmc, "dm_gather_draw_plain",
+    monkeypatch.setattr(tmc, "dm_gather_draw_tiers_plain",
                         lambda *a, **k: calls.append(1) or plain(*a, **k))
     cfg = LearnConfig(n_epochs=4, n_sweeps_per_epoch=2, stepsize=0.05,
                       diminish=0.97, regularization="l2", reg_param=0.01)
@@ -411,6 +605,69 @@ def test_disagreeing_shapes_raise():
                              write=(0, torch.ones(10, dtype=torch.bool)))
 
 
+BAD_HUB_ROWS = {"decreasing": [0, 3, 2, 5], "negative": [-1, 2, 4, 5],
+                "past_the_chunks": [0, 2, 4, 9], "empty": []}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_HUB_ROWS))
+def test_bad_hub_offsets_raise(bad):
+    """Hub chunk offsets that decrease or leave [0, M] raise, in the plain
+    version and where the kernel's launch table is built (the kernel reads
+    a row's chunks unchecked)."""
+    s = _streams(8, 4, 2, 50, 16, 3)
+    rows = torch.tensor(BAD_HUB_ROWS[bad], dtype=torch.int32)
+    seed = torch.tensor([1, 2], dtype=torch.int32)
+    with pytest.raises(ValueError, match="dm_gather_draw"):
+        dm_gather_draw_plain(s["values"], s["nbr"], s["base"], s["b1"],
+                             s["b2"], s["bx"], seed, rows=rows)
+    with pytest.raises(ValueError, match="dm_gather_draw"):
+        dm_tier_table([DmTier(s["nbr"], s["base"], s["b1"], s["b2"],
+                              s["bx"], rows=rows)])
+
+
+def test_fold_frees_without_the_cycle_collector():
+    """prepare_fold's Folded and its dm_gather_draw plan form no reference
+    cycle: a fold's coefficient streams are freed when the fold is
+    dropped, with the cycle collector off (on the card they are tens of
+    MB a fold)."""
+    _, dg, info = _kbc_port()
+    d = to_device(dg, "cpu")
+    for modes in (("off", "plain"), ("off", "cuda")):
+        fold = tmc.prepare_fold(d, d.w_init, info, modes)
+        assert fold.dm is not None
+        ref = weakref.ref(fold[fold.dm.tiers[0]][1])
+        gc.disable()
+        try:
+            del fold
+            assert ref() is None
+        finally:
+            gc.enable()
+
+
+def test_launch_tables_follow_the_graphs_streams():
+    """The plan's launch tables point into the streams of the graph it was
+    folded on: a graph whose tiers' streams were replaced (the same
+    var_card) gets tables of its own streams, and a second fold of one
+    graph the same table but its own coefficients."""
+    _, dg, info = _kbc_port()
+    d = to_device(dg, "cpu")
+    modes = ("off", "cuda")                 # tables are built off the card
+    d2 = d._replace(tiers=tuple(
+        ts._replace(cs_nbr=ts.cs_nbr.clone(),
+                    cm_resample=ts.cm_resample.clone())
+        for ts in d.tiers))
+    folds = [tmc.prepare_fold(x, x.w_init, info, modes) for x in (d, d2, d)]
+    for fold, x in zip(folds, (d, d2, d)):
+        for i, t in enumerate(fold.dm.tiers):
+            assert fold.dm.tables[0, 0, i, 0] == x.tiers[t].cs_nbr.data_ptr()
+            assert (fold.dm.tables[0, 0, i, 8]
+                    == x.tiers[t].cm_resample.data_ptr())
+            assert fold.dm.tables[0, 0, i, 1] == fold[t][1].data_ptr()
+    same = [0, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15]
+    assert np.array_equal(folds[0].dm.tables[..., same],
+                          folds[2].dm.tables[..., same])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -421,7 +678,8 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,D,A1,n,misaligned", [
     (300, 5, 2, 1024, False), (300, 9, 2, 48, False), (88, 256, 2, 64, False),
-    (300, 4, 1, 37, False), (300, 16, 1, 512, False), (200, 3, 2, 48, True)])
+    (300, 4, 1, 37, False), (300, 16, 1, 512, False), (200, 3, 2, 48, True),
+    (40, 600, 2, 1024, False), (30, 600, 1, 37, False)])
 def test_kernel_matches_plain_on_card(cuda_device, B, D, A1, n, misaligned):
     """The kernel against its plain version: the delta exact, the draws
     equal but where u lies within 1e-5 of sigmoid(delta), the delta mode
@@ -462,3 +720,42 @@ def test_kernel_matches_plain_on_card(cuda_device, B, D, A1, n, misaligned):
     dm_gather_draw_plain(want, *args[1:], seed, write=(100, mask))
     assert int((got != want).sum()) <= int((out != ref).sum())
     assert torch.equal(got[:100], s["values"][:100])
+
+
+@pytest.mark.gpu
+def test_hub_kernel_matches_plain_on_card(cuda_device):
+    """One launch a color over a KBC graph's planned tiers, the hub's deep
+    rows among them: deltas exactly the plain version's, the draws equal
+    but at a few near-ties."""
+    _, dg, info = _kbc_port()
+    d = to_device(dg, cuda_device)
+    modes = ("off", "cuda")
+    fold = tmc.prepare_fold(d, d.w_init, info, modes)
+    v0 = tmc.init_values_mc(d, torch.Generator(cuda_device).manual_seed(3),
+                            64, info)
+    for c in range(info.n_colors):
+        tiers = tmc._dm_tier_list(d, info, fold.dm.tiers, fold, c, False)
+        seeds = torch.tensor([[c, t] for t in range(len(tiers))],
+                             dtype=torch.int32, device=cuda_device)
+        outs = [x._replace(write=None) for x in tiers]
+        got = dm_gather_draw_tiers(v0, outs, seeds, return_delta=True)
+        ref = dm_gather_draw_tiers_plain(v0, outs, seeds, return_delta=True)
+        for (o, dl), (ro, rdl) in zip(got, ref):
+            assert torch.equal(dl, rdl)
+            assert int((o != ro).sum()) <= 1e-4 * o.numel() + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", sorted(BAD_HUB_ROWS))
+def test_bad_hub_offsets_raise_on_card(cuda_device, bad):
+    """Malformed hub chunk offsets raise on the card before any launch."""
+    s = {k: None if v is None else v.to(cuda_device)
+         for k, v in _streams(8, 4, 2, 50, 16, 3).items()}
+    rows = torch.tensor(BAD_HUB_ROWS[bad], dtype=torch.int32,
+                        device=cuda_device)
+    seed = torch.tensor([1, 2], dtype=torch.int32, device=cuda_device)
+    before = dm_gather_draw.launches
+    with pytest.raises(ValueError, match="dm_gather_draw"):
+        dm_gather_draw(s["values"], s["nbr"], s["base"], s["b1"], s["b2"],
+                       s["bx"], seed, rows=rows)
+    assert dm_gather_draw.launches == before

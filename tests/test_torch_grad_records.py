@@ -372,9 +372,10 @@ def test_route_engages_where_the_fused_mode_says(monkeypatch, name):
 
 
 def test_route_stays_off_under_sparse_weights(monkeypatch):
-    """On a graph with sparse per-combination weights the whole chunked
-    route stays, dense and sparse records alike, even with the fused mode
-    on; the gradient still equals JAX's."""
+    """On a graph with sparse per-combination weights the chunked route
+    stays only with the fused mode off; with it on every tier takes
+    grad_records on its dense owner records (no row chunk), the sparse
+    ones the table lookup beside it.  Both equal JAX's gradient."""
     g = jfx.sparse_categorical_graph(seed=3, n=6)
     g.var_role[::2] = jfs.ROLE_EVIDENCE
     jdg, jinfo = jax_compile(g)
@@ -382,17 +383,25 @@ def test_route_stays_off_under_sparse_weights(monkeypatch):
     assert tinfo.has_sparse_cw
     d = to_device(tdg, "cpu")
     calls = _count(monkeypatch, "grad_records_plain")
+    chunks = _count(monkeypatch, "_phi_streams")
     v_ev, v_free = _worlds(tdg, tinfo, NC, 13)
-    for lne in (False, True):
-        got = tmc.mc_weight_gradient_cs(d, torch.from_numpy(v_ev),
-                                        torch.from_numpy(v_free), lne, tinfo,
-                                        ("off", "plain"))
-        ref = jmc.mc_weight_gradient_cs(jax_to_device(jdg),
-                                        jnp.asarray(v_ev),
-                                        jnp.asarray(v_free), lne, jinfo, OFF)
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
-                                   atol=ATOL)
-    assert not calls
+    for modes in (OFF, ("off", "plain")):
+        calls.clear()
+        chunks.clear()
+        for lne in (False, True):
+            got = tmc.mc_weight_gradient_cs(d, torch.from_numpy(v_ev),
+                                            torch.from_numpy(v_free), lne,
+                                            tinfo, modes)
+            ref = jmc.mc_weight_gradient_cs(jax_to_device(jdg),
+                                            jnp.asarray(v_ev),
+                                            jnp.asarray(v_free), lne, jinfo,
+                                            OFF)
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                       atol=ATOL)
+        if modes == OFF:
+            assert not calls and chunks
+        else:
+            assert len(calls) == 2 * len(tinfo.tiers) and not chunks
 
 
 def _tier_args(name, t=0):

@@ -5,9 +5,13 @@ oracle (mirrors tests/test_sparse_weights.py).
     log-potentials (within 1e-6) on the sparse fixtures;
   * sparse_comb_wids equals JAX's exactly, for one world and for NC
     chains;
-  * the chunked cs-stream gradient (whole tiers and one row a chunk) and
-    the per-factor gradient equal JAX mc_weight_gradient_cs within 1e-4,
-    with the reserved zero slot's gradient 0;
+  * the cs-stream gradient on its default route (grad_records on the dense
+    owner records, the sparse ones' table lookup beside it), the chunked
+    route (the fused mode off; whole tiers and one row a chunk) and the
+    per-factor gradient equal JAX mc_weight_gradient_cs within 1e-4, with
+    the reserved zero slot's gradient 0; the default route runs no row
+    chunk of the chunked route, and under graph sharding the ranks'
+    gradients sum to JAX's;
   * infer_mc on the sparse fixtures matches exact enumeration within 0.01;
   * learn_mc and the single-chain learn recover per-category log-odds
     (atol 0.15, tests/test_sparse_weights.py's bound) and leave the
@@ -30,6 +34,7 @@ from sampler_tpu_torch.compile import to_device
 from sampler_tpu_torch.convert import from_jax
 from sampler_tpu_torch.engine import multichain as tmc
 from sampler_tpu_torch.engine.learn import LearnConfig, learn
+from sampler_tpu_torch.parallel import graph_shard as tgs
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -115,7 +120,9 @@ def _worlds(d, dt, n, seed):
 def test_color_logits_sparse_match_jax(name):
     jd, jinfo, d, info = _both(name)
     modes = tmc.resolve_modes(info, "cpu")
-    assert modes == ("off", "off")
+    assert modes == ("off", "plain")
+    assert not any(tmc.tier_modes(ti, modes)[1] != "off"
+                   for ti in info.tiers)        # every draw stays eager
     tv = _worlds(d, tmc.values_dtype(info), 5, 6)[0]
     jv, jw = jnp.asarray(tv.numpy()), jnp.asarray(d.w_init.numpy())
     for t, ti in enumerate(info.tiers):
@@ -150,11 +157,15 @@ def test_sparse_gradient_matches_jax(name, lne):
         jinfo, ("off", "off")))
     assert ref[-1] == 0.0
     modes = tmc.resolve_modes(info, "cpu")
-    for row_chunk in (None, 1):
-        got = tmc.mc_weight_gradient_cs(d, v_ev, v_free, lne, info, modes,
-                                        row_chunk=row_chunk)
-        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4)
-        assert float(got[-1]) == 0.0
+    W = d.w_init.shape[0]
+    assert all(tmc.gradient_route(ti, info, modes, W) == ("records", "plain")
+               for ti in info.tiers)
+    for m in (modes, ("off", "off")):
+        for row_chunk in (None, 1):
+            got = tmc.mc_weight_gradient_cs(d, v_ev, v_free, lne, info, m,
+                                            row_chunk=row_chunk)
+            np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4)
+            assert float(got[-1]) == 0.0
     factors = tmc._mc_weight_gradient_factors(d, v_ev, v_free, lne, info)
     np.testing.assert_allclose(factors.numpy(), ref, rtol=0, atol=1e-4)
     jfactors = np.asarray(jmc._mc_weight_gradient_factors(
@@ -163,6 +174,66 @@ def test_sparse_gradient_matches_jax(name, lne):
     np.testing.assert_allclose(factors.numpy(), jfactors, rtol=0, atol=1e-4)
     if lne:
         assert np.abs(ref).max() > 0.05
+
+
+def _count(monkeypatch, name):
+    calls = []
+    orig = getattr(tmc, name)
+    monkeypatch.setattr(tmc, name, lambda *a, **k: calls.append(1)
+                        or orig(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("name", sorted(SPARSE_GRAPHS))
+def test_sparse_gradient_runs_no_row_chunk(monkeypatch, name):
+    """With the fused mode on, a sparse-weight graph's gradient calls
+    grad_records_plain once a tier and _phi_streams (the chunked route's
+    row chunks) never; the sparse owner records go to the table lookup
+    once a tier that has them; with it off, the reverse."""
+    _, _, d, info = _both(name)
+    v_ev, v_free = _worlds(d, tmc.values_dtype(info), 4, 3)
+    records = _count(monkeypatch, "grad_records_plain")
+    chunks = _count(monkeypatch, "_phi_streams")
+    lookups = _count(monkeypatch, "_sparse_grad_records")
+    has_sparse = sum(bool((ts.cs_issparse & ts.cs_gowner).any())
+                     for ts in d.tiers)
+    assert has_sparse
+    for modes, want in ((("off", "plain"), (len(info.tiers), 0, has_sparse)),
+                        (("off", "off"), (0, None, 0))):
+        for calls in (records, chunks, lookups):
+            calls.clear()
+        tmc.mc_weight_gradient_cs(d, v_ev, v_free, True, info, modes)
+        assert len(records) == want[0] and len(lookups) == want[2]
+        assert (len(chunks) == 0) if want[1] == 0 else len(chunks) > 0
+
+
+@pytest.mark.parametrize("name", ["sparse_categorical", "mixed_sparse_dense",
+                                  "three_way"])
+@pytest.mark.parametrize("lne", [False, True])
+def test_sharded_sparse_gradient_sums_to_jax(name, lne):
+    """A graph compiled for two graph shards: the ranks' gradients on the
+    default route (each rank's dense owner records through
+    grad_records_plain, its sparse ones through the lookup) sum to JAX's
+    unsharded gradient within 1e-4."""
+    n_graph = 2
+    jg = SPARSE_GRAPHS[name](jfx, JaxFactorGraph, jfs)
+    jdg, jinfo = jax_compile(jg, align=8 * n_graph, shards=n_graph)
+    tdg, info = from_jax(jdg, jinfo)
+    d = to_device(tdg, "cpu")
+    v_ev, v_free = _worlds(d, tmc.values_dtype(info), 6, 21)
+    ref = np.asarray(jmc.mc_weight_gradient_cs(
+        jax_to_device(jdg), jnp.asarray(v_ev.numpy()),
+        jnp.asarray(v_free.numpy()), lne, jinfo, ("off", "off")))
+    modes = tmc.resolve_modes(info, "cpu")
+    total = np.zeros_like(ref)
+    for g in range(n_graph):
+        local = tgs.shard_device_graph(d, info, n_graph, g, "cpu")
+        total += tmc.mc_weight_gradient_cs(local, v_ev, v_free, lne, info,
+                                           modes, n_graph=n_graph,
+                                           g=g).numpy()
+    if lne:
+        assert np.abs(ref).max() > 0.05
+    np.testing.assert_allclose(total, ref, rtol=0, atol=1e-4)
 
 
 ORACLE_GRAPHS = ["sparse_categorical", "evidence_neighbour",
