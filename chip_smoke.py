@@ -34,7 +34,8 @@ Phases (each prints one line with its result and elapsed seconds):
              against its plain version (both colors, both coefficient
              streams, two launches bit for bit), and the whole kernel-route
              gradient against the chunked route (banded_gather), the
-             records route (a row_chunk: one grad_records launch) and the
+             records route (a row_chunk: grad_records_sum's 3 launches)
+             and the
              per-factor gradient; every variant of the kernel on random
              streams (GRAD_STREAM_CASES: 256, 512, 48 and 37 chains and a
              world off the 16-byte grid, D = 1..9 and 24, 1, 2 and 64
@@ -50,10 +51,10 @@ Phases (each prints one line with its result and elapsed seconds):
              width); the bytes init_values_mc allocates and the
              run's peak, each with the unchunked int32 draw it had before
              and with the chunked draw; then the grad_pair_tile and
-             grad_records gradient routes learn the same weights on a
-             16x16 grid, and a labelled coin (no fused draw) reaches its
-             log-odds with grad_records once an epoch and no row chunk of
-             the chunked gradient
+             records gradient routes learn the same weights on a 16x16
+             grid, and a labelled coin (no fused draw) reaches its
+             log-odds with grad_records_sum's 3 launches an epoch and no
+             row chunk of the chunked gradient
   7 dm kernels  fused_dm_draw and banded_gather_multi against their plain
              versions at the triple flagship's shapes (big_triple_grid(512,
              512): 3 colors, band_k 2, arity 3; 1024 random chains, every
@@ -73,8 +74,8 @@ Phases (each prints one line with its result and elapsed seconds):
              (fused off): launches, rates, peak memory and where a fused
              sweep's time goes; then one learn_mc epoch on the labelled
              triple flagship at 256 chains a world, by part, with the
-             gradient on grad_records (one launch, no banded_gather_multi)
-             and on the chunked route
+             gradient on the records route (grad_records_sum: 3 launches,
+             no banded_gather_multi) and on the chunked route
  10 cat kernel  fused_cat_draw against its plain version at the Potts
              flagship's shapes (big_potts_grid(512, 512, card=4): 2 colors,
              one affinek tier; 512 random chains, both colors): logits
@@ -97,22 +98,24 @@ Phases (each prints one line with its result and elapsed seconds):
              launches, rates, peak memory and a fused sweep by part; then
              learn_mc on the labelled flagship (bench.py's categorical
              learning configuration: 512 chains a world, 10 epochs of 2
-             sweeps): launches (grad_records once an epoch, no
+             sweeps): launches (grad_records_sum 3 an epoch, no
              banded_gather), rate, peak memory and an epoch by part with
-             the gradient on grad_records and on the chunked route; one
+             the gradient on the records route and on the chunked route;
+             one
              banded_gather launch at the chunked gradient's shapes, and
              its launches' share of the chunked epoch
  13 tally    tally_counts against its plain version, exactly, on the three
              flagships' worlds (phases 4, 9, 12) and on random worlds
-             (TALLY_CASES: K = 2, 4, 17 and 200 at 37, 48 and 512 chains,
-             and 2000; int32 worlds above 127; values below 0 and at or
-             past K mixed in; aligned and one element off the 16-byte
-             grid)
+             (TALLY_CASES: K = 2, 4, 17 and 200 at 8, 24, 37, 48, 128 and
+             512 chains, and 2000; int32 worlds above 127; values below 0
+             and at or past K mixed in; aligned and one element off the
+             16-byte grid); its ms beside its bound at 128, 512 and 1024
+             chains (TALLY_TIMED)
  14 kbc oracle  the hub tier: infer_mc on tests/test_hub.py's star graphs
              (boolean, hub_cap 6; card 3, hub_cap 5; chunks of 4) against
              exact enumeration (|dp| < 0.01 and 0.012), and the gradient
-             over dense and hub tiers, on grad_records and on the chunked
-             route, against the per-factor one (within 1e-4) on
+             over dense and hub tiers, on the records route and on the
+             chunked route, against the per-factor one (within 1e-4) on
              random_kbc_graph(300, 900, ...)
  15 kbc      bench.py's KBC inference cell: random_kbc_graph(500000,
              1500000, skew 1.1, windows of 2000, 1e5 weights), greedy
@@ -151,19 +154,28 @@ Phases (each prints one line with its result and elapsed seconds):
  16 kbc learn  bench.py's KBC learning cell: random_kbc_graph(200000,
              600000, 1e4 weights), half labelled, 256 chains a world, 10
              epochs of 2 sweeps: rate, peak memory, an epoch by part with
-             the gradient on grad_records and on the chunked route, and
-             one fold's host profile; dm_gather_draw's launches, no
-             eager color_delta_multilin;
-             grad_records once a tier an epoch, no chunked row chunk
- 16b grad records  grad_records against its plain version at the
-             learning shapes of phases 16, 9 and 12 (every tier that takes
-             it, all its colors in one launch, random worlds, both owner
-             masks) and on random streams (GRAD_RECORD_STREAMS: A-1 = 0,
-             1, 2 and 4, D 1..9, 256 and 512, the nine boolean types, NC
-             not a multiple of 16, a world off the 16-byte grid, int32
-             worlds, hub chunks, 1-3 colors): bit for bit without RATIO,
-             within RECORD_RATIO_TOL with it, two launches byte-equal;
-             each tier's ms a launch, bound and plain ms
+             the gradient on the records route and on the chunked route,
+             and one fold's host profile; dm_gather_draw's launches, no
+             eager color_delta_multilin; grad_records_sum 3 launches an
+             epoch (all five tiers), no chunked row chunk
+ 16b grad records  the records route (grad_records_sum: its owner
+             records' terms, every tier in one launch, then the float64
+             sums by weight in a fixed order) against its plain version
+             at the learning shapes of phases 16, 9 and 12 (random
+             worlds, both owner masks), on random streams
+             (GRAD_RECORD_STREAMS: A-1 = 0, 1, 2 and 4, D 1..9, 256 and
+             512, the nine boolean types, NC not a multiple of 16, a world
+             off the 16-byte grid, int32 worlds, hub chunks, 1-3 colors)
+             and on GRAD_RECORD_TIERS mixed tiers in one plan (two terms
+             launches): the owner terms bit for bit without RATIO, within
+             RECORD_RATIO_TOL with it, each weight within one float32 ulp
+             of the plain sum, two calls byte-equal; the per-tier
+             grad_records kernel (the route before) against
+             grad_records_plain on each of those tiers and streams, bit
+             for bit without RATIO, two launches byte-equal; at most 3
+             launches and no segment_reduce a gradient; each cell's ms
+             beside its bound, the plain version's and the route before
+             this design (grad_records a tier and segment_reduce a tier)
  17 cli kbc  the dw gibbs command (python -m sampler_tpu_torch.cli, a child
              process) on phase 15's graph, written by the port's binary
              writer, with phase 15's compile settings, 1024 chains, 2
@@ -177,9 +189,9 @@ Phases (each prints one line with its result and elapsed seconds):
              enumeration: a 3x3 Ising grid (|dp| < 0.015), the labelled coin
              (within 0.2 of its log-odds), sparse-weight graphs (|dp| <
              0.01; one of them with checkpoints); a labelled sparse-weight
-             graph learned through the command (grad_records once a tier
-             an epoch) and its gradient on grad_records beside the
-             chunked route (equal within GRAD_RTOL; their ms, no row
+             graph learned through the command (grad_records_sum 3
+             launches an epoch) and its gradient on the records route
+             beside the chunked route (equal within GRAD_RTOL; their ms, no row
              chunk on the kernel route); 256x256 Ising, Potts and triple
              grids with learning,
              each kernel's launches on the command's path exactly counted
@@ -317,10 +329,15 @@ WIDE_GRID = 128               # the Ising grid with every pair factor twice:
 WIDE_COPIES = 2               # degree 9, past the kernel's unrolled D = 1..8
 # (K, NC) of the tally's random worlds: every way it counts (registers at
 # K <= 16, a warp's shared histogram to 1024, global atomics above; int8
-# and int32 worlds) at 16-byte rows (48, 512) and byte rows (37)
-TALLY_CASES = [(K, nc) for K in (2, 4, 17, 200) for nc in (37, 48, 512)] \
-    + [(2000, 48)]
+# and int32 worlds) at 16-byte rows (8, 24, 48, 128, 512: 1 to 32 lanes a
+# row in registers) and byte rows (37)
+TALLY_CASES = [(K, nc) for K in (2, 4, 17, 200)
+               for nc in (8, 24, 37, 48, 128, 512)] + [(2000, 48)]
 TALLY_ROWS = 100_003
+# (K, NC) of the timed tallies on random int8 worlds of TALLY_TIME_ROWS
+# rows: narrow rows beside the flagships' 512 and KBC's 1024 chains
+TALLY_TIMED = [(2, 128), (4, 128), (2, 512), (2, 1024)]
+TALLY_TIME_ROWS = 1 << 20
 KBC_ORACLE_CHAINS = 1024
 KBC_ORACLE_BURN, KBC_ORACLE_SWEEPS = 100, 1000
 KBC_VARS, KBC_CHAINS = 500_000, 1024      # bench.py's bench_kbc
@@ -936,7 +953,7 @@ def grad_phase(dev) -> tuple:
     from sampler_tpu_torch.ops.banded import banded_gather
     from sampler_tpu_torch.ops.grad import (GRAD_W_MAX, grad_pair_tile,
                                             grad_pair_tile_plain,
-                                            grad_records)
+                                            grad_records_sum)
 
     t5 = time.perf_counter()
     chains = LEARN_CHAINS
@@ -989,15 +1006,16 @@ def grad_phase(dev) -> tuple:
         gathers = banded_gather.launches
         require(gathers == C * (ti.block // row_chunk),
                 f"chunked route: {gathers} banded_gather launches")
-        # a row_chunk keeps grad_pair_tile off: the tier takes grad_records
-        saved = grad_records.launches
+        # a row_chunk keeps grad_pair_tile off: the tier takes the
+        # records route (grad_records_sum: its terms, pieces, weights)
+        saved = grad_records_sum.launches
         records = mc_weight_gradient_cs(d, v_ev, v_free, lne, info,
                                         ("cuda", "cuda"),
                                         row_chunk=row_chunk)
-        require(grad_records.launches - saved == 1,
-                f"records route: {grad_records.launches - saved} "
-                f"grad_records launches")
-        grad_records.launches = saved   # a comparison counts no launch
+        require(grad_records_sum.launches - saved == 3,
+                f"records route: {grad_records_sum.launches - saved} "
+                f"grad_records_sum launches")
+        grad_records_sum.launches = saved   # a comparison counts none
         kernel = mc_weight_gradient_cs(d, v_ev, v_free, lne, info,
                                        ("cuda", "cuda"))
         factors = _mc_weight_gradient_factors(d, v_ev, v_free, lne, info)
@@ -1077,7 +1095,7 @@ def learn_phase(dev, g, d, info) -> dict:
     from sampler_tpu_torch.engine.multichain import init_values_mc, learn_mc
     from sampler_tpu_torch.ops.banded import banded_gather
     from sampler_tpu_torch.ops.fused import fold_affine, fused_color_draw
-    from sampler_tpu_torch.ops.grad import grad_pair_tile, grad_records
+    from sampler_tpu_torch.ops.grad import grad_pair_tile, grad_records_sum
 
     t6 = time.perf_counter()
     chains = LEARN_CHAINS
@@ -1172,7 +1190,7 @@ def learn_phase(dev, g, d, info) -> dict:
     del v_ev, v_free
 
     # the grad_pair_tile route and, with the band mode off, the
-    # grad_records route learn the same weights from the same draws
+    # records route learn the same weights from the same draws
     # (tests/test_grad_kernel.py's grid)
     gs, colors_s = big_ising_grid(16, 16, w_pair=0.35, w_bias=0.2)
     rng = np.random.default_rng(7)
@@ -1186,15 +1204,16 @@ def learn_phase(dev, g, d, info) -> dict:
     small = {}
     for label, m in (("pair", ("cuda", "cuda")),
                      ("records", ("off", "cuda"))):
-        grad_pair_tile.launches = grad_records.launches = 0
+        grad_pair_tile.launches = grad_records_sum.launches = 0
         ws, _, _ = learn_mc(ds, ds.w_init,
                             torch.Generator(device=dev).manual_seed(1),
                             cfg_s, infos, 4, m, device=dev)
-        small[label] = (ws, (grad_pair_tile.launches, grad_records.launches))
+        small[label] = (ws, (grad_pair_tile.launches,
+                             grad_records_sum.launches))
     E = cfg_s.n_epochs
     require(small["pair"][1] == (infos.n_colors * E, 0)
-            and small["records"][1] == (0, E),
-            f"16x16 routes: (grad_pair_tile, grad_records) launches "
+            and small["records"][1] == (0, 3 * E),
+            f"16x16 routes: (grad_pair_tile, grad_records_sum) launches "
             f"{small['pair'][1]}, {small['records'][1]}")
     dw = float((small["pair"][0] - small["records"][0]).abs().max())
     require(dw <= 1e-4, f"16x16: pair and records routes differ by {dw}")
@@ -1204,10 +1223,10 @@ def learn_phase(dev, g, d, info) -> dict:
     w_star = float(np.log(p_hat / (1 - p_hat)))
     dgc, infoc = compile_graph(gc)
     dc = to_device(dgc, dev)
-    # a graph without a fused draw: its gradient takes grad_records too,
-    # once a tier an epoch, and no row chunk of the chunked route
+    # a graph without a fused draw: its gradient takes the records route
+    # too, 3 launches an epoch, and no row chunk of the chunked route
     coin_epochs = 300
-    grad_records.launches = 0
+    grad_records_sum.launches = 0
     with EagerCalls("_phi_streams") as chunks:
         wc, _, _ = learn_mc(dc, dc.w_init, torch.Generator(device=dev)
                             .manual_seed(0),
@@ -1215,11 +1234,11 @@ def learn_phase(dev, g, d, info) -> dict:
                                         diminish=0.995,
                                         regularization="none"),
                             infoc, 8, device=dev)
-    coin_launches = grad_records.launches
-    require(coin_launches == len(infoc.tiers) * coin_epochs
+    coin_launches = grad_records_sum.launches
+    require(coin_launches == 3 * coin_epochs
             == grad_launches_an_epoch(infoc, dev) * coin_epochs
             and chunks.calls == 0,
-            f"coin: grad_records launches {coin_launches}, {chunks.calls} "
+            f"coin: grad_records_sum launches {coin_launches}, {chunks.calls} "
             f"chunked gradient row chunks")
     coin_err = abs(float(wc[0]) - w_star)
     require(coin_err < 0.12, f"coin: learned {float(wc[0])}, want {w_star}")
@@ -1228,7 +1247,8 @@ def learn_phase(dev, g, d, info) -> dict:
            grid16_pair_vs_records_max_abs_dw=dw,
            grid16_weights=small["pair"][0].tolist(),
            coin_learned=float(wc[0]), coin_log_odds=w_star,
-           coin_abs_err=coin_err, coin_grad_records_launches=coin_launches,
+           coin_abs_err=coin_err,
+           coin_grad_records_sum_launches=coin_launches,
            coin_chunked_gradient_row_chunks=chunks.calls)
     return launches
 
@@ -1592,7 +1612,7 @@ def oracle_dm_phase(dev) -> dict:
 def triple_phase(dev, card: str, g, d, info, kern) -> tuple:
     """Phase 9: the triple flagship's main path, fused and unfused, then
     one learning epoch on its labelled twin (by part, the gradient on
-    grad_records and, beside it, on the chunked route).  Fills in the
+    the records route and, beside it, on the chunked route).  Fills in the
     launches of ``kern``'s two entries; returns the tally check on its
     world and (device graph, info, chains) of the learning twin, for
     phase 16b."""
@@ -1605,7 +1625,7 @@ def triple_phase(dev, card: str, g, d, info, kern) -> tuple:
                                                      resolve_modes)
     from sampler_tpu_torch.ops.banded import banded_gather_multi
     from sampler_tpu_torch.ops.fused import fused_dm_draw
-    from sampler_tpu_torch.ops.grad import grad_records
+    from sampler_tpu_torch.ops.grad import grad_records_sum
     from sampler_tpu_torch.ops.tally import tally_counts
 
     t9 = time.perf_counter()
@@ -1683,7 +1703,7 @@ def triple_phase(dev, card: str, g, d, info, kern) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     fused_dm_draw.launches = 0
     banded_gather_multi.launches = 0
-    grad_records.launches = 0
+    grad_records_sum.launches = 0
     modes_l = resolve_modes(infol, dev)
     with EagerCalls("_phi_streams") as chunks:
         epoch = epoch_parts(dl, w, infol, modes_l, v_ev, v_free, cfg,
@@ -1697,13 +1717,13 @@ def triple_phase(dev, card: str, g, d, info, kern) -> tuple:
                  launches={"fused_dm_draw": fused_dm_draw.launches,
                            "banded_gather_multi": banded_gather_multi
                            .launches,
-                           "grad_records": grad_records.launches},
+                           "grad_records_sum": grad_records_sum.launches},
                  chunked_gradient_row_chunks=chunks.calls,
                  weights=w.tolist())
     require(learn["launches"] == {
         "fused_dm_draw": 2 * C * LEARN_SWEEPS, "banded_gather_multi": 0,
-        "grad_records": grad_launches_an_epoch(infol, dev)}
-        and learn["launches"]["grad_records"] > 0 and chunks.calls == 0,
+        "grad_records_sum": grad_launches_an_epoch(infol, dev)}
+        and learn["launches"]["grad_records_sum"] > 0 and chunks.calls == 0,
         f"learning epoch launches {learn['launches']}, {chunks.calls} "
         f"chunked gradient row chunks")
     torch.cuda.reset_peak_memory_stats()
@@ -2189,7 +2209,7 @@ def oracle_cat_phase(dev) -> dict:
 def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
     """Phase 12: the Potts flagship's main path, fused and unfused, then
     learn_mc on its labelled twin (the epoch by part, the gradient on
-    grad_records and, beside it, on the chunked route).  Fills in the
+    the records route and, beside it, on the chunked route).  Fills in the
     launches of ``kern``; returns the tally check on its world and (device
     graph, info, chains) of the learning twin, for phase 16b."""
     import dataclasses
@@ -2205,7 +2225,7 @@ def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
     from sampler_tpu_torch.ops.banded import (banded_gather,
                                               banded_gather_plain)
     from sampler_tpu_torch.ops.fused import fused_cat_draw
-    from sampler_tpu_torch.ops.grad import grad_records
+    from sampler_tpu_torch.ops.grad import grad_records_sum
     from sampler_tpu_torch.ops.tally import tally_counts
 
     t12 = time.perf_counter()
@@ -2287,7 +2307,7 @@ def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     fused_cat_draw.launches = 0
     banded_gather.launches = 0
-    grad_records.launches = 0
+    grad_records_sum.launches = 0
     with EagerCalls("_phi_streams") as chunks:
         tr = time.perf_counter()
         w, v_ev, v_free = learn_mc(dl, dl.w_init,
@@ -2297,11 +2317,11 @@ def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
         wall = time.perf_counter() - tr
     launches = {"fused_cat_draw": fused_cat_draw.launches,
                 "banded_gather": banded_gather.launches,
-                "grad_records": grad_records.launches}
+                "grad_records_sum": grad_records_sum.launches}
     n_sw = cfg.n_epochs * cfg.n_sweeps_per_epoch
     require(launches == {"fused_cat_draw": 2 * C * n_sw, "banded_gather": 0,
-                         "grad_records": cfg.n_epochs}
-            and grad_launches_an_epoch(infol, dev) == 1
+                         "grad_records_sum": 3 * cfg.n_epochs}
+            and grad_launches_an_epoch(infol, dev) == 3
             and chunks.calls == 0,
             f"learning launches {launches}, {chunks.calls} chunked "
             f"gradient row chunks")
@@ -2368,7 +2388,9 @@ def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
 def tally_phase(dev, checks: dict) -> dict:
     """Phase 13: tally_counts against its plain version, exactly, on random
     worlds (TALLY_CASES, values below 0 and at or past K mixed in), beside
-    the flagship worlds' checks of phases 4, 9 and 12 (``checks``)."""
+    the flagship worlds' checks of phases 4, 9 and 12 (``checks``); then
+    its ms beside its bound at TALLY_TIMED (phase 24 times it on the
+    5120^2 grid's 128-chain world)."""
     import torch
 
     t13 = time.perf_counter()
@@ -2383,7 +2405,15 @@ def tally_phase(dev, checks: dict) -> dict:
         # the same world one element off the 16-byte grid
         cases[f"K{K}_nc{NC}_off_grid"] = tally_case(off_grid(v), K)
         del v
-    report("13 tally", t13, rows=TALLY_ROWS, cases=cases)
+    timed = {}
+    for K, NC in TALLY_TIMED:
+        v = torch.randint(0, K, (TALLY_TIME_ROWS, NC), generator=gen,
+                          device=dev, dtype=torch.int8)
+        x = timed[f"K{K}_nc{NC}"] = tally_numbers(v, K)
+        x["bound_share"] = x["bound_ms"] / x["ms"]
+        del v
+    report("13 tally", t13, rows=TALLY_ROWS, cases=cases,
+           timed_rows=TALLY_TIME_ROWS, timed=timed)
     return cases
 
 
@@ -2414,7 +2444,7 @@ def kbc_oracle_phase(dev) -> dict:
     star graphs against exact enumeration (|dp| < 0.01 boolean with
     hub_cap 6 and chunks of 4; < 0.012 on the card-3 star with hub_cap 5,
     the JAX package's bound); then the gradient over dense and hub tiers,
-    on grad_records (the default modes) and on the chunked route (fused
+    on the records route (the default modes) and on the chunked route (fused
     off), against the per-factor gradient (within 1e-4) on
     random_kbc_graph(300, 900, ...) with hub_cap 8 and chunks of 4."""
     import torch
@@ -3041,104 +3071,255 @@ def dm_gather_phase(dev, card: str, d, info) -> dict:
 
 
 def grad_launches_an_epoch(info, dev, n_graph: int = 1) -> int:
-    """grad_records launches of one gradient with the default modes: one a
-    tier that ``gradient_route`` sends there."""
+    """grad_records_sum launches of one gradient with the default modes:
+    where ``gradient_route`` sends any tier to the records route, one
+    launch of the terms kernel a RECORD_MAX_TIERS of those tiers, then
+    the pieces' and the weights' (3 on every learning cell), else 0."""
     from sampler_tpu_torch.engine.multichain import (gradient_route,
                                                      resolve_modes)
+    from sampler_tpu_torch.ops.grad import RECORD_MAX_TIERS
 
     modes = resolve_modes(info, dev)
     W = info.n_weights + 1
-    return sum(1 for ti in info.tiers if gradient_route(
+    n = sum(1 for ti in info.tiers if gradient_route(
         ti, info, modes, W, n_graph=n_graph)[0] == "records")
+    return -(-n // RECORD_MAX_TIERS) + 2 if n else 0
 
 
-def grad_record_bound(args) -> dict:
-    """The least time of one grad_records launch on these inputs: the
+def record_ops(A: int, NC: int, value_bytes: int) -> float:
+    """Integer operations of grad_records_sum's terms kernel per (owner
+    record, chain, world) at slot count A, as its body issues them.  On
+    int8 worlds of 16-byte rows and A <= 3 (swar_chains, grad_records.cu)
+    a slot takes 9 operations on a word of four chains (bytes_equal's
+    5, the sign's xor, the count's shift and add, the head's or): 9A / 4
+    a chain; then 9 a chain (the count's and the head's extraction, 2
+    each, phi, about 4, and half of the difference and the sum).
+    Elsewhere (a chain at a time) 4A + 10, the per-tier kernel's count."""
+    if value_bytes == 1 and NC % 16 == 0 and A <= 3:
+        return 9 * A / 4 + 9
+    return 4 * A + 10
+
+
+def grad_record_bound(plan, v_ev) -> dict:
+    """The least time of one grad_records_sum call on these inputs: the
     world rows its owner records read in both worlds (the distinct own and
-    neighbour rows of the records whose mask is set: this run's data),
-    the streams read once and the output written once; per (owner record,
-    chain, world) some 4A + 10 operations, nearly all integer compares
-    and adds, at the int32 rate."""
+    neighbour rows: this run's data), the plan read once (head, flags,
+    neighbours, eq; the permutation, the pieces), the terms written and
+    read once, the weights written; per (owner record, chain, world)
+    record_ops operations, nearly all integer, at the int32 rate."""
     import torch
 
-    (v_ev, _, nbr, pos, ismine, _, _, eq, _, _, _, gsel, own_base, stride,
-     own_idx) = args[:15]
+    from sampler_tpu_torch.ops.grad import FLAG_OWN
+
     P, NC = v_ev.shape
-    C, B, D, A = pos.shape
-    dev = v_ev.device
-    rows = (own_idx.to(torch.int64) if own_idx is not None else
-            torch.arange(B, device=dev).expand(C, B)) + (
-        own_base + stride * torch.arange(C, device=dev)[:, None])
-    read = [rows[gsel.any(dim=-1)]]
-    if A > 1:
-        nb = ismine[..., :A - 1] | ~gsel[..., None]
-        read.append(nbr[~nb].to(torch.int64))
-    idx = torch.cat(read)
+    rows, nbytes, ops = [], 0, 0
+    for head, flags, nbr, eq in plan.packed:
+        n, A = flags.shape
+        rows.append(head[:, 0].to(torch.int64))
+        if nbr is not None:
+            rows.append(nbr[(flags[:, :A - 1] & FLAG_OWN) == 0]
+                        .to(torch.int64))
+        nbytes += sum(x.numel() * x.element_size()
+                      for x in (head, flags, nbr, eq) if x is not None)
+        ops += round(n * NC * 2 * record_ops(A, NC, v_ev.element_size()))
+    idx = torch.cat(rows)
     distinct = int(torch.unique(idx[(idx >= 0) & (idx < P)]).numel())
-    per_rec = 4 * (A - 1) + 4 * A + (0 if eq is None else
-                                     eq.element_size() * A) + 1 + 2 + 4 + 1
-    n_rec = C * B * D
-    nbytes = (2 * distinct * NC * v_ev.element_size() + n_rec * per_rec
-              + n_rec * 4 + (0 if own_idx is None else 4 * C * B))
-    ops = int(gsel.sum()) * NC * 2 * (4 * A + 10)
+    N = plan.terms.numel()
+    nbytes += (2 * distinct * NC * v_ev.element_size() + 2 * 4 * N + 4 * N
+               + 4 * plan.piece_start.numel() + 8 * 2 * plan.partial.numel()
+               + 4 * plan.weight_piece.numel() + 4 * plan.W)
     return dict(kernel_bound(nbytes, ops, INT32_OPS_PER_S),
-                rows_read=distinct)
+                rows_read=distinct, owner_records=N)
 
 
-def grad_records_tier(dev, d, info, t: int, NC: int, seed: int) -> dict:
-    """grad_records against its plain version on tier ``t`` of ``d`` (all
-    its colors in one launch) on random worlds of NC chains
-    (learn_non_evidence on, and off, the learning cells' setting): bit for
-    bit where the tier has no RATIO factor, else within the stated bound,
-    and two launches equal byte for byte; then its ms a launch, the plain
-    version's and the bound."""
+def owner_terms(plan, v_ev, v_free) -> list:
+    """Each tier's owner terms by the per-record plain version (its
+    records where the owner mask is set, in record order): what
+    ``plan.terms`` holds after a kernel call."""
+    from sampler_tpu_torch.ops.grad import grad_records_plain
+
+    out = []
+    for t in plan.tiers:
+        rec = t.gsel.reshape(-1).nonzero().flatten()
+        out.append(grad_records_plain(v_ev, v_free, *t[:14],
+                                      plan.all_boolean)
+                   .reshape(-1).index_select(0, rec))
+    return out
+
+
+def records_tier_case(args, ratio: bool, what: str) -> float:
+    """The per-tier grad_records kernel (the route before grad_records_sum)
+    against grad_records_plain on one tier's arguments: bit for bit without
+    RATIO, within RECORD_RATIO_TOL of the largest |out| with it, and two
+    launches equal byte for byte.  Returns the max |diff|."""
+    import torch
+
+    from sampler_tpu_torch.ops.grad import grad_records, grad_records_plain
+
+    got, again = grad_records(*args), grad_records(*args)
+    ref = grad_records_plain(*args)
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+            f"grad_records: two launches differ ({what})")
+    if ratio:
+        require(err <= RECORD_RATIO_TOL * max(1.0, float(ref.abs().max())),
+                f"grad_records: RATIO differs by {err} ({what})")
+    else:
+        require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                f"grad_records differs from its plain version by {err} "
+                f"({what})")
+    return err
+
+
+def record_plan_case(plan, v_ev, v_free, ratio: bool, what: str) -> dict:
+    """grad_records_sum against its plain version on ``plan``: each weight
+    within one float32 ulp of the plain sum (with RATIO, plus
+    RECORD_RATIO_TOL of the largest |term| for each of its records), two
+    calls equal byte for byte, and the kernel's owner terms
+    (``plan.terms``) equal to the per-record plain version's bit for bit
+    (with RATIO within RECORD_RATIO_TOL of the largest |term|)."""
+    import torch
+
+    from sampler_tpu_torch.ops.grad import (grad_records_sum,
+                                            grad_records_sum_plain)
+
+    got = grad_records_sum(v_ev, v_free, plan)
+    terms = plan.terms.clone()
+    again = grad_records_sum(v_ev, v_free, plan)
+    ref = grad_records_sum_plain(v_ev, v_free, plan)
+    want = torch.cat(owner_terms(plan, v_ev, v_free))
+    require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+            f"grad_records_sum: two calls differ ({what})")
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    terr = float((terms - want).abs().max()) if want.numel() else 0.0
+    if ratio:
+        require(terr <= RECORD_RATIO_TOL * scale, f"grad_records_sum: "
+                f"RATIO owner terms differ by {terr} ({what})")
+    else:
+        require(torch.equal(terms.view(torch.int32), want.view(torch.int32)),
+                f"grad_records_sum: owner terms differ by {terr} ({what})")
+    r = ref.abs()
+    ulp = torch.nextafter(r, torch.full_like(r, float("inf"))) - r
+    tol = ulp
+    if ratio:
+        wid = torch.cat([t.wid.reshape(-1).index_select(
+            0, t.gsel.reshape(-1).nonzero().flatten()) for t in plan.tiers])
+        n_w = torch.bincount(wid.to(torch.int64), minlength=plan.W)
+        tol = ulp + RECORD_RATIO_TOL * scale * n_w.to(ulp.dtype)
+    diff = (got - ref).abs()
+    require(bool((diff <= tol).all()), f"grad_records_sum: weight sums "
+            f"differ by {float(diff.max())} ({what}), past one ulp")
+    return dict(max_abs_err=float(diff.max()), terms_max_abs_err=terr,
+                weights_off_by_one_ulp=int((diff > 0).sum()),
+                owner_records=int(want.numel()),
+                max_abs_weight=float(r.max()))
+
+
+def grad_records_cell(dev, d, info, NC: int, seed: int) -> dict:
+    """The records route on a learning cell's graph (every tier it takes,
+    one grad_records_sum call), on random worlds of NC chains, both owner
+    masks (learn_non_evidence on, and off, the learning cells' setting):
+    record_plan_case, and each tier on the per-tier kernel
+    (records_tier_case); the default-mode gradient launches at most 3 kernels
+    and no segment_reduce; then the call's ms beside its bound, the plain
+    version's, the route before this design (grad_records a tier and
+    segment_reduce a tier) and that route's segment_reduce alone."""
     import torch
 
     from sampler_tpu_torch import format_spec as fs
-    from sampler_tpu_torch.engine.multichain import (_record_streams,
-                                                     values_dtype)
-    from sampler_tpu_torch.ops.grad import grad_records, grad_records_plain
+    from sampler_tpu_torch.engine import multichain as tmc
+    from sampler_tpu_torch.ops import grad as tgrad
+    from sampler_tpu_torch.ops.grad import (grad_records, grad_records_sum,
+                                            grad_records_sum_plain)
+    from sampler_tpu_torch.ops.weights import segment_reduce
 
-    ts, ti = d.tiers[t], info.tiers[t]
-    C, gB = info.n_colors, info.block_size
+    modes = tmc.resolve_modes(info, dev)
+    W = d.w_init.shape[0]
+    tiers = [t for t, ti in enumerate(info.tiers)
+             if tmc.gradient_route(ti, info, modes, W)[0] == "records"]
     gen = torch.Generator(device=dev).manual_seed(seed)
     card = d.var_card.clamp(min=1).to(torch.int64)[:, None]
-    worlds = [(torch.randint(0, 1 << 20, (card.shape[0], NC), generator=gen,
-                             device=dev) % card).to(values_dtype(info))
-              for _ in range(2)]
-    present = ti.present_funcs or info.present_funcs
-    ratio = fs.FUNC_RATIO in present
-    err = 0.0
+    v_ev, v_free = [(torch.randint(0, 1 << 20, (card.shape[0], NC),
+                                   generator=gen, device=dev) % card)
+                    .to(tmc.values_dtype(info)) for _ in range(2)]
+    ratio = any(fs.FUNC_RATIO in (ti.present_funcs or info.present_funcs)
+                for ti in info.tiers)
+    checks, per_tier = {}, {}
     for lne in (True, False):           # timed below: False, as learning
-        gsrc = ts.cs_gowner if lne else ts.cs_gtouch
-        args = (*worlds, *_record_streams(ts, ti, C, gB, gsrc, 1, 0,
-                                          info.all_boolean),
-                present, info.all_boolean)
-        got, again = grad_records(*args), grad_records(*args)
-        ref = grad_records_plain(*args)
-        require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
-                f"grad_records: two launches differ (tier {t})")
-        e = float((got - ref).abs().max())
-        err = max(err, e)
-        if ratio:
-            require(e <= RECORD_RATIO_TOL * max(1.0, float(
-                ref.abs().max())), f"grad_records: RATIO tier {t} "
-                f"differs by {e}")
-        else:
-            require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
-                    f"grad_records differs from its plain version "
-                    f"(tier {t}, lne={lne}, max {e})")
-        del got, again, ref
-    bound = grad_record_bound(args)
-    _, B, D, A = args[3].shape
-    return dict(tier=t, hub=ti.hub, colors=C, rows=B, D=D, A=A, NC=NC,
-                dtype=str(worlds[0].dtype), ratio=ratio, launches=1,
-                max_abs_err=err, exact=not ratio,
-                ms=time_ms(lambda: grad_records(*args), iters=10),
-                plain_ms=time_ms(lambda: grad_records_plain(*args), iters=2,
-                                 warmup=1),
-                t_bytes_ms=bound["bytes"] / HBM_BYTES_PER_S * 1e3,
-                t_ops_ms=bound["ops"] / INT32_OPS_PER_S * 1e3, **bound)
+        plan = tmc._record_plan(d, info, tiers, lne, 1, 0)
+        checks[f"lne_{lne}"] = record_plan_case(plan, v_ev, v_free, ratio,
+                                                f"tiers {tiers}, lne {lne}")
+        for t in tiers:                 # the per-tier kernel, as before
+            ts, ti = d.tiers[t], info.tiers[t]
+            present = ti.present_funcs or info.present_funcs
+            args = (v_ev, v_free, *tmc._record_streams(
+                ts, ti, info.n_colors, info.block_size,
+                ts.cs_gowner if lne else ts.cs_gtouch, 1, 0,
+                info.all_boolean), present, info.all_boolean)
+            per_tier[f"tier {t}, lne {lne}"] = records_tier_case(
+                args, fs.FUNC_RATIO in present, f"tier {t}, lne {lne}")
+            del args
+    # the default modes' whole gradient: 3 launches, no index_add_ sum
+    reduced = []
+    saved = {m: getattr(m, "segment_reduce") for m in (tmc, tgrad)}
+    for m, orig in saved.items():
+        setattr(m, "segment_reduce",
+                lambda *a, _o=orig: reduced.append(1) or _o(*a))
+    before = grad_records_sum.launches
+    try:
+        whole = tmc.mc_weight_gradient_cs(d, v_ev, v_free, False, info, modes)
+    finally:
+        for m, orig in saved.items():
+            setattr(m, "segment_reduce", orig)
+    launches = grad_records_sum.launches - before
+    grad_records_sum.launches = before  # a comparison counts no launch
+    require(launches == grad_launches_an_epoch(info, dev) <= 3
+            and not reduced and bool(torch.isfinite(whole).all()),
+            f"records route: {launches} launches, {len(reduced)} "
+            f"segment_reduce calls")
+    # the route before: per-record terms a tier, a segment sum a tier
+    old = []
+    for t in tiers:
+        ts, ti = d.tiers[t], info.tiers[t]
+        args = (v_ev, v_free, *tmc._record_streams(
+            ts, ti, info.n_colors, info.block_size, ts.cs_gtouch, 1, 0,
+            info.all_boolean), ti.present_funcs or info.present_funcs,
+            info.all_boolean)
+        old.append((args, ts.cs_wid, grad_records(*args)))
+
+    def old_route():
+        return sum(segment_reduce(grad_records(*a), wid, W)
+                   for a, wid, _ in old)
+
+    def old_sums():
+        return sum(segment_reduce(out, wid, W) for _, wid, out in old)
+
+    old_grad = old_route()
+    new_grad = grad_records_sum(v_ev, v_free, plan)
+    grad_records_sum.launches = before
+    require(bool(((old_grad - new_grad).abs()
+                  <= 1e-6 * max(1.0, float(old_grad.abs().max()))).all()),
+            "records route: the new gradient differs from the route before")
+    bound = grad_record_bound(plan, v_ev)
+    ms = time_ms(lambda: grad_records_sum(v_ev, v_free, plan), iters=20)
+    res = dict(tiers=tiers, hub=[info.tiers[t].hub for t in tiers],
+               A=[info.tiers[t].arity for t in tiers], NC=NC, W=W,
+               dtype=str(v_ev.dtype), ratio=ratio, checks=checks,
+               per_tier_max_abs_err=per_tier,
+               launches_a_gradient=launches, segment_reduce_calls=0,
+               ms=ms,
+               gradient_ms=time_ms(lambda: tmc.mc_weight_gradient_cs(
+                   d, v_ev, v_free, False, info, modes), iters=20),
+               before_ms=time_ms(old_route, iters=10),
+               before_segment_reduce_ms=time_ms(old_sums, iters=10),
+               plain_ms=time_ms(lambda: grad_records_sum_plain(
+                   v_ev, v_free, plan), iters=2, warmup=1),
+               t_bytes_ms=bound["bytes"] / HBM_BYTES_PER_S * 1e3,
+               t_ops_ms=bound["ops"] / INT32_OPS_PER_S * 1e3, **bound)
+    grad_records_sum.launches = before
+    res["share_of_bound"] = res["bound_ms"] / ms
+    del old, v_ev, v_free
+    return res
 
 
 FUNCS9 = (0, 1, 2, 3, 4, 7, 8, 9, 13)     # the boolean factor types
@@ -3160,6 +3341,7 @@ GRAD_RECORD_STREAMS = (
        (300, 3, 3, 48, 2, FUNCS9, False, False, True),
        (300, 3, 2, 512, 4, (3, 12), False, False, True)])
 RECORD_RATIO_TOL = 1e-6         # RATIO: relative to the largest |out|
+GRAD_RECORD_TIERS = 10          # tiers in one plan: two terms launches
 
 
 def record_streams(dev, B, D, A, NC, seed, card, types, int32, hub,
@@ -3211,77 +3393,110 @@ def record_streams(dev, B, D, A, NC, seed, card, types, int32, hub,
 
 
 def grad_record_stream_case(dev, case, seed: int) -> dict:
-    """grad_records against its plain version on random streams of
-    1 + seed % 3 colors: bit for bit without RATIO, within
-    RECORD_RATIO_TOL with it, two launches equal."""
+    """grad_records_sum against its plain version (record_plan_case) on
+    random streams of 1 + seed % 3 colors, one tier, weight ids drawn from
+    1 + seed % 7 weights; and the per-tier kernel on the same streams
+    (records_tier_case)."""
     import torch
 
-    from sampler_tpu_torch.ops.grad import grad_records, grad_records_plain
+    from sampler_tpu_torch.ops.grad import RecordTier, record_plan
 
     B, D, A, NC, card, types, int32, hub, off = case
     C = 1 + seed % 3
+    W = 1 + seed % 7
     args = record_streams(dev, B, D, A, NC, seed, card, types, int32, hub,
                           off, C)
-    got, again = grad_records(*args), grad_records(*args)
-    ref = grad_records_plain(*args)
-    err = float((got - ref).abs().max())
-    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
-    if 8 in types:
-        ok = err <= RECORD_RATIO_TOL * max(1.0, float(ref.abs().max()))
-    else:
-        ok = torch.equal(got.view(torch.int32), ref.view(torch.int32))
-    require(same and ok and all(bool((ref[c] != 0).any()) for c in range(C)),
-            f"grad_records on streams {case} ({C} colors): max |diff| {err},"
-            f" two launches equal: {same}")
-    return dict(B=B, D=D, A=A, NC=NC, C=C, card=card, ratio=8 in types,
-                int32=int32, hub=hub, off_grid=off and not int32,
-                max_abs_err=err)
+    wid = torch.randint(0, W, (C, B, D), device=dev, dtype=torch.int32,
+                        generator=torch.Generator(device=dev)
+                        .manual_seed(seed))
+    plan = record_plan([RecordTier(*args[2:16], wid)], W, args[16])
+    res = record_plan_case(plan, args[0], args[1], 8 in types,
+                           f"streams {case}, {C} colors")
+    require(res["owner_records"] > 0, f"streams {case}: no owner record")
+    res["per_tier_max_abs_err"] = records_tier_case(
+        args, 8 in types, f"streams {case}, {C} colors")
+    return dict(B=B, D=D, A=A, NC=NC, C=C, W=W, card=card, ratio=8 in types,
+                int32=int32, hub=hub, off_grid=off and not int32, **res)
+
+
+def grad_record_tiers_case(dev, seed: int) -> dict:
+    """GRAD_RECORD_TIERS random tiers of A = 1, 2, 3 and 5 on one pair of
+    worlds in one plan: past RECORD_MAX_TIERS, so two launches of the
+    terms kernel, then the pieces and the weights; and a tier with no
+    owner record among them."""
+    import torch
+
+    from sampler_tpu_torch.ops.grad import (RECORD_MAX_TIERS, RecordTier,
+                                            grad_records_sum, record_plan,
+                                            record_launches)
+
+    W = 11
+    tiers = []
+    for i in range(GRAD_RECORD_TIERS):
+        args = record_streams(dev, 40 + 7 * i, 1 + i % 5, (1, 2, 3, 5)[i % 4],
+                              48, seed + i, 2, FUNCS9[:6], False, i == 3,
+                              False, 1 + i % 3)
+        if i == 0:
+            worlds = args[:2]
+        gsel = args[11] if i != 5 else torch.zeros_like(args[11])
+        wid = torch.randint(0, W, tuple(args[10].shape), device=dev,
+                            dtype=torch.int32, generator=torch.Generator(
+                                device=dev).manual_seed(seed + i))
+        tiers.append(RecordTier(*args[2:11], gsel, *args[12:16], wid))
+    plan = record_plan(tiers, W, True)
+    require(len(tiers) > RECORD_MAX_TIERS and record_launches(plan) == 4,
+            f"{len(tiers)} tiers: {record_launches(plan)} launches")
+    before = grad_records_sum.launches
+    res = record_plan_case(plan, *worlds, False, "mixed tiers")
+    grad_records_sum.launches = before
+    return dict(tiers=len(tiers), launches=record_launches(plan), **res)
 
 
 def grad_records_phase(dev, card: str, graphs: dict) -> dict:
-    """Phase 16b: grad_records against its plain version at the learning
-    shapes of phases 16, 9 and 12 (``graphs``: name -> (device graph,
-    info, chains a world); every tier that takes it, all its colors in one
-    launch, on random worlds; grad_records_tier) and on random streams
-    (GRAD_RECORD_STREAMS); each tier's numbers.  Returns the kernel's
-    numbers for the kernels line: a launch's mean ms, plain ms and bound
-    over the learning cells' launches of one gradient."""
-    from sampler_tpu_torch.engine.multichain import (gradient_route,
-                                                     resolve_modes)
-    from sampler_tpu_torch.ops.grad import grad_records
+    """Phase 16b: the records route's kernels (grad_records_sum) against
+    their plain version at the learning shapes of phases 16, 9 and 12
+    (``graphs``: name -> (device graph, info, chains a world); every tier
+    that takes the route in one call, on random worlds; grad_records_cell),
+    on random streams (GRAD_RECORD_STREAMS) and on GRAD_RECORD_TIERS mixed
+    tiers in one plan; each cell's numbers.  The per-tier kernel
+    (grad_records, the route before) is held to grad_records_plain on
+    every tier of the cells and on every stream case as well.  Returns
+    the numbers of grad_records_sum for the kernels line: a gradient's
+    (3 launches') mean ms, plain ms, bound and library ms (the route
+    before this design's segment_reduce) over the learning cells."""
+    from sampler_tpu_torch.ops.grad import grad_records, grad_records_sum
 
     t16b = time.perf_counter()
-    saved = grad_records.launches
-    cells = {}
-    for name, (d, info, NC) in graphs.items():
-        modes = resolve_modes(info, dev)
-        W = d.w_init.shape[0]
-        tiers = [grad_records_tier(dev, d, info, t, NC, 16 + t)
-                 for t, ti in enumerate(info.tiers)
-                 if gradient_route(ti, info, modes, W)[0] == "records"]
-        require(len(tiers) == grad_launches_an_epoch(info, dev) > 0,
-                f"{name}: grad_records tiers {len(tiers)}")
-        cells[name] = tiers
+    saved = grad_records_sum.launches
+    saved_tier = grad_records.launches
+    cells = {name: grad_records_cell(dev, d, info, NC, 16)
+             for name, (d, info, NC) in graphs.items()}
     streams = [grad_record_stream_case(dev, case, i)
                for i, case in enumerate(GRAD_RECORD_STREAMS)]
-    grad_records.launches = saved       # comparisons count no launch
-    every = [x for tiers in cells.values() for x in tiers]
-    n = len(every)
-    tot = {k: sum(x[k] for x in every)
-           for k in ("ms", "plain_ms", "bound_ms", "t_bytes_ms", "t_ops_ms",
-                     "bytes")}
-    kern = dict(ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
-                bound_ms=tot["bound_ms"] / n,
-                bound_by="bytes" if tot["t_bytes_ms"] >= tot["t_ops_ms"]
-                else "operations", library_ms=None,
-                max_abs_err=max(x["max_abs_err"] for x in every),
-                launches_a_gradient={k: len(v) for k, v in cells.items()},
-                gradient_ms={k: sum(x["ms"] for x in v)
-                             for k, v in cells.items()},
-                gradient_bound_ms={k: sum(x["bound_ms"] for x in v)
+    mixed = grad_record_tiers_case(dev, 99)
+    grad_records_sum.launches = saved   # comparisons count no launch
+    grad_records.launches = saved_tier
+    n = len(cells)
+
+    def mean(k):
+        return sum(x[k] for x in cells.values()) / n
+
+    kern = dict(ms=mean("ms"), plain_ms=mean("plain_ms"),
+                bound_ms=mean("bound_ms"),
+                bound_by="bytes" if mean("t_bytes_ms") >= mean("t_ops_ms")
+                else "operations",
+                library_ms=mean("before_segment_reduce_ms"),
+                max_abs_err=max(max(c["max_abs_err"]
+                                    for c in x["checks"].values())
+                                for x in cells.values()),
+                launches_a_gradient={k: v["launches_a_gradient"]
+                                     for k, v in cells.items()},
+                gradient_ms={k: v["ms"] for k, v in cells.items()},
+                before_ms={k: v["before_ms"] for k, v in cells.items()},
+                gradient_bound_ms={k: v["bound_ms"]
                                    for k, v in cells.items()})
     report("16b grad records", t16b, card=card, cells=cells,
-           stream_cases=streams, kernel=kern)
+           stream_cases=streams, mixed_tiers=mixed, kernel=kern)
     return kern
 
 
@@ -3290,12 +3505,12 @@ def kbc_learn_phase(dev, card: str) -> tuple:
     KBC_LEARN_VARS variables, greedy coloring, every other variable
     labelled, band_wmax=32768, hub_cap=256, LEARN_CHAINS chains a world,
     LEARN_EPOCHS epochs of LEARN_SWEEPS sweeps: dm_gather_draw launched
-    once a color and deltam tier a sweep of each world, grad_records once
-    a tier an epoch, no eager color_delta_multilin and no row chunk of
-    the chunked gradient.  The epoch by part with the gradient on
-    the kernel and, beside it, on the chunked route.  Returns the device
-    graph, its info and grad_records' launches in the counted run, for
-    phase 16b and the kernels line."""
+    once a color a sweep of each world, grad_records_sum's 3 launches an
+    epoch (all five tiers), no eager color_delta_multilin and no row
+    chunk of the chunked gradient.  The epoch by part with the gradient
+    on the kernels and, beside it, on the chunked route.  Returns the
+    device graph, its info and grad_records_sum's launches in the counted
+    run, for phase 16b and the kernels line."""
     import dataclasses
 
     import torch
@@ -3307,7 +3522,7 @@ def kbc_learn_phase(dev, card: str) -> tuple:
     from sampler_tpu_torch.engine.multichain import (learn_mc, prepare_fold,
                                                      resolve_modes)
     from sampler_tpu_torch.ops.fused import dm_gather_draw
-    from sampler_tpu_torch.ops.grad import grad_records
+    from sampler_tpu_torch.ops.grad import grad_records_sum
 
     t16 = time.perf_counter()
     g = kbc_graph(KBC_LEARN_VARS, 10_000, 1)
@@ -3328,7 +3543,7 @@ def kbc_learn_phase(dev, card: str) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dm_gather_draw.launches = 0
-    grad_records.launches = 0
+    grad_records_sum.launches = 0
     with EagerCalls() as eager, EagerCalls("_phi_streams") as chunks:
         tr = time.perf_counter()
         w, v_ev, v_free = learn_mc(d, d.w_init,
@@ -3343,10 +3558,10 @@ def kbc_learn_phase(dev, card: str) -> tuple:
             f"KBC learning: dm_gather_draw launches "
             f"{dm_gather_draw.launches} ({dm_want} expected), "
             f"{eager.calls} eager color_delta_multilin calls")
-    require(grad_records.launches == gr_want
-            == len(info.tiers) * cfg.n_epochs
+    require(grad_records_sum.launches == gr_want == 3 * cfg.n_epochs
             and chunks.calls == 0,
-            f"KBC learning: grad_records launches {grad_records.launches} "
+            f"KBC learning: grad_records_sum launches "
+            f"{grad_records_sum.launches} "
             f"({gr_want} expected), {chunks.calls} chunked gradient row "
             f"chunks")
     nw = g.n_weights
@@ -3366,7 +3581,7 @@ def kbc_learn_phase(dev, card: str) -> tuple:
                  weights_moved=int((w[:nw] != d.w_init[:nw]).sum()),
                  max_abs_weight=float(w.abs().max()),
                  dm_gather_draw_launches=dm_want,
-                 grad_records_launches=gr_want,
+                 grad_records_sum_launches=gr_want,
                  eager_color_delta_multilin_calls=eager.calls,
                  chunked_gradient_row_chunks=chunks.calls)
     modes = resolve_modes(info, dev)
@@ -3491,7 +3706,7 @@ def cli_kbc_phase(dev, card: str, g, kbc_rate: float,
     dm_gather_draw launches must be phase 15's a sweep (``dm_a_sweep``:
     every deltam tier and color through the kernel, none through the
     eager arithmetic) times its sweeps, CLI_KBC_SWEEPS, and its
-    grad_records launches ``grad_an_epoch`` times its epochs."""
+    grad_records_sum launches ``grad_an_epoch`` times its epochs."""
     import tempfile
 
     import torch
@@ -3518,9 +3733,10 @@ def cli_kbc_phase(dev, card: str, g, kbc_rate: float,
             f"{log['launches'].get('dm_gather_draw')}, "
             f"{dm_a_sweep * CLI_KBC_SWEEPS} expected")
     epochs = int(CLI_KBC_ARGS[CLI_KBC_ARGS.index("-l") + 1])
-    require(log["launches"].get("grad_records") == grad_an_epoch * epochs,
-            f"KBC gibbs: grad_records launches "
-            f"{log['launches'].get('grad_records')}, "
+    require(log["launches"].get("grad_records_sum")
+            == grad_an_epoch * epochs,
+            f"KBC gibbs: grad_records_sum launches "
+            f"{log['launches'].get('grad_records_sum')}, "
             f"{grad_an_epoch * epochs} expected")
     ratio = log["infer_vars_per_s"] / kbc_rate
     report("17 cli kbc", t17, card=card, args=CLI_KBC_ARGS,
@@ -3563,10 +3779,10 @@ def mixed_sparse_dense():
 def sparse_learn_case(dev, tmp: str) -> dict:
     """A labelled graph with sparse per-combination weights
     (fixtures.labeled_categorical_graph, 400 observations of 3
-    categories) learned through the command: grad_records launched once
-    a tier an epoch.  Then its gradient on a pair of worlds of
+    categories) learned through the command: grad_records_sum's 3
+    launches an epoch.  Then its gradient on a pair of worlds of
     SPARSE_LEARN_CHAINS chains (the labels, and random values everywhere)
-    on the default route (grad_records on the
+    on the default route (grad_records_sum on the
     dense owner records, the table lookup on the sparse ones) and on the
     chunked route (the fused mode off), equal within GRAD_RTOL of the
     largest |value|; no row chunk on the default route; each route's ms."""
@@ -3577,7 +3793,7 @@ def sparse_learn_case(dev, tmp: str) -> dict:
     from sampler_tpu_torch.engine.multichain import (init_values_mc,
                                                      mc_weight_gradient_cs,
                                                      resolve_modes)
-    from sampler_tpu_torch.ops.grad import grad_records
+    from sampler_tpu_torch.ops.grad import grad_records_sum
 
     tc = time.perf_counter()
     g = fixtures.labeled_categorical_graph(n_obs=400, probs=(0.5, 0.2, 0.3),
@@ -3585,18 +3801,18 @@ def sparse_learn_case(dev, tmp: str) -> dict:
     dg, info = compile_graph(g)
     require(info.has_sparse_cw, "sparse learn: no sparse weights")
     want = grad_launches_an_epoch(info, dev)
-    require(want == len(info.tiers), f"sparse learn: {want} grad_records "
-            f"launches an epoch, {len(info.tiers)} tiers")
+    require(want == 3, f"sparse learn: {want} grad_records_sum launches an "
+            f"epoch ({len(info.tiers)} tiers)")
     out = os.path.join(tmp, "sparse_learn")
-    grad_records.launches = 0
+    grad_records_sum.launches = 0
     require(cli.main(["gibbs", *graph_flags(g, out), "-o",
                       os.path.join(out, "out"), "-l",
                       str(SPARSE_LEARN_EPOCHS), "-a", "0.03", "-d", "0.995",
                       "-i", "10", "--device", dev.type, "--quiet"]) == 0,
             "sparse learn: gibbs failed")
-    launches = grad_records.launches
+    launches = grad_records_sum.launches
     require(launches == want * SPARSE_LEARN_EPOCHS,
-            f"sparse learn: grad_records launches {launches}, "
+            f"sparse learn: grad_records_sum launches {launches}, "
             f"{want * SPARSE_LEARN_EPOCHS} expected")
     _, w = check_cli_outputs(g, os.path.join(out, "out"))
     d = to_device(dg, dev)
@@ -3618,7 +3834,8 @@ def sparse_learn_case(dev, tmp: str) -> dict:
     ms = {name: time_ms(lambda: mc_weight_gradient_cs(
         d, v_ev, v_free, True, info, m), iters=10, warmup=2)
         for name, m in (("records", modes), ("chunked", chunked))}
-    return dict(epochs=SPARSE_LEARN_EPOCHS, grad_records_launches=launches,
+    return dict(epochs=SPARSE_LEARN_EPOCHS,
+                grad_records_sum_launches=launches,
                 learned_weights=[float(x) for x in w[:3]],
                 chains=SPARSE_LEARN_CHAINS, gradient_max_abs_diff=err,
                 gradient_max_abs=scale, gradient_ms=ms,
@@ -3632,7 +3849,7 @@ def cli_oracle_phase(dev) -> dict:
     log-odds), the sparse-weight graphs (|dp| < 0.01; the first with
     checkpoints, so in chunks of 150 sweeps, saved after each); a labelled
     sparse-weight graph learned through the command with its gradient on
-    grad_records (sparse_learn_case); then the cli_kernel_paths grids,
+    grad_records_sum (sparse_learn_case); then the cli_kernel_paths grids,
     whose kernel launches show the command's path through every draw
     kernel of their classes, grad_pair_tile and tally_counts."""
     import tempfile
@@ -3713,12 +3930,12 @@ def cli_kernels() -> dict:
                                               banded_gather_multi)
     from sampler_tpu_torch.ops.fused import (fused_cat_draw, fused_color_draw,
                                              fused_dm_draw)
-    from sampler_tpu_torch.ops.grad import grad_pair_tile, grad_records
+    from sampler_tpu_torch.ops.grad import grad_pair_tile, grad_records_sum
     from sampler_tpu_torch.ops.tally import tally_counts
 
     return {k.__name__: k for k in (
         fused_color_draw, banded_gather, grad_pair_tile, fused_dm_draw,
-        banded_gather_multi, fused_cat_draw, tally_counts, grad_records)}
+        banded_gather_multi, fused_cat_draw, tally_counts, grad_records_sum)}
 
 
 def cli_kernel_paths() -> dict:
@@ -3727,28 +3944,29 @@ def cli_kernel_paths() -> dict:
     CLI_GRID² grids of the three classes that band, run through the
     command with CLI_GRID_ARGS (learning, burn-in, counted sweeps): the
     labelled Ising grid (2 colors; fused_color_draw in both worlds' sweeps
-    and inference, grad_pair_tile a color an epoch, no grad_records),
+    and inference, grad_pair_tile a color an epoch, no grad_records_sum),
     the Potts grid (2 colors, fused_cat_draw) and the triple grid (3
-    colors, fused_dm_draw), each one tier with grad_records once an
-    epoch; tally_counts once a counted sweep."""
+    colors, fused_dm_draw), each one tier on the records route
+    (grad_records_sum: 3 launches an epoch); tally_counts once a counted
+    sweep."""
     from sampler_tpu_torch.benchgraphs import big_potts_grid, big_triple_grid
 
     E, B, S = CLI_GRID_EPOCHS, CLI_GRID_BURN, CLI_GRID_SWEEPS
     return {
         "ising_grid": (lambda: label_half(big_grid(CLI_GRID)), CLI_GRID_ARGS,
                        {"fused_color_draw": 2 * (2 * E + B + S),
-                        "grad_pair_tile": 2 * E, "grad_records": 0,
+                        "grad_pair_tile": 2 * E, "grad_records_sum": 0,
                         "tally_counts": S}),
         "potts_grid": (lambda: label_half(big_potts_grid(CLI_GRID, CLI_GRID,
                                                          card=4)[0]),
                        CLI_GRID_ARGS,
                        {"fused_cat_draw": 2 * (2 * E + B + S),
-                        "grad_records": E, "tally_counts": S}),
+                        "grad_records_sum": 3 * E, "tally_counts": S}),
         "triple_grid": (lambda: label_half(big_triple_grid(CLI_GRID,
                                                            CLI_GRID)[0]),
                         CLI_GRID_ARGS,
                         {"fused_dm_draw": 3 * (2 * E + B + S),
-                         "grad_records": E, "tally_counts": S}),
+                         "grad_records_sum": 3 * E, "tally_counts": S}),
     }
 
 
@@ -4435,7 +4653,7 @@ def gs_kbc_phase(dev, card: str, g, order, ranks) -> None:
         "KBC learn_gs: weights not finite, or most did not move")
     learn = dict(chains=LEARN_CHAINS, sweeps_per_epoch=LEARN_SWEEPS,
                  wall_s=learn_wall, launches_by_rank=rank_launches(
-                     ranks, ("dm_gather_draw", "grad_records")),
+                     ranks, ("dm_gather_draw", "grad_records_sum")),
                  parts=ranks.run(gs_learn_parts, hostl, infol, LEARN_CHAINS,
                                  dataclasses.replace(cfg)),
                  reduced_gradient=grad_check("kbc learn 1x2", ranks, hostl,
@@ -5239,8 +5457,8 @@ def main() -> int:
     d_kbc, info_l, grad_records_launches = kbc_learn_phase(dev, card)
     learn_graphs = {"kbc": (d_kbc, info_l, LEARN_CHAINS), **learn_graphs}
     del d_kbc
-    kern["grad_records"] = grad_records_phase(dev, card, learn_graphs)
-    kern["grad_records"]["launches"] = grad_records_launches
+    kern["grad_records_sum"] = grad_records_phase(dev, card, learn_graphs)
+    kern["grad_records_sum"]["launches"] = grad_records_launches
     del learn_graphs
 
     # ---- 17, 18, 19: the gibbs command on the card -----------------------
@@ -5290,9 +5508,11 @@ def main() -> int:
                                   "sampler_tpu/engine/multichain.py:405"),
                # no Pallas kernel: the row-chunk body of
                # mc_weight_gradient_cs, which XLA fuses into the jitted
-               # learning epoch
-               "grad_records": ("sampler_tpu_torch/csrc/grad_records.cu",
-                                "sampler_tpu/engine/multichain.py:1002")}
+               # learning epoch; its ms a gradient's 3 launches (the
+               # per-tier grad_records before it: a launch a tier)
+               "grad_records_sum": ("sampler_tpu_torch/csrc/"
+                                    "grad_records.cu",
+                                    "sampler_tpu/engine/multichain.py:1002")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": k["launches"],

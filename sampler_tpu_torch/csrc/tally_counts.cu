@@ -13,22 +13,37 @@
 //
 // What bounds it on the card: bytes.  It reads the world once and reads and
 // writes counts once: at the 1024² Ising flagship (1,048,577 rows, 512
-// chains, K = 2) 0.54 GB, 0.16 ms at 3.35 TB/s.
+// chains, K = 2) 0.54 GB, 0.16 ms at 3.35 TB/s; at the 5120² grid's 128
+// chains 3.78 GB, 1.127 ms.
 //
-// Design: a warp a row (kWarps rows a block).  Each lane reads 16 bytes at a
-// time (16 int8 values, or 4 int32) where the chain count and the pointer
-// allow it, else one value; at 512 chains of int8 one pass of the warp reads
-// its row.  Three ways to count, chosen by the launcher on K:
-//   * K <= kRegK: a lane keeps its counters in registers (the int8 words are
-//     compared four bytes at a time with __vcmpeq4, whose 0xFF per equal
-//     byte popc counts as 8), the warp reduces them by shuffles and lane k
-//     adds counter k into counts (no atomics: one warp owns a row);
-//   * K <= kSharedK: a warp's histogram of K counters in shared memory,
-//     filled with shared atomics, then added into counts by the warp's
-//     lanes, K/32 counters a lane (zero counters skip their write);
-//   * larger K: one global atomic add a value.
-// Templates on the value type, the way and (in registers) K rounded up to 2,
-// 4, 8 or 16 make twelve variants.
+// Design.  Each lane reads 16 bytes at a time (16 int8 values, or 4 int32)
+// where the chain count and the pointer allow it, else one value.  Three
+// ways to count, chosen by the launcher on K:
+//   * K <= kRegK, rows of at most 32 16-byte loads (512 int8 chains):
+//     a segment of S lanes a row, S the row's loads rounded up to a power
+//     of two (8 lanes at 128 int8 chains, 4 rows a warp), U rows a segment
+//     (4 up to K = 4, 2 to 8, 1 to 16): a lane issues the loads of its U
+//     rows before it counts anything, so a warp has U times as many bytes
+//     in flight as rows of 16-byte loads.  A lane keeps its counters in
+//     registers (the int8 words compared four bytes at a time with
+//     __vcmpeq4, whose 0xFF per equal byte popc counts as 8), a butterfly
+//     within the segment sums them, and the block writes its rows'
+//     counters through shared memory: counter k of its consecutive rows by
+//     consecutive threads (no atomics: a block owns its rows).  With a
+//     warp a row, 128 chains left 24 of 32 lanes idle and 128 bytes in
+//     flight a warp: 22% of the bound at the 5120² grid (NVIDIA H100
+//     80GB HBM3, power limit 700 W);
+//   * K <= kRegK, wider rows (1024 chains) and byte rows: a warp a row,
+//     the counters in registers as above, the warp's butterfly, lane k
+//     adding counter k into counts (a warp's row is two or more loads a
+//     lane in flight already; the segments did not beat it there);
+//   * K <= kSharedK: a warp a row, a warp's histogram of K counters in
+//     shared memory, filled with shared atomics, then added into counts by
+//     the warp's lanes, K/32 counters a lane (zero counters skip their
+//     write);
+//   * larger K: a warp a row, one global atomic add a value.
+// Templates on the value type, the way and (in registers) K rounded up to
+// 2, 4, 8 or 16 with its U.
 
 #include <climits>
 #include <cstddef>
@@ -37,10 +52,11 @@
 
 namespace {
 
-constexpr int kWarps = 8;       // rows a block
+constexpr int kWarps = 8;       // warps a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRegK = 16;       // counters a lane holds in registers
 constexpr int kSharedK = 1024;  // a warp's histogram: 4 KB, 32 KB a block
+constexpr int kTableInts = 4096;  // a block's row counters: 16 KB
 
 enum Way { kRegisters = 0, kShared = 1, kGlobal = 2 };
 
@@ -79,8 +95,8 @@ __device__ __forceinline__ void count_one(V v, int (&c)[KR]) {
   for (int k = 0; k < KR; ++k) c[k] += v == k ? unit : 0;
 }
 
-// KR: the counters a lane holds in register mode (K rounded up to 2, 4, 8
-// or 16); 1 in the other ways.
+// A warp a row (kWarps rows a block).  KR: the counters a lane holds in
+// register mode (K rounded up to 2, 4, 8 or 16); 1 in the other ways.
 template <typename V, int WAY, int KR>
 __global__ void __launch_bounds__(kThreads)
     tally_counts_kernel(const V* __restrict__ values, long long P, int NC,
@@ -147,20 +163,114 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename V, int WAY, int KR>
-int launch_rows(const V* values, long long P, int NC, bool wide,
-                int32_t* counts, int K, cudaStream_t s) {
-  // rows a launch, inside the grid's 2^31 - 1 blocks
-  const long long per = static_cast<long long>(INT_MAX) * kWarps;
+
+// Register mode on rows of at most 32 16-byte loads: a segment of S lanes
+// a row (S a power of two, 32 / S segments a warp), U rows a segment at a
+// time.  Each lane issues the loads of its U rows before it counts; a
+// butterfly within the segment gives each row's counters; a segment's
+// first lane puts them into the block's table in shared memory, and the
+// block adds the table into counts a counter at a time, consecutive
+// threads on consecutive rows.
+template <typename V, int KR, int U>
+__global__ void __launch_bounds__(kThreads)
+    tally_rows_kernel(const V* __restrict__ values, long long P, int NC,
+                      int S, int32_t* __restrict__ counts, int K,
+                      long long row0) {
+  constexpr int kPer = Wide<V>::kPer;
+  constexpr int unit = sizeof(V) == 1 ? 8 : 1;
+  __shared__ int table[kTableInts];
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const int NS = 32 / S;            // segments a warp
+  const int seg = lane / S, sl = lane & (S - 1);
+  const int RW = NS * U;            // rows a warp
+  const int RB = kWarps * RW;       // rows a block
+  const long long base = row0 + static_cast<long long>(blockIdx.x) * RB;
+  // this segment's rows: base + warp * RW + u * NS + seg
+  const uint4* row[U];
+  bool live[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long p = base + warp * RW + u * NS + seg;
+    live[u] = p < P;
+    row[u] = reinterpret_cast<const uint4*>(
+        values + static_cast<size_t>(live[u] ? p : 0) * NC);
+  }
+  int c[U][KR] = {};
+  for (int i = sl; i < NC / kPer; i += S) {
+    uint4 q[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // read once: stream past L2
+      q[u] = live[u] ? __ldcs(row[u] + i) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      count_word<KR>(q[u].x, V{}, c[u]);
+      count_word<KR>(q[u].y, V{}, c[u]);
+      count_word<KR>(q[u].z, V{}, c[u]);
+      count_word<KR>(q[u].w, V{}, c[u]);
+    }
+  }
+  // each row's counters, summed over its segment's lanes
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int k = 0; k < KR; ++k) {
+      int s = c[u][k];
+      for (int off = S / 2; off > 0; off >>= 1) {
+        s += __shfl_xor_sync(0xFFFFFFFFu, s, off);
+      }
+      if (sl == 0 && k < K) {
+        table[k * RB + warp * RW + u * NS + seg] = s / unit;
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = static_cast<int>(threadIdx.x); j < K * RB; j += kThreads) {
+    const int k = j / RB;
+    const long long p = base + (j - k * RB);
+    const int v = table[j];
+    if (p < P && v != 0) counts[static_cast<size_t>(k) * P + p] += v;
+  }
+}
+
+// rows a launch, inside the grid's 2^31 - 1 blocks of ``rows_a_block``
+template <typename Launch>
+int launch_chunks(long long P, long long rows_a_block, Launch&& one) {
+  const long long per = static_cast<long long>(INT_MAX) * rows_a_block;
   for (long long r = 0; r < P; r += per) {
     const long long rows = P - r < per ? P - r : per;
-    tally_counts_kernel<V, WAY, KR>
-        <<<static_cast<unsigned>((rows + kWarps - 1) / kWarps), kThreads, 0,
-           s>>>(values, P, NC, wide, counts, K, r);
+    one(static_cast<unsigned>((rows + rows_a_block - 1) / rows_a_block), r);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
+}
+
+// the way, K's counters and U rows a segment of register mode: rows of at
+// most 32 16-byte loads take the segments, the others a warp a row
+template <typename V, int WAY, int KR, int U>
+int launch_rows(const V* values, long long P, int NC, bool wide,
+                int32_t* counts, int K, cudaStream_t s) {
+  const int loads = NC / Wide<V>::kPer;
+  if constexpr (WAY == kRegisters) {
+    static_assert(KR * kWarps * 32 * U <= kTableInts, "a block's counters");
+    if (wide && loads <= 32) {
+      int S = 1;  // lanes a row: its loads rounded up to a power of two
+      while (S < loads) S <<= 1;
+      return launch_chunks(
+          P, static_cast<long long>(kWarps) * (32 / S) * U,
+          [&](unsigned grid, long long r) {
+            tally_rows_kernel<V, KR, U>
+                <<<grid, kThreads, 0, s>>>(values, P, NC, S, counts, K, r);
+          });
+    }
+  }
+  return launch_chunks(P, kWarps, [&](unsigned grid, long long r) {
+    tally_counts_kernel<V, WAY, KR>
+        <<<grid, kThreads, 0, s>>>(values, P, NC, wide, counts, K, r);
+  });
 }
 
 template <typename V>
@@ -169,16 +279,23 @@ int launch_way(const void* values, long long P, int NC, int32_t* counts,
   const auto* v = static_cast<const V*>(values);
   const bool wide = NC % Wide<V>::kPer == 0 &&
                     reinterpret_cast<uintptr_t>(values) % 16 == 0;
-  if (K <= 2) return launch_rows<V, kRegisters, 2>(v, P, NC, wide, counts, K, s);
-  if (K <= 4) return launch_rows<V, kRegisters, 4>(v, P, NC, wide, counts, K, s);
-  if (K <= 8) return launch_rows<V, kRegisters, 8>(v, P, NC, wide, counts, K, s);
+  if (K <= 2) {
+    return launch_rows<V, kRegisters, 2, 4>(v, P, NC, wide, counts, K, s);
+  }
+  if (K <= 4) {
+    return launch_rows<V, kRegisters, 4, 4>(v, P, NC, wide, counts, K, s);
+  }
+  if (K <= 8) {
+    return launch_rows<V, kRegisters, 8, 2>(v, P, NC, wide, counts, K, s);
+  }
   if (K <= kRegK) {
-    return launch_rows<V, kRegisters, kRegK>(v, P, NC, wide, counts, K, s);
+    return launch_rows<V, kRegisters, kRegK, 1>(v, P, NC, wide, counts, K,
+                                                s);
   }
   if (K <= kSharedK) {
-    return launch_rows<V, kShared, 1>(v, P, NC, wide, counts, K, s);
+    return launch_rows<V, kShared, 1, 1>(v, P, NC, wide, counts, K, s);
   }
-  return launch_rows<V, kGlobal, 1>(v, P, NC, wide, counts, K, s);
+  return launch_rows<V, kGlobal, 1, 1>(v, P, NC, wide, counts, K, s);
 }
 
 }  // namespace

@@ -46,17 +46,19 @@ single-window and multi-window banded alike, hub tiers included:
     NC chains each; its gradient (``mc_weight_gradient_cs``) goes, tier by
     tier as ``gradient_route`` says, through ``ops.grad.grad_pair_tile``
     (one CUDA kernel a color) on affine2 tiers with the band mode on,
-    through ``ops.grad.grad_records`` (one CUDA kernel a tier: each
-    record's contribution, then a segment sum) on the other tiers while
-    the fused mode is on, and through the chunked cs-stream route
-    (``_phi_streams``, with the same gathers as the draw) with it off;
+    through ``ops.grad.grad_records_sum`` on the other tiers while the
+    fused mode is on (all of them together: one launch of the owner
+    records' terms, then their float64 sums by weight, over a plan of
+    the owner records built once a graph), and through the chunked
+    cs-stream route (``_phi_streams``, with the same gathers as the draw)
+    with it off;
   * sparse per-combination weights (a factor whose weight is looked up by
     its members' joint values in ``cwt_wid``; compile turns the affine
     and fused plans off beside them) take the candidate route
     (``color_logits_mc``'s sparse branch); in the gradient their dense
-    records take ``grad_records`` and their sparse owner records the
-    table lookup beside it, over a list of those records built once a
-    graph; every table index is clipped to the table, and a miss lands on
+    owner records take ``grad_records_sum`` and their sparse owner
+    records the table lookup beside it, over a list of those records
+    built once a graph; every table index is clipped to the table, and a miss lands on
     the reserved zero weight at index W, whose gradient is held at 0.
 
 Graph sharding (``parallel.graph_shard``) runs the same color step on a
@@ -105,8 +107,9 @@ from ..ops.fused import (DM_MAX_TIERS, DmTier, dm_gather_draw,
                          fused_cat_draw_plain, fused_color_draw,
                          fused_color_draw_plain, fused_dm_draw,
                          fused_dm_draw_plain)
-from ..ops.grad import (GRAD_W_MAX, grad_pair_tile, grad_pair_tile_plain,
-                        grad_records, grad_records_plain, record_phi,
+from ..ops.grad import (GRAD_W_MAX, RecordTier, grad_pair_tile,
+                        grad_pair_tile_plain, grad_records_sum,
+                        grad_records_sum_plain, record_phi, record_plan,
                         records_diff)
 from ..ops.tally import tally_counts, tally_plain
 from ..ops.weights import expand_wf, segment_reduce
@@ -132,8 +135,8 @@ def resolve_modes(info, device) -> tuple:
     band, or the multilinear coefficients of dm_gather_draw): a graph with
     sparse per-combination weights has none, and its tiers draw eagerly
     (the table lookup) whatever the fused mode.  Every tier that
-    ``gradient_route`` reaches takes grad_records, the dense records of
-    sparse-weight graphs too."""
+    ``gradient_route`` reaches takes the records route (grad_records_sum),
+    the dense records of sparse-weight graphs too."""
     mech = "cuda" if torch.device(device).type == "cuda" else "plain"
     band = mech if info.band_w > 0 and info.max_card <= 127 else "off"
     return band, mech
@@ -996,7 +999,7 @@ def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes,
     the candidate.  Neighbour values come through the same gather as the
     draw (``_gather_nbr``); the sparse-weight gradient reuses them for its
     table lookup.  φ is ``ops.grad.record_phi``, the math of
-    ``grad_records``' plain version."""
+    ``grad_records_plain``."""
     C = ts.bd_start.shape[0]
     _, D, A = tier_geom(ts, ti, C)
     A1 = A - 1
@@ -1018,11 +1021,12 @@ def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes,
 
 def _record_streams(ts, ti, C: int, gB: int, gsrc, n_graph: int, g: int,
                     all_boolean: bool) -> tuple:
-    """The arguments of ``grad_records`` for one tier after the two worlds
-    and before ``present``: its streams, color-major, and its own rows (a
-    dense row r of color c at c*gB + off + g*(block // n_graph) + r; a hub
-    chunk's row from hb_row, which names rows of the whole block, a pad
-    chunk's clamped into it, where gsrc masks it)."""
+    """The arguments of ``grad_records`` (and the first of a RecordTier) for
+    one tier after the two worlds and before ``present``: its streams,
+    color-major, and its own rows (a dense row r of color c at c*gB + off
+    + g*(block // n_graph) + r; a hub chunk's row from hb_row, which names
+    rows of the whole block, a pad chunk's clamped into it, where gsrc
+    masks it)."""
     Bl, D, A = tier_geom(ts, ti, C)
 
     def rows(arr, *tail):
@@ -1051,9 +1055,10 @@ def gradient_route(ti, info, modes, W: int, row_chunk: int | None = None,
         mode on, no ``row_chunk`` and no graph sharding (as in the JAX
         package) takes ``grad_pair_tile``;
       * ("records", fused): with the fused mode on, every other tier takes
-        ``grad_records`` ("cuda") or ``grad_records_plain`` ("plain"); on
-        a graph with sparse per-combination weights its dense records, the
-        sparse owner records going to ``_sparse_grad_records`` beside it;
+        ``grad_records_sum`` ("cuda") or ``grad_records_sum_plain``
+        ("plain"), all such tiers in one call; on a graph with sparse
+        per-combination weights its dense owner records, the sparse ones
+        going to ``_sparse_grad_records`` beside it;
       * ("chunked", "off"): with the fused mode off, the chunked route."""
     band, fused = modes
     tband = tier_modes(ti, modes)[0]
@@ -1076,13 +1081,17 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
 
       * "pair": ``grad_pair_tile`` (the kernel, or its plain version), one
         call a color;
-      * "records": ``grad_records`` (one launch a tier, all its colors) or
-        ``grad_records_plain`` (in chunks of ``row_chunk`` rows): each
-        record's contribution, then one segment sum per weight.  On a
-        graph with sparse per-combination weights the kernel takes the
-        dense owner records (``_sparse_owners``), and the sparse ones take
-        ``_sparse_grad_records``: the table lookup of each world's
-        combination over a list of those records, one pass a tier;
+      * "records": every such tier in one call of ``grad_records_sum``
+        (the kernels: the owner records' terms, all tiers in one launch,
+        then their float64 sums by weight, rounded once) or of
+        ``grad_records_sum_plain`` (``grad_records_plain`` a tier, in
+        chunks of ``row_chunk`` rows, then one ``segment_reduce``), over
+        the tiers' plan (``_record_plan``, built once a graph and owner
+        mask).  On a graph with sparse per-combination weights the plan
+        holds the dense owner records (``_sparse_owners``), and the
+        sparse ones take ``_sparse_grad_records``: the table lookup of
+        each world's combination over a list of those records, one pass
+        a tier;
       * "chunked": both worlds side by side on the chain axis, rows in
         chunks of ``row_chunk`` (default ``_row_chunk``), φ from
         ``_phi_streams`` (the same ``record_phi``) and ``records_diff``,
@@ -1104,7 +1113,8 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
     C = info.n_colors
     grad = torch.zeros(W, dtype=torch.float32, device=v_ev.device)
     v_both = None
-    for ts, ti in zip(dg.tiers, info.tiers):
+    records, rec_mech = [], None
+    for t, (ts, ti) in enumerate(zip(dg.tiers, info.tiers)):
         Bl, D, A = tier_geom(ts, ti, C)
         route, mech = gradient_route(ti, info, modes, W, row_chunk, n_graph)
         if route == "pair":
@@ -1121,19 +1131,14 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
         present = ti.present_funcs or info.present_funcs
         gsrc = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
         if route == "records":
-            gsel, sparse = gsrc, None
+            records.append(t)
+            rec_mech = mech
             if info.has_sparse_cw:
-                gsel, sparse = _sparse_owners(ts, gsrc)
-            args = (v_ev, v_free, *_record_streams(
-                ts, ti, C, gB, gsel, n_graph, g, info.all_boolean), present,
-                info.all_boolean)
-            out = (grad_records(*args) if mech == "cuda"
-                   else grad_records_plain(*args, row_chunk=row_chunk))
-            grad = grad + segment_reduce(out, ts.cs_wid, W)
-            if sparse is not None and sparse.numel():
-                grad = grad + _sparse_grad_records(
-                    dg, ts, ti, C, gB, v_ev, v_free, sparse,
-                    ti.off + g * (ti.block // n_graph), W)
+                sparse = _sparse_owners(ts, gsrc)[1]
+                if sparse.numel():
+                    grad = grad + _sparse_grad_records(
+                        dg, ts, ti, C, gB, v_ev, v_free, sparse,
+                        ti.off + g * (ti.block // n_graph), W)
             continue
         if v_both is None:
             # one gather a chunk serves both worlds
@@ -1169,9 +1174,47 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
                     grad = grad + _sparse_grad_rows(
                         dg, ts, C, c, r0, rc, D, A, own, nbrv,
                         torch.where(gm & issp, feat, 0.0) / NC, W)
+    if records:
+        plan = _record_plan(dg, info, records, learn_non_evidence, n_graph,
+                            g)
+        grad = grad + (grad_records_sum(v_ev, v_free, plan)
+                       if rec_mech == "cuda" else grad_records_sum_plain(
+                           v_ev, v_free, plan, row_chunk=row_chunk))
     if info.has_sparse_cw:
         grad[W - 1] = 0.0               # keep the reserved slot inert
     return grad
+
+
+def _record_plan(dg, info, tiers, learn_non_evidence: bool, n_graph: int,
+                 g: int):
+    """The records route's plan (ops.grad.record_plan) of ``tiers`` under
+    one owner mask: each tier's owner records (on a graph with sparse
+    per-combination weights its dense ones), their own rows (rank ``g``'s
+    of ``n_graph``) and weight ids.  Built once a graph and kept with the
+    streams it was built from; rebuilt when a tier's stream is another
+    tensor."""
+    C, gB = info.n_colors, info.block_size
+    refs = tuple(x for t in tiers for x in (
+        dg.tiers[t].cs_wid, dg.tiers[t].cs_gowner, dg.tiers[t].cs_gtouch))
+    cache = _derived(dg.var_card, dict)
+    key = ("records", bool(learn_non_evidence), tuple(tiers), n_graph, g)
+    got = cache.get(key)
+    if got is None or any(a is not b for a, b in zip(got[0], refs)):
+        rts = []
+        for t in tiers:
+            ts, ti = dg.tiers[t], info.tiers[t]
+            gsel = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
+            if info.has_sparse_cw:
+                gsel = _sparse_owners(ts, gsel)[0]
+            Bl, D, _ = tier_geom(ts, ti, C)
+            rts.append(RecordTier(
+                *_record_streams(ts, ti, C, gB, gsel, n_graph, g,
+                                 info.all_boolean),
+                ti.present_funcs or info.present_funcs,
+                ts.cs_wid.view(C, Bl, D)))
+        got = cache[key] = (refs, record_plan(rts, dg.w_init.shape[0],
+                                              info.all_boolean))
+    return got[1]
 
 
 def _sparse_owners(ts, gsrc) -> tuple:

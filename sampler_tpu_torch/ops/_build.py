@@ -52,6 +52,8 @@ LAUNCHERS = {
     "grad_records_launch": (_P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _I,
                             _P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
                             _I, _P, _P),
+    "grad_records_sum_launch": (_P, _P, _I, _I, _L, _P, _I, _I, _P, _P, _I,
+                                _P, _I, _P, _P, _P),
 }
 
 

@@ -1,9 +1,13 @@
 """The weight gradient's kernels: ``grad_pair_tile``, the moment-factored
 contrastive gradient of one color of an affine2 tier (counterpart of
-sampler_tpu/ops/grad.py, ``grad_pair_tile``), and ``grad_records``, each
-record's contribution to the gradient on the cs streams of any other tier
-(the row-chunk body of the JAX package's mc_weight_gradient_cs, which XLA
-fuses; csrc/grad_records.cu).
+sampler_tpu/ops/grad.py, ``grad_pair_tile``), and ``grad_records_sum``,
+the records route's gradient of every other tier: the owner records'
+contributions on the cs streams, summed by weight on the card (the
+row-chunk body of the JAX package's mc_weight_gradient_cs, which XLA
+fuses; csrc/grad_records.cu).  ``grad_records``, a tier's per-record
+contributions (zero off the owner mask), is the route before
+``grad_records_sum``; its plain version is the per-record math that
+``grad_records_sum_plain`` and the chunked route share.
 
 ``grad_pair_tile``:
 
@@ -36,11 +40,14 @@ float64 rounding before that one float32 rounding.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from .. import format_spec as fs
 from ._build import check_tensor, launch
+from .weights import segment_reduce
 
 GRAD_W_MAX = 64                 # weights a kernel launch accumulates
 PLAIN_CHUNK_TILES = 64
@@ -163,7 +170,7 @@ grad_pair_tile.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# grad_records: each record's contribution on the cs streams
+# grad_records: each record's contribution on the cs streams of a tier
 # ---------------------------------------------------------------------------
 
 def inv_chains(NC: int) -> float:
@@ -360,8 +367,11 @@ def grad_records(v_ev, v_free, nbr, pos, ismine, mask, hmask, eq, typ,
     int32 [C, B] (a hub tier's chunks); ``present`` the tier's factor
     types.  A position outside [0, P) reads 0.
 
-    A CPU tensor goes to the plain version; a CUDA tensor to the kernel,
-    one launch for all colors (it adds one to ``grad_records.launches``)."""
+    The route before :func:`grad_records_sum` (which takes the owner
+    records alone and sums them on the card); kept as its yardstick and
+    per-record check.  A CPU tensor goes to the plain version; a CUDA
+    tensor to the kernel, one launch for all colors (it adds one to
+    ``grad_records.launches``)."""
     if v_ev.device.type == "cpu":
         return grad_records_plain(v_ev, v_free, nbr, pos, ismine, mask,
                                   hmask, eq, typ, arity, feat, gsel,
@@ -410,3 +420,247 @@ def grad_records(v_ev, v_free, nbr, pos, ismine, mask, hmask, eq, typ,
 
 
 grad_records.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# grad_records_sum: the records route's gradient [W], owner records only
+# ---------------------------------------------------------------------------
+
+RECORD_PIECE = 2048             # terms a piece of the reduction (a warp's)
+RECORD_MAX_TIERS = 8            # tiers a launch of the terms kernel
+_REC_FIELDS = 7                 # int64 fields a tier in the launch table
+# a slot's flags in the plan, one byte a slot
+FLAG_POS, FLAG_OWN, FLAG_CNT, FLAG_HEAD = 1, 2, 4, 8
+
+
+class RecordTier(NamedTuple):
+    """One tier's arguments of :func:`grad_records` after the two worlds and
+    before ``all_boolean`` (its streams, color-major; ``gsel`` its owner
+    mask; its own rows; its present types), and its weight ids ``wid``
+    [C, B, D] (cs_wid)."""
+    nbr: torch.Tensor
+    pos: torch.Tensor
+    ismine: torch.Tensor
+    mask: torch.Tensor
+    hmask: torch.Tensor
+    eq: torch.Tensor | None
+    typ: torch.Tensor
+    arity: torch.Tensor
+    feat: torch.Tensor
+    gsel: torch.Tensor
+    own_base: int
+    color_stride: int
+    own_idx: torch.Tensor | None
+    present: tuple
+    wid: torch.Tensor
+
+
+class RecordPlan(NamedTuple):
+    """The owner records of a gradient's records-route tiers, built once a
+    graph and owner mask by :func:`record_plan`.
+
+    ``tiers`` the RecordTier of each tier (the plain version's inputs);
+    per tier in ``packed`` (head, flags, nbr, eq) of its n owner records
+    in record order: head int32 [n, 4] (own position; type | arity << 8,
+    the type -1 where the tier's present types lack it; feat's bits; the
+    flags of slots 0..3), flags uint8 [n, A] (FLAG_* a slot: the literal's
+    sign, own value, counted, head), nbr int32 [n, A-1], eq int32 [n, A]
+    (None on all-boolean graphs); ``terms`` f32 [N] the kernel's scratch of
+    the N owner terms, tier after tier; ``perm`` int32 [N] the terms'
+    indices sorted by weight id, each weight's run in record order, cut
+    into pieces of at most RECORD_PIECE (``piece_start`` int32
+    [pieces + 1]: offsets into perm), a weight's pieces consecutive
+    (``weight_piece`` int32 [W + 1]: offsets into the pieces); ``partial``
+    f64 [pieces] scratch; ``table`` the launch table (int64 [T, 7]: head,
+    flags, nbr, eq, terms pointers, n, A)."""
+    tiers: tuple
+    all_boolean: bool
+    W: int
+    packed: tuple
+    terms: torch.Tensor
+    perm: torch.Tensor
+    piece_start: torch.Tensor
+    weight_piece: torch.Tensor
+    partial: torch.Tensor
+    table: np.ndarray
+
+
+def _slot_flags(pos, ismine, mask, hmask, all_boolean: bool):
+    """FLAG_* uint8 [..., A] of each slot, as the per-record kernel reads
+    a slot: own on ``ismine`` slots and the last; counted where masked (on
+    all-boolean graphs only own or leading slots, the plain version's own
+    and neighbour counts); the head where ``hmask`` (and counted, or own
+    or leading on all-boolean graphs)."""
+    A = pos.shape[-1]
+    last = torch.arange(A, device=pos.device) >= A - 1
+    seen = (ismine | ~last) if all_boolean else mask
+    return (pos.to(torch.uint8) * FLAG_POS
+            + (ismine | last).to(torch.uint8) * FLAG_OWN
+            + (mask & seen).to(torch.uint8) * FLAG_CNT
+            + (hmask & seen).to(torch.uint8) * FLAG_HEAD)
+
+
+def _pack_tier(t: RecordTier, all_boolean: bool) -> tuple:
+    """(packed arrays, weight ids int64 [n]) of one tier's owner records,
+    in record order."""
+    C, B, D, A = t.pos.shape
+    dev = t.pos.device
+    rec = t.gsel.reshape(-1).nonzero().flatten()            # int64 [n]
+    row = rec // D
+    c = row // B
+    r = row - c * B
+    own = t.own_base + c * t.color_stride + (
+        t.own_idx.reshape(-1).to(torch.int64).index_select(0, row)
+        if t.own_idx is not None else r)
+    bits, single = _present_bits(t.present)
+    ty = t.typ.reshape(-1).index_select(0, rec).to(torch.int64)
+    if single >= 0:
+        ty = torch.full_like(ty, single)
+    else:
+        inside = (ty >= 0) & (ty < 32)
+        ty = torch.where(inside & ((bits >> ty.clamp(0, 31)) & 1 == 1), ty,
+                         -1)
+    n = t.arity.reshape(-1).index_select(0, rec).to(torch.int64)
+    flags = _slot_flags(t.pos, t.ismine, t.mask, t.hmask, all_boolean) \
+        .reshape(-1, A).index_select(0, rec)
+    low = torch.zeros((rec.numel(), 4), dtype=torch.int64, device=dev)
+    low[:, :min(A, 4)] = flags[:, :4].to(torch.int64)
+    word = low[:, 0] | low[:, 1] << 8 | low[:, 2] << 16 | low[:, 3] << 24
+    head = torch.stack([
+        own, (ty & 0xFF) | n << 8,
+        t.feat.reshape(-1).index_select(0, rec).view(torch.int32)
+        .to(torch.int64), word], dim=1)
+    if rec.numel() and int(own.max()) >= 1 << 31:
+        raise ValueError("record_plan: own positions past 2^31")
+    nbr = t.nbr.reshape(-1, A - 1).index_select(0, rec) if A > 1 else None
+    eq = (None if t.eq is None else
+          t.eq.reshape(-1, A).index_select(0, rec).to(torch.int32))
+    wid = t.wid.reshape(-1).index_select(0, rec).to(torch.int64)
+    return (head.to(torch.int32).contiguous(), flags.contiguous(),
+            None if nbr is None else nbr.contiguous(),
+            None if eq is None else eq.contiguous()), wid
+
+
+def record_plan(tiers, W: int, all_boolean: bool) -> RecordPlan:
+    """The plan of :func:`grad_records_sum` for ``tiers`` (RecordTier, on one
+    device): each tier's owner records (``gsel``) packed in record order,
+    the permutation that sorts their terms by weight id, and the pieces of
+    the reduction.  Build it once a graph and owner mask."""
+    tiers = tuple(RecordTier(*t) for t in tiers)
+    if not tiers:
+        raise ValueError("record_plan: no tiers")
+    dev = tiers[0].pos.device
+    # the shapes alone: worlds of no storage, as long as a position can be
+    world = torch.empty((1 << 62, 1), dtype=torch.int8, device="meta")
+    packed, wids = [], []
+    for t in tiers:
+        _check_records(world, world, *t[:14], all_boolean)
+        if tuple(t.wid.shape) != tuple(t.typ.shape):
+            raise ValueError(f"record_plan: wid {tuple(t.wid.shape)}, "
+                             f"records {tuple(t.typ.shape)}")
+        p, w = _pack_tier(t, all_boolean)
+        packed.append(p)
+        wids.append(w)
+    wid = torch.cat(wids)
+    N = wid.numel()
+    if N and (int(wid.min()) < 0 or int(wid.max()) >= W):
+        raise ValueError(f"record_plan: an owner record's weight id is "
+                         f"outside [0, {W})")
+    perm = torch.sort(wid, stable=True)[1]
+    per_w = torch.bincount(wid, minlength=W)
+    n_pieces = (per_w + RECORD_PIECE - 1) // RECORD_PIECE
+    weight_piece = torch.zeros(W + 1, dtype=torch.int64, device=dev)
+    weight_piece[1:] = n_pieces.cumsum(0)
+    P = int(weight_piece[-1])
+    run = per_w.cumsum(0) - per_w
+    of = torch.repeat_interleave(torch.arange(W, device=dev), n_pieces)
+    piece_start = torch.full((P + 1,), N, dtype=torch.int64, device=dev)
+    piece_start[:P] = run.index_select(0, of) + RECORD_PIECE * (
+        torch.arange(P, device=dev) - weight_piece.index_select(0, of))
+    terms = torch.empty(N, dtype=torch.float32, device=dev)
+    table = np.zeros((len(tiers), _REC_FIELDS), np.int64)
+    off = 0
+
+    def ptr(x):
+        return 0 if x is None or x.numel() == 0 else x.data_ptr()
+
+    for i, (t, (head, flags, nbr, eq)) in enumerate(zip(tiers, packed)):
+        n = head.shape[0]
+        # tier i's terms at the buffer's element ``off``
+        table[i] = (ptr(head), ptr(flags), ptr(nbr), ptr(eq),
+                    ptr(terms) + 4 * off, n, t.pos.shape[3])
+        off += n
+    return RecordPlan(tiers, bool(all_boolean), W, tuple(packed), terms,
+                      perm.to(torch.int32), piece_start.to(torch.int32),
+                      weight_piece.to(torch.int32),
+                      torch.empty(P, dtype=torch.float64, device=dev), table)
+
+
+def record_launches(plan: RecordPlan) -> int:
+    """Kernel launches of one :func:`grad_records_sum` call: the terms a
+    RECORD_MAX_TIERS tiers, the pieces, the weights."""
+    return -(-len(plan.tiers) // RECORD_MAX_TIERS) + 2
+
+
+def grad_records_sum_plain(v_ev, v_free, plan: RecordPlan,
+                           row_chunk: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`grad_records_sum`: each tier's
+    per-record terms (``grad_records_plain``, zero off the owner mask) and
+    one float64 sum of all of them by weight id (``segment_reduce``),
+    rounded to float32 once."""
+    vals, wids = [], []
+    for t in plan.tiers:
+        out = grad_records_plain(v_ev, v_free, *t[:14], plan.all_boolean,
+                                 row_chunk=row_chunk)
+        vals.append(out.reshape(-1))
+        wids.append(t.wid.reshape(-1))
+    return segment_reduce(torch.cat(vals), torch.cat(wids), plan.W)
+
+
+def grad_records_sum(v_ev, v_free, plan: RecordPlan) -> torch.Tensor:
+    """The records route's gradient f32 [W] of the plan's tiers: for each
+    owner record its term ((Σ_n φ_ev − φ_free) · (1/NC)) · feat, as
+    :func:`grad_records` computes it, summed by weight id in float64 and
+    rounded to float32 once.
+
+    v_ev, v_free [P, NC] int8 or int32 (int8 on all-boolean graphs); the
+    plan from :func:`record_plan` on the worlds' device.  A CPU tensor goes
+    to the plain version; a CUDA tensor to the kernels: one launch of the
+    terms kernel for every RECORD_MAX_TIERS tiers (their owner records only,
+    into ``plan.terms`` in record order), then one of the pieces (each
+    piece's float64 sum over the weight-sorted permutation) and one of the
+    weights (each weight's pieces in order): a fixed order, so equal
+    inputs give equal bytes.  The launches add ``record_launches(plan)`` to
+    ``grad_records_sum.launches``."""
+    if v_ev.device.type == "cpu":
+        return grad_records_sum_plain(v_ev, v_free, plan)
+    if v_ev.device.type != "cuda":
+        raise ValueError(f"grad_records_sum: no kernel for {v_ev.device}")
+    dev = v_ev.device
+    if v_ev.dtype not in (torch.int8, torch.int32) or (
+            plan.all_boolean and v_ev.dtype != torch.int8):
+        raise TypeError(f"grad_records_sum: worlds of {v_ev.dtype}")
+    check_tensor(v_ev, "v_ev", v_ev.dtype, dev, 2)
+    check_tensor(v_free, "v_free", v_ev.dtype, dev, 2)
+    if v_free.shape != v_ev.shape or v_ev.shape[1] < 1:
+        raise ValueError(f"grad_records_sum: worlds {tuple(v_ev.shape)} and "
+                         f"{tuple(v_free.shape)}")
+    if plan.terms.device != dev:
+        raise ValueError(f"grad_records_sum: the plan is on "
+                         f"{plan.terms.device}, the worlds on {dev}")
+    P, NC = v_ev.shape
+    out = torch.empty(plan.W, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        launch("grad_records_sum_launch", v_ev.data_ptr(), v_free.data_ptr(),
+               v_ev.element_size(), NC, P, plan.table.ctypes.data,
+               plan.table.shape[0], int(plan.all_boolean),
+               plan.perm.data_ptr() if plan.perm.numel() else None,
+               plan.piece_start.data_ptr(), plan.partial.shape[0],
+               plan.weight_piece.data_ptr(), plan.W,
+               plan.partial.data_ptr() if plan.partial.numel() else None,
+               out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    grad_records_sum.launches += record_launches(plan)
+    return out
+
+
+grad_records_sum.launches = 0

@@ -44,8 +44,10 @@ from sampler_tpu_torch.coloring import greedy_coloring
 from sampler_tpu_torch.compile import tier_geom, to_device
 from sampler_tpu_torch.convert import from_jax
 from sampler_tpu_torch.engine import multichain as tmc
+from sampler_tpu_torch.ops import grad as tgrad
 from sampler_tpu_torch.ops.grad import (GRAD_W_MAX, grad_records,
                                         grad_records_plain)
+from sampler_tpu_torch.ops.weights import segment_reduce
 from sampler_tpu_torch.parallel import graph_shard as tgs
 
 ATOL = 1e-4
@@ -337,9 +339,11 @@ def test_sharded_gradient_sums_to_unsharded(name):
 
 
 def _count(monkeypatch, name):
+    # the per-tier plain version is called by the route's (ops.grad)
+    mod = tgrad if name == "grad_records_plain" else tmc
     calls = []
-    orig = getattr(tmc, name)
-    monkeypatch.setattr(tmc, name, lambda *a, **k: calls.append(1)
+    orig = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a, **k: calls.append(1)
                         or orig(*a, **k))
     return calls
 
@@ -504,6 +508,272 @@ def test_engine_exports_equal_jax():
         assert obj.__module__.startswith("sampler_tpu_torch."), name
 
 
+# --------------------------------------------- the records route's plan
+
+def _plan(name, lne, d=None, tinfo=None, n_graph=1, g=0):
+    if d is None:
+        _, _, tdg, tinfo = _compiled(name)
+        d = to_device(tdg, "cpu")
+    tiers = _engaged(tinfo, PLAIN, d.w_init.shape[0], n_graph)
+    return d, tinfo, tmc._record_plan(d, tinfo, tiers, lne, n_graph, g)
+
+
+def _lanes_then_butterfly(vals: np.ndarray) -> np.float64:
+    """A warp's float64 sum as the reduction kernels take it: lane l sums
+    vals[l::32] in order, then a butterfly over the 32 lanes."""
+    s = np.zeros(32, np.float64)
+    for i, x in enumerate(vals):
+        s[i % 32] += x
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[np.arange(32) ^ off]
+    return s[0]
+
+
+def _emulate(plan, v_ev, v_free):
+    """The kernels' arithmetic read from the packed plan, on the CPU:
+    (each tier's owner terms f32 [n], the gradient f32 [W] summed in the
+    kernels' order).  A term's chain sum is an integer below 2^24 off
+    RATIO, so its order does not matter there."""
+    from sampler_tpu_torch.engine.potentials import _phi_from_counts
+
+    NC = v_ev.shape[1]
+    terms = []
+    for head, flags, nbr, eq in plan.packed:
+        A = flags.shape[1]
+        word = head[:, 3].to(torch.int64) & 0xFFFFFFFF
+        assert torch.equal(
+            torch.stack([(word >> 8 * a) & 0xFF for a in range(min(A, 4))],
+                        1), flags[:, :4].to(torch.int64))
+        ty = ((head[:, 1] & 0xFF) ^ 0x80) - 0x80
+        n = (head[:, 1] >> 8)[:, None]
+        feat = head[:, 2].view(torch.float32)
+        fl = flags.to(torch.int32)
+        phis = []
+        for v in (v_ev, v_free):
+            own = tgrad._rows_or_zero(v, head[:, 0].to(torch.int64)).to(
+                torch.int32)
+            nl = torch.zeros(own.shape, dtype=torch.int32)
+            hd = torch.zeros(own.shape, dtype=torch.bool)
+            for a in range(A):
+                f = fl[:, a, None]
+                x = own
+                if a < A - 1:
+                    x = torch.where((f & tgrad.FLAG_OWN) != 0, own,
+                                    tgrad._rows_or_zero(
+                                        v, nbr[:, a].to(torch.int64)).to(
+                                        torch.int32))
+                tgt = 1 if eq is None else eq[:, a, None]
+                lit = (x == tgt) == ((f & tgrad.FLAG_POS) != 0)
+                nl += (lit & ((f & tgrad.FLAG_CNT) != 0)).to(torch.int32)
+                hd |= lit & ((f & tgrad.FLAG_HEAD) != 0)
+            phis.append(_phi_from_counts(nl, hd, n, ty[:, None],
+                                         fs.ALL_FACTOR_FUNCS))
+        s = (phis[0] - phis[1]).sum(dim=1)
+        terms.append(s * tgrad.inv_chains(NC) * feat)
+    flat = torch.cat(terms).numpy().astype(np.float64)
+    perm = plan.perm.numpy()
+    ps = plan.piece_start.numpy()
+    part = np.array([_lanes_then_butterfly(flat[perm[ps[p]:ps[p + 1]]])
+                     for p in range(len(ps) - 1)])
+    wp = plan.weight_piece.numpy()
+    grad = np.array([_lanes_then_butterfly(part[wp[w]:wp[w + 1]])
+                     for w in range(plan.W)], np.float64)
+    return terms, torch.from_numpy(grad.astype(np.float32))
+
+
+def _owner_terms(plan, v_ev, v_free):
+    """Each tier's owner terms by the per-record plain version."""
+    out = []
+    for t in plan.tiers:
+        rec = t.gsel.reshape(-1).nonzero().flatten()
+        out.append(grad_records_plain(v_ev, v_free, *t[:14],
+                                      plan.all_boolean)
+                   .reshape(-1).index_select(0, rec))
+    return out
+
+
+def _within_ulp(got, want):
+    """Each weight within one float32 ulp of ``want``."""
+    r = want.abs()
+    ulp = torch.nextafter(r, torch.full_like(r, float("inf"))) - r
+    return bool(((got - want).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("lne", [False, True])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_plan_lists_each_owner_record_once(name, lne):
+    """The plan holds each record of the owner mask exactly once, in record
+    order, with its own row, and nothing else (no non-owner, no hub pad
+    chunk); its permutation sorts the terms by weight id, each weight's
+    run in record order; its pieces cut each run into at most
+    RECORD_PIECE terms, a weight's pieces consecutive."""
+    d, tinfo, plan = _plan(name, lne)
+    C, gB = tinfo.n_colors, tinfo.block_size
+    tiers = _engaged(tinfo, PLAIN, d.w_init.shape[0])
+    assert len(plan.tiers) == len(tiers) > 0
+    wids = []
+    for t, rt, (head, flags, nbr, eq) in zip(tiers, plan.tiers, plan.packed):
+        ts, ti = d.tiers[t], tinfo.tiers[t]
+        gsrc = ts.cs_gowner if lne else ts.cs_gtouch
+        assert rt.gsel.data_ptr() == gsrc.data_ptr()
+        rec = gsrc.nonzero().flatten()
+        assert head.shape == (rec.numel(), 4) and rec.numel() > 0
+        B, D, A = tier_geom(ts, ti, C)
+        row = rec // D
+        if ti.hub:
+            hrow = ts.hb_row.reshape(-1)[row].to(torch.int64)
+            assert bool((hrow < ti.block).all())        # no pad chunk
+            own = (row // B) * gB + ti.off + hrow
+        else:
+            own = (row // B) * gB + ti.off + row % B
+        assert torch.equal(head[:, 0].to(torch.int64), own)
+        assert torch.equal(head[:, 2].view(torch.float32),
+                           ts.cs_feat.reshape(-1)[rec])
+        assert flags.shape == (rec.numel(), A)
+        assert (nbr is None) == (A == 1)
+        assert (eq is None) == tinfo.all_boolean
+        if nbr is not None:
+            assert torch.equal(nbr, ts.cs_nbr.view(-1, A - 1)[rec])
+        wids.append(ts.cs_wid.reshape(-1)[rec].to(torch.int64))
+    wid = torch.cat(wids)
+    perm = plan.perm.to(torch.int64)
+    assert torch.equal(torch.sort(perm)[0], torch.arange(wid.numel()))
+    w = wid[perm]
+    assert bool((w[1:] >= w[:-1]).all())
+    same = w[1:] == w[:-1]
+    assert bool((perm[1:][same] > perm[:-1][same]).all())
+    ps, wp = plan.piece_start.to(torch.int64), plan.weight_piece
+    assert int(ps[0]) == 0 and int(ps[-1]) == wid.numel()
+    size = ps[1:] - ps[:-1]
+    assert bool(((size > 0) & (size <= tgrad.RECORD_PIECE)).all())
+    for k in range(plan.W):
+        p0, p1 = int(wp[k]), int(wp[k + 1])
+        assert bool((w[ps[p0]:ps[p1]] == k).all())
+        assert int(ps[p1] - ps[p0]) == int((wid == k).sum())
+
+
+def test_plan_holds_no_sparse_owner():
+    """On a graph with sparse per-combination weights the plan lists the
+    dense owner records alone; the sparse ones stay with the table
+    lookup."""
+    g = jfx.sparse_categorical_graph(seed=3, n=6)
+    g.var_role[::2] = jfs.ROLE_EVIDENCE
+    jdg, jinfo = jax_compile(g)
+    tdg, tinfo = from_jax(jdg, jinfo)
+    d = to_device(tdg, "cpu")
+    sparse = 0
+    for lne in (False, True):
+        _, _, plan = _plan(None, lne, d, tinfo)
+        for t, (head, *_) in zip(_engaged(tinfo, PLAIN, d.w_init.shape[0]),
+                                 plan.packed):
+            ts = d.tiers[t]
+            gsrc = (ts.cs_gowner if lne else ts.cs_gtouch).reshape(-1)
+            issp = ts.cs_issparse.reshape(-1)
+            assert head.shape[0] == int((gsrc & ~issp).sum())
+            sparse += int((gsrc & issp).sum())
+    assert sparse > 0
+
+
+@pytest.mark.parametrize("lne", [False, True])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_records_sum_plain_matches_jax(name, lne):
+    """The records route's plain version (grad_records_sum on CPU tensors)
+    over every tier the route takes equals JAX mc_weight_gradient_cs."""
+    jdg, jinfo, tdg, tinfo = _compiled(name)
+    d, tinfo, plan = _plan(name, lne)
+    assert len(plan.tiers) == len(tinfo.tiers)      # every tier: records
+    v_ev, v_free = _worlds(tdg, tinfo, NC, 5 + len(name),
+                           card200=name == "card200")
+    ref = np.asarray(jmc.mc_weight_gradient_cs(
+        jax_to_device(jdg), jnp.asarray(v_ev), jnp.asarray(v_free), lne,
+        jinfo, OFF))
+    got = tgrad.grad_records_sum(torch.from_numpy(v_ev),
+                                 torch.from_numpy(v_free), plan)
+    assert np.abs(ref).max() > 0.01
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("lne", [False, True])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_records_sum_equals_old_composition(name, lne):
+    """The new plain version (one float64 sum over all tiers, rounded
+    once) equals the route before it (per-record terms and a float64
+    segment sum a tier, the tiers added in float32) within one float32
+    ulp a tier of the weight's largest tier sum or running sum (the old
+    route rounds each; where the tiers cancel, that is more than an ulp
+    of the weight itself); and the kernels' arithmetic read from the
+    packed plan gives the per-record plain version's owner terms bit for
+    bit (RATIO: within 1e-6 of the largest) and the plain sums within one
+    ulp."""
+    d, tinfo, plan = _plan(name, lne)
+    v_ev, v_free = (torch.from_numpy(v) for v in _worlds(
+        d, tinfo, NC, 7, card200=name == "card200"))
+    new = tgrad.grad_records_sum_plain(v_ev, v_free, plan)
+    old = torch.zeros(plan.W)
+    big = new.abs()
+    for t in plan.tiers:
+        part = segment_reduce(grad_records_plain(
+            v_ev, v_free, *t[:14], plan.all_boolean), t.wid, plan.W)
+        old = old + part
+        big = torch.maximum(big, torch.maximum(part.abs(), old.abs()))
+    ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+    assert bool(((old - new).abs() <= len(plan.tiers) * ulp).all())
+    terms, grad = _emulate(plan, v_ev, v_free)
+    for got, want in zip(terms, _owner_terms(plan, v_ev, v_free)):
+        if jfs.FUNC_RATIO in tinfo.present_funcs:
+            assert float((got - want).abs().max()) <= 1e-6 * max(
+                1.0, float(want.abs().max()))
+        else:
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ratio = jfs.FUNC_RATIO in tinfo.present_funcs
+    assert _within_ulp(grad, new) or (
+        ratio and float((grad - new).abs().max()) <= 1e-5)
+
+
+@pytest.mark.parametrize("name", ["kbc_hub", "triple_band2", "potts3",
+                                  "functions"])
+def test_sharded_plans_sum_to_unsharded(name):
+    """A 2-way graph shard: each rank's plan (its local owner records, own
+    rows at its slice of each tier block, a hub chunk's from hb_row)
+    through the kernels' arithmetic gives gradients that add up to the
+    unsharded plan's and to JAX's."""
+    jdg, jinfo, tdg, tinfo = _compiled(name, align=16, shards=2)
+    d = to_device(tdg, "cpu")
+    v_ev, v_free = _worlds(tdg, tinfo, NC, 23)
+    t_ev, t_free = torch.from_numpy(v_ev), torch.from_numpy(v_free)
+    for lne in (False, True):
+        want = np.asarray(jmc.mc_weight_gradient_cs(
+            jax_to_device(jdg), jnp.asarray(v_ev), jnp.asarray(v_free), lne,
+            jinfo, OFF))
+        whole = _emulate(_plan(None, lne, d, tinfo)[2], t_ev, t_free)[1]
+        total = np.zeros_like(want)
+        for g in range(2):
+            local = tgs.shard_device_graph(tdg, tinfo, 2, g, "cpu")
+            plan = _plan(None, lne, local, tinfo, 2, g)[2]
+            total += _emulate(plan, t_ev, t_free)[1].numpy()
+        assert np.abs(want).max() > 0.01
+        np.testing.assert_allclose(total, whole.numpy(), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(total, want, rtol=0, atol=ATOL)
+
+
+def test_records_sum_wrapper_on_cpu_runs_plain_and_counts_nothing():
+    d, tinfo, plan = _plan("kbc_hub", False)
+    v_ev, v_free = (torch.from_numpy(v) for v in _worlds(d, tinfo, NC, 2))
+    before = tgrad.grad_records_sum.launches
+    got = tgrad.grad_records_sum(v_ev, v_free, plan)
+    assert tgrad.grad_records_sum.launches == before
+    assert torch.equal(got, tgrad.grad_records_sum_plain(v_ev, v_free, plan))
+    assert tgrad.record_launches(plan) == 3
+    with pytest.raises(ValueError):
+        tgrad.record_plan([], plan.W, True)
+    tier = plan.tiers[0]
+    for bad in (tier._replace(wid=torch.full_like(tier.wid, plan.W)),
+                tier._replace(wid=tier.wid[:, :1]),
+                tier._replace(pos=tier.pos[:, :1])):
+        with pytest.raises(ValueError):
+            tgrad.record_plan([bad], plan.W, True)
+
+
 # ------------------------------------------------------------- the card
 
 def random_record_streams(dev, B, D, A, NC, seed, *, C=2, card=2,
@@ -588,3 +858,38 @@ def test_kernel_matches_plain_on_card(cuda_device):
         else:
             assert torch.equal(got.view(torch.int32),
                                ref.view(torch.int32)), (B, D, A, nc, card)
+
+
+@pytest.mark.gpu
+def test_records_sum_kernel_matches_plain_on_card(cuda_device):
+    """grad_records_sum on random streams (a plan of one tier each of
+    CARD_CASES, weight ids from a few weights): its owner terms equal the
+    per-record plain version's bit for bit (RATIO: within 1e-6 of the
+    largest), each weight within one float32 ulp of the plain sum (RATIO:
+    within 1e-6 a record), and two calls equal byte for byte."""
+    for i, (B, D, A, nc, card, types, i32, hub, off) in enumerate(
+            CARD_CASES):
+        args = random_record_streams(cuda_device, B, D, A, nc, i,
+                                     C=1 + i % 3, card=card, types=types,
+                                     int32=i32, hub=hub, off_grid=off)
+        W = 1 + i % 5
+        wid = torch.randint(0, W, tuple(args[10].shape), dtype=torch.int32,
+                            device=cuda_device)
+        plan = tgrad.record_plan([tgrad.RecordTier(*args[2:16], wid)], W,
+                                 args[16])
+        got = tgrad.grad_records_sum(args[0], args[1], plan)
+        terms = plan.terms.clone()
+        again = tgrad.grad_records_sum(args[0], args[1], plan)
+        ref = tgrad.grad_records_sum_plain(args[0], args[1], plan)
+        want = _owner_terms(plan, args[0], args[1])[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        if fs.FUNC_RATIO in types:
+            scale = max(1.0, float(want.abs().max()))
+            assert float((terms - want).abs().max()) <= 1e-6 * scale
+            n = max(1, int(plan.terms.numel()))
+            assert float((got - ref).abs().max()) <= 1e-6 * scale * n
+        else:
+            assert torch.equal(terms.view(torch.int32),
+                               want.view(torch.int32)), (B, D, A, nc, card)
+            assert _within_ulp(got, ref), (B, D, A, nc, card)

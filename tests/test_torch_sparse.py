@@ -34,6 +34,7 @@ from sampler_tpu_torch.compile import to_device
 from sampler_tpu_torch.convert import from_jax
 from sampler_tpu_torch.engine import multichain as tmc
 from sampler_tpu_torch.engine.learn import LearnConfig, learn
+from sampler_tpu_torch.ops import grad as tgrad
 from sampler_tpu_torch.parallel import graph_shard as tgs
 
 
@@ -177,9 +178,11 @@ def test_sparse_gradient_matches_jax(name, lne):
 
 
 def _count(monkeypatch, name):
+    # the per-tier plain version is called by the route's (ops.grad)
+    mod = tgrad if name == "grad_records_plain" else tmc
     calls = []
-    orig = getattr(tmc, name)
-    monkeypatch.setattr(tmc, name, lambda *a, **k: calls.append(1)
+    orig = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a, **k: calls.append(1)
                         or orig(*a, **k))
     return calls
 

@@ -2,7 +2,9 @@
 
   * ``tally`` (ops.tally's plain version on the CPU) gives the counts of
     the JAX package's ``run_inference_mc`` on the world it returns, exactly
-    (K = 2, 4 and 20 on int8 and int32 worlds, and K = 200 on int32);
+    (K = 2, 4 and 20 on int8 and int32 worlds, and K = 200 on int32; and
+    K = 2, 4, 17 and 200 at 8, 16, 24, 128 and 136 chains, the kernel's
+    narrow rows);
   * the plain tally counts values outside [0, K) nowhere, at every K
     branch;
   * the world-write mode of each plain fused draw leaves the world bit for
@@ -105,6 +107,51 @@ def test_tally_plain_skips_values_outside_range(K, NC):
     tally_plain(counts, torch.from_numpy(v), chunk_elems=100)
     ref = np.stack([(v == k).sum(1) for k in range(K)]) + 7
     np.testing.assert_array_equal(counts.numpy(), ref)
+
+
+# narrow rows: the kernel's segments of 1 to 32 lanes a row (16-byte rows
+# of 8..136 chains) and its byte rows, every way it counts
+NARROW_K = (2, 4, 17, 200)
+NARROW_NC = (8, 16, 24, 128, 136)
+NARROW_GRAPHS = {
+    2: lambda: jax_ising_grid(6, 6),
+    4: lambda: jax_potts_grid(6, 6, card=4, seed=1),
+    17: lambda: jax_potts_grid(5, 5, card=17, seed=2),
+    200: lambda: jax_potts_grid(4, 4, card=200, seed=3),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_counts_at(K, NC):
+    """(world of NC chains after one JAX sweep of NARROW_GRAPHS[K], JAX's
+    counts of it as [K, P])."""
+    g, colors = NARROW_GRAPHS[K]()
+    dg, info = jax_compile(g, colors=colors)
+    assert info.max_card == K
+    d = jax_to_device(dg)
+    key = jax.random.PRNGKey(K * 1000 + NC)
+    vals = jmc.init_values_mc(d, key, NC, info)
+    vals, counts = jmc.run_inference_mc(d, vals, d.w_init,
+                                        jax.random.fold_in(key, 1), 1, False,
+                                        info, ("off", "off"))
+    return np.asarray(vals), np.asarray(counts).reshape(K, -1)
+
+
+@pytest.mark.parametrize("NC", NARROW_NC)
+@pytest.mark.parametrize("K", NARROW_K)
+def test_narrow_tally_equals_jax_counts(K, NC):
+    """Worlds of 8 to 136 chains: the port's tally gives JAX's
+    run_inference_mc counts exactly, and so does the plain version in
+    bincount blocks of a few rows."""
+    vals, ref = _jax_counts_at(K, NC)
+    assert vals.shape[1] == NC
+    v = torch.from_numpy(vals.copy())
+    counts = torch.zeros(ref.shape, dtype=torch.int32)
+    tmc.tally(counts, v)
+    np.testing.assert_array_equal(counts.numpy(), ref)
+    blocks = torch.zeros(ref.shape, dtype=torch.int32)
+    tally_plain(blocks, v, chunk_elems=3 * NC)
+    np.testing.assert_array_equal(blocks.numpy(), ref)
 
 
 def test_tally_counts_wrapper_on_cpu_counts_no_launch():
@@ -291,6 +338,28 @@ def test_tally_kernel_matches_plain_on_card(cuda_device, K, NC):
     tally_counts(got, v)
     tally_plain(ref, v)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NC", NARROW_NC)
+@pytest.mark.parametrize("K", NARROW_K)
+def test_narrow_tally_kernel_matches_plain_on_card(cuda_device, K, NC):
+    """Narrow rows on the card: a segment of NC/16 lanes a row (U rows a
+    segment), aligned and one element off the 16-byte grid, against the
+    plain version exactly; the rows not a multiple of a block's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(K + NC)
+    dt = torch.int8 if K <= 120 else torch.int32
+    v = torch.randint(-2, min(K + 4, 127), (10_007, NC), generator=gen,
+                      device=cuda_device, dtype=dt)
+    buf = torch.empty(v.numel() + 1, dtype=dt, device=cuda_device)
+    buf[1:].copy_(v.reshape(-1))
+    for world in (v, buf[1:].view(v.shape)):
+        got = torch.ones((K, v.shape[0]), dtype=torch.int32,
+                         device=cuda_device)
+        ref = got.clone()
+        tally_counts(got, world)
+        tally_plain(ref, world)
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.gpu
