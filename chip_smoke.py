@@ -263,10 +263,6 @@ Phases (each prints one line with its result and elapsed seconds):
              sharing the card (Gloo), 6 sweeps: the
              marginals' shape and finiteness, the halo plan engaged, every
              rank's launches, memory_budget and sharded bytes a variable
- 27 profile learn  python -m sampler_tpu_torch.profile_learn at its
-             defaults (the labelled 1024x1024 grid, 256 chains): a
-             prefolded sweep, the fold and the gradient alone, the implied
-             epoch
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failed check ends the run nonzero.
 The script imports neither JAX nor the JAX package.
@@ -400,7 +396,7 @@ GS_CHILD = ("import sys; from sampler_tpu_torch.cli import main; "
             "from sampler_tpu_torch.parallel.comm import make_mesh; "
             "sys.exit(main(sys.argv[1:], mesh=make_mesh("
             "1, 2, ['cuda:0'] * 2, 'gloo')))")
-# phases 23-27: the native host library and the large-graph entry points
+# phases 23-26: the native host library and the large-graph entry points
 SCALE_ARGS: list = []         # scale_gpu.main at its defaults: 5120^2, 128
 #                               chains, 4 sweeps x (1 warm-up + 3 timed)
 # scale_kbc.main at 1024 chains, cut for the script's time limit (PERF.md
@@ -412,7 +408,6 @@ KBC_SCALE_ARGS = ["--vars", "2000000", "--outer", "1"]
 DEMO_ARGS = ["--rows", "2048", "--cols", "2048", "--graph-axis", "4",
              "--sweeps", "6"]
 DEMO_RANKS = 4                # scale_demo's graph ranks, sharing the card
-PROFILE_ARGS: list = []       # profile_learn.main at its defaults
 EDGE_TILES = 4                # tiles checked each side of world element
 #                               2^31, and at the end of the world
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -5164,26 +5159,6 @@ def scale_demo_phase(dev, card: str) -> None:
            scale_demo=out, launches_by_rank=launches)
 
 
-def profile_learn_phase(dev, card: str) -> None:
-    """Phase 27: profile_learn.main at its defaults (the labelled 1024^2
-    grid at 256 chains): the epoch breakdown, with fused_color_draw and
-    grad_pair_tile launched on its path."""
-    from sampler_tpu_torch import profile_learn
-    from sampler_tpu_torch.ops.fused import fused_color_draw
-    from sampler_tpu_torch.ops.grad import grad_pair_tile
-
-    t27 = time.perf_counter()
-    fused_color_draw.launches = 0
-    grad_pair_tile.launches = 0
-    out = profile_learn.main(PROFILE_ARGS + ["--device", str(dev)])
-    launches = {"fused_color_draw": fused_color_draw.launches,
-                "grad_pair_tile": grad_pair_tile.launches}
-    require(all(n > 0 for n in launches.values()),
-            f"profile_learn: launches {launches}")
-    report("27 profile learn", t27, card=card, profile_learn=out,
-           launches=launches)
-
-
 def main() -> int:
     import torch
 
@@ -5477,12 +5452,11 @@ def main() -> int:
         del g_kbc
         gs_cli_phase(dev, card, pair)
 
-    # ---- 23-27: the native host library and the large-graph entry points
+    # ---- 23-26: the native host library and the large-graph entry points
     host_phase(card)
     scale_ising_phase(dev, card)
     scale_kbc_phase(dev, card)
     scale_demo_phase(dev, card)
-    profile_learn_phase(dev, card)
 
     sources = {"fused_color_draw": ("sampler_tpu_torch/csrc/"
                                     "fused_color_draw.cu",

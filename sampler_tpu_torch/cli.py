@@ -43,6 +43,7 @@ Its checkpoints are the phases "gs_learn" and "gs_infer".
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -51,6 +52,7 @@ import time
 import numpy as np
 
 from .engine.rng import chunk_generator
+from .observe import clear_spans, span, span_line, spans
 from .ops import kernel_launches
 
 
@@ -121,8 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--resume", action="store_true",
                    help="resume from --checkpoint if it exists")
     g.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the run to "
-                        "DIR/trace.json")
+                   help="write a torch.profiler trace of the run, from the "
+                        "graph's load on, to DIR/trace.json, and log the "
+                        "program's spans with the most self time")
     g.add_argument("--quiet", "-q", action="store_true")
 
     for name in ("text2bin", "bin2text"):
@@ -148,15 +151,38 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def _profiled(out_dir, device, log):
+    """torch.profiler over the block when ``out_dir`` (--profile) is set:
+    the trace written to ``out_dir``/trace.json, and one log line of the
+    program's spans (``observe``) with the most self time."""
+    if not out_dir:
+        yield
+        return
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    clear_spans()
+    prof = torch.profiler.profile(activities=acts)
+    try:
+        with prof:
+            yield
+    finally:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+        log(f"profiler trace written to {out_dir}/trace.json")
+        log(f"spans (name count inclusive_s self_s): {span_line(spans())}")
+
+
 def cmd_gibbs(args, mesh=None) -> int:
     """The gibbs command; ``mesh`` (a parallel.comm.Mesh or open
     parallel.launch.Ranks) replaces the mesh --n_graph_shards derives from
     the device count, as on one card whose ranks share it over Gloo."""
     import torch
 
-    from .compile import compile_graph, resolve_device, to_device
-    from .engine.multichain import effective_chains
-    from .io import binary
+    from .compile import resolve_device
 
     device = resolve_device(args.device)
     n_graph = max(args.n_graph_shards, 1)
@@ -169,9 +195,33 @@ def cmd_gibbs(args, mesh=None) -> int:
                              f"{m.n_graph} graph ranks")
     log = ((lambda *a: None) if args.quiet
            else (lambda *a: print(*a, flush=True)))
+    with _profiled(args.profile, device, log):
+        graph, info, weights, marg, launches = _gibbs_run(
+            args, log, device, n_graph, mesh)
+    if device.type == "cuda":
+        log(f"peak device memory "
+            f"{torch.cuda.max_memory_allocated(device)} bytes")
+        if launches is None:
+            log(f"kernel launches: {json.dumps(kernel_launches())}")
+        else:
+            log(f"kernel launches by rank: {json.dumps(launches)}")
+
+    _write_outputs(args, log, graph, info, weights, marg)
+    return 0
+
+
+def _gibbs_run(args, log, device, n_graph, mesh) -> tuple:
+    """Load, compile and run the gibbs command's phases; returns (graph,
+    info, weights, marginals, each rank's launches or None)."""
+    import torch
+
+    from .compile import compile_graph, to_device
+    from .engine.multichain import effective_chains
+    from .io import binary
 
     t0 = time.time()
-    graph = binary.load_graph(args.meta, domains_path=args.domains)
+    with span("cli.load"):
+        graph = binary.load_graph(args.meta, domains_path=args.domains)
     log(f"loaded graph: {graph.n_vars} vars, {graph.n_factors} factors, "
         f"{graph.n_weights} weights, {graph.n_edges} edges "
         f"[{time.time()-t0:.3f}s]")
@@ -227,40 +277,16 @@ def cmd_gibbs(args, mesh=None) -> int:
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    prof = None
-    if args.profile:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.__enter__()
-    launches = None
-    try:
-        if n_graph > 1:
-            weights, marg, launches = _run_gibbs_sharded(
-                args, log, d, info, weights, n_chains, n_graph, every,
-                ckpt_path, state, device, mesh)
-        else:
-            weights, marg = _run_gibbs_phases(
-                args, log, graph, d, info, weights, n_chains, every,
-                ckpt_path, state, device)
-    finally:
-        if prof is not None:
-            prof.__exit__(None, None, None)
-            os.makedirs(args.profile, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(args.profile,
-                                                  "trace.json"))
-            log(f"profiler trace written to {args.profile}/trace.json")
-    if device.type == "cuda":
-        log(f"peak device memory "
-            f"{torch.cuda.max_memory_allocated(device)} bytes")
-        if launches is None:
-            log(f"kernel launches: {json.dumps(kernel_launches())}")
-        else:
-            log(f"kernel launches by rank: {json.dumps(launches)}")
-
-    _write_outputs(args, log, graph, info, weights, marg)
-    return 0
+    if n_graph > 1:
+        weights, marg, launches = _run_gibbs_sharded(
+            args, log, d, info, weights, n_chains, n_graph, every,
+            ckpt_path, state, device, mesh)
+    else:
+        weights, marg = _run_gibbs_phases(
+            args, log, graph, d, info, weights, n_chains, every, ckpt_path,
+            state, device)
+        launches = None
+    return graph, info, weights, marg, launches
 
 
 def _write_outputs(args, log, graph, info, weights, marg):
@@ -337,13 +363,14 @@ def _run_gibbs_phases(args, log, graph, d, info, weights, n_chains, every,
         card."""
         if not every:
             return
-        values = (np.stack([_host(v) for v in worlds])
-                  if isinstance(worlds, tuple) else _host(worlds))
-        checkpoint.save(checkpoint.SamplerState(
-            values=values, weights=_host(w),
-            rng_key=seed_words(args.seed), counts=counts,
-            sweep=sweep, epoch=epoch, meta={**meta, "phase": phase}),
-            ckpt_path)
+        with span("cli.checkpoint"):
+            values = (np.stack([_host(v) for v in worlds])
+                      if isinstance(worlds, tuple) else _host(worlds))
+            checkpoint.save(checkpoint.SamplerState(
+                values=values, weights=_host(w),
+                rng_key=seed_words(args.seed), counts=counts,
+                sweep=sweep, epoch=epoch, meta={**meta, "phase": phase}),
+                ckpt_path)
         _fault_hook()
 
     # ---- learning ----------------------------------------------------
@@ -410,13 +437,15 @@ def _run_gibbs_phases(args, log, graph, d, info, weights, n_chains, every,
         values, cts = run_inference_mc(
             d, values, weights, gen("run", done), chunk,
             args.sample_evidence, info, modes, device)
-        #         device counts are flat row-major [K, P]
-        counts += _host(cts).astype(np.int64).reshape(K, -1).T
+        with span("cli.marginals"):
+            # device counts are flat row-major [K, P]
+            counts += _host(cts).astype(np.int64).reshape(K, -1).T
         save("infer", values, counts=counts, sweep=done + chunk,
              w=weights)
     dt_run = time.time() - t_run
-    marg = (counts[_host(d.pos_of_vid)]
-            / float(n_inf * n_chains)).astype(np.float32)
+    with span("cli.marginals"):
+        marg = (counts[_host(d.pos_of_vid)]
+                / float(n_inf * n_chains)).astype(np.float32)
     dt = time.time() - t0
     total = (n_burn + n_inf) * graph.n_vars * n_chains
     log(f"inference: {n_inf} sweeps x {n_chains} chains in "

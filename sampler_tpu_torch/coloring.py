@@ -13,6 +13,7 @@ import numpy as np
 
 from . import native as native_mod
 from .graph import FactorGraph
+from .observe import spanned
 
 
 def factor_member_pairs(graph: FactorGraph):
@@ -49,6 +50,7 @@ def variable_adjacency(graph: FactorGraph):
     return indptr, indices
 
 
+@spanned("compile.coloring")
 def greedy_coloring(graph: FactorGraph, native: bool = True) -> np.ndarray:
     """Color variables greedily (largest-first order), LOAD-BALANCED;
     returns int32 [V].
@@ -102,6 +104,7 @@ def greedy_coloring(graph: FactorGraph, native: bool = True) -> np.ndarray:
     return colors
 
 
+@spanned("compile.rcm")
 def rcm_order(graph: FactorGraph) -> np.ndarray:
     """Bandwidth-reducing variable rank (reverse Cuthill-McKee).
 

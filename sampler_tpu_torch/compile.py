@@ -51,6 +51,7 @@ from . import format_spec as fs
 from . import native as native_mod
 from .coloring import greedy_coloring
 from .graph import FactorGraph
+from .observe import span, spanned
 
 
 def _round_up(x: int, m: int) -> int:
@@ -363,6 +364,7 @@ def plan_tiers(degree: np.ndarray, max_inc_arity: np.ndarray,
 # the compiler
 # ---------------------------------------------------------------------------
 
+@spanned("compile.graph")
 def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
                   align: int = 8, band_tile: int = 128,
                   band_wmax: int = 8192,
@@ -394,169 +396,171 @@ def compile_graph(graph: FactorGraph, colors: np.ndarray | None = None,
     streams with the native host library (the default); False runs their
     numpy plain versions, which give the same streams.
     """
-    graph.validate()
-    V, F, E = graph.n_vars, graph.n_factors, graph.n_edges
-    arity = graph.arities().astype(np.int64)
-    A = int(arity.max())
+    with span("compile.layout"):
+        graph.validate()
+        V, F, E = graph.n_vars, graph.n_factors, graph.n_edges
+        arity = graph.arities().astype(np.int64)
+        A = int(arity.max())
 
-    # --- coloring --------------------------------------------------------
-    if colors is None:
-        colors = greedy_coloring(graph, native=native)
-    C = int(colors.max()) + 1 if V else 1
+        # --- coloring --------------------------------------------------------
+        if colors is None:
+            colors = greedy_coloring(graph, native=native)
+        C = int(colors.max()) + 1 if V else 1
 
-    # --- per-variable degree / max incident arity (factor-distinct) ------
-    rows = np.repeat(np.arange(F), arity)
-    pair_key = rows.astype(np.int64) * V + graph.e_vid
-    uniq = np.unique(pair_key)
-    uf = (uniq // V).astype(np.int32)        # incident factor per pair
-    uv = (uniq % V).astype(np.int64)         # variable per pair
-    degree_v = np.bincount(uv, minlength=V)
-    vorder = np.argsort(uv, kind="stable")
-    vstarts = np.searchsorted(uv[vorder], np.arange(V))
-    maxA_v = np.ones(V, np.int64)
-    if len(uv):
-        red = np.maximum.reduceat(arity[uf[vorder]],
-                                  np.minimum(vstarts, len(uv) - 1))
-        maxA_v = np.where(degree_v > 0, red, 1)
+        # --- per-variable degree / max incident arity (factor-distinct) ------
+        rows = np.repeat(np.arange(F), arity)
+        pair_key = rows.astype(np.int64) * V + graph.e_vid
+        uniq = np.unique(pair_key)
+        uf = (uniq // V).astype(np.int32)        # incident factor per pair
+        uv = (uniq % V).astype(np.int64)         # variable per pair
+        degree_v = np.bincount(uv, minlength=V)
+        vorder = np.argsort(uv, kind="stable")
+        vstarts = np.searchsorted(uv[vorder], np.arange(V))
+        maxA_v = np.ones(V, np.int64)
+        if len(uv):
+            red = np.maximum.reduceat(arity[uf[vorder]],
+                                      np.minimum(vstarts, len(uv) - 1))
+            maxA_v = np.where(degree_v > 0, red, 1)
 
-    # --- degree tiers (hubs split off first) ------------------------------
-    is_hub = degree_v > hub_cap
-    n_hub = int(is_hub.sum())
-    if n_hub:
-        dense = ~is_hub
-        tier_of_v = np.zeros(V, np.int32)
-        td, T = plan_tiers(degree_v[dense], maxA_v[dense], max_tiers)
-        tier_of_v[dense] = td
-        tier_of_v[is_hub] = T          # hub tier is the LAST tier
-        hub_tier = T
-        T = T + 1
-    else:
-        tier_of_v, T = plan_tiers(degree_v, maxA_v, max_tiers)
-        hub_tier = -1
+        # --- degree tiers (hubs split off first) -----------------------------
+        is_hub = degree_v > hub_cap
+        n_hub = int(is_hub.sum())
+        if n_hub:
+            dense = ~is_hub
+            tier_of_v = np.zeros(V, np.int32)
+            td, T = plan_tiers(degree_v[dense], maxA_v[dense], max_tiers)
+            tier_of_v[dense] = td
+            tier_of_v[is_hub] = T          # hub tier is the LAST tier
+            hub_tier = T
+            T = T + 1
+        else:
+            tier_of_v, T = plan_tiers(degree_v, maxA_v, max_tiers)
+            hub_tier = -1
 
-    # --- per-(color, tier) counts -> padded tier blocks -------------------
-    gidx = colors.astype(np.int64) * T + tier_of_v
-    gcnt = np.bincount(gidx, minlength=C * T).reshape(C, T)
-    Bt = np.zeros(T, np.int64)
-    try_band_t = np.zeros(T, bool)
-    for t in range(T):
-        b = _round_up(max(int(gcnt[:, t].max()), 1), align)
-        if band_tile > 0 and b >= band_min_block and t != hub_tier:
-            # x8: the fused kernels read their [C, ntiles, R] streams in
-            # (1, 8, R) blocks (Mosaic requires the penultimate block dim
-            # divisible by 8), so ntiles must be a multiple of 8 — per
-            # SHARD under graph sharding.  Pad rows are ordinary dummy
-            # variables, so tiles stay uniform and shard-aligned.
-            q = int(np.lcm(align, band_tile * 8 * max(shards, 1)))
-            b = _round_up(b, q)
-            try_band_t[t] = True
-        Bt[t] = b
-    off = np.concatenate([[0], np.cumsum(Bt)[:-1]])
-    B = int(Bt.sum())
-    P = C * B + 1                      # +1 global dummy tail
-    DUMMY = C * B
+        # --- per-(color, tier) counts -> padded tier blocks ------------------
+        gidx = colors.astype(np.int64) * T + tier_of_v
+        gcnt = np.bincount(gidx, minlength=C * T).reshape(C, T)
+        Bt = np.zeros(T, np.int64)
+        try_band_t = np.zeros(T, bool)
+        for t in range(T):
+            b = _round_up(max(int(gcnt[:, t].max()), 1), align)
+            if band_tile > 0 and b >= band_min_block and t != hub_tier:
+                # x8: the fused kernels read their [C, ntiles, R] streams in
+                # (1, 8, R) blocks (Mosaic requires the penultimate block dim
+                # divisible by 8), so ntiles must be a multiple of 8 — per
+                # SHARD under graph sharding.  Pad rows are ordinary dummy
+                # variables, so tiles stay uniform and shard-aligned.
+                q = int(np.lcm(align, band_tile * 8 * max(shards, 1)))
+                b = _round_up(b, q)
+                try_band_t[t] = True
+            Bt[t] = b
+        off = np.concatenate([[0], np.cumsum(Bt)[:-1]])
+        B = int(Bt.sum())
+        P = C * B + 1                      # +1 global dummy tail
+        DUMMY = C * B
 
-    # --- permutation: (color, tier, order) -> positions -------------------
-    order_key = np.arange(V, dtype=np.int64) if order is None \
-        else np.asarray(order, np.int64)
-    corder = np.lexsort((order_key, tier_of_v, colors)).astype(np.int64)
-    sg = gidx[corder]
-    gstarts = np.searchsorted(sg, np.arange(C * T))
-    rank = np.arange(V) - gstarts[sg]
-    positions = (colors[corder].astype(np.int64) * B
-                 + off[tier_of_v[corder]] + rank)
-    vid_of_pos = np.full(P, -1, np.int64)   # -1 = pad/dummy
-    vid_of_pos[positions] = corder
-    pos_of_vid = np.empty(V, np.int64)
-    pos_of_vid[corder] = positions
+        # --- permutation: (color, tier, order) -> positions ------------------
+        order_key = np.arange(V, dtype=np.int64) if order is None \
+            else np.asarray(order, np.int64)
+        corder = np.lexsort((order_key, tier_of_v, colors)).astype(np.int64)
+        sg = gidx[corder]
+        gstarts = np.searchsorted(sg, np.arange(C * T))
+        rank = np.arange(V) - gstarts[sg]
+        positions = (colors[corder].astype(np.int64) * B
+                     + off[tier_of_v[corder]] + rank)
+        vid_of_pos = np.full(P, -1, np.int64)   # -1 = pad/dummy
+        vid_of_pos[positions] = corder
+        pos_of_vid = np.empty(V, np.int64)
+        pos_of_vid[corder] = positions
 
-    # --- factor → member edges (as positions), padded [F+1, A] ------------
-    eq_dtype = (np.int16 if np.max(graph.e_eqpred, initial=0) < (1 << 15)
-                else np.int32)
-    f_vids = np.full((F + 1, A), DUMMY, np.int32)
-    f_ispos = np.zeros((F + 1, A), bool)
-    f_eqpred = np.zeros((F + 1, A), eq_dtype)
-    f_mask = np.zeros((F + 1, A), bool)
-    cols = np.arange(E, dtype=np.int64) - np.repeat(graph.f_ptr[:-1], arity)
-    f_vids[rows, cols] = pos_of_vid[graph.e_vid]
-    f_ispos[rows, cols] = graph.e_ispos
-    f_eqpred[rows, cols] = graph.e_eqpred
-    f_mask[rows, cols] = True
+        # --- factor → member edges (as positions), padded [F+1, A] -----------
+        eq_dtype = (np.int16 if np.max(graph.e_eqpred, initial=0) < (1 << 15)
+                    else np.int32)
+        f_vids = np.full((F + 1, A), DUMMY, np.int32)
+        f_ispos = np.zeros((F + 1, A), bool)
+        f_eqpred = np.zeros((F + 1, A), eq_dtype)
+        f_mask = np.zeros((F + 1, A), bool)
+        cols = (np.arange(E, dtype=np.int64)
+                - np.repeat(graph.f_ptr[:-1], arity))
+        f_vids[rows, cols] = pos_of_vid[graph.e_vid]
+        f_ispos[rows, cols] = graph.e_ispos
+        f_eqpred[rows, cols] = graph.e_eqpred
+        f_mask[rows, cols] = True
 
-    f_type = np.concatenate([graph.f_type, [fs.FUNC_AND]]).astype(np.int8)
-    f_wid = np.concatenate([graph.f_wid, [0]]).astype(np.int32)
-    f_feat = np.concatenate([graph.f_feat, [0.0]]).astype(np.float32)
-    f_arity = np.concatenate([arity, [1]]).astype(np.int16)
+        f_type = np.concatenate([graph.f_type, [fs.FUNC_AND]]).astype(np.int8)
+        f_wid = np.concatenate([graph.f_wid, [0]]).astype(np.int32)
+        f_feat = np.concatenate([graph.f_feat, [0.0]]).astype(np.float32)
+        f_arity = np.concatenate([arity, [1]]).astype(np.int16)
 
-    # --- per-position metadata --------------------------------------------
-    var_card = np.ones(P, np.int32)
-    var_role = np.full(P, fs.ROLE_EVIDENCE, np.int32)
-    var_init = np.zeros(P, np.int32)
-    real = vid_of_pos >= 0
-    var_card[real] = graph.var_card[vid_of_pos[real]]
-    var_role[real] = graph.var_role[vid_of_pos[real]]
-    var_init[real] = graph.var_init[vid_of_pos[real]]
-    K = int(graph.var_card.max()) if V else 1
+        # --- per-position metadata -------------------------------------------
+        var_card = np.ones(P, np.int32)
+        var_role = np.full(P, fs.ROLE_EVIDENCE, np.int32)
+        var_init = np.zeros(P, np.int32)
+        real = vid_of_pos >= 0
+        var_card[real] = graph.var_card[vid_of_pos[real]]
+        var_role[real] = graph.var_role[vid_of_pos[real]]
+        var_init[real] = graph.var_init[vid_of_pos[real]]
+        K = int(graph.var_card.max()) if V else 1
 
-    # --- sparse per-combination weight TABLE (FUNC 12 sparse variant) -----
-    # dense mixed-radix table per sparse factor: entry for combination
-    # (v_0..v_{a-1}) lives at base_f + Σ_j v_j·stride_j; combinations with
-    # no entry point at the reserved zero weight (index n_weights), so the
-    # device lookup needs NO mask (SURVEY.md §7 hard-part 3: hash-free).
-    ZERO_WID = graph.n_weights
-    has_cw = graph.cw_fid is not None and len(graph.cw_fid) > 0
-    if has_cw and n_hub:
-        raise ValueError(
-            f"sparse per-combination weights cannot combine with hub-tier "
-            f"variables yet ({n_hub} variables exceed hub_cap={hub_cap}); "
-            "raise hub_cap or use dense weights")
-    if has_cw:
-        f_cwbase_full = np.full(F + 1, -1, np.int64)
-        f_cwstride_full = np.zeros((F + 1, A), np.int64)
-        edge_cards = graph.var_card[graph.e_vid].astype(np.int64)
-        sparse_f = np.unique(graph.cw_fid)
-        sizes = np.zeros(F + 1, np.int64)
-        for f in sparse_f:
-            lo, hi = graph.f_ptr[f], graph.f_ptr[f + 1]
-            cards = edge_cards[lo:hi]
-            # row-major over edge order: stride_j = Π_{l>j} card_l
-            strides = np.concatenate(
-                [np.cumprod(cards[::-1])[::-1][1:], [1]])
-            f_cwstride_full[f, : hi - lo] = strides
-            sizes[f] = int(np.prod(cards))
-        Tcw = int(sizes.sum())
-        if Tcw > (1 << 28):
+        # --- sparse per-combination weight TABLE (FUNC 12 sparse variant) ----
+        # dense mixed-radix table per sparse factor: entry for combination
+        # (v_0..v_{a-1}) lives at base_f + Σ_j v_j·stride_j; combinations with
+        # no entry point at the reserved zero weight (index n_weights), so the
+        # device lookup needs NO mask (SURVEY.md §7 hard-part 3: hash-free).
+        ZERO_WID = graph.n_weights
+        has_cw = graph.cw_fid is not None and len(graph.cw_fid) > 0
+        if has_cw and n_hub:
             raise ValueError(
-                f"sparse combination tables too large ({Tcw} entries); "
-                "cap is 2^28 — split the factor or use dense weights")
-        bases = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-        f_cwbase_full[sparse_f] = bases[sparse_f]
-        m = (graph.cw_cats.astype(np.int64)
-             * f_cwstride_full[graph.cw_fid, : graph.cw_cats.shape[1]]
-             ).sum(axis=1)
-        cwt_wid = np.full(max(Tcw, 1), ZERO_WID, np.int32)
-        cwt_wid[f_cwbase_full[graph.cw_fid] + m] = graph.cw_wid
-        f_cwbase = f_cwbase_full.astype(np.int32)
-        f_cwstride = f_cwstride_full.astype(np.int32)
-    else:
-        cwt_wid = np.full(1, ZERO_WID, np.int32)
-        f_cwbase = np.full(1, -1, np.int32)
-        f_cwstride = np.zeros((1, 1), np.int32)
+                f"sparse per-combination weights cannot combine with hub-tier "
+                f"variables yet ({n_hub} variables exceed hub_cap={hub_cap}); "
+                "raise hub_cap or use dense weights")
+        if has_cw:
+            f_cwbase_full = np.full(F + 1, -1, np.int64)
+            f_cwstride_full = np.zeros((F + 1, A), np.int64)
+            edge_cards = graph.var_card[graph.e_vid].astype(np.int64)
+            sparse_f = np.unique(graph.cw_fid)
+            sizes = np.zeros(F + 1, np.int64)
+            for f in sparse_f:
+                lo, hi = graph.f_ptr[f], graph.f_ptr[f + 1]
+                cards = edge_cards[lo:hi]
+                # row-major over edge order: stride_j = Π_{l>j} card_l
+                strides = np.concatenate(
+                    [np.cumprod(cards[::-1])[::-1][1:], [1]])
+                f_cwstride_full[f, : hi - lo] = strides
+                sizes[f] = int(np.prod(cards))
+            Tcw = int(sizes.sum())
+            if Tcw > (1 << 28):
+                raise ValueError(
+                    f"sparse combination tables too large ({Tcw} entries); "
+                    "cap is 2^28 — split the factor or use dense weights")
+            bases = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+            f_cwbase_full[sparse_f] = bases[sparse_f]
+            m = (graph.cw_cats.astype(np.int64)
+                 * f_cwstride_full[graph.cw_fid, : graph.cw_cats.shape[1]]
+                 ).sum(axis=1)
+            cwt_wid = np.full(max(Tcw, 1), ZERO_WID, np.int32)
+            cwt_wid[f_cwbase_full[graph.cw_fid] + m] = graph.cw_wid
+            f_cwbase = f_cwbase_full.astype(np.int32)
+            f_cwstride = f_cwstride_full.astype(np.int32)
+        else:
+            cwt_wid = np.full(1, ZERO_WID, np.int32)
+            f_cwbase = np.full(1, -1, np.int32)
+            f_cwstride = np.zeros((1, 1), np.int32)
 
-    # --- shared per-factor derived arrays ----------------------------------
-    all_boolean = bool((graph.var_dtype == fs.DTYPE_BOOLEAN).all()
-                       and (graph.e_eqpred == 1).all() and not has_cw)
-    present_all = tuple(sorted(int(t) for t in np.unique(graph.f_type)))
-    assert A < (1 << 15) and np.max(graph.f_type, initial=0) < (1 << 7)
-    # factor -> min member position (dummy/pad factors -> P: never matches)
-    f_minpos = np.where(f_mask, f_vids, np.int32(P)).min(axis=1)
-    # factor -> touches an evidence variable
-    f_touch = ((var_role[f_vids] == fs.ROLE_EVIDENCE) & f_mask).any(axis=1)
+        # --- shared per-factor derived arrays --------------------------------
+        all_boolean = bool((graph.var_dtype == fs.DTYPE_BOOLEAN).all()
+                           and (graph.e_eqpred == 1).all() and not has_cw)
+        present_all = tuple(sorted(int(t) for t in np.unique(graph.f_type)))
+        assert A < (1 << 15) and np.max(graph.f_type, initial=0) < (1 << 7)
+        # factor -> min member position (dummy/pad factors -> P: never matches)
+        f_minpos = np.where(f_mask, f_vids, np.int32(P)).min(axis=1)
+        # factor -> touches an evidence variable
+        f_touch = ((var_role[f_vids] == fs.ROLE_EVIDENCE) & f_mask).any(axis=1)
 
-    # pair (factor, position) streams for per-tier incidence CSRs
-    up = pos_of_vid[uv]                       # position per pair
-    rloc = up % B                             # row within color block
-    tier_of_pair = tier_of_v[uv]
+        # pair (factor, position) streams for per-tier incidence CSRs
+        up = pos_of_vid[uv]                       # position per pair
+        rloc = up % B                             # row within color block
+        tier_of_pair = tier_of_v[uv]
 
     tiers = []
     tier_infos = []
@@ -683,40 +687,42 @@ def _build_tier(t: int, off_t: int, Bt: int, C: int, B: int, P: int,
     if has_cw:
         outs.update(cs_issparse=cs_issparse, cs_cwbase=cs_cwbase,
                     cs_cwstride=cs_cwstride)
-    fill_streams(outs, native, v_fidx, f_vids, f_ispos, f_eqpred, f_mask,
-                 f_type, f_arity, f_wid, f_feat, f_minpos, f_touch, f_cwbase,
-                 f_cwstride, P, B, off_t, DUMMY, present_t)
+    with span("compile.fill_streams"):
+        fill_streams(outs, native, v_fidx, f_vids, f_ispos, f_eqpred, f_mask,
+                     f_type, f_arity, f_wid, f_feat, f_minpos, f_touch,
+                     f_cwbase, f_cwstride, P, B, off_t, DUMMY, present_t)
 
     # --- banded-gather window plan / true read bounds ----------------------
     from .ops.banded import plan_banding, plan_banding_multi
 
     band_k = 0
     bd_rnbr = np.zeros((C, 1, 1), np.int32)
-    if try_band:
-        bd_start, band_w, bd_lo, bd_hi = plan_banding(
-            cs_nbr, P, band_tile, band_wmax)
-        if bd_start is not None:
-            band_k = 1
-        if C > 1 and A1 > 0 and band_k != 1:
-            # single contiguous window failed (neighbors live in several
-            # color blocks — any graph with >2 colors): one window per
-            # source color block, gathered as one concatenated-window
-            # one-hot matmul (ops/banded.py plan_banding_multi)
-            st_m, w_m, k_m, rn_m, lo_m, hi_m = plan_banding_multi(
+    with span("compile.banding"):
+        if try_band:
+            bd_start, band_w, bd_lo, bd_hi = plan_banding(
                 cs_nbr, P, band_tile, band_wmax)
-            if st_m is not None and k_m >= 1:
-                bd_start, band_w, band_k = st_m, w_m, k_m
-                bd_rnbr = rn_m
-                bd_lo, bd_hi = lo_m, hi_m
-    elif A1 > 0 and Bt >= 1:
-        # bounds-only pass (single tile per color): keeps the halo plan
-        # alive for tiers too small to band
-        bd_start, band_w, bd_lo, bd_hi = plan_banding(cs_nbr, P, Bt, 0)
-    else:
-        # unary tier: reads nothing — empty bounds are exact
-        bd_start, band_w = None, 0
-        bd_lo = np.full((C, 1), P, np.int32)
-        bd_hi = np.zeros((C, 1), np.int32)
+            if bd_start is not None:
+                band_k = 1
+            if C > 1 and A1 > 0 and band_k != 1:
+                # single contiguous window failed (neighbors live in several
+                # color blocks — any graph with >2 colors): one window per
+                # source color block, gathered as one concatenated-window
+                # one-hot matmul (ops/banded.py plan_banding_multi)
+                st_m, w_m, k_m, rn_m, lo_m, hi_m = plan_banding_multi(
+                    cs_nbr, P, band_tile, band_wmax)
+                if st_m is not None and k_m >= 1:
+                    bd_start, band_w, band_k = st_m, w_m, k_m
+                    bd_rnbr = rn_m
+                    bd_lo, bd_hi = lo_m, hi_m
+        elif A1 > 0 and Bt >= 1:
+            # bounds-only pass (single tile per color): keeps the halo plan
+            # alive for tiers too small to band
+            bd_start, band_w, bd_lo, bd_hi = plan_banding(cs_nbr, P, Bt, 0)
+        else:
+            # unary tier: reads nothing — empty bounds are exact
+            bd_start, band_w = None, 0
+            bd_lo = np.full((C, 1), P, np.int32)
+            bd_hi = np.zeros((C, 1), np.int32)
     bounds = bd_lo is not None
     if bd_start is None:
         bd_start, band_w = np.zeros((C, 1), np.int32), 0
@@ -1268,6 +1274,7 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@spanned("compile.to_device")
 def to_device(dg: DeviceGraph, device="cuda") -> DeviceGraph:
     """Move every array to ``device`` as a torch tensor, storing the
     per-record streams FLAT (FLAT_TIER_FIELDS, FLAT_TOP_FIELDS)."""

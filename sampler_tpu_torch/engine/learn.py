@@ -20,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..observe import spanned
+
 
 @dataclasses.dataclass(frozen=True)
 class LearnConfig:
@@ -32,6 +34,7 @@ class LearnConfig:
     learn_non_evidence: bool = False
 
 
+@spanned("engine.update")
 def apply_update(weights: torch.Tensor, grad: torch.Tensor,
                  w_fixed: torch.Tensor, stepsize: float,
                  regularization: str, reg_param: float) -> torch.Tensor:

@@ -88,6 +88,13 @@ are asked for: the TPU rounds chains up to its 128 lanes so its kernels
 stay on (demote_modes turns them off otherwise), and a GPU kernel runs at
 any count.  ``effective_chains`` keeps the command line's rounding, to a
 multiple of 16 on the card, where the kernels take their 16-byte variants.
+
+While a torch profiler records, the entry points and phases are spans
+(``observe``): ``engine.init_values``, ``engine.run_sweeps``,
+``engine.run_inference``, ``engine.infer``, ``engine.learn``, and under
+them ``engine.fold``, ``engine.sweep``, ``engine.epoch``,
+``engine.gradient``, ``engine.update``, ``engine.marginals``; a plan's
+build is ``plan.derived``, ``plan.dm_tables`` or ``plan.records``.
 """
 from __future__ import annotations
 
@@ -97,6 +104,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import format_spec as fs
 from ..compile import factor_records, resolve_device, tier_geom
+from ..observe import span, spanned
 from ..ops.banded import (banded_gather, banded_gather_multi,
                           banded_gather_multi_plain, banded_gather_plain)
 from ..ops.fused import (DM_MAX_TIERS, DmTier, dm_gather_draw,
@@ -207,6 +215,7 @@ def _setup(dg, values, weights, device, info, modes) -> tuple:
 INIT_CHUNK_ELEMS = 1 << 22      # (position, chain) pairs drawn at a time
 
 
+@spanned("engine.init_values")
 def init_values_mc(dg, generator, n_chains: int, info,
                    random_init: bool = True) -> torch.Tensor:
     """Initial worlds [P, NC] of ``values_dtype(info)``: evidence at
@@ -480,6 +489,7 @@ class Folded(tuple):
     dm = None
 
 
+@spanned("engine.fold")
 def prepare_fold(dg, weights, info, modes, plan: bool = True):
     """Per-tier folded coefficient streams (None for tiers no folded path
     covers), as a Folded tuple, or None when nothing folds: with the fused
@@ -613,7 +623,8 @@ _DERIVED = WeakIdKeyDictionary()
 def _derived(key: torch.Tensor, make):
     got = _DERIVED.get(key)
     if got is None:
-        got = _DERIVED[key] = make()
+        with span("plan.derived"):
+            got = _DERIVED[key] = make()
     return got
 
 
@@ -665,9 +676,10 @@ def _dm_tables(dg, info, tiers, folded) -> tuple:
     key = tuple(tiers)
     got = cache.get(key)
     if got is None or any(a is not b for a, b in zip(got[0], refs)):
-        got = cache[key] = (refs, np.stack([np.stack([
-            dm_tier_table(_dm_tier_list(dg, info, tiers, folded, c, ev))
-            for ev in (False, True)]) for c in range(C)]))
+        with span("plan.dm_tables"):
+            got = cache[key] = (refs, np.stack([np.stack([
+                dm_tier_table(_dm_tier_list(dg, info, tiers, folded, c, ev))
+                for ev in (False, True)]) for c in range(C)]))
     tab = got[1].copy()
     colors = np.arange(C, dtype=np.int64)[:, None]
     for i, t in enumerate(tiers):
@@ -836,6 +848,7 @@ def color_step_mc(dg, values, weights, generator, c, sample_evidence: bool,
     return values
 
 
+@spanned("engine.sweep")
 def sweep_mc(dg, values, weights, generator, sample_evidence: bool, info,
              folded=None, modes=("off", "off"), shard=None) -> torch.Tensor:
     """One sweep over the colors, in place; returns ``values``.  ``shard``:
@@ -846,6 +859,7 @@ def sweep_mc(dg, values, weights, generator, sample_evidence: bool, info,
     return values
 
 
+@spanned("engine.run_sweeps")
 def run_sweeps_mc(dg, values, weights, generator, n_sweeps: int,
                   sample_evidence: bool, info, modes=None,
                   device="cuda") -> torch.Tensor:
@@ -871,6 +885,7 @@ def tally(counts: torch.Tensor, values: torch.Tensor) -> None:
         tally_counts(counts, values)
 
 
+@spanned("engine.run_inference")
 def run_inference_mc(dg, values, weights, generator, n_sweeps: int,
                      sample_evidence: bool, info, modes=None,
                      device="cuda") -> tuple:
@@ -889,6 +904,7 @@ def run_inference_mc(dg, values, weights, generator, n_sweeps: int,
     return values, counts.reshape(-1)
 
 
+@spanned("engine.infer")
 def infer_mc(dg, weights, generator, n_burn: int, n_sweeps: int, info,
              n_chains: int, sample_evidence: bool = False,
              random_init: bool = True, modes=None, device="cuda") -> tuple:
@@ -907,9 +923,10 @@ def infer_mc(dg, weights, generator, n_burn: int, n_sweeps: int, info,
     values, counts = run_inference_mc(dg, values, w, generator, n_sweeps,
                                       sample_evidence, info, modes, device)
     K = info.max_card
-    cnt = counts.cpu().numpy().reshape(K, -1).T
-    marg = cnt[dg.pos_of_vid.cpu().numpy()].astype(np.float32) \
-        / np.float32(n_sweeps * n_chains)
+    with span("engine.marginals"):
+        cnt = counts.cpu().numpy().reshape(K, -1).T
+        marg = cnt[dg.pos_of_vid.cpu().numpy()].astype(np.float32) \
+            / np.float32(n_sweeps * n_chains)
     return marg, values
 
 
@@ -1200,20 +1217,21 @@ def _record_plan(dg, info, tiers, learn_non_evidence: bool, n_graph: int,
     key = ("records", bool(learn_non_evidence), tuple(tiers), n_graph, g)
     got = cache.get(key)
     if got is None or any(a is not b for a, b in zip(got[0], refs)):
-        rts = []
-        for t in tiers:
-            ts, ti = dg.tiers[t], info.tiers[t]
-            gsel = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
-            if info.has_sparse_cw:
-                gsel = _sparse_owners(ts, gsel)[0]
-            Bl, D, _ = tier_geom(ts, ti, C)
-            rts.append(RecordTier(
-                *_record_streams(ts, ti, C, gB, gsel, n_graph, g,
-                                 info.all_boolean),
-                ti.present_funcs or info.present_funcs,
-                ts.cs_wid.view(C, Bl, D)))
-        got = cache[key] = (refs, record_plan(rts, dg.w_init.shape[0],
-                                              info.all_boolean))
+        with span("plan.records"):
+            rts = []
+            for t in tiers:
+                ts, ti = dg.tiers[t], info.tiers[t]
+                gsel = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
+                if info.has_sparse_cw:
+                    gsel = _sparse_owners(ts, gsel)[0]
+                Bl, D, _ = tier_geom(ts, ti, C)
+                rts.append(RecordTier(
+                    *_record_streams(ts, ti, C, gB, gsel, n_graph, g,
+                                     info.all_boolean),
+                    ti.present_funcs or info.present_funcs,
+                    ts.cs_wid.view(C, Bl, D)))
+            got = cache[key] = (refs, record_plan(rts, dg.w_init.shape[0],
+                                                  info.all_boolean))
     return got[1]
 
 
@@ -1278,6 +1296,7 @@ def _sparse_grad_rows(dg, ts, C, c, r0, rc, D, A, own, nbrv, sel, W):
                           W)
 
 
+@spanned("engine.gradient")
 def mc_weight_gradient(dg, v_ev, v_free, learn_non_evidence: bool, info,
                        modes=None) -> torch.Tensor:
     """The cs-stream gradient when modes are given; the per-factor route
@@ -1307,18 +1326,20 @@ def _learn_mc_from(dg, weights, v_ev, v_free, alpha, generator, cfg, info,
     alpha = np.float32(alpha)
     diminish = np.float32(cfg.diminish)
     for _ in range(cfg.n_epochs):
-        folded = prepare_fold(dg, w, info, modes)
-        for _ in range(cfg.n_sweeps_per_epoch):
-            sweep_mc(dg, v_ev, w, generator, False, info, folded, modes)
-            sweep_mc(dg, v_free, w, generator, True, info, folded, modes)
-        grad = mc_weight_gradient(dg, v_ev, v_free, cfg.learn_non_evidence,
-                                  info, modes)
-        w = apply_update(w, grad, dg.w_fixed, float(alpha),
-                         cfg.regularization, cfg.reg_param)
+        with span("engine.epoch"):
+            folded = prepare_fold(dg, w, info, modes)
+            for _ in range(cfg.n_sweeps_per_epoch):
+                sweep_mc(dg, v_ev, w, generator, False, info, folded, modes)
+                sweep_mc(dg, v_free, w, generator, True, info, folded, modes)
+            grad = mc_weight_gradient(dg, v_ev, v_free,
+                                      cfg.learn_non_evidence, info, modes)
+            w = apply_update(w, grad, dg.w_fixed, float(alpha),
+                             cfg.regularization, cfg.reg_param)
         alpha = alpha * diminish
     return w, v_ev, v_free, float(alpha)
 
 
+@spanned("engine.learn")
 def learn_mc(dg, weights, generator, cfg, info, n_chains: int, modes=None,
              v_ev=None, v_free=None, alpha=None, device="cuda") -> tuple:
     """Multi-chain learning; returns (weights [W] float32, v_ev, v_free).

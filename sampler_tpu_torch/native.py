@@ -28,6 +28,7 @@ import time
 import numpy as np
 
 from . import format_spec as fs
+from .observe import span
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "csrc", "host", "sampler_native.cpp")
@@ -82,8 +83,9 @@ def build() -> tuple:
         cmd = [_cxx(), *CXX_FLAGS, "-o", tmp, SOURCE]
         try:
             try:
-                proc = subprocess.run(cmd, capture_output=True, text=True,
-                                      timeout=BUILD_TIMEOUT_S)
+                with span("build.native"):
+                    proc = subprocess.run(cmd, capture_output=True,
+                                          text=True, timeout=BUILD_TIMEOUT_S)
             except (OSError, subprocess.TimeoutExpired) as e:
                 raise RuntimeError(f"building the native host library "
                                    f"failed: {' '.join(cmd)}: {e}") from e

@@ -1,5 +1,7 @@
 """The port's kernels: each wrapper launches its CUDA kernel on a card
-tensor and runs its plain PyTorch version on a CPU tensor."""
+tensor and runs its plain PyTorch version on a CPU tensor.  On the card a
+wrapper's call is an ``op.<kernel>`` span (``observe``) while a profiler
+records, at the boundary of its ``.launches`` counter."""
 
 
 def kernel_launches() -> dict:

@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import time
 
+from ..observe import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -112,17 +114,19 @@ def build() -> tuple:
         tag = f"{os.getpid()}.tmp"
         objs = [os.path.join(BUILD_DIR, f"{s[:-3]}.{tag}.o") for s in SOURCES]
         t0 = time.perf_counter()
+        tmp = f"{path}.{tag}"
         try:
-            text = _run([(src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                 os.path.join(CSRC, src)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-                for src, obj in zip(SOURCES, objs)])
-            tmp = f"{path}.{tag}"
-            _run([("link", subprocess.Popen(
-                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-                 "-o", tmp, *objs],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+            with span("build.kernels"):
+                text = _run([(src, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                     os.path.join(CSRC, src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)) for src, obj in zip(SOURCES, objs)])
+                _run([("link", subprocess.Popen(
+                    [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                     "-shared", "-o", tmp, *objs],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))])
         finally:
             for obj in objs:
                 if os.path.exists(obj):

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..observe import spanned
 from ._build import check_tensor, launch
 
 LANE = 128          # TPU lane width: W is padded to a multiple of this
@@ -220,6 +221,7 @@ def banded_gather_plain(values: torch.Tensor, nbr: torch.Tensor,
                                                  device=values.device))
 
 
+@spanned("op.banded_gather", card=True)
 def banded_gather(values: torch.Tensor, nbr: torch.Tensor,
                   starts: torch.Tensor, W: int) -> torch.Tensor:
     """values int8 [P, NC]; nbr int32 [ntiles, R] global positions;
@@ -277,6 +279,7 @@ def banded_gather_multi_plain(values: torch.Tensor, rnbr: torch.Tensor,
     return out.masked_fill_(~valid[:, None], 0)
 
 
+@spanned("op.banded_gather_multi", card=True)
 def banded_gather_multi(values: torch.Tensor, rnbr: torch.Tensor,
                         starts: torch.Tensor, W: int) -> torch.Tensor:
     """Multi-window banded gather.  values int8 [P, NC]; rnbr int32

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from .. import format_spec as fs
+from ..observe import spanned
 from ._build import check_tensor, launch
 from .banded import _multi_rows
 
@@ -413,6 +414,7 @@ def fused_color_draw_plain(values, nbr_dmaj, starts, beta, base, c: int,
     return (out, delta_all) if return_delta else out
 
 
+@spanned("op.fused_color_draw", card=True)
 def fused_color_draw(values, nbr_dmaj, starts, beta, base, c: int, seed,
                      W: int, TB: int, D: int, return_delta: bool = False,
                      write=None):
@@ -549,6 +551,7 @@ def fused_dm_draw_plain(values, dm_nbr, starts, base, b1, b2, bx, c: int,
     return (out, delta_all) if return_delta else out
 
 
+@spanned("op.fused_dm_draw", card=True)
 def fused_dm_draw(values, dm_nbr, starts, base, b1, b2, bx, c: int, seed,
                   W: int, TB: int, D: int, A1: int, Kw: int,
                   return_delta: bool = False, write=None):
@@ -914,6 +917,7 @@ def dm_tier_table(tiers, outs=None, deltas=None) -> np.ndarray:
     return table
 
 
+@spanned("op.dm_gather_draw", card=True)
 def dm_gather_draw_table(values, table: np.ndarray, seeds) -> None:
     """Launch the kernel on a table of dm_tier_table (its tiers' streams on
     ``values``' card): one launch for all its tiers.  ``seeds`` int32
@@ -1101,6 +1105,7 @@ def fused_cat_draw_plain(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
     return (out, logits_all) if return_logits else out
 
 
+@spanned("op.fused_cat_draw", card=True)
 def fused_cat_draw(values, nbr_dmaj, starts, eqo, eqn, av, bv, kmask,
                    c: int, seed, W: int, TB: int, D: int, K: int,
                    return_logits: bool = False, write=None):

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import format_spec as fs
+from ..observe import spanned
 from ._build import check_tensor, launch
 from .weights import segment_reduce
 
@@ -118,6 +119,7 @@ def grad_pair_tile_plain(v_ev, v_free, nbr_dmaj, starts, wid, coef, ao, an,
     return out
 
 
+@spanned("op.grad_pair_tile", card=True)
 def grad_pair_tile(v_ev, v_free, nbr_dmaj, starts, wid, coef, ao, an, ax,
                    c: int, own0: int, W: int, TB: int, D: int,
                    n_weights: int) -> torch.Tensor:
@@ -348,6 +350,7 @@ def grad_records_plain(v_ev, v_free, nbr, pos, ismine, mask, hmask, eq, typ,
     return out
 
 
+@spanned("op.grad_records", card=True)
 def grad_records(v_ev, v_free, nbr, pos, ismine, mask, hmask, eq, typ,
                  arity, feat, gsel, own_base: int, color_stride: int,
                  own_idx, present, all_boolean: bool,
@@ -617,6 +620,7 @@ def grad_records_sum_plain(v_ev, v_free, plan: RecordPlan,
     return segment_reduce(torch.cat(vals), torch.cat(wids), plan.W)
 
 
+@spanned("op.grad_records_sum", card=True)
 def grad_records_sum(v_ev, v_free, plan: RecordPlan) -> torch.Tensor:
     """The records route's gradient f32 [W] of the plan's tiers: for each
     owner record its term ((Σ_n φ_ev − φ_free) · (1/NC)) · feat, as

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..observe import spanned
 from ._build import check_tensor, launch
 
 TALLY_CHUNK_ELEMS = 1 << 22     # (position, chain) pairs a bincount block
@@ -40,6 +41,7 @@ def tally_plain(counts: torch.Tensor, values: torch.Tensor,
             idx[inside], minlength=K * n).view(K, n).to(torch.int32)
 
 
+@spanned("op.tally_counts", card=True)
 def tally_counts(counts: torch.Tensor, values: torch.Tensor) -> None:
     """Add each position's count of every value k over the chains to
     ``counts`` [K, P] int32, in place; ``values`` [P, NC] int8 or int32.

@@ -35,6 +35,7 @@ from ..compile import FLAT_TIER_FIELDS, TierStreams
 from ..engine.multichain import (check_modes, init_values_mc, prepare_fold,
                                  resolve_modes, sweep_mc, tally)
 from ..engine.rng import chunk_generator
+from ..observe import spanned
 from . import launch
 from .chains import (host_graph, learn_alpha, learn_step_sharded,
                      to_device_graph)
@@ -231,6 +232,7 @@ class Shard:
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         return self.comm.sum_(t, "graph")
 
+    @spanned("shard.exchange")
     def exchange(self, values: torch.Tensor, c: int, t: int) -> None:
         """Bring the other ranks' slices of tier t, color c into
         ``values``: all of them, or (halo) the nl to the left and nr to the

@@ -28,7 +28,6 @@ MODULES = [
     "sampler_tpu_torch.parallel.graph_shard", "sampler_tpu_torch.native",
     "sampler_tpu_torch.observe", "sampler_tpu_torch.scale_demo",
     "sampler_tpu_torch.scale_gpu", "sampler_tpu_torch.scale_kbc",
-    "sampler_tpu_torch.profile_learn",
 ]
 
 
@@ -234,13 +233,11 @@ def test_scale_entry_points_raise_without_card():
     CPU (--device cpu): without a card their default raises."""
     code = (
         "import torch\n"
-        "from sampler_tpu_torch import profile_learn, scale_demo, "
-        "scale_gpu, scale_kbc\n"
+        "from sampler_tpu_torch import scale_demo, scale_gpu, scale_kbc\n"
         "if torch.cuda.is_available():\n"
         "    print('card'); raise SystemExit(0)\n"
         "for mod, argv in ((scale_gpu, ['--rows', '8', '--cols', '8']),\n"
         "                  (scale_kbc, ['--vars', '100']),\n"
-        "                  (profile_learn, ['--grid', '8']),\n"
         "                  (scale_demo, ['--rows', '8', '--cols', '8'])):\n"
         "    try:\n"
         "        mod.main(argv)\n"
@@ -251,4 +248,4 @@ def test_scale_entry_points_raise_without_card():
     if proc.stdout.startswith("card"):
         pytest.skip("a CUDA device is present")
     assert proc.stdout.splitlines() == ["raised no CUDA device is "
-                                        "available"] * 4, proc.stdout
+                                        "available"] * 3, proc.stdout

@@ -5,11 +5,10 @@ the JAX package's, on the CPU at small sizes:
     a 64x64 grid and a small KBC graph;
   * scale_demo.main runs on four CPU graph ranks and keeps
     tests/test_scale.py's keys and halo assertions;
-  * scale_gpu.main, scale_kbc.main and profile_learn.main run end to end
-    with --device cpu and print the JAX modules' keys;
+  * scale_gpu.main and scale_kbc.main run end to end with --device cpu
+    and print the JAX modules' keys;
   * observe's statistics equal sampler_tpu.observe's within 1e-12 (float64
-    sums in another order: a few ulps) on numpy and torch inputs, and
-    RunLog writes records with the same keys.
+    sums in another order: a few ulps) on numpy and torch inputs.
 """
 import json
 
@@ -22,8 +21,7 @@ from sampler_tpu import observe as jobs
 from sampler_tpu.compile import compile_graph as jax_compile
 from sampler_tpu.compile import iter_arrays as jax_iter_arrays
 from sampler_tpu.scale_demo import memory_budget as jax_memory_budget
-from sampler_tpu_torch import observe, profile_learn, scale_demo, \
-    scale_gpu, scale_kbc
+from sampler_tpu_torch import observe, scale_demo, scale_gpu, scale_kbc
 from sampler_tpu_torch.coloring import greedy_coloring, rcm_order
 from sampler_tpu_torch.compile import compile_graph, iter_arrays, to_device
 
@@ -129,18 +127,6 @@ def test_scale_kbc_runs_on_cpu():
     assert out["world_bytes"] > 5000 * 16
 
 
-def test_profile_learn_runs_on_cpu():
-    out = profile_learn.main(["--grid", "32", "--chains", "8", "--device",
-                              "cpu"])
-    assert {"grid", "chains", "modes", "sweep_s", "fold_s", "grad_s",
-            "epoch_budget_s", "epoch_pct", "inference_updates_per_s",
-            "implied_learning_updates_per_s"} <= set(out)
-    pct = out["epoch_pct"]
-    assert abs(pct["world_sweeps"] + pct["gradient"] + pct["fold"]
-               - 100) < 1e-9
-    assert out["epoch_budget_s"] > 0
-
-
 def test_observe_equals_jax():
     rng = np.random.default_rng(0)
     w = rng.normal(size=37)
@@ -156,18 +142,3 @@ def test_observe_equals_jax():
     assert observe.weight_stats(np.zeros(0)) == jobs.weight_stats(np.zeros(0))
     assert observe.throughput(1000, 20, 512, 0.5) \
         == jobs.throughput(1000, 20, 512, 0.5)
-
-
-def test_runlog_writes_the_jax_records(tmp_path, capsys):
-    paths = [str(tmp_path / "ours.jsonl"), str(tmp_path / "jax.jsonl")]
-    for cls, path in zip((observe.RunLog, jobs.RunLog), paths):
-        log = cls(path, quiet=False)
-        log.event("sweep", n=3, rate=1.5)
-        log.event("done")
-        log.close()
-    ours, ref = ([json.loads(x) for x in open(p)] for p in paths)
-    assert [sorted(r) for r in ours] == [sorted(r) for r in ref]
-    assert [(r["kind"], r.get("n")) for r in ours] \
-        == [(r["kind"], r.get("n")) for r in ref]
-    err = capsys.readouterr().err
-    assert err.count("sweep: n=3 rate=1.5") == 2
