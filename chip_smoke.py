@@ -107,10 +107,15 @@ Phases (each prints one line with its result and elapsed seconds):
  13 tally    tally_counts against its plain version, exactly, on the three
              flagships' worlds (phases 4, 9, 12) and on random worlds
              (TALLY_CASES: K = 2, 4, 17 and 200 at 8, 24, 37, 48, 128 and
-             512 chains, and 2000; int32 worlds above 127; values below 0
+             512 chains, and 2000; the tile way's rows under 16 bytes at
+             (K, NC) = (2, 1), (4, 1), (2, 4), (16, 3), in int8 and int32
+             (TALLY_INT32_CASES); int32 worlds above 127; values below 0
              and at or past K mixed in; aligned and one element off the
-             16-byte grid); its ms beside its bound at 128, 512 and 1024
-             chains (TALLY_TIMED)
+             16-byte grid); its ms beside its bound at 1, 128, 512 and
+             1024 chains (TALLY_TIMED: one chain on the 2048^2 lattice,
+             128 on the 5120^2 grid), each timed world also checked
+             exactly; narrow_launches equal to launches in
+             a one-chain infer_mc and 0 at 16 chains
  14 kbc oracle  the hub tier: infer_mc on tests/test_hub.py's star graphs
              (boolean, hub_cap 6; card 3, hub_cap 5; chunks of 4) against
              exact enumeration (|dp| < 0.01 and 0.012), and the gradient
@@ -325,15 +330,20 @@ WIDE_GRID = 128               # the Ising grid with every pair factor twice:
 WIDE_COPIES = 2               # degree 9, past the kernel's unrolled D = 1..8
 # (K, NC) of the tally's random worlds: every way it counts (registers at
 # K <= 16, a warp's shared histogram to 1024, global atomics above; int8
-# and int32 worlds) at 16-byte rows (8, 24, 48, 128, 512: 1 to 32 lanes a
-# row in registers) and byte rows (37)
+# and int32 worlds) at 16-byte rows (48, 128, 512: 4 to 32 lanes a row in
+# registers), byte rows (24, 37) and rows under 16 bytes (1, 3, 4, 8:
+# tiles at K <= 16)
 TALLY_CASES = [(K, nc) for K in (2, 4, 17, 200)
-               for nc in (8, 24, 37, 48, 128, 512)] + [(2000, 48)]
+               for nc in (8, 24, 37, 48, 128, 512)] + [
+                   (2000, 48), (2, 1), (4, 1), (2, 4), (16, 3)]
+# (K, NC) of int32 worlds in the tile way (rows of 4 and 12 bytes)
+TALLY_INT32_CASES = [(2, 1), (16, 3)]
 TALLY_ROWS = 100_003
-# (K, NC) of the timed tallies on random int8 worlds of TALLY_TIME_ROWS
-# rows: narrow rows beside the flagships' 512 and KBC's 1024 chains
-TALLY_TIMED = [(2, 128), (4, 128), (2, 512), (2, 1024)]
-TALLY_TIME_ROWS = 1 << 20
+# (K, NC, rows) of the timed tallies on random int8 worlds: one chain at
+# the 2048^2 lattice's rows (ising-2048), narrow rows, the 5120^2 grid's
+# 128 chains, the flagships' 512 and KBC's 1024 chains
+TALLY_TIMED = [(2, 1, 1 << 22), (2, 128, 1 << 20), (4, 128, 1 << 20),
+               (2, 128, 5120 * 5120), (2, 512, 1 << 20), (2, 1024, 1 << 20)]
 KBC_ORACLE_CHAINS = 1024
 KBC_ORACLE_BURN, KBC_ORACLE_SWEEPS = 100, 1000
 KBC_VARS, KBC_CHAINS = 500_000, 1024      # bench.py's bench_kbc
@@ -774,7 +784,7 @@ def tally_numbers(values, K: int) -> dict:
                        warmup=1)
     return dict(ms=time_ms(lambda: tally_counts(counts, values), iters=50),
                 plain_ms=plain_ms, library_ms=plain_ms if K <= 16 else None,
-                **kernel_bound(nbytes, 0))
+                rows=P, **kernel_bound(nbytes, 0))
 
 
 def epoch_parts(d, w, info, modes, v_ev, v_free, cfg, gen,
@@ -2382,34 +2392,71 @@ def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
 
 def tally_phase(dev, checks: dict) -> dict:
     """Phase 13: tally_counts against its plain version, exactly, on random
-    worlds (TALLY_CASES, values below 0 and at or past K mixed in), beside
-    the flagship worlds' checks of phases 4, 9 and 12 (``checks``); then
-    its ms beside its bound at TALLY_TIMED (phase 24 times it on the
-    5120^2 grid's 128-chain world)."""
+    worlds (TALLY_CASES and TALLY_INT32_CASES, values below 0 and at or
+    past K mixed in), beside the flagship worlds' checks of phases 4, 9 and
+    12 (``checks``); then its ms beside its bound at TALLY_TIMED, each
+    timed world also checked exactly (phase 24 times it on the 5120^2
+    grid's own 128-chain world); then the tile way's
+    launch count in infer_mc (narrow_launch_check)."""
     import torch
 
     t13 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(13)
     cases = dict(checks)
-    for K, NC in TALLY_CASES:
-        dt = torch.int8 if K <= 127 else torch.int32
+    worlds = [(K, NC, torch.int8 if K <= 127 else torch.int32, "")
+              for K, NC in TALLY_CASES] + [
+                  (K, NC, torch.int32, "_int32") for K, NC in
+                  TALLY_INT32_CASES]
+    for K, NC, dt, tag in worlds:
         v = torch.randint(-3, min(K + 3, 127) if dt == torch.int8 else K + 3,
                           (TALLY_ROWS, NC), generator=gen, device=dev,
                           dtype=dt)
-        cases[f"K{K}_nc{NC}"] = tally_case(v, K)
+        cases[f"K{K}_nc{NC}{tag}"] = tally_case(v, K)
         # the same world one element off the 16-byte grid
-        cases[f"K{K}_nc{NC}_off_grid"] = tally_case(off_grid(v), K)
+        cases[f"K{K}_nc{NC}{tag}_off_grid"] = tally_case(off_grid(v), K)
         del v
     timed = {}
-    for K, NC in TALLY_TIMED:
-        v = torch.randint(0, K, (TALLY_TIME_ROWS, NC), generator=gen,
-                          device=dev, dtype=torch.int8)
-        x = timed[f"K{K}_nc{NC}"] = tally_numbers(v, K)
+    for K, NC, rows in TALLY_TIMED:
+        v = torch.randint(0, K, (rows, NC), generator=gen, device=dev,
+                          dtype=torch.int8)
+        x = timed[f"K{K}_nc{NC}_rows{rows}"] = tally_numbers(v, K)
         x["bound_share"] = x["bound_ms"] / x["ms"]
+        # the timed shape held to the plain version too
+        cases[f"K{K}_nc{NC}_rows{rows}"] = tally_case(v, K)
         del v
-    report("13 tally", t13, rows=TALLY_ROWS, cases=cases,
-           timed_rows=TALLY_TIME_ROWS, timed=timed)
+    report("13 tally", t13, rows=TALLY_ROWS, cases=cases, timed=timed,
+           launches=narrow_launch_check(dev))
     return cases
+
+
+def narrow_launch_check(dev) -> dict:
+    """infer_mc on a 128^2 Ising grid at one chain and at 16: every tally
+    at one chain goes the tile way (tally_counts.narrow_launches equal to
+    its launches), none at 16."""
+    import torch
+
+    from sampler_tpu_torch.benchgraphs import big_ising_grid
+    from sampler_tpu_torch.compile import compile_graph, to_device
+    from sampler_tpu_torch.engine.multichain import infer_mc
+    from sampler_tpu_torch.ops.tally import tally_counts
+
+    g, colors = big_ising_grid(128, 128)
+    dg, info = compile_graph(g, colors=colors)
+    d = to_device(dg, dev)
+    seen = {}
+    for chains in (1, 16):
+        tally_counts.launches = tally_counts.narrow_launches = 0
+        infer_mc(d, d.w_init, torch.Generator(device=dev).manual_seed(chains),
+                 BURN, SWEEPS, info, chains, device=dev)
+        torch.cuda.synchronize()
+        seen[f"chains{chains}"] = x = dict(
+            launches=tally_counts.launches,
+            narrow_launches=tally_counts.narrow_launches)
+        want = SWEEPS if chains == 1 else 0
+        require(x["launches"] == SWEEPS and x["narrow_launches"] == want,
+                f"{chains} chains: tally launches {x}, {SWEEPS} and {want} "
+                "narrow expected")
+    return seen
 
 
 def star_graph(n_leaves: int, card: int = 2, seed: int = 0):

@@ -49,7 +49,7 @@ LAUNCHERS = {
                              _I, _I, _I, _I, _P, _P, _P, _I, _P),
     "fused_cat_draw_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                               _I, _I, _I, _I, _P, _P, _P, _I, _P),
-    "tally_counts_launch": (_P, _L, _I, _I, _P, _I, _P),
+    "tally_counts_launch": (_P, _L, _I, _I, _P, _I, _P, _P),
     "dm_gather_draw_launch": (_P, _I, _I, _P, _I, _P, _I, _P),
     "grad_records_launch": (_P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _I,
                             _P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I,

@@ -10,12 +10,17 @@ and adds all K counts; on the CPU the plain version below.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..observe import spanned
 from ._build import check_tensor, launch
 
 TALLY_CHUNK_ELEMS = 1 << 22     # (position, chain) pairs a bincount block
+# the way the launcher reports for its tiles of consecutive positions (rows
+# under 16 bytes at K <= 16; kTile in csrc/tally_counts.cu)
+TILE_WAY = 3
 
 
 def tally_plain(counts: torch.Tensor, values: torch.Tensor,
@@ -47,7 +52,9 @@ def tally_counts(counts: torch.Tensor, values: torch.Tensor) -> None:
     ``counts`` [K, P] int32, in place; ``values`` [P, NC] int8 or int32.
 
     A CPU tensor goes to the plain version; a CUDA tensor to the kernel
-    (the launch adds one to ``tally_counts.launches``)."""
+    (the launch adds one to ``tally_counts.launches``, and one to
+    ``tally_counts.narrow_launches`` where the launcher reports that it
+    took its tiles)."""
     if values.device.type == "cpu":
         tally_plain(counts, values)
         return
@@ -64,11 +71,15 @@ def tally_counts(counts: torch.Tensor, values: torch.Tensor) -> None:
     if counts.shape[1] != P or K < 1:
         raise ValueError(f"tally_counts: counts {tuple(counts.shape)}, "
                          f"values {tuple(values.shape)}")
+    way = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         launch("tally_counts_launch", values.data_ptr(), P, NC,
                values.element_size(), counts.data_ptr(), K,
-               torch.cuda.current_stream(dev).cuda_stream)
+               torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(way))
     tally_counts.launches += 1
+    if way.value == TILE_WAY:
+        tally_counts.narrow_launches += 1
 
 
 tally_counts.launches = 0
+tally_counts.narrow_launches = 0

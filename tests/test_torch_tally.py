@@ -3,8 +3,11 @@
   * ``tally`` (ops.tally's plain version on the CPU) gives the counts of
     the JAX package's ``run_inference_mc`` on the world it returns, exactly
     (K = 2, 4 and 20 on int8 and int32 worlds, and K = 200 on int32; and
-    K = 2, 4, 17 and 200 at 8, 16, 24, 128 and 136 chains, the kernel's
-    narrow rows);
+    K = 2, 4, 17 and 200 at 1 to 4, 8, 16, 24, 128 and 136 chains, the
+    kernel's narrow rows and its tiles of rows under 16 bytes);
+  * the wrapper on the CPU gives the plain counts at the kernel's narrow
+    and wide rows and launches nothing (the launcher reports the way it
+    took, and the card's tests hold ``narrow_launches`` to it);
   * the plain tally counts values outside [0, K) nowhere, at every K
     branch;
   * the world-write mode of each plain fused draw leaves the world bit for
@@ -109,10 +112,11 @@ def test_tally_plain_skips_values_outside_range(K, NC):
     np.testing.assert_array_equal(counts.numpy(), ref)
 
 
-# narrow rows: the kernel's segments of 1 to 32 lanes a row (16-byte rows
-# of 8..136 chains) and its byte rows, every way it counts
+# narrow rows: the kernel's tiles (rows under 16 bytes: 1 to 4 and 8
+# chains, at K <= 16), its segments of 1 to 32 lanes a row (16-byte rows of
+# 16..128 chains) and its byte rows, every way it counts
 NARROW_K = (2, 4, 17, 200)
-NARROW_NC = (8, 16, 24, 128, 136)
+NARROW_NC = (1, 2, 3, 4, 8, 16, 24, 128, 136)
 NARROW_GRAPHS = {
     2: lambda: jax_ising_grid(6, 6),
     4: lambda: jax_potts_grid(6, 6, card=4, seed=1),
@@ -140,7 +144,7 @@ def _jax_counts_at(K, NC):
 @pytest.mark.parametrize("NC", NARROW_NC)
 @pytest.mark.parametrize("K", NARROW_K)
 def test_narrow_tally_equals_jax_counts(K, NC):
-    """Worlds of 8 to 136 chains: the port's tally gives JAX's
+    """Worlds of 1 to 136 chains: the port's tally gives JAX's
     run_inference_mc counts exactly, and so does the plain version in
     bincount blocks of a few rows."""
     vals, ref = _jax_counts_at(K, NC)
@@ -154,15 +158,40 @@ def test_narrow_tally_equals_jax_counts(K, NC):
     np.testing.assert_array_equal(blocks.numpy(), ref)
 
 
+@pytest.mark.parametrize("NC,dtype,K", [
+    (1, torch.int8, 2), (2, torch.int8, 4), (3, torch.int8, 16),
+    (4, torch.int8, 2), (15, torch.int8, 9), (1, torch.int32, 2),
+    (3, torch.int32, 16), (1, torch.int8, 17), (3, torch.int32, 200),
+    (4, torch.int32, 2), (16, torch.int8, 2), (37, torch.int8, 2)])
+def test_tally_counts_wrapper_on_cpu_at_narrow_and_wide_rows(NC, dtype, K):
+    """The wrapper on the CPU at the rows the kernel counts in tiles (1-15
+    int8 or 1-3 int32 chains at K <= 16) and beside them (K = 17 and up,
+    int32 rows of 16 bytes, 16 and 37 chains): the counts of a compare a
+    value, values outside [0, K) counted nowhere, and no launch counted."""
+    v = torch.randint(-2, K + 2, (29, NC), dtype=dtype,
+                      generator=torch.Generator().manual_seed(NC * K))
+    before = (tally_counts.launches, tally_counts.narrow_launches)
+    counts = torch.ones((K, 29), dtype=torch.int32)
+    tally_counts(counts, v)
+    assert (tally_counts.launches, tally_counts.narrow_launches) == before
+    ref = 1 + torch.stack([(v == k).sum(1) for k in range(K)]).to(
+        torch.int32)
+    assert torch.equal(counts, ref)
+
+
 def test_tally_counts_wrapper_on_cpu_counts_no_launch():
     v = torch.randint(0, 3, (11, 16), dtype=torch.int8,
                       generator=torch.Generator().manual_seed(0))
-    before = tally_counts.launches
+    before = (tally_counts.launches, tally_counts.narrow_launches)
     counts = torch.zeros((3, 11), dtype=torch.int32)
     tally_counts(counts, v)
-    assert tally_counts.launches == before
+    one = torch.zeros((3, 11), dtype=torch.int32)
+    tally_counts(one, v[:, :1].contiguous())
+    assert (tally_counts.launches, tally_counts.narrow_launches) == before
     ref = torch.stack([(v == k).sum(1) for k in range(3)]).to(torch.int32)
     assert torch.equal(counts, ref)
+    ref = torch.stack([v[:, 0] == k for k in range(3)]).to(torch.int32)
+    assert torch.equal(one, ref)
 
 
 # --------------------------------------------------------------------------
@@ -340,26 +369,62 @@ def test_tally_kernel_matches_plain_on_card(cuda_device, K, NC):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("NC", NARROW_NC)
-@pytest.mark.parametrize("K", NARROW_K)
-def test_narrow_tally_kernel_matches_plain_on_card(cuda_device, K, NC):
-    """Narrow rows on the card: a segment of NC/16 lanes a row (U rows a
-    segment), aligned and one element off the 16-byte grid, against the
-    plain version exactly; the rows not a multiple of a block's."""
-    gen = torch.Generator(device=cuda_device).manual_seed(K + NC)
-    dt = torch.int8 if K <= 120 else torch.int32
+def _narrow_case_on_card(device, K, NC, dt):
+    """tally_counts against its plain version, exactly, on a random world of
+    10,007 rows (not a multiple of a block's rows or tile, and not of 4, so
+    each counts row has its own 16-byte phase), aligned and one element off
+    the 16-byte grid."""
+    gen = torch.Generator(device=device).manual_seed(K + NC)
     v = torch.randint(-2, min(K + 4, 127), (10_007, NC), generator=gen,
-                      device=cuda_device, dtype=dt)
-    buf = torch.empty(v.numel() + 1, dtype=dt, device=cuda_device)
+                      device=device, dtype=dt)
+    buf = torch.empty(v.numel() + 1, dtype=dt, device=device)
     buf[1:].copy_(v.reshape(-1))
     for world in (v, buf[1:].view(v.shape)):
-        got = torch.ones((K, v.shape[0]), dtype=torch.int32,
-                         device=cuda_device)
+        got = torch.ones((K, v.shape[0]), dtype=torch.int32, device=device)
         ref = got.clone()
         tally_counts(got, world)
         tally_plain(ref, world)
         assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NC", NARROW_NC)
+@pytest.mark.parametrize("K", NARROW_K)
+def test_narrow_tally_kernel_matches_plain_on_card(cuda_device, K, NC):
+    """Narrow rows on the card: tiles of consecutive positions (rows under
+    16 bytes), a segment of NC/16 lanes a row (U rows a segment), byte
+    rows."""
+    _narrow_case_on_card(cuda_device, K, NC,
+                         torch.int8 if K <= 120 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NC", (1, 3))
+@pytest.mark.parametrize("K", (2, 16))
+def test_narrow_int32_tally_kernel_matches_plain_on_card(cuda_device, K, NC):
+    """The tile way on int32 worlds (rows of 4 and 12 bytes)."""
+    _narrow_case_on_card(cuda_device, K, NC, torch.int32)
+
+
+@pytest.mark.gpu
+def test_narrow_launches_count_the_tile_way_on_card(cuda_device):
+    """tally_counts.narrow_launches counts the launches of rows under 16
+    bytes at K <= 16, and no other."""
+    for K, NC, dt, narrow in ((2, 1, torch.int8, True),
+                              (16, 3, torch.int8, True),
+                              (2, 3, torch.int32, True),
+                              (2, 8, torch.int8, True),
+                              (2, 4, torch.int32, False),
+                              (2, 16, torch.int8, False),
+                              (2, 37, torch.int8, False),
+                              (17, 1, torch.int8, False)):
+        v = torch.zeros((100, NC), dtype=dt, device=cuda_device)
+        counts = torch.zeros((K, 100), dtype=torch.int32, device=cuda_device)
+        before = (tally_counts.launches, tally_counts.narrow_launches)
+        tally_counts(counts, v)
+        assert (tally_counts.launches, tally_counts.narrow_launches) == (
+            before[0] + 1, before[1] + narrow), (K, NC, dt)
+        assert int(counts[0].sum()) == 100 * NC
 
 
 @pytest.mark.gpu
