@@ -146,9 +146,9 @@ Phases (each prints one line with its result and elapsed seconds):
              within DRAW_GAP of p (counted); the world-write launch of
              the main path against the output mode and the masked block
              writes, bit for bit; random streams (DM_GATHER_STREAMS: D =
-             1..9, 12, 16, 256, 512 and 600, A1 1 and 2, 1024, 48 and 37
-             chains, values off the 16-byte grid, indices at the world's
-             last row and outside it) and random hub streams
+             1..9, 12, 16, 17-64, 256, 512 and 600, A1 1 and 2, 1024, 48,
+             37, 16 and 8 chains, values off the 16-byte grid, indices at
+             the world's last row and outside it) and random hub streams
              (DM_HUB_STREAMS: rows of 0 to 40 chunks); malformed hub
              chunk offsets raise before a launch; the ms a sweep
              (a launch a color) beside the kernel's before its redesign
@@ -156,6 +156,12 @@ Phases (each prints one line with its result and elapsed seconds):
              alone and its launches, bounds (bytes: distinct rows), the
              gathered rows' bytes, the plain version's ms, and the ptxas
              registers and spills of each variant
+ 15c spouse dm  dm_gather_draw on the kbc-spouse cells' graph (the
+             benchmark's generator at 100,000 sentences, 16 chains): the
+             packed deep-row layout's rule against the launcher's, every
+             planned row packed and one sweep's packed_rows, the kernel
+             against its plain version on every color, a launch's ms beside
+             its bound and the plain version's ms
  16 kbc learn  bench.py's KBC learning cell: random_kbc_graph(200000,
              600000, 1e4 weights), half labelled, 256 chains a world, 10
              epochs of 2 sweeps: rate, peak memory, an epoch by part with
@@ -354,7 +360,9 @@ KBC_LEARN_VARS = 200_000                  # bench.py's KBC learning cell
 # variants on random streams: D unrolled 1..8 and chunked (9, 12, 16, and
 # the KBC cell's widest dense tier and hub chunks, 256 and 512), A1 2 and
 # 1, 16-byte rows (48, 64, 512, 1024 chains) and byte rows (37 chains, or
-# values one byte off the 16-byte grid)
+# values one byte off the 16-byte grid); the packed deep rows at 16
+# chains (D 17-64: 2 to 4 lanes a row) and in byte rows (D 40 at 8 chains:
+# 32 lanes a row)
 DM_GATHER_STREAMS = ([(300, d, 2, 48, False) for d in range(1, 10)]
                      + [(300, d, 1, 1024, False) for d in range(1, 10)]
                      + [(300, 12, 2, 512, False), (300, 16, 1, 48, False),
@@ -364,7 +372,11 @@ DM_GATHER_STREAMS = ([(300, d, 2, 48, False) for d in range(1, 10)]
                         (30, 600, 2, 37, False), (300, 5, 2, 37, False),
                         (300, 3, 1, 37, False), (300, 5, 2, 1024, True),
                         (300, 9, 1, 48, True), (40, 600, 2, 1024, True),
-                        (257, 4, 1, 1024, False)])
+                        (257, 4, 1, 1024, False)]
+                     + [(300, d, a1, 16, False) for d in (17, 24, 33, 48, 64)
+                        for a1 in (1, 2)]
+                     + [(300, 40, 1, 8, False), (300, 40, 2, 8, False)])
+SPOUSE_SENTENCES = 100_000      # the kbc-spouse cells' graph (phase 15c)
 # hub streams: (rows, records a chunk, A1, chains, chunk counts of the rows
 # in turn)
 DM_HUB_STREAMS = [(20, 512, 2, 1024, (1, 2, 0, 5, 13)),
@@ -2742,7 +2754,7 @@ def kbc_phase(dev, card: str) -> tuple:
                          modes, device=dev)
     require(modes == ("off", "cuda"), f"KBC default modes {modes}")
     tally_counts.launches = 0
-    dm_gather_draw.launches = 0
+    dm_gather_draw.launches = dm_gather_draw.packed_rows = 0
     torch.cuda.synchronize()
     enqueue_ms = []
     with EagerCalls() as eager, EagerCalls("hub_color_draw") as hub, \
@@ -2766,6 +2778,9 @@ def kbc_phase(dev, card: str) -> tuple:
     require(eager.calls == 0 and hub.calls == 0,
             f"KBC: {eager.calls} eager color_delta_multilin calls, "
             f"{hub.calls} hub_color_draw calls")
+    require(dm_gather_draw.packed_rows == 0,
+            f"KBC at {KBC_CHAINS} chains: {dm_gather_draw.packed_rows} rows "
+            "in the packed layout")
     P, K = vals.shape[0], info.max_card
     per_pos = counts.reshape(K, P).sum(dim=0)
     require(bool((per_pos == KBC_INNER * KBC_CHAINS).all()),
@@ -2780,6 +2795,7 @@ def kbc_phase(dev, card: str) -> tuple:
                                for _, a in iter_arrays(d)),
                tally_counts_launches=launches,
                dm_gather_draw_launches=dm_gather_draw.launches,
+               dm_gather_draw_packed_rows=dm_gather_draw.packed_rows,
                eager_color_delta_multilin_calls=eager.calls,
                hub_color_draw_calls=hub.calls,
                host_enqueue_ms_a_run=enqueue_ms, gc_runs=gct.runs,
@@ -2893,7 +2909,8 @@ def dm_gather_stream_case(dev, B: int, D: int, A1: int, NC: int,
     rows 0 .. B-1, which no record reads)."""
     import torch
 
-    from sampler_tpu_torch.ops.fused import DmTier
+    from sampler_tpu_torch.ops.fused import (DmTier, dm_launch_vec,
+                                             dm_packed_lanes)
 
     P = 5000
     gen = torch.Generator(device=dev).manual_seed(
@@ -2919,7 +2936,9 @@ def dm_gather_stream_case(dev, B: int, D: int, A1: int, NC: int,
     require(res["draws_differing"] <= 1e-4 * res["draws"] + 1,
             f"dm_gather_draw streams: {res['draws_differing']} draws differ")
     return dict(B=B, D=D, A1=A1, NC=NC, misaligned=misaligned,
-                lanes=tier.lanes(), **res)
+                lanes=tier.lanes(),
+                packed_lanes=dm_packed_lanes(D, NC, dm_launch_vec(values)),
+                **res)
 
 
 def dm_gather_hub_stream_case(dev, rows: int, G: int, A1: int, NC: int,
@@ -3108,6 +3127,116 @@ def dm_gather_phase(dev, card: str, d, info) -> dict:
            draws_differing=n_diff, draws=n_draws, colors_checked=checks,
            stream_cases=streams, hub_stream_cases=hubs,
            bad_hub_offsets_raise=bad_rows, ptxas=ptxas,
+           kernel=kern)
+    return kern
+
+
+def packed_rule_check() -> int:
+    """ops.fused.dm_packed_lanes, the rule the packed_rows counter
+    follows, against the launcher's own (dm_gather_draw_packed_lanes) on a
+    grid of records a row, chains and vector widths; returns the cases."""
+    from sampler_tpu_torch.ops import _build
+    from sampler_tpu_torch.ops.fused import dm_packed_lanes
+
+    lib = _build.build()[0]
+    cases = [(D, NC, vec) for D in (1, 16, 17, 24, 33, 48, 53, 64, 65, 256,
+                                    512, 513, 600)
+             for NC in (1, 8, 16, 32, 37, 48, 64, 512, 1024)
+             for vec in (1, 16) if vec == 1 or NC % 16 == 0]
+    for D, NC, vec in cases:
+        want = lib.dm_gather_draw_packed_lanes(D, NC, vec)
+        got = dm_packed_lanes(D, NC, vec)
+        require(got == want, f"dm_packed_lanes({D}, {NC}, {vec}) = {got}, "
+                f"the launcher's {want}")
+    return len(cases)
+
+
+def spouse_dm_phase(dev, card: str) -> dict:
+    """Phase 15c: dm_gather_draw on the kbc-spouse cells' graph (the
+    benchmark's generator and set-up at SPOUSE_SENTENCES, 16 chains, one
+    launch a color over 4 dense tiers of 24-53 records a row): the packed
+    deep-row layout takes every planned row (dm_packed_rows), one sweep of
+    run_sweeps_mc adds the planned rows to ``dm_gather_draw.packed_rows``,
+    the kernel against its plain version on every color (dm_compare), and
+    a launch's ms (world-write, as a sweep draws) beside its bound
+    (dm_bound) and the plain version's ms."""
+    import copy
+
+    import torch
+
+    from gpubench import harness
+    from sampler_tpu_torch.engine.multichain import (_dm_tier_list,
+                                                     init_values_mc,
+                                                     prepare_fold,
+                                                     resolve_modes,
+                                                     run_sweeps_mc)
+    from sampler_tpu_torch.ops.fused import (dm_gather_draw,
+                                             dm_gather_draw_table,
+                                             dm_gather_draw_tiers_plain,
+                                             dm_launch_vec, dm_packed_rows)
+
+    t0 = time.perf_counter()
+    n_rules = packed_rule_check()
+    cfg = copy.deepcopy(harness.load_json("configs", "kbc-spouse.json"))
+    cfg["graph"]["n_sentences"] = SPOUSE_SENTENCES
+    s = harness.set_up(cfg, {"job": "infer"}, 1515, dev)
+    d, info, NC = s.dg, s.info, s.n_chains
+    C = info.n_colors
+    modes = resolve_modes(info, dev)
+    require(modes == ("off", "cuda") and not info.has_hub,
+            f"spouse: modes {modes}, hub {info.has_hub}")
+    gen = torch.Generator(device=dev).manual_seed(1515)
+    vals = init_values_mc(d, gen, NC, info)
+    folded = prepare_fold(d, d.w_init, info, modes)
+    plan = folded.dm
+    vec = dm_launch_vec(vals)
+    rows = int(plan.tables[..., 10].sum()) // 2     # both masks' tables
+    require(len(plan.tiers) == len(info.tiers)
+            and dm_packed_rows(plan.tables, NC, vec) == 2 * rows,
+            f"spouse: planned tiers {plan.tiers} of {len(info.tiers)}, "
+            f"{dm_packed_rows(plan.tables, NC, vec)} of {2 * rows} table "
+            "rows packed")
+    before = dm_gather_draw.packed_rows
+    vals = run_sweeps_mc(d, vals, d.w_init, gen, 1, False, info, modes,
+                         device=dev)
+    torch.cuda.synchronize()
+    swept = dm_gather_draw.packed_rows - before
+    require(swept == rows, f"spouse: a sweep's packed rows {swept}, {rows} "
+            "planned")
+    checks, ms, plain_ms, bounds = {}, [], [], []
+    saved = dm_gather_draw.launches, dm_gather_draw.packed_rows
+    for c in range(C):
+        tiers = _dm_tier_list(d, info, plan.tiers, folded, c, False)
+        seeds = torch.tensor([[1515 + t, -1516 - c] for t in range(
+            len(tiers))], dtype=torch.int32, device=dev)
+        checks[f"c{c}"] = dm_compare(vals, tiers, seeds)
+        table = plan.tables[c, 0]
+        n = dm_packed_rows(table, NC, vec)
+        world = vals.clone()
+        ms.append(time_ms(lambda: dm_gather_draw_table(world, table, seeds,
+                                                       n)))
+        plain = vals.clone()
+        plain_ms.append(time_ms(
+            lambda: dm_gather_draw_tiers_plain(plain, tiers, seeds), iters=2,
+            warmup=1))
+        bounds.append(dm_bound(vals, tiers, False))
+        del world, plain
+    dm_gather_draw.launches, dm_gather_draw.packed_rows = saved
+    n_diff = sum(x["draws_differing"] for x in checks.values())
+    n_draws = sum(x["draws"] for x in checks.values())
+    require(n_diff <= 1e-4 * max(n_draws, 1),
+            f"spouse: {n_diff} of {n_draws} draws differ")
+    kern = dict(ms=sum(ms) / C, plain_ms=sum(plain_ms) / C,
+                bound_ms=sum(b["bound_ms"] for b in bounds) / C,
+                ms_by_color=ms, bound_ms_by_color=[b["bound_ms"]
+                                                   for b in bounds],
+                share_of_bound=sum(b["bound_ms"] for b in bounds) / sum(ms))
+    report("15c spouse dm", t0, card=card, sentences=SPOUSE_SENTENCES,
+           chains=NC, vec=vec, colors=C, n_vars=info.n_vars,
+           tiers=[dict(block=ti.block, degree=ti.degree, arity=ti.arity)
+                  for ti in info.tiers],
+           packed_rows_a_sweep=swept, rule_cases=n_rules,
+           draws_differing=n_diff, draws=n_draws, colors_checked=checks,
            kernel=kern)
     return kern
 
@@ -5475,6 +5604,8 @@ def main() -> int:
         dev, card)
     kern["dm_gather_draw"] = dm_gather_phase(dev, card, d_kbc, info_kbc)
     kern["dm_gather_draw"]["launches"] = dm_launches
+    kern["dm_gather_draw"]["kbc_spouse_16_chains"] = spouse_dm_phase(dev,
+                                                                     card)
     del d_kbc
     d_kbc, info_l, grad_records_launches = kbc_learn_phase(dev, card)
     learn_graphs = {"kbc": (d_kbc, info_l, LEARN_CHAINS), **learn_graphs}

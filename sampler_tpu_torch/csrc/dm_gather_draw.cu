@@ -69,8 +69,25 @@
 //     their count known to the compiler they spilled (24-264 bytes fully
 //     unrolled, 8 bytes in chunks of 3), the loop over a count it reads
 //     does not.
-//   * Deep rows (more than kSeg records: the degree-256 tier, every hub
-//     row) are split across a block: `lanes` lanes (16, 32 or 64) of
+//   * Packed deep rows (a dense tier of more than kSeg records a row whose
+//     segments x chain groups fit a warp: DeepDive's KBC graphs at 16
+//     chains, rows of 24-53 records, most of them folded unary features
+//     that read the dummy row).  Split across a block as below, such a row
+//     kept 4-8 of 256 threads at work (2-4 segments x 2 groups of 8
+//     chains), 0.95 ms a launch of 124k rows, one block a row.  Instead a
+//     group of S lanes takes a row, S = segments x chain groups of VEC
+//     chains rounded up to a power of two (2-4 at 16 chains), so 32 / S
+//     rows share a warp and 256 / S a block.  Lane (segment k, chain
+//     group) sums segment k in the order of d, two records' loads in
+//     flight, as a shallow row's thread does (at kChunk the kernel
+//     spilled); the group adds its chain
+//     group's partials in segment order by __shfl_sync (no atomics, no
+//     shared memory), adds base, spreads the hash and the draw of its
+//     chains over the lanes, gathers the draw bits by shuffles and stores
+//     VEC of them at once.  Hub rows and rows whose lanes would not fit a
+//     warp (a 256-record row at 1024 chains) keep the block split.
+//   * Other deep rows (more than kSeg records: the degree-256 tier, every
+//     hub row) are split across a block: `lanes` lanes (16, 32 or 64) of
 //     256 / lanes chain groups each, a group 8 chains (8-byte loads) where
 //     the launch takes 16-byte rows.  In a wave, lane l sums segment
 //     s0 + l of the row for its chain groups, in the order of d, and writes
@@ -81,7 +98,9 @@
 //   * World-write mode: the draws go straight into the world's rows of the
 //     tier's block (`out` points at the block's first row of `values`), for
 //     the rows the block's resample mask selects; no other row is drawn,
-//     and none past the mask's length is written.  The kernel reads the
+//     and none past the mask's length is written (a packed row that the
+//     mask leaves out skips its loads and stores, but its lanes still take
+//     part in their warp's shuffles).  The kernel reads the
 //     world while it writes it.  No real neighbour of a row lies in a block
 //     being drawn (the rows of one color share no factor); a pad slot names
 //     the dummy row, outside every block, and its record's coefficients are
@@ -119,6 +138,7 @@ struct Tier {
   int A1;
   int n_write;
   int lanes;  // 1: a thread a row's VEC chains; else the deep split
+  int pack;   // > 0: the packed layout, lanes a row (a power of two)
   int cols;   // deep: blocks a row (chain tiles)
   int seed;   // this tier's row of the seed words
   int block0; // its first block in the grid
@@ -450,6 +470,115 @@ __device__ __forceinline__ void deep_row(const Tier& T, unsigned local,
       draw_bit(delta, cnt, static_cast<uint32_t>(seed[0]), tseed));
 }
 
+// Packed deep rows: block `local` of the tier holds kThreads / S rows, a
+// group of S = T.pack lanes (a power of two, so a group lies in one warp)
+// a row.  Lane l of a group sums segment l % nseg of chain group l / nseg
+// (VEC chains) in the order of d; lanes past nseg * ncv have no segment.
+// The group's lanes then add the partials of their chain group in segment
+// order by shuffles, each lane draws every nseg-th chain of its group, and
+// the group's first lane of the chain group stores the VEC draws.  Every
+// lane of the warp reaches every shuffle: a row past the tier or left out
+// by the mask only skips its loads and stores.
+template <int VEC, int A1>
+__device__ __forceinline__ void packed_rows(const Tier& T, unsigned local,
+                                            const int8_t* __restrict__ values,
+                                            int NC, int P,
+                                            const int32_t* __restrict__ seed,
+                                            int TB) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int S = T.pack;
+  const int l = static_cast<int>(threadIdx.x) & (S - 1);
+  const unsigned long long gl =
+      static_cast<unsigned long long>(local) * (kThreads / S) +
+      threadIdx.x / S;
+  const int g = static_cast<int>(gl);
+  const int D = T.D;
+  const int nseg = (D + kSeg - 1) / kSeg;
+  const int ncv = NC / VEC;
+  const int cg = min(l / nseg, ncv - 1);
+  const int k = l - (l / nseg) * nseg;
+  // world-write mode: only rows of the block that the mask selects
+  const bool live =
+      gl < static_cast<unsigned long long>(T.n_rows) &&
+      (T.mask == nullptr || (g < T.n_write && T.mask[g] != 0));
+  const bool mine = live && l < nseg * ncv;  // this lane has a segment
+
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = -0.0f;
+  if (mine) {  // two records in flight: more spilled (72 bytes at 4)
+    sum_records<VEC, A1, 0, 2>(acc, values, NC, P, T, g * D + k * kSeg,
+                               min(kSeg, D - k * kSeg), cg);
+  }
+  // the chain group's segments in their order: (seg0 + seg1) + seg2 ...
+  const int src = (static_cast<int>(threadIdx.x) & 31 & ~(S - 1)) + cg * nseg;
+  const float bs = live ? T.base[g] : 0.0f;
+  float delta[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) delta[e] = -0.0f;
+  for (int j = 0; j < nseg; ++j) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      delta[e] = __fadd_rn(delta[e], __shfl_sync(kAll, acc[e], src + j));
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) delta[e] = __fadd_rn(delta[e], bs);
+  const bool first = mine && k == 0;
+  const size_t o = static_cast<size_t>(g) * NC + static_cast<size_t>(cg) * VEC;
+  if (T.delta != nullptr && first) {
+    if constexpr (VEC == 1) {
+      T.delta[o] = delta[0];
+    } else {
+      float4* dp = reinterpret_cast<float4*>(T.delta + o);
+#pragma unroll
+      for (int q = 0; q < VEC / 4; ++q) {
+        dp[q] = make_float4(delta[4 * q], delta[4 * q + 1], delta[4 * q + 2],
+                            delta[4 * q + 3]);
+      }
+    }
+  }
+  if (T.out == nullptr) return;  // the delta mode (tier-uniform)
+
+  // chains k, k + nseg, ... of the chain group; bit e of `bits` is chain e's
+  uint32_t bits = 0;
+  if (mine) {
+    const int t = g / TB;
+    const uint32_t s0 = static_cast<uint32_t>(seed[0]);
+    const uint32_t tseed =
+        static_cast<uint32_t>(seed[1]) ^ (static_cast<uint32_t>(t) * kKnuth);
+    const uint32_t cnt0 =
+        static_cast<uint32_t>(g - t * TB) * static_cast<uint32_t>(NC) +
+        static_cast<uint32_t>(cg * VEC);
+    for (int e = k; e < VEC; e += nseg) {
+      float d = delta[0];
+#pragma unroll
+      for (int q = 1; q < VEC; ++q) d = q == e ? delta[q] : d;
+      bits |= draw_bit(d, cnt0 + e, s0, tseed) << e;
+    }
+  }
+  uint32_t all = 0;
+  for (int j = 0; j < nseg; ++j) all |= __shfl_sync(kAll, bits, src + j);
+  if (!first) return;
+  if constexpr (VEC == 1) {
+    T.out[o] = static_cast<int8_t>(all);
+  } else {
+    uint32_t packed[VEC / 4];
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      packed[q] = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        packed[q] |= ((all >> (4 * q + i)) & 1u) << (8 * i);
+      }
+    }
+    typename Vec<VEC>::T w;
+    static_assert(sizeof(w) == sizeof(packed), "VEC bytes of draws");
+    memcpy(&w, packed, sizeof(w));
+    __stcs(reinterpret_cast<typename Vec<VEC>::T*>(T.out + o), w);
+  }
+}
+
 template <int VEC>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     dm_gather_draw_kernel(const __grid_constant__ Launch L,
@@ -469,6 +598,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     } else {
       shallow_d<VEC, 1>(T, local, values, NC, P, seed, TB);
     }
+  } else if (T.pack > 0) {
+    if (T.A1 == 2) {
+      packed_rows<VEC, 2>(T, local, values, NC, P, seed, TB);
+    } else {
+      packed_rows<VEC, 1>(T, local, values, NC, P, seed, TB);
+    }
   } else if (T.A1 == 2) {
     deep_row<VEC, 2>(T, local, values, NC, P, seed, TB, buf);
   } else {
@@ -480,9 +615,22 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The lanes a row of a dense tier takes in the packed layout: its segments
+// times its chain groups (ncv, of the launch's VEC chains) rounded up to a
+// power of two, where the row has 2 or more segments and that product is
+// at most 32; else 0 (the block split).  ops.fused.dm_packed_lanes is the
+// same rule.
+int packed_lanes(long long D, long long ncv) {
+  const long long need = (D + kSeg - 1) / kSeg * ncv;
+  if (D <= kSeg || ncv < 1 || need > 32) return 0;
+  int S = 2;
+  while (S < need) S *= 2;
+  return S;
+}
+
 }  // namespace
 
-// values int8 [P, NC]; table: host int64 [n_tiers, 15], a row a tier:
+// values int8 [P, NC]; table: host int64 [n_tiers, 16], a row a tier:
 //   nbr, b1, b2, bx, base, rows, out, delta, mask (device pointers, 0 for
 //   none), row0, n_rows, D, A1, n_write, lanes, records
 // nbr int32 [R, A1] (global positions), b1, b2, bx f32 [R] (b2, bx only
@@ -495,7 +643,9 @@ bool aligned16(const void* p) {
 // uint8 [n_write], a row drawn only where g < n_write and mask[g] != 0,
 // delta 0); delta f32 [n_rows, NC] or 0; neither out nor row0: the delta
 // mode.  lanes 1 takes a row a thread (at most 16 records a row, no
-// rows), 16, 32 or 64 splits each row across a block.  seeds int32
+// rows), 16, 32 or 64 a deep row: a dense tier's rows take the packed
+// layout where packed_lanes allows it, else each row is split across a
+// block.  seeds int32
 // [n_tiers, 2] on the device (null in the delta mode); TB the rows of a
 // tile of the counter hash.  Returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for a table it does not take).
@@ -562,9 +712,13 @@ extern "C" int dm_gather_draw_launch(const void* values, int NC, int P,
     for (int i = 0; i < n_tiers; ++i) {
       Tier T = tiers[i];
       if ((T.lanes > 1) != (pass == 0)) continue;
+      if (T.lanes > 1 && T.rows == nullptr) T.pack = packed_lanes(T.D, ncv);
       long long nb;
       if (T.lanes == 1) {
         nb = (T.n_rows * ncv + kThreads - 1) / kThreads;
+      } else if (T.pack > 0) {
+        const long long per = kThreads / T.pack;  // rows a block
+        nb = (T.n_rows + per - 1) / per;
       } else {
         // the deep rows' chain groups: 8 chains (1 in byte rows)
         const long long cgb = kThreads / T.lanes, dv = wide ? 8 : 1;
@@ -588,4 +742,11 @@ extern "C" int dm_gather_draw_launch(const void* values, int NC, int P,
     dm_gather_draw_kernel<1><<<grid, kThreads, 0, s>>>(L, v, NC, P, sd, TB);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The lanes a row of D records takes in the packed layout at NC chains
+// read vec (16 or 1) at a time, 0 for the block split: the launcher's rule,
+// for a check of ops.fused.dm_packed_lanes on the card.
+extern "C" int dm_gather_draw_packed_lanes(int D, int NC, int vec) {
+  return vec == 16 || vec == 1 ? packed_lanes(D, NC / vec) : 0;
 }

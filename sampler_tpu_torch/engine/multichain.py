@@ -109,7 +109,8 @@ from ..ops.banded import (banded_gather, banded_gather_multi,
                           banded_gather_multi_plain, banded_gather_plain)
 from ..ops.fused import (DM_MAX_TIERS, DmTier, dm_gather_draw,
                          dm_gather_draw_plain, dm_gather_draw_table,
-                         dm_gather_draw_tiers_plain, dm_tier_table,
+                         dm_gather_draw_tiers_plain, dm_launch_vec,
+                         dm_packed_rows, dm_tier_table,
                          fold_affine, fold_affine_cat, fold_deltam,
                          fold_deltam_tiles, fused_cat_draw,
                          fused_cat_draw_plain, fused_color_draw,
@@ -662,12 +663,13 @@ def _dm_tier_list(dg, info, tiers, folded, c: int, ev: bool) -> list:
 
 def _dm_tables(dg, info, tiers, folded) -> tuple:
     """The planned tiers' launch tables, int64 [C, 2, T, 16] (color, mask
-    of the resample or the sample-evidence mode, tier), and the graph's
-    streams they point into: a template built once a graph
-    (dm_tier_table: its streams checked, its rows and masks), kept with
-    those streams and rebuilt when a tier's stream is another tensor, with
-    this fold's coefficient pointers written in, so a fold costs a few
-    numpy writes."""
+    of the resample or the sample-evidence mode, tier), the graph's
+    streams they point into, and a dict of the tables' packed rows by
+    chain count (_DmPlan.packed_rows fills it): a template built once a
+    graph (dm_tier_table: its streams checked, its rows and masks), kept
+    with those streams and rebuilt when a tier's stream is another tensor,
+    with this fold's coefficient pointers written in, so a fold costs a
+    few numpy writes."""
     C = info.n_colors
     refs = tuple(x for t in tiers for x in (
         dg.tiers[t].cs_nbr, dg.tiers[t].cm_resample,
@@ -679,7 +681,7 @@ def _dm_tables(dg, info, tiers, folded) -> tuple:
         with span("plan.dm_tables"):
             got = cache[key] = (refs, np.stack([np.stack([
                 dm_tier_table(_dm_tier_list(dg, info, tiers, folded, c, ev))
-                for ev in (False, True)]) for c in range(C)]))
+                for ev in (False, True)]) for c in range(C)]), {})
     tab = got[1].copy()
     colors = np.arange(C, dtype=np.int64)[:, None]
     for i, t in enumerate(tiers):
@@ -694,7 +696,7 @@ def _dm_tables(dg, info, tiers, folded) -> tuple:
                 raise ValueError(f"dm_gather_draw: folded stream {col} of "
                                  f"tier {t}: {x.dtype} {tuple(x.shape)}")
             tab[:, :, i, col] = x.data_ptr() + colors * (4 * n)
-    return tab, refs
+    return tab, refs, got[2]
 
 
 class _DmPlan:
@@ -711,10 +713,12 @@ class _DmPlan:
         self.tiers = [t for t, (ti, f) in enumerate(zip(info.tiers, folded))
                       if _dm_tier(ti, f, modes)]
         self.tables = self.lists = None
+        self.nc = -1            # the chain count self.packed counts for
         if not self.tiers:
             return
         if modes[1] == "cuda":
-            self.tables, graph = _dm_tables(dg, info, self.tiers, folded)
+            self.tables, graph, self.counts = _dm_tables(dg, info,
+                                                         self.tiers, folded)
             self.streams = (graph, [folded[t] for t in self.tiers])
         else:
             self.lists = {(c, ev): _dm_tier_list(dg, info, self.tiers, folded,
@@ -730,15 +734,33 @@ class _DmPlan:
         seeds = torch.randint(-(1 << 31), 1 << 31, (T, 2),
                               generator=generator, device=values.device,
                               dtype=torch.int32)
+        if self.tables is not None and values.shape[1] != self.nc:
+            self.packed_rows(values)
         for i in range(0, T, M):
             if self.tables is not None:
-                dm_gather_draw_table(
-                    values, self.tables[c, int(sample_evidence), i:i + M],
-                    seeds[i:i + M])
+                ev = int(sample_evidence)
+                dm_gather_draw_table(values, self.tables[c, ev, i:i + M],
+                                     seeds[i:i + M], self.packed[c][ev][i])
             else:
                 dm_gather_draw_tiers_plain(
                     values, self.lists[c, sample_evidence][i:i + M],
                     seeds[i:i + M])
+
+    def packed_rows(self, values) -> list:
+        """The packed rows of each launch on the world ``values``
+        (dm_packed_rows), [color][mode] a dict by a launch's first tier,
+        counted once a graph and chain count and kept with the tables'
+        template, so a draw adds an integer."""
+        NC, vec = values.shape[1], dm_launch_vec(values)
+        got = self.counts.get((NC, vec))
+        if got is None:
+            M = DM_MAX_TIERS
+            got = self.counts[NC, vec] = [[{
+                i: dm_packed_rows(self.tables[c, ev, i:i + M], NC, vec)
+                for i in range(0, len(self.tiers), M)} for ev in (0, 1)]
+                for c in range(self.tables.shape[0])]
+        self.nc, self.packed = NC, got
+        return got
 
 
 def _dm_streams(ts, ti, c, info, folded_t) -> tuple:

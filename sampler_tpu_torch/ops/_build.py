@@ -36,7 +36,8 @@ NVCC_TIMEOUT_S = 300
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# launcher name -> argtypes (every pointer and the stream as c_void_p)
+# launcher name -> argtypes (every pointer and the stream as c_void_p);
+# each returns an int
 LAUNCHERS = {
     "fused_color_draw_launch": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _P, _P, _P, _I, _P),
@@ -51,6 +52,7 @@ LAUNCHERS = {
                               _I, _I, _I, _I, _P, _P, _P, _I, _P),
     "tally_counts_launch": (_P, _L, _I, _I, _P, _I, _P, _P),
     "dm_gather_draw_launch": (_P, _I, _I, _P, _I, _P, _I, _P),
+    "dm_gather_draw_packed_lanes": (_I, _I, _I),
     "grad_records_launch": (_P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _I,
                             _P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
                             _I, _P, _P),

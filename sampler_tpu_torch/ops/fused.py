@@ -664,12 +664,44 @@ class DmTier(NamedTuple):
 
     def lanes(self) -> int:
         """The kernel's lanes a row: 1 (a thread a row's chains) for a row
-        of one segment, else the segments a block sums at once."""
+        of one segment, else the segments a block sums at once (where the
+        launcher splits a row across a block: dm_packed_lanes)."""
         if self.rows is not None:
             return DM_HUB_LANES
         nseg = -(-self.nbr.shape[1] // DM_SEGMENT)
         return 1 if nseg <= 1 else 16 if nseg <= 16 else (
             32 if nseg <= 32 else 64)
+
+
+def dm_packed_lanes(D: int, NC: int, vec: int) -> int:
+    """The lanes a row of a dense tier of D records takes in the kernel's
+    packed deep-row layout at NC chains read ``vec`` (16 or 1) at a time:
+    its segments of DM_SEGMENT times its chain groups NC // vec, rounded up
+    to a power of two, where the row has 2 or more segments and that
+    product is at most 32 (a warp); else 0, and a row of 2 or more
+    segments is split across a block.  The launcher's rule
+    (csrc/dm_gather_draw.cu, packed_lanes); a hub tier never packs."""
+    nseg = -(-D // DM_SEGMENT)
+    need = nseg * (NC // vec)
+    if nseg < 2 or not 1 <= need <= 32:
+        return 0
+    return 1 << (need - 1).bit_length()
+
+
+def dm_launch_vec(values) -> int:
+    """The chains the kernel reads at a time on the world ``values``: 16
+    where a row is 16-byte aligned (the launcher also wants its outputs so,
+    as torch allocates them), else 1."""
+    return 16 if values.shape[1] % 16 == 0 and values.data_ptr() % 16 == 0 \
+        else 1
+
+
+def dm_packed_rows(table: np.ndarray, NC: int, vec: int) -> int:
+    """The rows of a launch table (dm_tier_table) that take the packed
+    layout at NC chains read ``vec`` at a time: the dense tiers' rows where
+    dm_packed_lanes is not 0."""
+    return sum(int(x[10]) for x in table.reshape(-1, _DM_FIELDS)
+               if x[5] == 0 and dm_packed_lanes(int(x[11]), NC, vec))
 
 
 def _dm_check(values, tier: DmTier, draw: bool) -> None:
@@ -918,10 +950,13 @@ def dm_tier_table(tiers, outs=None, deltas=None) -> np.ndarray:
 
 
 @spanned("op.dm_gather_draw", card=True)
-def dm_gather_draw_table(values, table: np.ndarray, seeds) -> None:
+def dm_gather_draw_table(values, table: np.ndarray, seeds,
+                         packed: int = 0) -> None:
     """Launch the kernel on a table of dm_tier_table (its tiers' streams on
     ``values``' card): one launch for all its tiers.  ``seeds`` int32
-    [T, 2] on the card, or None in the delta mode."""
+    [T, 2] on the card, or None in the delta mode; ``packed`` the table's
+    dm_packed_rows, counted once a table by the caller, added to
+    ``dm_gather_draw.packed_rows``."""
     dev = values.device
     check_tensor(values, "values", torch.int8, dev, 2)
     T = table.shape[0]
@@ -939,6 +974,7 @@ def dm_gather_draw_table(values, table: np.ndarray, seeds) -> None:
                None if seeds is None else seeds.data_ptr(), DM_TILE_ROWS,
                torch.cuda.current_stream(dev).cuda_stream)
     dm_gather_draw.launches += 1
+    dm_gather_draw.packed_rows += packed
 
 
 def dm_gather_draw_tiers(values, tiers, seeds,
@@ -966,7 +1002,8 @@ def dm_gather_draw_tiers(values, tiers, seeds,
     mode delta.
 
     A CPU tensor goes to the plain version; a CUDA tensor to the kernel
-    (the launch adds one to ``dm_gather_draw.launches``)."""
+    (the launch adds one to ``dm_gather_draw.launches`` and its packed
+    rows to ``dm_gather_draw.packed_rows``)."""
     if values.device.type == "cpu":
         return dm_gather_draw_tiers_plain(values, tiers, seeds, return_delta)
     if values.device.type != "cuda":
@@ -992,7 +1029,9 @@ def dm_gather_draw_tiers(values, tiers, seeds,
         res = values if draw and out is None else out
         results.append(delta if not draw else
                        (res, delta) if return_delta else res)
-    dm_gather_draw_table(values, dm_tier_table(tiers, outs, deltas), seeds)
+    table = dm_tier_table(tiers, outs, deltas)
+    dm_gather_draw_table(values, table, seeds,
+                         dm_packed_rows(table, NC, dm_launch_vec(values)))
     return results
 
 
@@ -1034,6 +1073,7 @@ def dm_gather_draw(values, nbr, base, b1, b2, bx, seed,
 
 
 dm_gather_draw.launches = 0
+dm_gather_draw.packed_rows = 0      # rows launched in the packed layout
 
 
 # --------------------------------------------------------------------------

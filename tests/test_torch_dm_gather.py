@@ -65,6 +65,7 @@ from sampler_tpu_torch.ops.fused import (DM_MAX_TIERS, DM_SEGMENT,
                                          dm_gather_draw_plain,
                                          dm_gather_draw_tiers,
                                          dm_gather_draw_tiers_plain,
+                                         dm_packed_lanes, dm_packed_rows,
                                          dm_tier_table, hash_bits, tile_seed, u32,
                                          uniform24)
 from sampler_tpu_torch.parallel import graph_shard as tgs
@@ -668,6 +669,46 @@ def test_launch_tables_follow_the_graphs_streams():
                           folds[2].dm.tables[..., same])
 
 
+# (records a row, chains, chains a load, lanes a row of the packed layout;
+# 0: another layout)
+PACKED_RULE = (
+    [(d, 16, 16, 2) for d in (17, 24, 29, 32)]      # 2 segments x 1 group
+    + [(d, 16, 16, 4) for d in (33, 35, 48, 53, 64)]  # 3-4 segments
+    + [(65, 16, 16, 8), (512, 16, 16, 32), (24, 32, 16, 4), (24, 48, 16, 8),
+       (40, 8, 1, 32),                                # byte rows: 3 x 8
+       (16, 16, 16, 0), (5, 1024, 16, 0),             # one segment
+       (513, 16, 16, 0), (24, 512, 16, 0),            # past a warp
+       (256, 1024, 16, 0),                            # phase 15's 88 x 256
+       (600, 48, 16, 0), (600, 37, 1, 0), (40, 37, 1, 0)])
+
+
+@pytest.mark.parametrize("D,n,vec,lanes", PACKED_RULE)
+def test_packed_layout_rule(D, n, vec, lanes):
+    """The packed deep-row layout takes a dense tier's rows of 2 or more
+    segments where segments x chain groups fit a warp: the spouse graph's
+    rows of 24-53 records at 16 chains, 2 to 4 lanes a row; not 256 records
+    at 1024 chains, 600 at 48 or rows of one segment."""
+    assert dm_packed_lanes(D, n, vec) == lanes
+
+
+@pytest.mark.parametrize("n,packed", [(16, 300 + 40), (8, 300 + 40),
+                                      (1024, 0)])
+def test_packed_rows_count_dense_deep_tiers_only(n, packed):
+    """A launch table's packed rows (dm_packed_rows, what a launch adds to
+    dm_gather_draw.packed_rows): the dense deep tiers' rows where the rule
+    holds; no shallow tier's and no hub tier's, whatever its chunks."""
+    vec = 16 if n % 16 == 0 else 1
+    tiers = []
+    for B, D, A1 in ((300, 24, 1), (40, 48, 2), (300, 9, 2)):
+        s = _streams(B, D, A1, 50, n, D)
+        tiers.append(DmTier(s["nbr"], s["base"], s["b1"], s["b2"], s["bx"]))
+    for G in (17, 24, 512):
+        s = _streams(6, G, 2, 50, n, G)
+        tiers.append(DmTier(s["nbr"], s["base"], s["b1"], s["b2"], s["bx"],
+                            rows=torch.tensor([0, 2, 6], dtype=torch.int32)))
+    assert dm_packed_rows(dm_tier_table(tiers), n, vec) == packed
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -679,11 +720,14 @@ def cuda_device():
 @pytest.mark.parametrize("B,D,A1,n,misaligned", [
     (300, 5, 2, 1024, False), (300, 9, 2, 48, False), (88, 256, 2, 64, False),
     (300, 4, 1, 37, False), (300, 16, 1, 512, False), (200, 3, 2, 48, True),
-    (40, 600, 2, 1024, False), (30, 600, 1, 37, False)])
+    (40, 600, 2, 1024, False), (30, 600, 1, 37, False)]
+    + [(300, d, a1, 16, False) for d in (17, 24, 33, 48, 64) for a1 in (1, 2)]
+    + [(300, 40, 1, 8, False), (300, 40, 2, 8, False)])
 def test_kernel_matches_plain_on_card(cuda_device, B, D, A1, n, misaligned):
     """The kernel against its plain version: the delta exact, the draws
     equal but where u lies within 1e-5 of sigmoid(delta), the delta mode
-    and the world-write mode as the plain version's."""
+    and the world-write mode as the plain version's; at 16 chains (D 17 to
+    64) and in byte rows at 8 chains (D 40) the packed deep-row layout."""
     s = {k: None if v is None else v.to(cuda_device)
          for k, v in _streams(B, D, A1, 500, n, 7 * D + n).items()}
     if misaligned:
@@ -759,3 +803,34 @@ def test_bad_hub_offsets_raise_on_card(cuda_device, bad):
         dm_gather_draw(s["values"], s["nbr"], s["base"], s["b1"], s["b2"],
                        s["bx"], seed, rows=rows)
     assert dm_gather_draw.launches == before
+
+
+@pytest.mark.gpu
+def test_spouse_shaped_rows_match_plain_on_card(cuda_device):
+    """One launch over tiers shaped like the spouse graph's at 16 chains
+    (rows of 24 to 53 records, about 85% of them folded unary features
+    that name an all-zero row): the packed layout takes every row, the
+    deltas exactly the plain version's, the draws equal but at near-ties."""
+    n, P, zero = 16, 4000, 3999
+    gen = np.random.default_rng(24)
+    values = torch.from_numpy(gen.integers(0, 2, (P, n)).astype(np.int8))
+    values[zero] = 0
+    tiers = []
+    for i, D in enumerate((24, 29, 35, 48, 53)):
+        s = _streams(400, D, 1, P, n, D)
+        nbr = s["nbr"].clamp(2000, P - 1)       # no neighbour in a block
+        nbr[torch.from_numpy(gen.random(nbr.shape) < 0.85)] = zero
+        tiers.append(DmTier(nbr.to(cuda_device), *(
+            None if x is None else x.to(cuda_device)
+            for x in (s["base"], s["b1"], s["b2"], s["bx"]))))
+    values = values.to(cuda_device)
+    seeds = torch.tensor([[24, -i] for i in range(len(tiers))],
+                         dtype=torch.int32, device=cuda_device)
+    before = dm_gather_draw.packed_rows
+    got = dm_gather_draw_tiers(values, tiers, seeds, return_delta=True)
+    torch.cuda.synchronize()
+    assert dm_gather_draw.packed_rows == before + 400 * len(tiers)
+    ref = dm_gather_draw_tiers_plain(values, tiers, seeds, return_delta=True)
+    for (o, dl), (ro, rdl) in zip(got, ref):
+        assert torch.equal(dl, rdl)
+        assert int((o != ro).sum()) <= 1e-4 * o.numel() + 1

@@ -11,7 +11,9 @@ port's plain mechanism, against the benchmark's float64 reference
     enumeration (|dp| < 0.01);
   * a one-marriage factor that holds its variable in both slots adds
     nothing to that variable's log-odds;
-  * ``compile.sorted_unique`` is ``np.unique``.
+  * ``compile.sorted_unique`` is ``np.unique``;
+  * dm_gather_draw's plan hands every launch its packed rows: every
+    planned row at 16 chains, none at 1024.
 """
 import copy
 
@@ -157,3 +159,24 @@ def test_sorted_unique_is_np_unique(n):
     np.testing.assert_array_equal(got, np.unique(a))
     assert got.dtype == a.dtype
 
+
+@pytest.mark.parametrize("n_chains,packed", [(16, True), (1024, False)])
+def test_plan_counts_the_packed_rows_of_each_launch(monkeypatch, n_chains,
+                                                    packed):
+    """The spouse graph's tiers hold 17 to 53 records a row: at 16 chains
+    the packed deep-row layout takes every planned row, at 1024 none.  The
+    plan counts a launch table's packed rows once and hands each launch
+    its count (its tables are built off the card too)."""
+    _, _, _, info, d = compiled(spouse(300))
+    plan = mc.prepare_fold(d, d.w_init, info, ("off", "cuda")).dm
+    assert plan.tiers == list(range(len(info.tiers)))
+    calls = []
+    monkeypatch.setattr(mc, "dm_gather_draw_table",
+                        lambda values, table, seeds, n: calls.append(n))
+    values = torch.zeros((d.var_card.shape[0], n_chains), dtype=torch.int8)
+    for ev in (False, True):
+        for c in range(info.n_colors):
+            plan.draw(values, c, ev, torch.Generator().manual_seed(c))
+    rows = sum(ti.block for ti in info.tiers)
+    assert calls == [rows if packed else 0] * (2 * info.n_colors)
+    assert len(plan.counts) == 1
