@@ -17,10 +17,10 @@ Phases (each prints one line with its result and elapsed seconds):
              again at 48 chains (the 16-byte variants) and 37 (the byte
              variants), and on a 128x128 grid of degree 9 (past the draw's
              unrolled D = 1..8) at 512 and 37 chains
-  3 oracle   infer_mc on an evidence-clamped 16x16 grid, fused and unfused,
-             against exact enumeration (|dp| < 0.01)
-  4 flagship infer_mc on the 1024x1024 grid with 512 chains, fused (the main
-             path) and unfused; kernel times (beside their times before
+  3 oracle   infer_mc on an evidence-clamped 16x16 grid (its one tier's
+             route checked) against exact enumeration (|dp| < 0.01)
+  4 flagship infer_mc on the 1024x1024 grid with 512 chains (the main
+             path); kernel times (beside their times before
              the 16-byte redesign), bounds, achieved TB/s, the draw's
              SASS issue bound, rates, peak memory, and where a counted
              fused sweep's time goes (the draws, the tally, the rest);
@@ -33,10 +33,9 @@ Phases (each prints one line with its result and elapsed seconds):
              variable labelled evidence, 256 chains a world): grad_pair_tile
              against its plain version (both colors, both coefficient
              streams, two launches bit for bit), and the whole kernel-route
-             gradient against the chunked route (banded_gather), the
-             records route (a row_chunk: grad_records_sum's 3 launches)
-             and the
-             per-factor gradient; every variant of the kernel on random
+             gradient against the records route on the same tier
+             (grad_records_sum's 3 launches, as under graph sharding) and
+             the per-factor gradient; every variant of the kernel on random
              streams (GRAD_STREAM_CASES: 256, 512, 48 and 37 chains and a
              world off the 16-byte grid, D = 1..9 and 24, 1, 2 and 64
              weights, unaligned and clipped window starts, neighbours
@@ -51,10 +50,10 @@ Phases (each prints one line with its result and elapsed seconds):
              width); the bytes init_values_mc allocates and the
              run's peak, each with the unchunked int32 draw it had before
              and with the chunked draw; then the grad_pair_tile and
-             records gradient routes learn the same weights on a 16x16
-             grid, and a labelled coin (no fused draw) reaches its
-             log-odds with grad_records_sum's 3 launches an epoch and no
-             row chunk of the chunked gradient
+             records gradient routes (the latter as past GRAD_W_MAX
+             weights) learn the same weights on a 16x16 grid, and a
+             labelled coin (no fused draw) reaches its log-odds with
+             grad_records_sum's 3 launches an epoch
   7 dm kernels  fused_dm_draw and banded_gather_multi against their plain
              versions at the triple flagship's shapes (big_triple_grid(512,
              512): 3 colors, band_k 2, arity 3; 1024 random chains, every
@@ -67,15 +66,14 @@ Phases (each prints one line with its result and elapsed seconds):
              kernel times (beside the time before the redesign), bounds,
              the SASS issue bound; the world-write mode as in phase 4
   8 oracle dm  infer_mc on three small fusedm graphs (triple grids with
-             band_k 1 and 2, a 3-colored Ising grid), fused and unfused,
-             against exact enumeration (|dp| < 0.01)
-  9 triple   infer_mc on the triple flagship at 1024 chains, fused (the
-             default modes, the main path of this class) and unfused
-             (fused off): launches, rates, peak memory and where a fused
-             sweep's time goes; then one learn_mc epoch on the labelled
-             triple flagship at 256 chains a world, by part, with the
-             gradient on the records route (grad_records_sum: 3 launches,
-             no banded_gather_multi) and on the chunked route
+             band_k 1 and 2, a 3-colored Ising grid) against exact
+             enumeration (|dp| < 0.01)
+  9 triple   infer_mc on the triple flagship at 1024 chains (the main path
+             of this class): launches, rates, peak memory and where a
+             fused sweep's time goes; then one learn_mc epoch on the
+             labelled triple flagship at 256 chains a world, by part, with
+             the gradient on the records route (grad_records_sum: 3
+             launches, no banded_gather_multi)
  10 cat kernel  fused_cat_draw against its plain version at the Potts
              flagship's shapes (big_potts_grid(512, 512, card=4): 2 colors,
              one affinek tier; 512 random chains, both colors): logits
@@ -88,22 +86,29 @@ Phases (each prints one line with its result and elapsed seconds):
              redesign), plain time, a bound with three terms (bytes, f32
              operations, logs at the SFU rate) and the SASS issue bound;
              the world-write mode as in phase 4
- 11 oracle cat  infer_mc, fused and unfused, against exact enumeration
+ 11 oracle cat  infer_mc against exact enumeration
              (|dp| < 0.01) on a 16x16 evidence-clamped card-3 Potts grid
              (fused_cat_draw), fixtures.categorical_graph and mixed_graph
              (the unbanded candidate path) and a card-200 graph (int32
              worlds, band off)
- 12 potts    infer_mc on the Potts flagship at 512 chains, fused (the
-             default modes, the main path of this class) and unfused:
-             launches, rates, peak memory and a fused sweep by part; then
+ 12 potts    infer_mc on the Potts flagship at 512 chains (the main path
+             of this class): launches, rates, peak memory and a fused
+             sweep by part; then
              learn_mc on the labelled flagship (bench.py's categorical
              learning configuration: 512 chains a world, 10 epochs of 2
              sweeps): launches (grad_records_sum 3 an epoch, no
-             banded_gather), rate, peak memory and an epoch by part with
-             the gradient on the records route and on the chunked route;
-             one
-             banded_gather launch at the chunked gradient's shapes, and
-             its launches' share of the chunked epoch
+             banded_gather), rate, peak memory and an epoch by part
+ 12b eager band  the eager route over the banded gathers (tiers with a
+             banding plan and no fused draw): infer_mc on an
+             evidence-clamped 3-colored 32x32 card-3 Potts grid (band_k 2:
+             banded_gather_multi) and a 16x16 card-33 one (past
+             fused_cat_draw's K <= 32: banded_gather) against exact
+             enumeration (|dp| < 0.01), then on the Potts flagship's
+             512^2 width at 512 chains (3 colors, card 4; 2 colors, card
+             33): each gather's launches exactly counted (a launch a row
+             block of a color), rates, peak memory; the kernels line's
+             launches of banded_gather and banded_gather_multi are these
+             (the gradient on the records route)
  13 tally    tally_counts against its plain version, exactly, on the three
              flagships' worlds (phases 4, 9, 12) and on random worlds
              (TALLY_CASES: K = 2, 4, 17 and 200 at 8, 24, 37, 48, 128 and
@@ -119,25 +124,22 @@ Phases (each prints one line with its result and elapsed seconds):
  14 kbc oracle  the hub tier: infer_mc on tests/test_hub.py's star graphs
              (boolean, hub_cap 6; card 3, hub_cap 5; chunks of 4) against
              exact enumeration (|dp| < 0.01 and 0.012), and the gradient
-             over dense and hub tiers, on the records route and on the
-             chunked route, against the per-factor one (within 1e-4) on
-             random_kbc_graph(300, 900, ...)
+             over dense and hub tiers (the records route) against the
+             per-factor one (within 1e-4) on random_kbc_graph(300, 900,
+             ...)
  15 kbc      bench.py's KBC inference cell: random_kbc_graph(500000,
              1500000, skew 1.1, windows of 2000, 1e5 weights), greedy
              coloring, RCM order, compile_graph(band_wmax=32768,
-             hub_cap=256), 1024 chains, the default modes ("off", "cuda":
-             dm_gather_draw once a color over every deltam tier, the hub
+             hub_cap=256), 1024 chains, every tier on route "gather"
+             (dm_gather_draw once a color over every deltam tier, the hub
              tier drawn in it); host seconds, colors, tiers, rate over
              bench.py's 5 x 2 counted sweeps, peak memory,
-             dm_gather_draw's launches (colors x sweeps), no eager
-             color_delta_multilin call and no hub_color_draw (its
-             index_add_); the host ms of each counted run until it
-             returns and the cyclic collector's runs and ms in the
-             loop; one more run's host profile (host_profile: wall,
-             enqueue, collector, torch.profiler's ops of most self CPU
-             time); a sweep by part on the kernel route
-             (dm_gather_draw, tally) beside the eager route's (fused
-             off: gathers, the hub's index_add_, draws, masked writes,
+             dm_gather_draw's launches (colors x sweeps), no
+             hub_color_draw call (its index_add_); the host ms of each
+             counted run until it returns and the cyclic collector's runs
+             and ms in the loop; one more run's host profile
+             (host_profile: wall, enqueue, collector, torch.profiler's
+             ops of most self CPU time); a sweep by part (dm_gather_draw,
              tally)
  15b dm gather  dm_gather_draw against its plain version at phase 15's
              shapes: every color in one launch over its deltam tiers, the
@@ -164,11 +166,10 @@ Phases (each prints one line with its result and elapsed seconds):
              its bound and the plain version's ms
  16 kbc learn  bench.py's KBC learning cell: random_kbc_graph(200000,
              600000, 1e4 weights), half labelled, 256 chains a world, 10
-             epochs of 2 sweeps: rate, peak memory, an epoch by part with
-             the gradient on the records route and on the chunked route,
-             and one fold's host profile; dm_gather_draw's launches, no
-             eager color_delta_multilin; grad_records_sum 3 launches an
-             epoch (all five tiers), no chunked row chunk
+             epochs of 2 sweeps: rate, peak memory, an epoch by part and
+             one fold's host profile; dm_gather_draw's launches, no
+             hub_color_draw; grad_records_sum 3 launches an epoch (all
+             five tiers)
  16b grad records  the records route (grad_records_sum: its owner
              records' terms, every tier in one launch, then the float64
              sums by weight in a fixed order) against its plain version
@@ -201,9 +202,8 @@ Phases (each prints one line with its result and elapsed seconds):
              (within 0.2 of its log-odds), sparse-weight graphs (|dp| <
              0.01; one of them with checkpoints); a labelled sparse-weight
              graph learned through the command (grad_records_sum 3
-             launches an epoch) and its gradient on the records route
-             beside the chunked route (equal within GRAD_RTOL; their ms, no row
-             chunk on the kernel route); 256x256 Ising, Potts and triple
+             launches an epoch) and its gradient against the per-factor
+             one (within GRAD_RTOL; its ms); 256x256 Ising, Potts and triple
              grids with learning,
              each kernel's launches on the command's path exactly counted
  19 cli resume  kill and resume: the labelled 256x256 grid killed by the
@@ -268,7 +268,7 @@ Phases (each prints one line with its result and elapsed seconds):
              variables and 2 + 5 x 1 sweeps (its defaults: 4e6 and 2 + 5 x
              2), 1024 chains: rate, peak memory beside the bytes of the
              worlds and the graph, dm_gather_draw's launches, a sweep by
-             part on the kernel and the eager route
+             part
  26 scale demo  python -m sampler_tpu_torch.scale_demo on a 2048x2048 grid
              (cut from its 3200x3200 default for time) over 4 graph ranks
              sharing the card (Gloo), 6 sweeps: the
@@ -752,7 +752,7 @@ def tally_case(values, K: int) -> dict:
     return dict(K=K, NC=NC, P=P, dtype=str(values.dtype), max_abs_err=err)
 
 
-def sweep_breakdown(d, world, info, folded, modes, gen, draws: dict) -> dict:
+def sweep_breakdown(d, world, info, folded, gen, draws: dict) -> dict:
     """Where a counted sweep's time goes (CUDA events): one counted sweep
     (sweep_mc, whose fused draws write into the world, then the tally),
     the sweep alone and the tally alone; ``draws`` the draws' share from
@@ -765,7 +765,7 @@ def sweep_breakdown(d, world, info, folded, modes, gen, draws: dict) -> dict:
                          device=world.device)
 
     def sweep():
-        sweep_mc(d, world, d.w_init, gen, False, info, folded, modes)
+        sweep_mc(d, world, d.w_init, gen, False, info, folded)
 
     def counted():
         sweep()
@@ -799,13 +799,10 @@ def tally_numbers(values, K: int) -> dict:
                 rows=P, **kernel_bound(nbytes, 0))
 
 
-def epoch_parts(d, w, info, modes, v_ev, v_free, cfg, gen,
-                reps: int = 3, grad_modes=None) -> dict:
+def epoch_parts(d, w, info, v_ev, v_free, cfg, gen, reps: int = 3) -> dict:
     """Where a learning epoch's time goes: the epoch body of
     _learn_mc_from, with CUDA events between its parts (mean of
-    ``reps``); the worlds are updated in place.  ``grad_modes``, when
-    given, are the gradient's modes (the chunked route's, to time it
-    beside the kernel's)."""
+    ``reps``); the worlds are updated in place."""
     import torch
 
     from sampler_tpu_torch.engine.learn import apply_update
@@ -816,14 +813,13 @@ def epoch_parts(d, w, info, modes, v_ev, v_free, cfg, gen,
     for _ in range(reps):
         ev_t = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev_t[0].record()
-        folded = prepare_fold(d, w, info, modes)
+        folded = prepare_fold(d, w, info)
         ev_t[1].record()
         for _ in range(cfg.n_sweeps_per_epoch):
-            sweep_mc(d, v_ev, w, gen, False, info, folded, modes)
-            sweep_mc(d, v_free, w, gen, True, info, folded, modes)
+            sweep_mc(d, v_ev, w, gen, False, info, folded)
+            sweep_mc(d, v_free, w, gen, True, info, folded)
         ev_t[2].record()
-        grad = mc_weight_gradient(d, v_ev, v_free, False, info,
-                                  grad_modes or modes)
+        grad = mc_weight_gradient(d, v_ev, v_free, False, info)
         ev_t[3].record()
         apply_update(w, grad, d.w_fixed, cfg.stepsize, cfg.regularization,
                      cfg.reg_param)
@@ -965,9 +961,8 @@ def grad_phase(dev) -> tuple:
 
     from sampler_tpu_torch.compile import compile_graph, to_device
     from sampler_tpu_torch.engine.multichain import (
-        _mc_weight_gradient_factors, _row_chunk, init_values_mc,
+        _mc_weight_gradient_factors, _record_plan, init_values_mc,
         mc_weight_gradient_cs)
-    from sampler_tpu_torch.ops.banded import banded_gather
     from sampler_tpu_torch.ops.grad import (GRAD_W_MAX, grad_pair_tile,
                                             grad_pair_tile_plain,
                                             grad_records_sum)
@@ -1013,41 +1008,29 @@ def grad_phase(dev) -> tuple:
             err, rel = max(err, e), max(rel, e / scale)
             del got, again, ref
     cases = [grad_stream_case(dev, *case) for case in GRAD_STREAM_CASES]
-    row_chunk = _row_chunk(ti, ti.block, D, ti.arity, 2 * chains)
     routes = {}
     for lne in (False, True):
-        banded_gather.launches = 0
-        chunked = mc_weight_gradient_cs(d, v_ev, v_free, lne, info,
-                                        ("cuda", "off"),
-                                        row_chunk=row_chunk)
-        gathers = banded_gather.launches
-        require(gathers == C * (ti.block // row_chunk),
-                f"chunked route: {gathers} banded_gather launches")
-        # a row_chunk keeps grad_pair_tile off: the tier takes the
-        # records route (grad_records_sum: its terms, pieces, weights)
+        # the records route on the tier (grad_records_sum: its terms,
+        # pieces, weights), as graph sharding takes it
         saved = grad_records_sum.launches
-        records = mc_weight_gradient_cs(d, v_ev, v_free, lne, info,
-                                        ("cuda", "cuda"),
-                                        row_chunk=row_chunk)
+        records = grad_records_sum(v_ev, v_free, _record_plan(
+            d, info, [0], lne, 1, 0))
         require(grad_records_sum.launches - saved == 3,
                 f"records route: {grad_records_sum.launches - saved} "
                 f"grad_records_sum launches")
         grad_records_sum.launches = saved   # a comparison counts none
-        kernel = mc_weight_gradient_cs(d, v_ev, v_free, lne, info,
-                                       ("cuda", "cuda"))
+        kernel = mc_weight_gradient_cs(d, v_ev, v_free, lne, info)
         factors = _mc_weight_gradient_factors(d, v_ev, v_free, lne, info)
         scale = float(factors.abs().max())
         diffs = {name: float((kernel - ref).abs().max())
-                 for name, ref in (("chunked", chunked),
-                                   ("records", records),
+                 for name, ref in (("records", records),
                                    ("factors", factors))}
         for name, e in diffs.items():
             require(e <= GRAD_RTOL * scale,
                     f"lne={lne}: kernel route vs {name}: {e} of {scale}")
         routes[f"learn_non_evidence={lne}"] = dict(
-            grad=kernel.tolist(), max_abs_diff=diffs, scale=scale,
-            chunked_banded_gather_launches=gathers)
-        del chunked, records, kernel, factors
+            grad=kernel.tolist(), max_abs_diff=diffs, scale=scale)
+        del records, kernel, factors
 
     k = dict(ms=time_ms(lambda: grad_pair_tile(*args(0, ts.gd_ctch)),
                         iters=20),
@@ -1092,7 +1075,7 @@ def grad_phase(dev) -> tuple:
            partials_max_abs_err=err, partials_max_rel_err=rel,
            stream_cases=dict(cases=len(cases), two_launches="bit for bit",
                              max_rel_err=max(cases)),
-           row_chunk=row_chunk, routes=routes, kernel=k)
+           routes=routes, kernel=k)
     return g, d, info, k
 
 
@@ -1119,13 +1102,11 @@ def learn_phase(dev, g, d, info) -> dict:
     cfg = LearnConfig(n_epochs=LEARN_EPOCHS, n_sweeps_per_epoch=LEARN_SWEEPS,
                       stepsize=0.01, diminish=0.99, regularization="l2",
                       reg_param=0.01)
-    modes = ("cuda", "cuda")
     C = info.n_colors
     counters = (grad_pair_tile, fused_color_draw, banded_gather)
     # one epoch first, so the counted run starts warm
     learn_mc(d, d.w_init, torch.Generator(device=dev).manual_seed(1),
-             dataclasses.replace(cfg, n_epochs=1), info, chains, modes,
-             device=dev)
+             dataclasses.replace(cfg, n_epochs=1), info, chains, device=dev)
     # what init_values_mc allocates (its output included), and the run's
     # peak, with the draw as it was before it was chunked and as it is
     gen0 = torch.Generator(device=dev).manual_seed(2)
@@ -1143,7 +1124,7 @@ def learn_phase(dev, g, d, info) -> dict:
     multichain.init_values_mc = init_values_unchunked
     try:
         learn_mc(d, d.w_init, torch.Generator(device=dev).manual_seed(2),
-                 cfg, info, chains, modes, device=dev)
+                 cfg, info, chains, device=dev)
         torch.cuda.synchronize()
     finally:
         multichain.init_values_mc = init_values_mc
@@ -1155,7 +1136,7 @@ def learn_phase(dev, g, d, info) -> dict:
     tr = time.perf_counter()
     w, v_ev, v_free = learn_mc(d, d.w_init,
                                torch.Generator(device=dev).manual_seed(2),
-                               cfg, info, chains, modes, device=dev)
+                               cfg, info, chains, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tr
     launches = {fn.__name__: fn.launches for fn in counters}
@@ -1191,7 +1172,7 @@ def learn_phase(dev, g, d, info) -> dict:
     require(init_bytes["chunked"] < 0.5 * init_bytes["unchunked"],
             f"init_values_mc bytes {init_bytes}")
     run["epoch_breakdown_ms"] = epoch_parts(
-        d, w, info, modes, v_ev, v_free, cfg,
+        d, w, info, v_ev, v_free, cfg,
         torch.Generator(device=dev).manual_seed(3))
     # the sweeps' share that is draws: one launch at this width, times the
     # 2 * C * sweeps an epoch
@@ -1206,9 +1187,9 @@ def learn_phase(dev, g, d, info) -> dict:
         an_epoch=draw_ms * 2 * C * cfg.n_sweeps_per_epoch)
     del v_ev, v_free
 
-    # the grad_pair_tile route and, with the band mode off, the
-    # records route learn the same weights from the same draws
-    # (tests/test_grad_kernel.py's grid)
+    # the grad_pair_tile route and the records route (which an affine2
+    # tier takes past GRAD_W_MAX weights) learn the same weights from the
+    # same draws (tests/test_grad_kernel.py's grid)
     gs, colors_s = big_ising_grid(16, 16, w_pair=0.35, w_bias=0.2)
     rng = np.random.default_rng(7)
     gs.var_role[:] = rng.random(gs.n_vars) < 0.5
@@ -1219,12 +1200,15 @@ def learn_phase(dev, g, d, info) -> dict:
     cfg_s = LearnConfig(n_epochs=10, n_sweeps_per_epoch=2, stepsize=0.05,
                         diminish=0.98, regularization="l2", reg_param=0.01)
     small = {}
-    for label, m in (("pair", ("cuda", "cuda")),
-                     ("records", ("off", "cuda"))):
+    for label, w_max in (("pair", multichain.GRAD_W_MAX), ("records", 0)):
         grad_pair_tile.launches = grad_records_sum.launches = 0
-        ws, _, _ = learn_mc(ds, ds.w_init,
-                            torch.Generator(device=dev).manual_seed(1),
-                            cfg_s, infos, 4, m, device=dev)
+        saved_w_max, multichain.GRAD_W_MAX = multichain.GRAD_W_MAX, w_max
+        try:
+            ws, _, _ = learn_mc(ds, ds.w_init,
+                                torch.Generator(device=dev).manual_seed(1),
+                                cfg_s, infos, 4, device=dev)
+        finally:
+            multichain.GRAD_W_MAX = saved_w_max
         small[label] = (ws, (grad_pair_tile.launches,
                              grad_records_sum.launches))
     E = cfg_s.n_epochs
@@ -1241,22 +1225,18 @@ def learn_phase(dev, g, d, info) -> dict:
     dgc, infoc = compile_graph(gc)
     dc = to_device(dgc, dev)
     # a graph without a fused draw: its gradient takes the records route
-    # too, 3 launches an epoch, and no row chunk of the chunked route
+    # too, 3 launches an epoch
     coin_epochs = 300
     grad_records_sum.launches = 0
-    with EagerCalls("_phi_streams") as chunks:
-        wc, _, _ = learn_mc(dc, dc.w_init, torch.Generator(device=dev)
-                            .manual_seed(0),
-                            LearnConfig(n_epochs=coin_epochs, stepsize=0.03,
-                                        diminish=0.995,
-                                        regularization="none"),
-                            infoc, 8, device=dev)
+    wc, _, _ = learn_mc(dc, dc.w_init,
+                        torch.Generator(device=dev).manual_seed(0),
+                        LearnConfig(n_epochs=coin_epochs, stepsize=0.03,
+                                    diminish=0.995, regularization="none"),
+                        infoc, 8, device=dev)
     coin_launches = grad_records_sum.launches
     require(coin_launches == 3 * coin_epochs
-            == grad_launches_an_epoch(infoc, dev) * coin_epochs
-            and chunks.calls == 0,
-            f"coin: grad_records_sum launches {coin_launches}, {chunks.calls} "
-            f"chunked gradient row chunks")
+            == grad_launches_an_epoch(infoc) * coin_epochs,
+            f"coin: grad_records_sum launches {coin_launches}")
     coin_err = abs(float(wc[0]) - w_star)
     require(coin_err < 0.12, f"coin: learned {float(wc[0])}, want {w_star}")
     report("6 learn", t6, chains=chains, epochs=cfg.n_epochs,
@@ -1265,8 +1245,7 @@ def learn_phase(dev, g, d, info) -> dict:
            grid16_weights=small["pair"][0].tolist(),
            coin_learned=float(wc[0]), coin_log_odds=w_star,
            coin_abs_err=coin_err,
-           coin_grad_records_sum_launches=coin_launches,
-           coin_chunked_gradient_row_chunks=chunks.calls)
+           coin_grad_records_sum_launches=coin_launches)
     return launches
 
 
@@ -1559,7 +1538,7 @@ def dm_kernels_phase(dev) -> tuple:
 
 
 def oracle_dm_phase(dev) -> dict:
-    """Phase 8.  Returns the launches of each graph's two runs."""
+    """Phase 8.  Returns the launches of each graph's run."""
     import numpy as np
     import torch
 
@@ -1567,7 +1546,7 @@ def oracle_dm_phase(dev) -> dict:
     from sampler_tpu_torch import oracle
     from sampler_tpu_torch.benchgraphs import big_ising_grid, big_triple_grid
     from sampler_tpu_torch.compile import compile_graph, to_device
-    from sampler_tpu_torch.engine.multichain import infer_mc, resolve_modes
+    from sampler_tpu_torch.engine.multichain import infer_mc, route
     from sampler_tpu_torch.ops.banded import (banded_gather,
                                               banded_gather_multi)
     from sampler_tpu_torch.ops.fused import fused_dm_draw
@@ -1597,49 +1576,43 @@ def oracle_dm_phase(dev) -> dict:
         dg, info = compile_graph(g, colors=colors, **kw)
         require(info.fusedm and info.tiers[0].band_k == band_k,
                 f"{name}: tiers {info.tiers}")
-        require(resolve_modes(info, dev) == ("cuda", "cuda"),
-                f"{name}: default modes {resolve_modes(info, dev)}")
+        routes = [route(ti, info) for ti in info.tiers]
+        require(routes == [("dm", True, "records")],
+                f"{name}: routes {routes}")
         exact = oracle.exact_marginals(g, clamp_evidence=True)
         d = to_device(dg, dev)
-        res = {}
         counters = (fused_dm_draw, banded_gather_multi, banded_gather)
-        for label, modes, counter in (
-                ("fused", None, fused_dm_draw),
-                ("unfused", ("cuda", "off"),
-                 banded_gather_multi if band_k >= 2 else banded_gather)):
-            for fn in counters:
-                fn.launches = 0
-            marg, _ = infer_mc(d, d.w_init,
-                               torch.Generator(device=dev).manual_seed(3),
-                               DM_ORACLE_BURN, DM_ORACLE_SWEEPS, info,
-                               DM_ORACLE_CHAINS, modes=modes, device=dev)
-            dp = float(abs(marg[query, :2] - exact[query]).max())
-            require(dp < 0.01, f"{name} {label}: |dp| = {dp}")
-            launches = {fn.__name__: fn.launches for fn in counters}
-            require(counter.launches == sum(launches.values())
-                    == info.n_colors * (DM_ORACLE_BURN + DM_ORACLE_SWEEPS),
-                    f"{name} {label}: launches {launches}")
-            res[label] = dict(max_abs_dp=dp, launches=launches)
-        out[name] = res
+        for fn in counters:
+            fn.launches = 0
+        marg, _ = infer_mc(d, d.w_init,
+                           torch.Generator(device=dev).manual_seed(3),
+                           DM_ORACLE_BURN, DM_ORACLE_SWEEPS, info,
+                           DM_ORACLE_CHAINS, device=dev)
+        dp = float(abs(marg[query, :2] - exact[query]).max())
+        require(dp < 0.01, f"{name}: |dp| = {dp}")
+        launches = {fn.__name__: fn.launches for fn in counters}
+        require(fused_dm_draw.launches == sum(launches.values())
+                == info.n_colors * (DM_ORACLE_BURN + DM_ORACLE_SWEEPS),
+                f"{name}: launches {launches}")
+        out[name] = dict(max_abs_dp=dp, launches=launches)
     report("8 oracle dm", t8, chains=DM_ORACLE_CHAINS, burn=DM_ORACLE_BURN,
            sweeps=DM_ORACLE_SWEEPS, graphs=out)
     return out
 
 
 def triple_phase(dev, card: str, g, d, info, kern) -> tuple:
-    """Phase 9: the triple flagship's main path, fused and unfused, then
-    one learning epoch on its labelled twin (by part, the gradient on
-    the records route and, beside it, on the chunked route).  Fills in the
-    launches of ``kern``'s two entries; returns the tally check on its
-    world and (device graph, info, chains) of the learning twin, for
-    phase 16b."""
+    """Phase 9: the triple flagship's main path, then one learning epoch
+    on its labelled twin (by part, the gradient on the records route).
+    Fills in the launches of ``kern``'s two entries; returns the tally
+    check on its world and (device graph, info, chains) of the learning
+    twin, for phase 16b."""
     import torch
 
     from sampler_tpu_torch.engine.learn import LearnConfig
     from sampler_tpu_torch.engine.multichain import (infer_mc,
                                                      init_values_mc,
                                                      learn_mc, prepare_fold,
-                                                     resolve_modes)
+                                                     route)
     from sampler_tpu_torch.ops.banded import banded_gather_multi
     from sampler_tpu_torch.ops.fused import fused_dm_draw
     from sampler_tpu_torch.ops.grad import grad_records_sum
@@ -1647,63 +1620,50 @@ def triple_phase(dev, card: str, g, d, info, kern) -> tuple:
 
     t9 = time.perf_counter()
     C = info.n_colors
-    require(resolve_modes(info, dev) == ("cuda", "cuda"),
-            f"default modes {resolve_modes(info, dev)}")
-    runs = {}
-    for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):
-        fused_dm_draw.launches = 0
-        banded_gather_multi.launches = 0
-        tally_counts.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        tr = time.perf_counter()
-        marg, vals = infer_mc(d, d.w_init,
-                              torch.Generator(device=dev).manual_seed(7),
-                              BURN, SWEEPS, info, TRI_CHAINS, modes=modes,
-                              device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - tr
-        require(marg.shape == (g.n_vars, 2), f"marginals {marg.shape}")
-        require(bool((marg >= 0).all() and (marg <= 1).all()),
-                "marginals outside [0, 1]")
-        require(float(abs(marg.sum(1) - 1).max()) < 1e-5,
-                "marginal rows do not sum to 1")
-        require(bool(((vals == 0) | (vals == 1)).all()), "non-boolean world")
-        runs[label] = dict(
-            wall_s=wall,
-            variable_updates_per_s=g.n_vars * TRI_CHAINS * (BURN + SWEEPS)
-            / wall,
-            peak_memory_bytes=torch.cuda.max_memory_allocated(),
-            launches={"fused_dm_draw": fused_dm_draw.launches,
-                      "banded_gather_multi": banded_gather_multi.launches,
-                      "tally_counts": tally_counts.launches},
-            mean_p1=float(marg[:, 1].mean()))
-        if label == "fused":
-            tally_check = tally_case(vals, 2)
-        del vals
+    routes = [route(ti, info) for ti in info.tiers]
+    require(routes == [("dm", True, "records")], f"routes {routes}")
+    fused_dm_draw.launches = 0
+    banded_gather_multi.launches = 0
+    tally_counts.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = time.perf_counter()
+    marg, vals = infer_mc(d, d.w_init,
+                          torch.Generator(device=dev).manual_seed(7),
+                          BURN, SWEEPS, info, TRI_CHAINS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tr
+    require(marg.shape == (g.n_vars, 2), f"marginals {marg.shape}")
+    require(bool((marg >= 0).all() and (marg <= 1).all()),
+            "marginals outside [0, 1]")
+    require(float(abs(marg.sum(1) - 1).max()) < 1e-5,
+            "marginal rows do not sum to 1")
+    require(bool(((vals == 0) | (vals == 1)).all()), "non-boolean world")
+    runs = {"fused": dict(
+        wall_s=wall,
+        variable_updates_per_s=g.n_vars * TRI_CHAINS * (BURN + SWEEPS)
+        / wall,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        launches={"fused_dm_draw": fused_dm_draw.launches,
+                  "banded_gather_multi": banded_gather_multi.launches,
+                  "tally_counts": tally_counts.launches},
+        mean_p1=float(marg[:, 1].mean()))}
+    tally_check = tally_case(vals, 2)
+    del vals
     require(runs["fused"]["launches"] == {
         "fused_dm_draw": C * (BURN + SWEEPS), "banded_gather_multi": 0,
         "tally_counts": SWEEPS},
         f"fused path launches {runs['fused']['launches']}")
-    require(runs["unfused"]["launches"] == {
-        "fused_dm_draw": 0, "banded_gather_multi": C * (BURN + SWEEPS),
-        "tally_counts": SWEEPS},
-        f"unfused path launches {runs['unfused']['launches']}")
-    dp = abs(runs["fused"]["mean_p1"] - runs["unfused"]["mean_p1"])
-    require(dp < 0.01, f"fused and unfused mean marginals differ by {dp}")
     kern["fused_dm_draw"]["launches"] = \
         runs["fused"]["launches"]["fused_dm_draw"]
-    kern["banded_gather_multi"]["launches"] = \
-        runs["unfused"]["launches"]["banded_gather_multi"]
 
     # where a counted fused sweep's time goes (CUDA events; after the
     # counted runs)
-    modes = resolve_modes(info, dev)
-    folded = prepare_fold(d, d.w_init, info, modes)
+    folded = prepare_fold(d, d.w_init, info)
     gen_b = torch.Generator(device=dev).manual_seed(9)
     world = init_values_mc(d, gen_b, TRI_CHAINS, info)
     breakdown = sweep_breakdown(
-        d, world, info, folded, modes, gen_b,
+        d, world, info, folded, gen_b,
         {f"fused_dm_draw_x{C}": C * kern["fused_dm_draw"]["ms"]})
     del world, folded
 
@@ -1721,11 +1681,8 @@ def triple_phase(dev, card: str, g, d, info, kern) -> tuple:
     fused_dm_draw.launches = 0
     banded_gather_multi.launches = 0
     grad_records_sum.launches = 0
-    modes_l = resolve_modes(infol, dev)
-    with EagerCalls("_phi_streams") as chunks:
-        epoch = epoch_parts(dl, w, infol, modes_l, v_ev, v_free, cfg,
-                            torch.Generator(device=dev).manual_seed(5),
-                            reps=1)
+    epoch = epoch_parts(dl, w, infol, v_ev, v_free, cfg,
+                        torch.Generator(device=dev).manual_seed(5), reps=1)
     learn = dict(chains=LEARN_CHAINS, compile_graph_s=round(compile_l, 3),
                  epoch_breakdown_ms=epoch,
                  learning_updates_per_s=gl.n_vars * LEARN_SWEEPS * 2
@@ -1735,28 +1692,15 @@ def triple_phase(dev, card: str, g, d, info, kern) -> tuple:
                            "banded_gather_multi": banded_gather_multi
                            .launches,
                            "grad_records_sum": grad_records_sum.launches},
-                 chunked_gradient_row_chunks=chunks.calls,
                  weights=w.tolist())
     require(learn["launches"] == {
         "fused_dm_draw": 2 * C * LEARN_SWEEPS, "banded_gather_multi": 0,
-        "grad_records_sum": grad_launches_an_epoch(infol, dev)}
-        and learn["launches"]["grad_records_sum"] > 0 and chunks.calls == 0,
-        f"learning epoch launches {learn['launches']}, {chunks.calls} "
-        f"chunked gradient row chunks")
-    torch.cuda.reset_peak_memory_stats()
-    chunked = epoch_parts(dl, w, infol, modes_l, v_ev, v_free, cfg,
-                          torch.Generator(device=dev).manual_seed(5), reps=1,
-                          grad_modes=(modes_l[0], "off"))
-    learn["chunked_gradient"] = dict(
-        epoch_breakdown_ms=chunked,
-        peak_memory_bytes=torch.cuda.max_memory_allocated(),
-        learning_updates_per_s=gl.n_vars * LEARN_SWEEPS * 2 * LEARN_CHAINS
-        / (chunked["epoch"] / 1e3))
+        "grad_records_sum": grad_launches_an_epoch(infol)}
+        and learn["launches"]["grad_records_sum"] > 0,
+        f"learning epoch launches {learn['launches']}")
     learn["fold_host_profile"] = host_profile(
-        lambda: prepare_fold(d, w, info, modes))
-    learn["gradient_share"] = {"kernel": epoch["gradient"] / epoch["epoch"],
-                               "chunked": chunked["gradient"]
-                               / chunked["epoch"]}
+        lambda: prepare_fold(d, w, info))
+    learn["gradient_share"] = epoch["gradient"] / epoch["epoch"]
     del v_ev, v_free
     report("9 triple", t9, card=card, grid=f"{TRI_GRID}x{TRI_GRID}",
            chains=TRI_CHAINS, burn=BURN, sweeps=SWEEPS, runs=runs,
@@ -2193,119 +2137,95 @@ def oracle_cat_phase(dev) -> dict:
         exact = oracle.exact_marginals(g, clamp_evidence=True)
         free = g.var_role == fs.ROLE_QUERY
         d = to_device(dg, dev)
-        res = dict(values_dtype=str(values_dtype(info)))
         sweeps = info.n_colors * (DM_ORACLE_BURN + DM_ORACLE_SWEEPS)
-        for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):
-            fused_cat_draw.launches = 0
-            banded_gather.launches = 0
-            marg, vals = infer_mc(d, d.w_init,
-                                  torch.Generator(device=dev).manual_seed(3),
-                                  DM_ORACLE_BURN, DM_ORACLE_SWEEPS, info,
-                                  CAT_ORACLE_CHAINS, modes=modes, device=dev)
-            require(vals.dtype == values_dtype(info), f"{name}: {vals.dtype}")
-            require(bool((vals < d.var_card[:, None]).all()),
-                    f"{name}: a value at or above its card")
-            dp = float(abs(marg[:, :exact.shape[1]] - exact)[free].max())
-            require(dp < 0.01, f"{name} {label}: |dp| = {dp}")
-            launches = {"fused_cat_draw": fused_cat_draw.launches,
-                        "banded_gather": banded_gather.launches}
-            if not info.affinek:
-                want = {"fused_cat_draw": 0, "banded_gather": 0}
-            elif label == "fused":
-                want = {"fused_cat_draw": sweeps, "banded_gather": 0}
-            else:
-                want = {"fused_cat_draw": 0, "banded_gather": sweeps}
-            require(launches == want, f"{name} {label}: launches {launches}")
-            res[label] = dict(max_abs_dp=dp, launches=launches)
-        out[name] = res
+        fused_cat_draw.launches = 0
+        banded_gather.launches = 0
+        marg, vals = infer_mc(d, d.w_init,
+                              torch.Generator(device=dev).manual_seed(3),
+                              DM_ORACLE_BURN, DM_ORACLE_SWEEPS, info,
+                              CAT_ORACLE_CHAINS, device=dev)
+        require(vals.dtype == values_dtype(info), f"{name}: {vals.dtype}")
+        require(bool((vals < d.var_card[:, None]).all()),
+                f"{name}: a value at or above its card")
+        dp = float(abs(marg[:, :exact.shape[1]] - exact)[free].max())
+        require(dp < 0.01, f"{name}: |dp| = {dp}")
+        launches = {"fused_cat_draw": fused_cat_draw.launches,
+                    "banded_gather": banded_gather.launches}
+        want = {"fused_cat_draw": sweeps if info.affinek else 0,
+                "banded_gather": 0}
+        require(launches == want, f"{name}: launches {launches}")
+        out[name] = dict(values_dtype=str(values_dtype(info)),
+                         max_abs_dp=dp, launches=launches)
     report("11 oracle cat", t11, chains=CAT_ORACLE_CHAINS,
            burn=DM_ORACLE_BURN, sweeps=DM_ORACLE_SWEEPS, graphs=out)
     return out
 
 
 def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
-    """Phase 12: the Potts flagship's main path, fused and unfused, then
-    learn_mc on its labelled twin (the epoch by part, the gradient on
-    the records route and, beside it, on the chunked route).  Fills in the
-    launches of ``kern``; returns the tally check on its world and (device
-    graph, info, chains) of the learning twin, for phase 16b."""
+    """Phase 12: the Potts flagship's main path, then learn_mc on its
+    labelled twin (the epoch by part, the gradient on the records route).
+    Fills in the launches of ``kern``; returns the tally check on its
+    world and (device graph, info, chains) of the learning twin, for
+    phase 16b."""
     import dataclasses
 
     import torch
 
     from sampler_tpu_torch import format_spec as fs
     from sampler_tpu_torch.engine.learn import LearnConfig
-    from sampler_tpu_torch.engine.multichain import (_row_chunk, infer_mc,
+    from sampler_tpu_torch.engine.multichain import (infer_mc,
                                                      init_values_mc, learn_mc,
-                                                     prepare_fold,
-                                                     resolve_modes)
-    from sampler_tpu_torch.ops.banded import (banded_gather,
-                                              banded_gather_plain)
+                                                     prepare_fold, route)
+    from sampler_tpu_torch.ops.banded import banded_gather
     from sampler_tpu_torch.ops.fused import fused_cat_draw
     from sampler_tpu_torch.ops.grad import grad_records_sum
     from sampler_tpu_torch.ops.tally import tally_counts
 
     t12 = time.perf_counter()
     C, K = info.n_colors, info.max_card
-    ti = info.tiers[0]
-    require(resolve_modes(info, dev) == ("cuda", "cuda"),
-            f"default modes {resolve_modes(info, dev)}")
-    # the unfused draw's row blocks a color (color_draw_categorical)
-    blocks = ti.block // _row_chunk(ti, ti.block, ti.degree,
-                                         K * ti.arity, CAT_CHAINS)
-    runs = {}
-    for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):
-        fused_cat_draw.launches = 0
-        banded_gather.launches = 0
-        tally_counts.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        tr = time.perf_counter()
-        marg, vals = infer_mc(d, d.w_init,
-                              torch.Generator(device=dev).manual_seed(7),
-                              BURN, SWEEPS, info, CAT_CHAINS, modes=modes,
-                              device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - tr
-        require(marg.shape == (g.n_vars, K), f"marginals {marg.shape}")
-        require(bool((marg >= 0).all() and (marg <= 1).all()),
-                "marginals outside [0, 1]")
-        require(float(abs(marg.sum(1) - 1).max()) < 1e-5,
-                "marginal rows do not sum to 1")
-        require(bool(((vals >= 0) & (vals < K)).all()), "a value outside K")
-        runs[label] = dict(
-            wall_s=wall,
-            variable_updates_per_s=g.n_vars * CAT_CHAINS * (BURN + SWEEPS)
-            / wall,
-            peak_memory_bytes=torch.cuda.max_memory_allocated(),
-            launches={"fused_cat_draw": fused_cat_draw.launches,
-                      "banded_gather": banded_gather.launches,
-                      "tally_counts": tally_counts.launches},
-            mean_p=marg.mean(axis=0).tolist())
-        if label == "fused":
-            tally_check = tally_case(vals, K)
-        del vals
+    routes = [route(ti, info) for ti in info.tiers]
+    require(routes == [("cat", True, "records")], f"routes {routes}")
+    fused_cat_draw.launches = 0
+    banded_gather.launches = 0
+    tally_counts.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = time.perf_counter()
+    marg, vals = infer_mc(d, d.w_init,
+                          torch.Generator(device=dev).manual_seed(7),
+                          BURN, SWEEPS, info, CAT_CHAINS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tr
+    require(marg.shape == (g.n_vars, K), f"marginals {marg.shape}")
+    require(bool((marg >= 0).all() and (marg <= 1).all()),
+            "marginals outside [0, 1]")
+    require(float(abs(marg.sum(1) - 1).max()) < 1e-5,
+            "marginal rows do not sum to 1")
+    require(bool(((vals >= 0) & (vals < K)).all()), "a value outside K")
+    runs = {"fused": dict(
+        wall_s=wall,
+        variable_updates_per_s=g.n_vars * CAT_CHAINS * (BURN + SWEEPS)
+        / wall,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        launches={"fused_cat_draw": fused_cat_draw.launches,
+                  "banded_gather": banded_gather.launches,
+                  "tally_counts": tally_counts.launches},
+        mean_p=marg.mean(axis=0).tolist())}
+    tally_check = tally_case(vals, K)
+    del vals
     sweeps = C * (BURN + SWEEPS)
     require(runs["fused"]["launches"] == {
         "fused_cat_draw": sweeps, "banded_gather": 0,
         "tally_counts": SWEEPS},
         f"fused path launches {runs['fused']['launches']}")
-    require(runs["unfused"]["launches"] == {
-        "fused_cat_draw": 0, "banded_gather": sweeps * blocks,
-        "tally_counts": SWEEPS},
-        f"unfused path launches {runs['unfused']['launches']}")
-    dp = max(abs(a - b) for a, b in zip(runs["fused"]["mean_p"],
-                                        runs["unfused"]["mean_p"]))
-    require(dp < 0.01, f"fused and unfused mean marginals differ by {dp}")
     kern["launches"] = runs["fused"]["launches"]["fused_cat_draw"]
 
     # where a counted fused sweep's time goes (CUDA events; after the
     # counted runs)
-    modes = resolve_modes(info, dev)
-    folded = prepare_fold(d, d.w_init, info, modes)
+    folded = prepare_fold(d, d.w_init, info)
     gen_b = torch.Generator(device=dev).manual_seed(9)
     world = init_values_mc(d, gen_b, CAT_CHAINS, info)
-    breakdown = sweep_breakdown(d, world, info, folded, modes, gen_b,
+    breakdown = sweep_breakdown(d, world, info, folded, gen_b,
                                 {f"fused_cat_draw_x{C}": C * kern["ms"]})
     del world, folded
 
@@ -2314,9 +2234,6 @@ def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
     cfg = LearnConfig(n_epochs=LEARN_EPOCHS, n_sweeps_per_epoch=LEARN_SWEEPS,
                       stepsize=0.01, diminish=0.99, regularization="l2",
                       reg_param=0.01)
-    til = infol.tiers[0]
-    grad_blocks = til.block // _row_chunk(til, til.block, til.degree,
-                                               til.arity, 2 * CAT_CHAINS)
     learn_mc(dl, dl.w_init, torch.Generator(device=dev).manual_seed(1),
              dataclasses.replace(cfg, n_epochs=1), infol, CAT_CHAINS,
              device=dev)                            # warm
@@ -2325,23 +2242,20 @@ def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
     fused_cat_draw.launches = 0
     banded_gather.launches = 0
     grad_records_sum.launches = 0
-    with EagerCalls("_phi_streams") as chunks:
-        tr = time.perf_counter()
-        w, v_ev, v_free = learn_mc(dl, dl.w_init,
-                                   torch.Generator(device=dev).manual_seed(2),
-                                   cfg, infol, CAT_CHAINS, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - tr
+    tr = time.perf_counter()
+    w, v_ev, v_free = learn_mc(dl, dl.w_init,
+                               torch.Generator(device=dev).manual_seed(2),
+                               cfg, infol, CAT_CHAINS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tr
     launches = {"fused_cat_draw": fused_cat_draw.launches,
                 "banded_gather": banded_gather.launches,
                 "grad_records_sum": grad_records_sum.launches}
     n_sw = cfg.n_epochs * cfg.n_sweeps_per_epoch
     require(launches == {"fused_cat_draw": 2 * C * n_sw, "banded_gather": 0,
                          "grad_records_sum": 3 * cfg.n_epochs}
-            and grad_launches_an_epoch(infol, dev) == 3
-            and chunks.calls == 0,
-            f"learning launches {launches}, {chunks.calls} chunked "
-            f"gradient row chunks")
+            and grad_launches_an_epoch(infol) == 3,
+            f"learning launches {launches}")
     nw = gl.n_weights
     require(bool(torch.isfinite(w).all()), f"weights {w.tolist()}")
     require(bool((w[:nw] != dl.w_init[:nw]).all()),
@@ -2356,50 +2270,147 @@ def potts_phase(dev, card: str, g, d, info, kern) -> tuple:
                  learning_updates_per_s=gl.n_vars * n_sw * 2 * CAT_CHAINS
                  / wall,
                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                 launches=launches, chunked_gradient_row_chunks=chunks.calls,
-                 weights=w.tolist(), w_init=dl.w_init.tolist())
-    modes_l = resolve_modes(infol, dev)
+                 launches=launches, weights=w.tolist(),
+                 w_init=dl.w_init.tolist())
     learn["epoch_breakdown_ms"] = epoch_parts(
-        dl, w, infol, modes_l, v_ev, v_free, cfg,
+        dl, w, infol, v_ev, v_free, cfg,
         torch.Generator(device=dev).manual_seed(3))
-    torch.cuda.reset_peak_memory_stats()
-    learn["epoch_breakdown_chunked_gradient_ms"] = epoch_parts(
-        dl, w, infol, modes_l, v_ev, v_free, cfg,
-        torch.Generator(device=dev).manual_seed(3),
-        grad_modes=(modes_l[0], "off"))
-    learn["chunked_gradient_peak_memory_bytes"] = \
-        torch.cuda.max_memory_allocated()
     learn["fold_host_profile"] = host_profile(
-        lambda: prepare_fold(d, w, info, modes))
-    learn["gradient_share"] = {
-        k: learn[k]["gradient"] / learn[k]["epoch"]
-        for k in ("epoch_breakdown_ms", "epoch_breakdown_chunked_gradient_ms")}
-    # the chunked route's gradient (with the fused mode off): one
-    # banded_gather launch at its shapes (both worlds side by side, the
-    # first row block of color 0), and the share of that route's epoch
-    # that its C * grad_blocks launches take
-    tsl, rc = dl.tiers[0], til.block // grad_blocks
-    nbr = tsl.cs_nbr[:rc * til.degree * (til.arity - 1)].view(
-        rc // til.band_tb, -1)
-    st = tsl.bd_start[0, :rc // til.band_tb]
-    v_both = torch.cat([v_ev, v_free], dim=-1)
-    require(torch.equal(banded_gather(v_both, nbr, st, til.band_w),
-                        banded_gather_plain(v_both, nbr, st, til.band_w)),
-            "banded_gather differs from its plain version (Potts gradient)")
-    gather_ms = time_ms(lambda: banded_gather(v_both, nbr, st, til.band_w),
-                        iters=50)
-    learn["chunked_gradient_gather"] = dict(
-        ms=gather_ms, gathered_rows=nbr.numel(), NC=v_both.shape[1],
-        launches_an_epoch=C * grad_blocks,
-        ms_an_epoch=gather_ms * C * grad_blocks,
-        share_of_epoch=gather_ms * C * grad_blocks
-        / learn["epoch_breakdown_chunked_gradient_ms"]["epoch"])
-    del v_ev, v_free, v_both
+        lambda: prepare_fold(d, w, info))
+    learn["gradient_share"] = (learn["epoch_breakdown_ms"]["gradient"]
+                               / learn["epoch_breakdown_ms"]["epoch"])
+    del v_ev, v_free
     report("12 potts", t12, card=card, grid=f"{CAT_GRID}x{CAT_GRID}",
-           K=K, chains=CAT_CHAINS, burn=BURN, sweeps=SWEEPS,
-           unfused_row_blocks_a_color=blocks, runs=runs,
+           K=K, chains=CAT_CHAINS, burn=BURN, sweeps=SWEEPS, runs=runs,
            fused_sweep_breakdown=breakdown, learning=learn)
     return tally_check, (dl, infol, CAT_CHAINS)
+
+
+# phase 12b: Potts grids whose banded tiers have no fused draw: 3 colors
+# (band_k >= 2, which fused_cat_draw does not take) and card 33 (past its
+# K <= 32)
+EAGER_CARD = 33
+
+
+def eager_potts(grid: int, card: int, three: bool, n_query: int = 0,
+                seed: int = 5):
+    """big_potts_grid(grid, grid, card) on its own 2 colors or, with
+    ``three``, on (row + col) % 3; with ``n_query``, every variable
+    evidence at a random value but that many, neighbours filling a block
+    two columns wide from the grid's middle row by row: (graph, colors,
+    query ids)."""
+    import numpy as np
+
+    from sampler_tpu_torch import format_spec as fs
+    from sampler_tpu_torch.benchgraphs import big_potts_grid
+
+    g, colors = big_potts_grid(grid, grid, card=card, seed=seed)
+    if three:
+        r, c = np.divmod(np.arange(g.n_vars), grid)
+        colors = ((r + c) % 3).astype(np.int32)
+    query = None
+    if n_query:
+        mid = grid // 2
+        query = np.array([(mid + i // 2) * grid + mid + i % 2
+                          for i in range(n_query)])
+        rng = np.random.default_rng(seed)
+        g.var_role[:] = fs.ROLE_EVIDENCE
+        g.var_role[query] = fs.ROLE_QUERY
+        g.var_init[:] = rng.integers(0, card, g.n_vars)
+    return g, colors, query
+
+
+def eager_band_phase(dev, card: str, kern) -> dict:
+    """Phase 12b.  Fills in the launches of ``kern``'s banded_gather and
+    banded_gather_multi from the full-width runs; returns the runs."""
+    import torch
+
+    from sampler_tpu_torch import oracle
+    from sampler_tpu_torch.compile import compile_graph, tier_geom, to_device
+    from sampler_tpu_torch.engine.multichain import (_row_chunk, infer_mc,
+                                                     route)
+    from sampler_tpu_torch.ops.banded import (banded_gather,
+                                              banded_gather_multi)
+    from sampler_tpu_torch.ops.fused import fused_cat_draw
+    from sampler_tpu_torch.ops.tally import tally_counts
+
+    t12b = time.perf_counter()
+    counters = (banded_gather, banded_gather_multi, fused_cat_draw,
+                tally_counts)
+
+    def run(g, colors, kw, chains, burn, sweeps, seed):
+        """One infer_mc on the eager banded route: (marginals, worlds,
+        info, device graph, launches, the gather it should launch, wall
+        seconds)."""
+        dg, info = compile_graph(g, colors=colors, **kw)
+        routes = [route(ti, info) for ti in info.tiers]
+        require(routes == [("eager", True, "records")]
+                and not info.affinek, f"routes {routes}, {info.tiers}")
+        ti = info.tiers[0]
+        gather = banded_gather_multi if ti.band_k >= 2 else banded_gather
+        d = to_device(dg, dev)
+        B, D, A = tier_geom(d.tiers[0], ti, info.n_colors)
+        rc = _row_chunk(ti, B, D, info.max_card * A, chains)
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = time.perf_counter()
+        marg, vals = infer_mc(d, d.w_init,
+                              torch.Generator(device=dev).manual_seed(seed),
+                              burn, sweeps, info, chains, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tr
+        launches = {fn.__name__: fn.launches for fn in counters}
+        want = {fn.__name__: 0 for fn in counters}
+        want[gather.__name__] = (burn + sweeps) * info.n_colors * (B // rc)
+        want["tally_counts"] = sweeps
+        require(launches == want and want[gather.__name__] > 0,
+                f"launches {launches}, want {want}")
+        require(bool(((vals >= 0) & (vals < d.var_card[:, None])).all()),
+                "a value outside its card")
+        require(float(abs(marg.sum(1) - 1).max()) < 1e-5,
+                "marginal rows do not sum to 1")
+        return marg, info, launches, gather, wall
+
+    small = {}
+    for name, (grid, k, three, n_query, kw) in {
+            "potts32_card3_k2": (32, 3, True, 8, dict(
+                band_tile=8, band_min_block=1, band_wmax=512)),
+            "potts16_card33_k1": (16, EAGER_CARD, False, 3, dict(
+                band_tile=8, band_min_block=1))}.items():
+        g, colors, query = eager_potts(grid, k, three, n_query)
+        exact = oracle.exact_marginals(g, clamp_evidence=True)
+        marg, info, launches, gather, _ = run(
+            g, colors, kw, CAT_ORACLE_CHAINS, DM_ORACLE_BURN,
+            DM_ORACLE_SWEEPS, 3)
+        dp = float(abs(marg[query, :exact.shape[1]] - exact[query]).max())
+        require(dp < 0.01, f"{name}: |dp| = {dp}")
+        small[name] = dict(band_k=info.tiers[0].band_k, gather=gather.__name__,
+                           max_abs_dp=dp, launches=launches)
+
+    full = {}
+    for name, (k, three) in {"potts_card4_3colors": (CAT_CARD, True),
+                             "potts_card33": (EAGER_CARD, False)}.items():
+        g, colors, _ = eager_potts(CAT_GRID, k, three)
+        marg, info, launches, gather, wall = run(
+            g, colors, {}, CAT_CHAINS, BURN, SWEEPS, 7)
+        full[name] = dict(
+            colors=info.n_colors, band_k=info.tiers[0].band_k,
+            gather=gather.__name__, wall_s=wall,
+            variable_updates_per_s=g.n_vars * CAT_CHAINS * (BURN + SWEEPS)
+            / wall,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            launches=launches)
+        kern[gather.__name__]["launches"] = launches[gather.__name__]
+        del marg
+    require({x["gather"] for x in full.values()}
+            == {"banded_gather", "banded_gather_multi"},
+            f"full-width gathers {full}")
+    report("12b eager band", t12b, card=card, grid=f"{CAT_GRID}x{CAT_GRID}",
+           chains=CAT_CHAINS, burn=BURN, sweeps=SWEEPS,
+           oracle_chains=CAT_ORACLE_CHAINS, oracle=small, runs=full)
+    return full
 
 
 def tally_phase(dev, checks: dict) -> dict:
@@ -2497,9 +2508,8 @@ def kbc_oracle_phase(dev) -> dict:
     """Phase 14: the hub tier on the card.  infer_mc on tests/test_hub.py's
     star graphs against exact enumeration (|dp| < 0.01 boolean with
     hub_cap 6 and chunks of 4; < 0.012 on the card-3 star with hub_cap 5,
-    the JAX package's bound); then the gradient over dense and hub tiers,
-    on the records route (the default modes) and on the chunked route (fused
-    off), against the per-factor gradient (within 1e-4) on
+    the JAX package's bound); then the gradient over dense and hub tiers
+    (the records route) against the per-factor gradient (within 1e-4) on
     random_kbc_graph(300, 900, ...) with hub_cap 8 and chunks of 4."""
     import torch
 
@@ -2507,9 +2517,9 @@ def kbc_oracle_phase(dev) -> dict:
     from sampler_tpu_torch.benchgraphs import random_kbc_graph
     from sampler_tpu_torch.coloring import greedy_coloring
     from sampler_tpu_torch.compile import compile_graph, to_device
-    from sampler_tpu_torch.engine.multichain import (infer_mc, init_values_mc,
-                                                     mc_weight_gradient,
-                                                     resolve_modes)
+    from sampler_tpu_torch.engine.multichain import (
+        _mc_weight_gradient_factors, infer_mc, init_values_mc,
+        mc_weight_gradient, route)
     from sampler_tpu_torch.ops.tally import tally_counts
 
     t14 = time.perf_counter()
@@ -2532,7 +2542,7 @@ def kbc_oracle_phase(dev) -> dict:
         require(tally_counts.launches == KBC_ORACLE_SWEEPS,
                 f"{name}: tally_counts launches {tally_counts.launches}")
         out[name] = dict(max_abs_dp=dp, bound=tol, hub_cap=cap,
-                         modes=resolve_modes(info, dev),
+                         draws=[route(ti, info).draw for ti in info.tiers],
                          tally_counts_launches=tally_counts.launches)
     g = random_kbc_graph(300, 900, max_arity=3, n_weights=11, seed=3,
                          skew=1.2, evidence_frac=0.3)
@@ -2544,18 +2554,14 @@ def kbc_oracle_phase(dev) -> dict:
     v_ev = init_values_mc(d, gen, 64, info)
     v_free = init_values_mc(d, gen, 64, info)
     grads = {}
-    modes = resolve_modes(info, dev)
     for lne in (False, True):
-        g_ref = mc_weight_gradient(d, v_ev, v_free, lne, info, None)
-        errs = {}
-        for route, m in (("records", modes), ("chunked", (modes[0], "off"))):
-            g_cs = mc_weight_gradient(d, v_ev, v_free, lne, info, m)
-            errs[route] = float((g_cs - g_ref).abs().max())
-            require(errs[route] < 1e-4,
-                    f"hub gradient ({route}, learn_non_evidence={lne}) "
-                    f"differs from the per-factor one by {errs[route]}")
+        g_ref = _mc_weight_gradient_factors(d, v_ev, v_free, lne, info)
+        g_cs = mc_weight_gradient(d, v_ev, v_free, lne, info)
+        err = float((g_cs - g_ref).abs().max())
+        require(err < 1e-4, f"hub gradient (learn_non_evidence={lne}) "
+                f"differs from the per-factor one by {err}")
         grads[f"learn_non_evidence_{lne}"] = dict(
-            max_abs_err=errs, max_abs_grad=float(g_ref.abs().max()))
+            max_abs_err=err, max_abs_grad=float(g_ref.abs().max()))
     out["kbc300_gradient"] = grads
     report("14 kbc oracle", t14, chains=KBC_ORACLE_CHAINS,
            burn=KBC_ORACLE_BURN, sweeps=KBC_ORACLE_SWEEPS, graphs=out)
@@ -2572,36 +2578,23 @@ def kbc_graph(n_vars: int, n_weights: int, seed: int):
                             window=2000)
 
 
-def kbc_sweep_parts(d, world, info, modes, gen) -> dict:
+def kbc_sweep_parts(d, world, info, gen) -> dict:
     """Where a counted KBC sweep's time goes, summed over its colors and
-    tiers (CUDA events, a few calls each), on ``modes`` (the kernel route
-    where they are the defaults) and with the fused mode off (the eager
-    route), each beside one whole counted sweep.  No KBC tier bands, so
-    the tiers that draw in a fused kernel draw in dm_gather_draw, one
+    tiers (CUDA events, a few calls each), beside one whole counted sweep.
+    No KBC tier bands, so the deltam tiers draw in dm_gather_draw, one
     launch a color (its draws and their world-writes, the hub's
-    included); with the fused mode off a hub tier's parts are its chunk
-    deltas (the eager arithmetic), their index_add_, and its Bernoulli
-    draw; the other tiers' parts are their gathers, the rest of their
-    draws (the log-odds arithmetic and the Bernoulli) and their masked
-    block writes; then the tally."""
-    return {"kernel_route" if m[1] != "off" else "eager_route":
-            _sweep_parts(d, world, info, m, gen)
-            for m in (modes, (modes[0], "off"))}
-
-
-def _sweep_parts(d, world, info, modes, gen) -> dict:
+    included); another tier's parts are its gathers, the rest of its draw
+    (the log-odds arithmetic and the Bernoulli) and its masked block
+    write; then the tally."""
     import torch
 
     from sampler_tpu_torch.compile import tier_geom
-    from sampler_tpu_torch.engine.multichain import (_fused, _gather_nbr,
-                                                     _tc,
-                                                     color_delta_bool,
-                                                     color_delta_multilin,
+    from sampler_tpu_torch.engine.multichain import (_gather_nbr, _tc,
                                                      color_draw_tier,
                                                      prepare_fold, sweep_mc,
                                                      tally)
 
-    folded = prepare_fold(d, d.w_init, info, modes)
+    folded = prepare_fold(d, d.w_init, info)
     plan = getattr(folded, "dm", None)
     C, B = info.n_colors, info.block_size
     counts = torch.zeros((info.max_card, world.shape[0]), dtype=torch.int32,
@@ -2621,36 +2614,16 @@ def _sweep_parts(d, world, info, modes, gen) -> dict:
                 continue
             start = c * B + ti.off
             mask = ts.cm_resample[c]
-            if _fused(ti, folded[t], modes):
-                add("dm_gather_draw", time_ms(lambda: color_draw_tier(
-                    d, ts, ti, world, d.w_init, gen, c, info, folded[t],
-                    modes, write=(start, mask)), **reps))
-                continue
             rows, D, A = tier_geom(ts, ti, C)
             if A > 1:
                 nbr = _tc(ts.cs_nbr, c, (rows, D, A - 1))
                 add("gathers", time_ms(lambda: _gather_nbr(
-                    ts, ti, world, nbr, c, modes), **reps))
-            draw_ms = time_ms(lambda: color_draw_tier(
-                d, ts, ti, world, d.w_init, gen, c, info, folded[t], modes),
-                **reps)
-            if ti.hub:
-                dchunk = (color_delta_multilin(ts, ti, world, c, info,
-                                               folded[t], modes)
-                          if ti.deltam and folded[t] is not None else
-                          color_delta_bool(ts, ti, world, d.w_init, c, info,
-                                           modes))
-                row = ts.hb_row[c].to(torch.int64)
-                add_ms = time_ms(lambda: torch.zeros(
-                    (ti.block + 1, world.shape[1]), device=world.device)
-                    .index_add_(0, row, dchunk), **reps)
-                add("hub_index_add", add_ms)
-                del dchunk
-                add("draws", draw_ms - add_ms)
-            else:
-                add("draws", draw_ms)
+                    ts, ti, world, nbr, c, info), **reps))
+            add("draws", time_ms(lambda: color_draw_tier(
+                d, ts, ti, world, d.w_init, gen, c, info, folded[t]),
+                **reps))
             drawn = color_draw_tier(d, ts, ti, world, d.w_init, gen, c, info,
-                                    folded[t], modes)
+                                    folded[t])
             old = world[start:start + ti.block]
             add("masked_writes", time_ms(lambda: old.copy_(torch.where(
                 mask[:, None], drawn, old)), **reps))
@@ -2660,31 +2633,30 @@ def _sweep_parts(d, world, info, modes, gen) -> dict:
     parts["tally"] = time_ms(lambda: tally(counts, world), **reps)
 
     def counted():
-        sweep_mc(d, world, d.w_init, gen, False, info, folded, modes)
+        sweep_mc(d, world, d.w_init, gen, False, info, folded)
         tally(counts, world)
 
-    return dict(modes=list(modes),
-                counted_sweep_ms=time_ms(counted, iters=3, warmup=1),
+    return dict(counted_sweep_ms=time_ms(counted, iters=3, warmup=1),
                 parts_ms=parts, parts_sum_ms=sum(parts.values()))
 
 
 def dm_launches_a_sweep(info) -> int:
-    """dm_gather_draw's launches an unsharded sweep on the default modes:
-    one a color over every deltam tier without a banded plan, the hub
-    tier included (DM_MAX_TIERS tiers a launch)."""
+    """dm_gather_draw's launches an unsharded sweep: one a color over every
+    tier ``route`` sends there (the deltam tiers without a banded plan,
+    the hub tier included; DM_MAX_TIERS tiers a launch)."""
+    from sampler_tpu_torch.engine.multichain import route
     from sampler_tpu_torch.ops.fused import DM_MAX_TIERS
 
-    n = sum(ti.deltam and not (ti.affine2 or ti.fusedm) for ti in info.tiers)
+    n = sum(route(ti, info).draw == "gather" for ti in info.tiers)
     return info.n_colors * -(-n // DM_MAX_TIERS)
 
 
 class EagerCalls:
-    """Counts the calls of an engine function while it is entered: by
-    default the eager color_delta_multilin (the route a deltam tier's draw
-    takes with the fused mode off); "_phi_streams" counts the row chunks
-    of the chunked gradient."""
+    """Counts the calls of an engine function while it is entered (say
+    hub_color_draw, which a hub tier drawn in dm_gather_draw never
+    calls)."""
 
-    def __init__(self, name: str = "color_delta_multilin"):
+    def __init__(self, name: str):
         self.name = name
 
     def __enter__(self):
@@ -2709,11 +2681,11 @@ class EagerCalls:
 def kbc_phase(dev, card: str) -> tuple:
     """Phase 15: bench.py's KBC inference cell (bench_kbc): KBC_VARS
     variables, greedy coloring, RCM order, compile_graph(band_wmax=32768,
-    hub_cap=256), KBC_CHAINS chains, the default modes; KBC_BURN burn-in
-    sweeps, then KBC_OUTER counted runs of KBC_INNER sweeps through
-    run_inference_mc (bench.py's 5 x 2): dm_gather_draw launched once a
-    color a sweep, no eager color_delta_multilin and no hub_color_draw
-    (the hub tier draws in the kernel).
+    hub_cap=256), KBC_CHAINS chains; KBC_BURN burn-in sweeps, then
+    KBC_OUTER counted runs of KBC_INNER sweeps through run_inference_mc
+    (bench.py's 5 x 2): every tier on route "gather", dm_gather_draw
+    launched once a color a sweep and no hub_color_draw (the hub tier
+    draws in the kernel).
     Returns the graph and the counted sweeps' updates/s, for phase 17,
     its order, for phase 21, its device graph and info, for phase 15b,
     and dm_gather_draw's launches in the counted sweeps."""
@@ -2722,8 +2694,7 @@ def kbc_phase(dev, card: str) -> tuple:
     from sampler_tpu_torch.coloring import greedy_coloring, rcm_order
     from sampler_tpu_torch.compile import compile_graph, iter_arrays, \
         to_device
-    from sampler_tpu_torch.engine.multichain import (init_values_mc,
-                                                     resolve_modes,
+    from sampler_tpu_torch.engine.multichain import (init_values_mc, route,
                                                      run_inference_mc,
                                                      run_sweeps_mc)
     from sampler_tpu_torch.ops.fused import dm_gather_draw
@@ -2745,25 +2716,24 @@ def kbc_phase(dev, card: str) -> tuple:
     require(info.has_hub and info.tiers[-1].hub, f"KBC tiers {info.tiers}")
     d = to_device(dg, dev)
     del dg
-    modes = resolve_modes(info, dev)
+    draws = [route(ti, info).draw for ti in info.tiers]
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     vals = init_values_mc(d, gen, KBC_CHAINS, info)
     vals = run_sweeps_mc(d, vals, d.w_init, gen, KBC_BURN, False, info,
-                         modes, device=dev)
-    require(modes == ("off", "cuda"), f"KBC default modes {modes}")
+                         device=dev)
+    require(set(draws) == {"gather"}, f"KBC draws {draws}")
     tally_counts.launches = 0
     dm_gather_draw.launches = dm_gather_draw.packed_rows = 0
     torch.cuda.synchronize()
     enqueue_ms = []
-    with EagerCalls() as eager, EagerCalls("hub_color_draw") as hub, \
-            GcTimer() as gct:
+    with EagerCalls("hub_color_draw") as hub, GcTimer() as gct:
         tr = time.perf_counter()
         for _ in range(KBC_OUTER):
             te = time.perf_counter()
             vals, counts = run_inference_mc(d, vals, d.w_init, gen,
-                                            KBC_INNER, False, info, modes,
+                                            KBC_INNER, False, info,
                                             device=dev)
             enqueue_ms.append((time.perf_counter() - te) * 1e3)
         torch.cuda.synchronize()
@@ -2775,9 +2745,7 @@ def kbc_phase(dev, card: str) -> tuple:
     require(dm_gather_draw.launches == dm_want and dm_want > 0,
             f"KBC: dm_gather_draw launches {dm_gather_draw.launches}, "
             f"{dm_want} expected")
-    require(eager.calls == 0 and hub.calls == 0,
-            f"KBC: {eager.calls} eager color_delta_multilin calls, "
-            f"{hub.calls} hub_color_draw calls")
+    require(hub.calls == 0, f"KBC: {hub.calls} hub_color_draw calls")
     require(dm_gather_draw.packed_rows == 0,
             f"KBC at {KBC_CHAINS} chains: {dm_gather_draw.packed_rows} rows "
             "in the packed layout")
@@ -2796,13 +2764,12 @@ def kbc_phase(dev, card: str) -> tuple:
                tally_counts_launches=launches,
                dm_gather_draw_launches=dm_gather_draw.launches,
                dm_gather_draw_packed_rows=dm_gather_draw.packed_rows,
-               eager_color_delta_multilin_calls=eager.calls,
                hub_color_draw_calls=hub.calls,
                host_enqueue_ms_a_run=enqueue_ms, gc_runs=gct.runs,
                gc_ms=gct.ms)
     run["host_profile_a_run"] = host_profile(lambda: run_inference_mc(
-        d, vals, d.w_init, gen, KBC_INNER, False, info, modes, device=dev))
-    breakdown = kbc_sweep_parts(d, vals, info, modes, gen)
+        d, vals, d.w_init, gen, KBC_INNER, False, info, device=dev))
+    breakdown = kbc_sweep_parts(d, vals, info, gen)
     tiers = [dict(block=ti.block, degree=ti.degree, arity=ti.arity,
                   band_w=ti.band_w, band_k=ti.band_k, deltam=ti.deltam,
                   hub=ti.hub, chunks=ti.chunks, chunk_g=ti.chunk_g)
@@ -2810,7 +2777,7 @@ def kbc_phase(dev, card: str) -> tuple:
     del vals, counts
     report("15 kbc", t15, card=card, n_vars=info.n_vars,
            n_factors=info.n_factors, colors=info.n_colors, tiers=tiers,
-           has_hub=info.has_hub, modes=modes, host_seconds=host,
+           has_hub=info.has_hub, draws=draws, host_seconds=host,
            chains=KBC_CHAINS, burn=KBC_BURN, sweeps=f"{KBC_INNER}x{KBC_OUTER}",
            run=run, sweep_breakdown=breakdown)
     return (g, run["variable_updates_per_s"], order, d, info,
@@ -3049,8 +3016,7 @@ def dm_gather_phase(dev, card: str, d, info) -> dict:
     gen = torch.Generator(device=dev).manual_seed(15)
     values = torch.randint(0, 2, (P, KBC_CHAINS), generator=gen, device=dev,
                            dtype=torch.int8)
-    modes = ("off", "cuda")
-    folded = prepare_fold(d, d.w_init, info, modes)
+    folded = prepare_fold(d, d.w_init, info)
     plan = folded.dm
     require(plan is not None and any(info.tiers[t].hub for t in plan.tiers)
             and len(plan.tiers) <= DM_MAX_TIERS,
@@ -3167,8 +3133,7 @@ def spouse_dm_phase(dev, card: str) -> dict:
     from gpubench import harness
     from sampler_tpu_torch.engine.multichain import (_dm_tier_list,
                                                      init_values_mc,
-                                                     prepare_fold,
-                                                     resolve_modes,
+                                                     prepare_fold, route,
                                                      run_sweeps_mc)
     from sampler_tpu_torch.ops.fused import (dm_gather_draw,
                                              dm_gather_draw_table,
@@ -3182,12 +3147,12 @@ def spouse_dm_phase(dev, card: str) -> dict:
     s = harness.set_up(cfg, {"job": "infer"}, 1515, dev)
     d, info, NC = s.dg, s.info, s.n_chains
     C = info.n_colors
-    modes = resolve_modes(info, dev)
-    require(modes == ("off", "cuda") and not info.has_hub,
-            f"spouse: modes {modes}, hub {info.has_hub}")
+    draws = [route(ti, info).draw for ti in info.tiers]
+    require(set(draws) == {"gather"} and not info.has_hub,
+            f"spouse: draws {draws}, hub {info.has_hub}")
     gen = torch.Generator(device=dev).manual_seed(1515)
     vals = init_values_mc(d, gen, NC, info)
-    folded = prepare_fold(d, d.w_init, info, modes)
+    folded = prepare_fold(d, d.w_init, info)
     plan = folded.dm
     vec = dm_launch_vec(vals)
     rows = int(plan.tables[..., 10].sum()) // 2     # both masks' tables
@@ -3197,8 +3162,7 @@ def spouse_dm_phase(dev, card: str) -> dict:
             f"{dm_packed_rows(plan.tables, NC, vec)} of {2 * rows} table "
             "rows packed")
     before = dm_gather_draw.packed_rows
-    vals = run_sweeps_mc(d, vals, d.w_init, gen, 1, False, info, modes,
-                         device=dev)
+    vals = run_sweeps_mc(d, vals, d.w_init, gen, 1, False, info, device=dev)
     torch.cuda.synchronize()
     swept = dm_gather_draw.packed_rows - before
     require(swept == rows, f"spouse: a sweep's packed rows {swept}, {rows} "
@@ -3241,19 +3205,16 @@ def spouse_dm_phase(dev, card: str) -> dict:
     return kern
 
 
-def grad_launches_an_epoch(info, dev, n_graph: int = 1) -> int:
-    """grad_records_sum launches of one gradient with the default modes:
-    where ``gradient_route`` sends any tier to the records route, one
-    launch of the terms kernel a RECORD_MAX_TIERS of those tiers, then
-    the pieces' and the weights' (3 on every learning cell), else 0."""
-    from sampler_tpu_torch.engine.multichain import (gradient_route,
-                                                     resolve_modes)
+def grad_launches_an_epoch(info, n_graph: int = 1) -> int:
+    """grad_records_sum launches of one gradient: where ``route`` sends
+    any tier to the records route (every tier under graph sharding), one
+    launch of the terms kernel a RECORD_MAX_TIERS of those tiers, then the
+    pieces' and the weights' (3 on every learning cell), else 0."""
+    from sampler_tpu_torch.engine.multichain import route
     from sampler_tpu_torch.ops.grad import RECORD_MAX_TIERS
 
-    modes = resolve_modes(info, dev)
-    W = info.n_weights + 1
-    n = sum(1 for ti in info.tiers if gradient_route(
-        ti, info, modes, W, n_graph=n_graph)[0] == "records")
+    n = sum(1 for ti in info.tiers
+            if route(ti, info, n_graph > 1).grad == "records")
     return -(-n // RECORD_MAX_TIERS) + 2 if n else 0
 
 
@@ -3404,10 +3365,9 @@ def grad_records_cell(dev, d, info, NC: int, seed: int) -> dict:
                                             grad_records_sum_plain)
     from sampler_tpu_torch.ops.weights import segment_reduce
 
-    modes = tmc.resolve_modes(info, dev)
     W = d.w_init.shape[0]
     tiers = [t for t, ti in enumerate(info.tiers)
-             if tmc.gradient_route(ti, info, modes, W)[0] == "records"]
+             if tmc.route(ti, info).grad == "records"]
     gen = torch.Generator(device=dev).manual_seed(seed)
     card = d.var_card.clamp(min=1).to(torch.int64)[:, None]
     v_ev, v_free = [(torch.randint(0, 1 << 20, (card.shape[0], NC),
@@ -3430,7 +3390,7 @@ def grad_records_cell(dev, d, info, NC: int, seed: int) -> dict:
             per_tier[f"tier {t}, lne {lne}"] = records_tier_case(
                 args, fs.FUNC_RATIO in present, f"tier {t}, lne {lne}")
             del args
-    # the default modes' whole gradient: 3 launches, no index_add_ sum
+    # the whole gradient: 3 launches, no index_add_ sum
     reduced = []
     saved = {m: getattr(m, "segment_reduce") for m in (tmc, tgrad)}
     for m, orig in saved.items():
@@ -3438,13 +3398,13 @@ def grad_records_cell(dev, d, info, NC: int, seed: int) -> dict:
                 lambda *a, _o=orig: reduced.append(1) or _o(*a))
     before = grad_records_sum.launches
     try:
-        whole = tmc.mc_weight_gradient_cs(d, v_ev, v_free, False, info, modes)
+        whole = tmc.mc_weight_gradient_cs(d, v_ev, v_free, False, info)
     finally:
         for m, orig in saved.items():
             setattr(m, "segment_reduce", orig)
     launches = grad_records_sum.launches - before
     grad_records_sum.launches = before  # a comparison counts no launch
-    require(launches == grad_launches_an_epoch(info, dev) <= 3
+    require(launches == grad_launches_an_epoch(info) <= 3
             and not reduced and bool(torch.isfinite(whole).all()),
             f"records route: {launches} launches, {len(reduced)} "
             f"segment_reduce calls")
@@ -3480,7 +3440,7 @@ def grad_records_cell(dev, d, info, NC: int, seed: int) -> dict:
                launches_a_gradient=launches, segment_reduce_calls=0,
                ms=ms,
                gradient_ms=time_ms(lambda: tmc.mc_weight_gradient_cs(
-                   d, v_ev, v_free, False, info, modes), iters=20),
+                   d, v_ev, v_free, False, info), iters=20),
                before_ms=time_ms(old_route, iters=10),
                before_segment_reduce_ms=time_ms(old_sums, iters=10),
                plain_ms=time_ms(lambda: grad_records_sum_plain(
@@ -3677,11 +3637,9 @@ def kbc_learn_phase(dev, card: str) -> tuple:
     labelled, band_wmax=32768, hub_cap=256, LEARN_CHAINS chains a world,
     LEARN_EPOCHS epochs of LEARN_SWEEPS sweeps: dm_gather_draw launched
     once a color a sweep of each world, grad_records_sum's 3 launches an
-    epoch (all five tiers), no eager color_delta_multilin and no row
-    chunk of the chunked gradient.  The epoch by part with the gradient
-    on the kernels and, beside it, on the chunked route.  Returns the
-    device graph, its info and grad_records_sum's launches in the counted
-    run, for phase 16b and the kernels line."""
+    epoch (all five tiers), no hub_color_draw.  The epoch by part.
+    Returns the device graph, its info and grad_records_sum's launches in
+    the counted run, for phase 16b and the kernels line."""
     import dataclasses
 
     import torch
@@ -3690,8 +3648,7 @@ def kbc_learn_phase(dev, card: str) -> tuple:
     from sampler_tpu_torch.coloring import greedy_coloring
     from sampler_tpu_torch.compile import compile_graph, to_device
     from sampler_tpu_torch.engine.learn import LearnConfig
-    from sampler_tpu_torch.engine.multichain import (learn_mc, prepare_fold,
-                                                     resolve_modes)
+    from sampler_tpu_torch.engine.multichain import learn_mc, prepare_fold
     from sampler_tpu_torch.ops.fused import dm_gather_draw
     from sampler_tpu_torch.ops.grad import grad_records_sum
 
@@ -3715,7 +3672,7 @@ def kbc_learn_phase(dev, card: str) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     dm_gather_draw.launches = 0
     grad_records_sum.launches = 0
-    with EagerCalls() as eager, EagerCalls("_phi_streams") as chunks:
+    with EagerCalls("hub_color_draw") as hub:
         tr = time.perf_counter()
         w, v_ev, v_free = learn_mc(d, d.w_init,
                                    torch.Generator(device=dev).manual_seed(2),
@@ -3724,17 +3681,14 @@ def kbc_learn_phase(dev, card: str) -> tuple:
         wall = time.perf_counter() - tr
     n_sw = cfg.n_epochs * cfg.n_sweeps_per_epoch
     dm_want = dm_launches_a_sweep(info) * n_sw * 2
-    gr_want = grad_launches_an_epoch(info, dev) * cfg.n_epochs
-    require(dm_gather_draw.launches == dm_want and eager.calls == 0,
+    gr_want = grad_launches_an_epoch(info) * cfg.n_epochs
+    require(dm_gather_draw.launches == dm_want and hub.calls == 0,
             f"KBC learning: dm_gather_draw launches "
             f"{dm_gather_draw.launches} ({dm_want} expected), "
-            f"{eager.calls} eager color_delta_multilin calls")
-    require(grad_records_sum.launches == gr_want == 3 * cfg.n_epochs
-            and chunks.calls == 0,
+            f"{hub.calls} hub_color_draw calls")
+    require(grad_records_sum.launches == gr_want == 3 * cfg.n_epochs,
             f"KBC learning: grad_records_sum launches "
-            f"{grad_records_sum.launches} "
-            f"({gr_want} expected), {chunks.calls} chunked gradient row "
-            f"chunks")
+            f"{grad_records_sum.launches} ({gr_want} expected)")
     nw = g.n_weights
     require(bool(torch.isfinite(w).all()), "KBC learning: weights not finite")
     require(int((w[:nw] != d.w_init[:nw]).sum()) > nw // 2,
@@ -3753,21 +3707,14 @@ def kbc_learn_phase(dev, card: str) -> tuple:
                  max_abs_weight=float(w.abs().max()),
                  dm_gather_draw_launches=dm_want,
                  grad_records_sum_launches=gr_want,
-                 eager_color_delta_multilin_calls=eager.calls,
-                 chunked_gradient_row_chunks=chunks.calls)
-    modes = resolve_modes(info, dev)
+                 hub_color_draw_calls=hub.calls)
     learn["epoch_breakdown_ms"] = epoch_parts(
-        d, w, info, modes, v_ev, v_free, cfg,
+        d, w, info, v_ev, v_free, cfg,
         torch.Generator(device=dev).manual_seed(3), reps=1)
-    learn["epoch_breakdown_chunked_gradient_ms"] = epoch_parts(
-        d, w, info, modes, v_ev, v_free, cfg,
-        torch.Generator(device=dev).manual_seed(3), reps=1,
-        grad_modes=(modes[0], "off"))
     learn["fold_host_profile"] = host_profile(
-        lambda: prepare_fold(d, w, info, modes))
-    learn["gradient_share"] = {
-        k: learn[k]["gradient"] / learn[k]["epoch"]
-        for k in ("epoch_breakdown_ms", "epoch_breakdown_chunked_gradient_ms")}
+        lambda: prepare_fold(d, w, info))
+    learn["gradient_share"] = (learn["epoch_breakdown_ms"]["gradient"]
+                               / learn["epoch_breakdown_ms"]["epoch"])
     del v_ev, v_free
     report("16 kbc learn", t16, card=card, n_vars=info.n_vars,
            colors=info.n_colors, tiers=len(info.tiers), has_hub=info.has_hub,
@@ -3953,17 +3900,15 @@ def sparse_learn_case(dev, tmp: str) -> dict:
     categories) learned through the command: grad_records_sum's 3
     launches an epoch.  Then its gradient on a pair of worlds of
     SPARSE_LEARN_CHAINS chains (the labels, and random values everywhere)
-    on the default route (grad_records_sum on the
-    dense owner records, the table lookup on the sparse ones) and on the
-    chunked route (the fused mode off), equal within GRAD_RTOL of the
-    largest |value|; no row chunk on the default route; each route's ms."""
+    (grad_records_sum on the dense owner records, the table lookup on the
+    sparse ones) against the per-factor gradient, within GRAD_RTOL of the
+    largest |value|, and its ms."""
     import torch
 
     from sampler_tpu_torch import cli, fixtures
     from sampler_tpu_torch.compile import compile_graph, to_device
-    from sampler_tpu_torch.engine.multichain import (init_values_mc,
-                                                     mc_weight_gradient_cs,
-                                                     resolve_modes)
+    from sampler_tpu_torch.engine.multichain import (
+        _mc_weight_gradient_factors, init_values_mc, mc_weight_gradient_cs)
     from sampler_tpu_torch.ops.grad import grad_records_sum
 
     tc = time.perf_counter()
@@ -3971,7 +3916,7 @@ def sparse_learn_case(dev, tmp: str) -> dict:
                                            seed=2)
     dg, info = compile_graph(g)
     require(info.has_sparse_cw, "sparse learn: no sparse weights")
-    want = grad_launches_an_epoch(info, dev)
+    want = grad_launches_an_epoch(info)
     require(want == 3, f"sparse learn: {want} grad_records_sum launches an "
             f"epoch ({len(info.tiers)} tiers)")
     out = os.path.join(tmp, "sparse_learn")
@@ -3992,19 +3937,14 @@ def sparse_learn_case(dev, tmp: str) -> dict:
     v_free = (torch.randint(0, 1 << 20, v_ev.shape, generator=gen,
                             device=dev) % d.var_card.clamp(min=1)[:, None]
               ).to(v_ev.dtype)         # every variable free, evidence too
-    modes = resolve_modes(info, dev)
-    chunked = (modes[0], "off")
-    with EagerCalls("_phi_streams") as rows:
-        g_rec = mc_weight_gradient_cs(d, v_ev, v_free, True, info, modes)
-    g_chk = mc_weight_gradient_cs(d, v_ev, v_free, True, info, chunked)
-    err = float((g_rec - g_chk).abs().max())
-    scale = float(g_chk.abs().max())
-    require(rows.calls == 0 and scale > 0 and err <= GRAD_RTOL * scale,
-            f"sparse gradient: {rows.calls} row chunks, |diff| {err} of "
-            f"{scale}")
-    ms = {name: time_ms(lambda: mc_weight_gradient_cs(
-        d, v_ev, v_free, True, info, m), iters=10, warmup=2)
-        for name, m in (("records", modes), ("chunked", chunked))}
+    g_rec = mc_weight_gradient_cs(d, v_ev, v_free, True, info)
+    g_ref = _mc_weight_gradient_factors(d, v_ev, v_free, True, info)
+    err = float((g_rec - g_ref).abs().max())
+    scale = float(g_ref.abs().max())
+    require(scale > 0 and err <= GRAD_RTOL * scale,
+            f"sparse gradient: |diff| {err} of {scale}")
+    ms = time_ms(lambda: mc_weight_gradient_cs(d, v_ev, v_free, True, info),
+                 iters=10, warmup=2)
     return dict(epochs=SPARSE_LEARN_EPOCHS,
                 grad_records_sum_launches=launches,
                 learned_weights=[float(x) for x in w[:3]],
@@ -4111,7 +4051,7 @@ def cli_kernels() -> dict:
 
 def cli_kernel_paths() -> dict:
     """name -> (graph maker, gibbs arguments, the launches they must make;
-    the chunked gradients' gathers are counted, not required):
+    the banded gathers are counted, not required):
     CLI_GRID² grids of the three classes that band, run through the
     command with CLI_GRID_ARGS (learning, burn-in, counted sweeps): the
     labelled Ising grid (2 colors; fused_color_draw in both worlds' sweeps
@@ -4308,7 +4248,7 @@ def gs_parts(comm, host, info, n_chains: int, halo, iters: int) -> dict:
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    dl, modes = gsm._local(comm, host, info, None)
+    dl = gsm._local(comm, host, info)
     n = comm.mesh.n_graph
     shard = gsm.Shard(comm, info, halo) if n > 1 else None
 
@@ -4320,7 +4260,7 @@ def gs_parts(comm, host, info, n_chains: int, halo, iters: int) -> dict:
     gen = chunk_generator(9, "parts", 0, dev, comm.row, comm.g)
     values = init_values_mc(dl, gen, n_chains, info)
     w = dl.w_init
-    folded = prepare_fold(dl, w, info, modes)
+    folded = prepare_fold(dl, w, info, sharded=shard is not None)
     runs = gsm.own_runs(info, n, comm.g)
     segs = [torch.zeros((info.max_card, r1 - r0), dtype=torch.int32,
                         device=dev) for r0, r1 in runs]
@@ -4330,7 +4270,7 @@ def gs_parts(comm, host, info, n_chains: int, halo, iters: int) -> dict:
             tally(seg, values[r0:r1])
 
     def counted():
-        sweep_mc(dl, values, w, gen, False, info, folded, modes, shard)
+        sweep_mc(dl, values, w, gen, False, info, folded, shard)
         tallies()
 
     def exchange():
@@ -4342,7 +4282,7 @@ def gs_parts(comm, host, info, n_chains: int, halo, iters: int) -> dict:
     parts = dict(
         counted_sweep=gs_timed(comm, counted, iters),
         draws=gs_timed(comm, lambda: sweep_mc(
-            dl, values, w, gen, False, info, folded, modes, quiet), iters),
+            dl, values, w, gen, False, info, folded, quiet), iters),
         exchange=gs_timed(comm, exchange, iters) if n > 1 else 0.0,
         tally=gs_timed(comm, tallies, iters))
     peaks = [None] * comm.mesh.size
@@ -4477,19 +4417,19 @@ def gs_grad_case(comm, host, info, n_chains: int, halo):
 
     dev = comm.device
     if comm.mesh.n_graph > 1:
-        d, modes = gsm._local(comm, host, info, None)
+        d = gsm._local(comm, host, info)
         shard = gsm.Shard(comm, info, halo)
     else:
-        d, _, modes = chains._rank_setup(comm, host, host.w_init, info, None)
+        d = chains._rank_setup(comm, host, host.w_init)[0]
         shard = None
     gen = chunk_generator(13, "grad_check_init", 0, dev, comm.row)
     v_ev = init_values_mc(d, gen, n_chains, info)
     v_free = init_values_mc(d, gen, n_chains, info)
     gen = chunk_generator(13, "grad_check", 0, dev, comm.row, comm.g)
-    folded = prepare_fold(d, d.w_init, info, modes)
+    folded = prepare_fold(d, d.w_init, info, sharded=shard is not None)
     for _ in range(2):
-        sweep_mc(d, v_ev, d.w_init, gen, False, info, folded, modes, shard)
-    grads = [chains.reduced_gradient(comm, d, v_ev, v_free, lne, info, modes,
+        sweep_mc(d, v_ev, d.w_init, gen, False, info, folded, shard)
+    grads = [chains.reduced_gradient(comm, d, v_ev, v_free, lne, info,
                                      shard).cpu() for lne in (False, True)]
     ev = gsm._canonical(comm, v_ev, info, halo)
     free = gsm._canonical(comm, v_free, info, halo)
@@ -4505,19 +4445,17 @@ def grad_check(name: str, ranks, host, info, n_chains: int, halo,
     (exactly zero where that is, as without evidence)."""
     import torch
 
-    from sampler_tpu_torch.engine.multichain import (mc_weight_gradient_cs,
-                                                     resolve_modes)
+    from sampler_tpu_torch.engine.multichain import mc_weight_gradient_cs
     from sampler_tpu_torch.parallel.chains import to_device_graph
 
     grads, ev, free = ranks.run(gs_grad_case, host, info, n_chains, halo)
     d = to_device_graph(host, dev)
     ev, free = ev.to(dev), free.to(dev)
-    modes = resolve_modes(info, dev)
     res = dict(mesh=f"{ranks.mesh.n_chains}x{ranks.mesh.n_graph}",
                halo=halo, chains=n_chains * ranks.mesh.n_chains,
                rtol=GRAD_RTOL)
     for lne, grad in zip((False, True), grads):
-        want = mc_weight_gradient_cs(d, ev, free, lne, info, modes).cpu()
+        want = mc_weight_gradient_cs(d, ev, free, lne, info).cpu()
         scale = float(want.abs().max())
         err = float((grad - want).abs().max())
         require(err <= GRAD_RTOL * scale,
@@ -4665,7 +4603,7 @@ def gs_learn_parts(comm, host, info, n_chains: int, cfg) -> dict:
     from sampler_tpu_torch.engine.rng import chunk_generator
 
     dev = comm.device
-    dl, modes = gsm._local(comm, host, info, None)
+    dl = gsm._local(comm, host, info)
     n = comm.mesh.n_graph
     shard = gsm.Shard(comm, info, None) if n > 1 else None
     gen = chunk_generator(5, "parts", 0, dev, comm.row, comm.g)
@@ -4682,16 +4620,17 @@ def gs_learn_parts(comm, host, info, n_chains: int, cfg) -> dict:
         out[name] = (time.perf_counter() - t) * 1e3
         return res
 
-    folded = part("fold", lambda: prepare_fold(dl, w, info, modes))
+    folded = part("fold", lambda: prepare_fold(dl, w, info,
+                                               sharded=shard is not None))
 
     def sweeps():
         for _ in range(cfg.n_sweeps_per_epoch):
-            sweep_mc(dl, v_ev, w, gen, False, info, folded, modes, shard)
-            sweep_mc(dl, v_free, w, gen, True, info, folded, modes, shard)
+            sweep_mc(dl, v_ev, w, gen, False, info, folded, shard)
+            sweep_mc(dl, v_free, w, gen, True, info, folded, shard)
 
     part("sweeps", sweeps)
     grad = part("gradient", lambda: mc_weight_gradient_cs(
-        dl, v_ev, v_free, False, info, modes, n_graph=n, g=comm.g))
+        dl, v_ev, v_free, False, info, n_graph=n, g=comm.g))
 
     def reduce():
         if shard is not None:
@@ -5226,7 +5165,7 @@ def scale_ising_phase(dev, card: str) -> None:
     t24 = time.perf_counter()
     seen = {}
 
-    def inspect(d, info, vals, counts, modes):
+    def inspect(d, info, vals, counts):
         seen["launches"] = {"fused_color_draw": fused_color_draw.launches,
                             "tally_counts": tally_counts.launches}
         ts, ti = d.tiers[0], info.tiers[0]
@@ -5277,8 +5216,8 @@ def scale_kbc_phase(dev, card: str) -> None:
     """Phase 25: scale_kbc.main with KBC_SCALE_ARGS (the KBC graph at 1024
     chains, cut to 2e6 variables): its rate, peak memory beside the bytes
     of the worlds and the device graph, tally_counts launched on its path,
-    dm_gather_draw once a color a sweep, and a sweep by part on the kernel
-    and the eager route (kbc_sweep_parts)."""
+    dm_gather_draw once a color a sweep, and a sweep by part
+    (kbc_sweep_parts)."""
     from sampler_tpu_torch import scale_kbc
     from sampler_tpu_torch.ops.fused import dm_gather_draw
     from sampler_tpu_torch.ops.tally import tally_counts
@@ -5286,11 +5225,11 @@ def scale_kbc_phase(dev, card: str) -> None:
     t25 = time.perf_counter()
     seen = {}
 
-    def inspect(d, info, vals, modes, gen):
+    def inspect(d, info, vals, gen):
         seen["tally_counts_launches"] = tally_counts.launches
         seen["dm_gather_draw_launches"] = dm_gather_draw.launches
         seen["dm_gather_draw_a_sweep"] = dm_launches_a_sweep(info)
-        seen["sweep_breakdown"] = kbc_sweep_parts(d, vals, info, modes, gen)
+        seen["sweep_breakdown"] = kbc_sweep_parts(d, vals, info, gen)
 
     tally_counts.launches = 0
     dm_gather_draw.launches = 0
@@ -5358,8 +5297,7 @@ def main() -> int:
     from sampler_tpu_torch.compile import compile_graph, to_device
     from sampler_tpu_torch.engine.multichain import (infer_mc,
                                                      init_values_mc,
-                                                     prepare_fold,
-                                                     resolve_modes)
+                                                     prepare_fold, route)
     from sampler_tpu_torch.ops import _build
     from sampler_tpu_torch.ops.banded import (banded_gather,
                                               banded_gather_plain)
@@ -5434,22 +5372,19 @@ def main() -> int:
                                    generator=rng_q).numpy()
     dgs, infos = compile_graph(gs, colors=colors_s, band_tile=8,
                                band_min_block=1)
-    require(infos.affine2, "small grid must take the fused path")
+    routes = [route(ti, infos) for ti in infos.tiers]
+    require(routes == [("color", True, "pair")],
+            f"small grid must take the fused path: {routes}")
     exact = oracle.exact_marginals(gs, clamp_evidence=True)
     ds = to_device(dgs, dev)
-    errs = {}
-    for label, modes, counter in (("fused", ("cuda", "cuda"),
-                                   fused_color_draw),
-                                  ("unfused", ("cuda", "off"),
-                                   banded_gather)):
-        counter.launches = 0
-        marg, _ = infer_mc(ds, ds.w_init,
-                           torch.Generator(device=dev).manual_seed(3), 200,
-                           2000, infos, CHAINS, modes=modes, device=dev)
-        errs[label] = float(abs(marg[query, :2] - exact[query]).max())
-        require(errs[label] < 0.01, f"{label} |dp| = {errs[label]}")
-        require(counter.launches > 0, f"{label} path launched no kernel")
-    report("3 oracle", t3, max_abs_dp=errs, n_query=len(query),
+    fused_color_draw.launches = 0
+    marg, _ = infer_mc(ds, ds.w_init,
+                       torch.Generator(device=dev).manual_seed(3), 200,
+                       2000, infos, CHAINS, device=dev)
+    err = float(abs(marg[query, :2] - exact[query]).max())
+    require(err < 0.01, f"|dp| = {err}")
+    require(fused_color_draw.launches > 0, "fused_color_draw not launched")
+    report("3 oracle", t3, max_abs_dp=err, n_query=len(query),
            chains=CHAINS, sweeps=2000)
 
     # ---- 4: flagship --------------------------------------------------------
@@ -5510,61 +5445,50 @@ def main() -> int:
     tally_checks = {"ising_flagship": tally_case(values, 2)}
     del values, fargs
 
-    runs = {}
-    for label, modes in (("fused", None), ("unfused", ("cuda", "off"))):
-        fused_color_draw.launches = 0
-        banded_gather.launches = 0
-        tally_counts.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        tr = time.perf_counter()
-        marg, vals = infer_mc(d, d.w_init,
-                              torch.Generator(device=dev).manual_seed(7),
-                              BURN, SWEEPS, info, CHAINS, modes=modes,
-                              device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - tr
-        launches = {"fused_color_draw": fused_color_draw.launches,
-                    "banded_gather": banded_gather.launches,
-                    "tally_counts": tally_counts.launches}
-        require(marg.shape == (g.n_vars, 2), f"marginals {marg.shape}")
-        require(bool((marg >= 0).all() and (marg <= 1).all()),
-                "marginals outside [0, 1]")
-        require(float(abs(marg.sum(1) - 1).max()) < 1e-5,
-                "marginal rows do not sum to 1")
-        require(bool(((vals == 0) | (vals == 1)).all()), "non-boolean world")
-        runs[label] = dict(
-            wall_s=wall,
-            variable_updates_per_s=g.n_vars * CHAINS * (BURN + SWEEPS)
-            / wall,
-            peak_memory_bytes=torch.cuda.max_memory_allocated(),
-            launches=launches, mean_p1=float(marg[:, 1].mean()))
-        del vals
-    require(runs["fused"]["launches"]["fused_color_draw"]
-            == C * (BURN + SWEEPS), "fused path: fused_color_draw launches")
-    require(runs["unfused"]["launches"]["banded_gather"]
-            == C * (BURN + SWEEPS), "unfused path: banded_gather launches")
-    require(all(r["launches"]["tally_counts"] == SWEEPS
-                for r in runs.values()), "tally_counts launches")
-    dp = abs(runs["fused"]["mean_p1"] - runs["unfused"]["mean_p1"])
-    require(dp < 0.01, f"fused and unfused mean marginals differ by {dp}")
+    fused_color_draw.launches = 0
+    banded_gather.launches = 0
+    tally_counts.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = time.perf_counter()
+    marg, vals = infer_mc(d, d.w_init,
+                          torch.Generator(device=dev).manual_seed(7),
+                          BURN, SWEEPS, info, CHAINS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tr
+    launches = {"fused_color_draw": fused_color_draw.launches,
+                "banded_gather": banded_gather.launches,
+                "tally_counts": tally_counts.launches}
+    require(marg.shape == (g.n_vars, 2), f"marginals {marg.shape}")
+    require(bool((marg >= 0).all() and (marg <= 1).all()),
+            "marginals outside [0, 1]")
+    require(float(abs(marg.sum(1) - 1).max()) < 1e-5,
+            "marginal rows do not sum to 1")
+    require(bool(((vals == 0) | (vals == 1)).all()), "non-boolean world")
+    runs = {"fused": dict(
+        wall_s=wall,
+        variable_updates_per_s=g.n_vars * CHAINS * (BURN + SWEEPS) / wall,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        launches=launches, mean_p1=float(marg[:, 1].mean()))}
+    del vals
+    require(launches == {"fused_color_draw": C * (BURN + SWEEPS),
+                         "banded_gather": 0, "tally_counts": SWEEPS},
+            f"main path launches {launches}")
     # where a counted fused sweep's time goes (CUDA events; after the
     # counted runs): the draws write into the world, so the sweep is the
     # draws and what is left; then the tally
-    modes = resolve_modes(info, dev)
-    folded = prepare_fold(d, d.w_init, info, modes)
+    folded = prepare_fold(d, d.w_init, info)
     gen_b = torch.Generator(device=dev).manual_seed(9)
     world = init_values_mc(d, gen_b, CHAINS, info)
     breakdown = sweep_breakdown(
-        d, world, info, folded, modes, gen_b,
+        d, world, info, folded, gen_b,
         {"fused_color_draw_x2": 2 * kern["fused_color_draw"]["ms"]})
     del world, d, ds, folded
     kern["fused_color_draw"].update(
         launches=runs["fused"]["launches"]["fused_color_draw"],
         max_abs_err=fused_err)
-    kern["banded_gather"].update(
-        launches=runs["unfused"]["launches"]["banded_gather"],
-        max_abs_err=max(k["banded_gather_max_abs_err"] for k in cases))
+    kern["banded_gather"]["max_abs_err"] = max(
+        k["banded_gather_max_abs_err"] for k in cases)
     kern["tally_counts"].update(
         launches=runs["fused"]["launches"]["tally_counts"],
         max_abs_err=max(x["max_abs_err"] for x in tally_checks.values()))
@@ -5594,6 +5518,7 @@ def main() -> int:
     tally_checks["potts_flagship"], learn_graphs["potts"] = potts_phase(
         dev, card, g, d, info, kern["fused_cat_draw"])
     del d
+    eager_band_phase(dev, card, kern)
 
     # ---- 13: the tally kernel ---------------------------------------------
     tally_phase(dev, tally_checks)
@@ -5616,7 +5541,7 @@ def main() -> int:
 
     # ---- 17, 18, 19: the gibbs command on the card -----------------------
     cli_kbc_phase(dev, card, g_kbc, kbc_rate, dm_launches_a_sweep(info_kbc),
-                  grad_launches_an_epoch(info_kbc, dev))
+                  grad_launches_an_epoch(info_kbc))
     cli_oracle_phase(dev)
     cli_resume_phase(dev)
 

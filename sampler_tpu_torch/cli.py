@@ -339,7 +339,7 @@ def _run_gibbs_phases(args, log, graph, d, info, weights, n_chains, every,
 
     from . import checkpoint
     from .engine.learn import LearnConfig
-    from .engine.multichain import (init_values_mc, learn_mc, resolve_modes,
+    from .engine.multichain import (init_values_mc, learn_mc,
                                     run_inference_mc, run_sweeps_mc)
 
     meta = dict(n_vars=info.n_vars, n_factors=info.n_factors,
@@ -414,7 +414,6 @@ def _run_gibbs_phases(args, log, graph, d, info, weights, n_chains, every,
     # ---- burn-in + inference ------------------------------------------
     t0 = time.time()
     n_burn, n_inf = args.burn_in, args.n_inference_epoch
-    modes = resolve_modes(info, device)
     K = info.max_card
     burn_done, inf_done = 0, 0
     counts = np.zeros((d.var_card.shape[0], K), np.int64)
@@ -429,14 +428,14 @@ def _run_gibbs_phases(args, log, graph, d, info, weights, n_chains, every,
         values = init_values_mc(d, gen("init", 0), n_chains, info)
     for done, chunk in chunks(burn_done, n_burn):
         values = run_sweeps_mc(d, values, weights, gen("burn", done), chunk,
-                               args.sample_evidence, info, modes, device)
+                               args.sample_evidence, info, device)
         save("burn", values, sweep=done + chunk, w=weights)
     _sync(device)
     t_run = time.time()
     for done, chunk in chunks(inf_done, n_inf):
         values, cts = run_inference_mc(
             d, values, weights, gen("run", done), chunk,
-            args.sample_evidence, info, modes, device)
+            args.sample_evidence, info, device)
         with span("cli.marginals"):
             # device counts are flat row-major [K, P]
             counts += _host(cts).astype(np.int64).reshape(K, -1).T

@@ -24,28 +24,26 @@ def init_values(dg, generator, info, random_init: bool = True
 
 
 def run_sweeps(dg, values, weights, generator, n_sweeps: int,
-               sample_evidence: bool, info, modes=None,
-               device="cuda") -> torch.Tensor:
+               sample_evidence: bool, info, device="cuda") -> torch.Tensor:
     """``n_sweeps`` sweeps from ``values`` [P] (not modified), no tallies
     (burn-in); returns the new world."""
-    modes, w = _setup(dg, values, weights, device, info, modes)
+    w = _setup(dg, values, weights, device)
     values = values.clone()
     for _ in range(n_sweeps):
-        sweep(dg, values, w, generator, sample_evidence, info, modes)
+        sweep(dg, values, w, generator, sample_evidence, info)
     return values
 
 
 def run_inference(dg, values, weights, generator, n_sweeps: int,
-                  sample_evidence: bool, info, modes=None,
-                  device="cuda") -> tuple:
+                  sample_evidence: bool, info, device="cuda") -> tuple:
     """``n_sweeps`` sweeps with a tally after each; returns (values [P],
     counts [P, K] int32).  ``values`` is not modified."""
-    modes, w = _setup(dg, values, weights, device, info, modes)
+    w = _setup(dg, values, weights, device)
     values = values.clone()
     counts = torch.zeros((info.max_card, values.shape[0]), dtype=torch.int32,
                          device=values.device)
     for _ in range(n_sweeps):
-        sweep(dg, values, w, generator, sample_evidence, info, modes)
+        sweep(dg, values, w, generator, sample_evidence, info)
         tally(counts, values[:, None])
     return values, counts.T
 
@@ -57,7 +55,7 @@ def marginals_from_counts(counts, n_sweeps: int):
 
 def infer(dg, weights, generator, n_burn: int, n_sweeps: int, info,
           sample_evidence: bool = False, random_init: bool = True,
-          n_chains: int = 1, modes=None, device="cuda") -> tuple:
+          n_chains: int = 1, device="cuda") -> tuple:
     """Burn-in, then counted sweeps; returns (marginals [V, K] float32
     numpy, final values).
 
@@ -67,15 +65,14 @@ def infer(dg, weights, generator, n_burn: int, n_sweeps: int, info,
     ``device="cpu"`` for the plain versions."""
     if n_chains > 1:
         return infer_mc(dg, weights, generator, n_burn, n_sweeps, info,
-                        n_chains, sample_evidence, random_init, modes,
-                        device)
-    modes, w = _setup(dg, None, weights, device, info, modes)
+                        n_chains, sample_evidence, random_init, device)
+    w = _setup(dg, None, weights, device)
     values = init_values(dg, generator, info, random_init)
     if n_burn:
         values = run_sweeps(dg, values, w, generator, n_burn,
-                            sample_evidence, info, modes, device)
+                            sample_evidence, info, device)
     values, counts = run_inference(dg, values, w, generator, n_sweeps,
-                                   sample_evidence, info, modes, device)
+                                   sample_evidence, info, device)
     marg = marginals_from_counts(
         counts.index_select(0, dg.pos_of_vid.to(torch.int64)), n_sweeps)
     return marg.cpu().numpy(), values

@@ -60,7 +60,7 @@ def weight_gradient(dg, values_ev, values_free, learn_non_evidence: bool,
                            learn_non_evidence, present, has_sparse_cw)
 
 
-def learn(dg, weights, generator, cfg: LearnConfig, info, modes=None,
+def learn(dg, weights, generator, cfg: LearnConfig, info,
           device="cuda") -> tuple:
     """``cfg.n_epochs`` single-chain learning epochs; returns (weights [W]
     float32, v_ev [P], v_free [P]).
@@ -73,15 +73,15 @@ def learn(dg, weights, generator, cfg: LearnConfig, info, modes=None,
     from .multichain import _setup
     from .sweep import sweep
 
-    modes, w = _setup(dg, None, weights, device, info, modes)
+    w = _setup(dg, None, weights, device)
     v_ev = init_values(dg, generator, info)       # evidence clamped
     v_free = init_values(dg, generator, info)
     alpha = np.float32(cfg.stepsize)
     diminish = np.float32(cfg.diminish)
     for _ in range(cfg.n_epochs):
         for _ in range(cfg.n_sweeps_per_epoch):
-            sweep(dg, v_ev, w, generator, False, info, modes)
-            sweep(dg, v_free, w, generator, True, info, modes)
+            sweep(dg, v_ev, w, generator, False, info)
+            sweep(dg, v_free, w, generator, True, info)
         grad = weight_gradient(dg, v_ev, v_free, cfg.learn_non_evidence,
                                info.present_funcs, info.has_sparse_cw)
         w = apply_update(w, grad, dg.w_fixed, float(alpha),

@@ -9,49 +9,47 @@ once (chromatic Gibbs) and writes the new values into ``values`` in place.
 
 This port runs marginal inference and weight learning on boolean,
 categorical and mixed graphs with dense or sparse per-combination weights,
-single-window and multi-window banded alike, hub tiers included:
+single-window and multi-window banded alike, hub tiers included.  Each
+tier takes one route, which ``route(ti, info, sharded, folded)`` reads
+off the compiled graph; the kernel wrappers it calls run their CUDA
+kernel on a card tensor and their plain PyTorch version on a CPU tensor:
 
-  * affine2 tiers (pairwise boolean, one window a tile) with the fused
-    mode on draw a whole color in ``ops.fused.fused_color_draw`` (one CUDA
-    kernel);
+  * affine2 tiers (pairwise boolean, one window a tile) draw a whole color
+    in ``ops.fused.fused_color_draw``;
   * fusedm tiers (banded boolean of arity <= 3 that affine2 does not
     take: arity 3, or band_k >= 2 windows a tile, as on any graph of more
-    than 2 colors) with the fused mode on draw a whole color in
-    ``ops.fused.fused_dm_draw`` (one CUDA kernel);
+    than 2 colors) draw a whole color in ``ops.fused.fused_dm_draw``;
   * affinek tiers (categorical or mixed, arity <= 2, one own slot a
-    factor, one window a tile, 2 <= K <= 32) with the fused mode on draw a
-    whole color in ``ops.fused.fused_cat_draw`` (one CUDA kernel);
+    factor, one window a tile, 2 <= K <= 32) draw a whole color in
+    ``ops.fused.fused_cat_draw``;
   * the other deltam tiers (boolean, arity 2 or 3, multilinear
     coefficients, no banded plan: the KBC class's dense tiers and its hub
-    tier) with the fused mode on draw a whole color, all those tiers of it
-    together, in ``ops.fused.dm_gather_draw_tiers`` (one CUDA kernel a
-    color, gathering by global position; a hub row's chunks summed as one
-    deep row in a fixed order and drawn in the kernel); under graph
-    sharding a tier at a time, a hub tier's chunk log-odds from the same
-    kernel's delta mode;
-  * the other tiers, and every tier with the fused mode off, compute the
-    log-odds with ``color_delta_multilin`` (deltam tiers) or
-    ``color_delta_bool`` on all-boolean graphs, and the K candidates'
-    log-potentials with ``color_logits_mc`` (a Gumbel-argmax draw, a block
-    of rows at a time) on the others, gathering neighbour values with
+    tier) draw a whole color, all those tiers of it together, in
+    ``ops.fused.dm_gather_draw_tiers`` (one launch a color, gathering by
+    global position; a hub row's chunks summed as one deep row in a fixed
+    order and drawn in the kernel); under graph sharding a tier at a time,
+    a hub tier's chunk log-odds from the same kernel's delta mode;
+  * the other tiers compute the log-odds with ``color_delta_bool`` on
+    all-boolean graphs, and the K candidates' log-potentials with
+    ``color_logits_mc`` (a Gumbel-argmax draw, a block of rows at a time)
+    on the others, gathering neighbour values with
     ``ops.banded.banded_gather`` (band_k 1), ``banded_gather_multi``
-    (band_k >= 2) or ``index_select`` (band off);
-  * a hub tier (the variables of more than ``hub_cap`` factors) that the
-    kernel does not draw draws in ``hub_color_draw``: its chunks of
-    records are evaluated like rows of a dense tier, and their deltas or
-    logits summed onto their rows with ``index_add_``;
+    (band_k >= 2) or ``index_select`` (no banding plan, or values wider
+    than int8);
+  * a hub tier that dm_gather_draw does not draw draws in
+    ``hub_color_draw``: its chunks of records are evaluated like rows of a
+    dense tier, and their deltas or logits summed onto their rows with
+    ``index_add_``;
   * the tallies of inference go through ``ops.tally.tally_counts`` (one
-    CUDA kernel a sweep);
+    launch a sweep);
   * ``learn_mc`` runs contrastive SGD over an evidence and a free world of
-    NC chains each; its gradient (``mc_weight_gradient_cs``) goes, tier by
-    tier as ``gradient_route`` says, through ``ops.grad.grad_pair_tile``
-    (one CUDA kernel a color) on affine2 tiers with the band mode on,
-    through ``ops.grad.grad_records_sum`` on the other tiers while the
-    fused mode is on (all of them together: one launch of the owner
-    records' terms, then their float64 sums by weight, over a plan of
-    the owner records built once a graph), and through the chunked
-    cs-stream route (``_phi_streams``, with the same gathers as the draw)
-    with it off;
+    NC chains each; its gradient (``mc_weight_gradient``) goes, tier by
+    tier as ``route`` says, through ``ops.grad.grad_pair_tile`` (one
+    launch a color) on banded affine2 tiers of at most GRAD_W_MAX weights,
+    and through ``ops.grad.grad_records_sum`` on the other tiers (all of
+    them together: one launch of the owner records' terms, then their
+    float64 sums by weight, over a plan of the owner records built once a
+    graph);
   * sparse per-combination weights (a factor whose weight is looked up by
     its members' joint values in ``cwt_wid``; compile turns the affine
     and fused plans off beside them) take the candidate route
@@ -68,17 +66,13 @@ reduce and the exchange after each tier), the fused draws write the
 rank's rows at c*B + off + g*Bl, and ``mc_weight_gradient_cs`` takes
 (n_graph, g) to find a local record's own row.
 
-``modes = (band, fused)``, each "cuda" (the kernel), "plain" (its plain
-PyTorch version) or "off"; the default is "cuda" on a CUDA device and
-"plain" on the CPU, the band mode gated by what the compiled graph
-supports, as the JAX package's resolve_band gates it, and the fused mode
-gated tier by tier (``tier_modes`` for the draws, ``gradient_route`` for
-the gradient).  The fused draws write
-straight into the world's block (their world-write mode); the other tiers
-draw a block and write it under the resample mask.
+The fused draws write straight into the world's block (their world-write
+mode); the other tiers draw a block and write it under the resample mask.
+Without a fold (``folded=None``, the single-chain engine) every tier
+but a hub takes the eager draw.
 
 Randomness comes from one explicit ``torch.Generator`` on the run's device:
-the initial worlds, the uniforms and Gumbel noise of the unfused draws, and
+the initial worlds, the uniforms and Gumbel noise of the eager draws, and
 two int32 seed words per (sweep, color, tier) for the fused kernels'
 counter hash.  In learning the one generator drives both worlds' sweeps in
 turn.
@@ -86,8 +80,9 @@ turn.
 Unlike the JAX package, the port's entry points run the chain count they
 are asked for: the TPU rounds chains up to its 128 lanes so its kernels
 stay on (demote_modes turns them off otherwise), and a GPU kernel runs at
-any count.  ``effective_chains`` keeps the command line's rounding, to a
-multiple of 16 on the card, where the kernels take their 16-byte variants.
+any count, so no route depends on the chain count.  ``effective_chains``
+keeps the command line's rounding, to a multiple of 16 on the card, where
+the kernels take their 16-byte variants.
 
 While a torch profiler records, the entry points and phases are spans
 (``observe``): ``engine.init_values``, ``engine.run_sweeps``,
@@ -98,6 +93,8 @@ build is ``plan.derived``, ``plan.dm_tables`` or ``plan.records``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -105,28 +102,20 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .. import format_spec as fs
 from ..compile import factor_records, resolve_device, tier_geom
 from ..observe import span, spanned
-from ..ops.banded import (banded_gather, banded_gather_multi,
-                          banded_gather_multi_plain, banded_gather_plain)
+from ..ops.banded import banded_gather, banded_gather_multi
 from ..ops.fused import (DM_MAX_TIERS, DmTier, dm_gather_draw,
-                         dm_gather_draw_plain, dm_gather_draw_table,
-                         dm_gather_draw_tiers_plain, dm_launch_vec,
-                         dm_packed_rows, dm_tier_table,
+                         dm_gather_draw_table, dm_gather_draw_tiers_plain,
+                         dm_launch_vec, dm_packed_rows, dm_tier_table,
                          fold_affine, fold_affine_cat, fold_deltam,
-                         fold_deltam_tiles, fused_cat_draw,
-                         fused_cat_draw_plain, fused_color_draw,
-                         fused_color_draw_plain, fused_dm_draw,
-                         fused_dm_draw_plain)
+                         fold_deltam_tiles, fused_cat_draw, fused_color_draw,
+                         fused_dm_draw)
 from ..ops.grad import (GRAD_W_MAX, RecordTier, grad_pair_tile,
-                        grad_pair_tile_plain, grad_records_sum,
-                        grad_records_sum_plain, record_phi, record_plan,
-                        records_diff)
-from ..ops.tally import tally_counts, tally_plain
+                        grad_records_sum, record_plan)
+from ..ops.tally import tally_counts
 from ..ops.weights import expand_wf, segment_reduce
 from .learn import apply_update
 from .potentials import (_eval_phi_ax2, _factor_phis_mc, _need_head,
                          _phi_from_counts)
-
-MECHANISMS = ("cuda", "plain", "off")
 
 
 def values_dtype(info) -> torch.dtype:
@@ -134,43 +123,53 @@ def values_dtype(info) -> torch.dtype:
     return torch.int8 if info.max_card <= 127 else torch.int32
 
 
-def resolve_modes(info, device) -> tuple:
-    """Default (band, fused) mechanisms for this graph on ``device``: band
-    on where the graph has a banding plan and int8-sized values (JAX
-    resolve_band in its "auto" setting), fused on wherever XLA fuses the
-    JAX package's draws or gradient.  A tier draws through a fused kernel
-    only where ``tier_modes`` finds it a plan (a banded affine2 / affinek
-    / fusedm tier, whose band is then on, as JAX resolve_fused follows
-    band, or the multilinear coefficients of dm_gather_draw): a graph with
-    sparse per-combination weights has none, and its tiers draw eagerly
-    (the table lookup) whatever the fused mode.  Every tier that
-    ``gradient_route`` reaches takes the records route (grad_records_sum),
-    the dense records of sparse-weight graphs too."""
-    mech = "cuda" if torch.device(device).type == "cuda" else "plain"
-    band = mech if info.band_w > 0 and info.max_card <= 127 else "off"
-    return band, mech
+class Route(NamedTuple):
+    """One tier's routes (``route``)."""
+    draw: str       # "color", "cat", "dm", "gather", "hub" or "eager"
+    band: bool      # the eager gathers use the banded plan
+    grad: str       # "pair" or "records"
 
 
-def check_modes(modes, device) -> tuple:
-    modes = tuple(modes)
-    if len(modes) != 2 or any(m not in MECHANISMS for m in modes):
-        raise ValueError(f"modes must be two of {MECHANISMS}, got {modes}")
-    if "cuda" in modes and torch.device(device).type != "cuda":
-        raise ValueError(f"mode 'cuda' needs a CUDA device, not {device}")
-    return modes
+def route(ti, info, sharded: bool = False, folded: bool = True) -> Route:
+    """The routes of tier ``ti`` of the compiled graph ``info``, on a graph
+    shard where ``sharded`` (``parallel.graph_shard``), and without a fold
+    where ``folded`` is False (the single-chain engine folds nothing):
 
-
-def tier_modes(ti, modes) -> tuple:
-    """Per-tier gating: a tier without a banding plan gathers with
-    index_select; a tier without a fused plan (a banded one, or the
-    multilinear coefficients of dm_gather_draw) never routes to a fused
-    kernel."""
-    band, fused = modes
-    if ti.band_w <= 0:
-        band = "off"
-    if not (ti.affine2 or ti.affinek or ti.fusedm or ti.deltam):
-        fused = "off"
-    return band, fused
+      * draw: "color" (``fused_color_draw``) on affine2 tiers, "cat"
+        (``fused_cat_draw``) on affinek tiers, "dm" (``fused_dm_draw``) on
+        fusedm tiers, "gather" (``dm_gather_draw``) on the other deltam
+        tiers, unsharded the hub tier included; "hub" (``hub_color_draw``)
+        on a hub tier that dm_gather_draw does not draw (one without
+        multilinear coefficients, on a graph shard, or without a fold);
+        "eager" on the rest and, without a fold, on every tier but a hub
+        (``color_delta_bool`` on all-boolean graphs, else
+        ``color_draw_categorical``): a graph with sparse per-combination
+        weights has no fused plan, so all its tiers draw eagerly;
+      * band: the tier has a banding plan and the values fit int8 (the JAX
+        package's resolve_band in its "auto" setting), so the eager
+        gathers are banded;
+      * grad: "pair" (``grad_pair_tile``) on a banded affine2 tier of a
+        graph of at most GRAD_W_MAX weights (the reserved zero slot
+        counted), unsharded; "records" (``grad_records_sum``) on every
+        other tier."""
+    band = ti.band_w > 0 and info.max_card <= 127
+    if ti.hub:
+        draw = "gather" if ti.deltam and folded and not sharded else "hub"
+    elif not folded:
+        draw = "eager"
+    elif ti.affine2:
+        draw = "color"
+    elif ti.affinek:
+        draw = "cat"
+    elif ti.fusedm:
+        draw = "dm"
+    elif ti.deltam:
+        draw = "gather"
+    else:
+        draw = "eager"
+    pair = (ti.affine2 and band and not sharded
+            and info.n_weights + 1 <= GRAD_W_MAX)
+    return Route(draw, band, "pair" if pair else "records")
 
 
 CHAIN_ROUND = 16                # chains a thread in the kernels' 16-byte rows
@@ -200,17 +199,15 @@ def _on(t: torch.Tensor, dev: torch.device) -> bool:
                                           or t.device.index == dev.index)
 
 
-def _setup(dg, values, weights, device, info, modes) -> tuple:
-    """Resolve and check the device, the modes and the weights of a run."""
+def _setup(dg, values, weights, device) -> torch.Tensor:
+    """Check the device of a run's graph and worlds; its weights as
+    float32 on the graph's device."""
     dev = resolve_device(device)
     for name, t in (("graph", dg.var_card), ("values", values)):
         if t is not None and not _on(t, dev):
             raise ValueError(f"{name} is on {t.device}, the run on {dev}: "
                              "move the graph with to_device(dg, device)")
-    modes = check_modes(resolve_modes(info, dev) if modes is None else modes,
-                        dev)
-    w = torch.as_tensor(weights, dtype=torch.float32).to(dg.var_card.device)
-    return modes, w
+    return torch.as_tensor(weights, dtype=torch.float32).to(dg.var_card.device)
 
 
 INIT_CHUNK_ELEMS = 1 << 22      # (position, chain) pairs drawn at a time
@@ -252,32 +249,27 @@ def _tc(arr: torch.Tensor, c: int, shape) -> torch.Tensor:
     return arr[c * n:(c + 1) * n].view(shape)
 
 
-def _gather_nbr(ts, ti, values, nbr, c, modes, r0: int = 0) -> torch.Tensor:
+def _gather_nbr(ts, ti, values, nbr, c, info, r0: int = 0) -> torch.Tensor:
     """values at the [B, D, A1] neighbour positions ``nbr`` of color c,
-    rows ``r0 ..`` of the tier: the banded gather on banded tiers (the
-    multi-window one over the remapped bd_rnbr when band_k >= 2),
-    index_select elsewhere."""
+    rows ``r0 ..`` of the tier: the banded gather where ``route`` bands
+    the tier (the multi-window one over the remapped bd_rnbr when band_k
+    >= 2), index_select elsewhere."""
     B, D, A1 = nbr.shape
     NC = values.shape[-1]
-    band = tier_modes(ti, modes)[0]
-    if band == "off":
+    if not route(ti, info).band:
         return values.index_select(0, nbr.reshape(-1)).reshape(B, D, A1, NC)
     t0, ntiles = r0 // ti.band_tb, B // ti.band_tb
     tiles = slice(t0, t0 + ntiles)
     if ti.band_k >= 2:
-        gather = (banded_gather_multi if band == "cuda"
-                  else banded_gather_multi_plain)
-        vals = gather(values, ts.bd_rnbr[c, tiles], ts.bd_start[c, tiles],
-                      ti.band_w)
+        vals = banded_gather_multi(values, ts.bd_rnbr[c, tiles],
+                                   ts.bd_start[c, tiles], ti.band_w)
     else:
-        gather = banded_gather if band == "cuda" else banded_gather_plain
-        vals = gather(values, nbr.reshape(ntiles, ti.band_tb * D * A1),
-                      ts.bd_start[c, tiles], ti.band_w)
+        vals = banded_gather(values, nbr.reshape(ntiles, ti.band_tb * D * A1),
+                             ts.bd_start[c, tiles], ti.band_w)
     return vals.reshape(B, D, A1, NC)
 
 
-def _nbr_lits(ts, ti, values, c, info, modes, r0: int = 0,
-              rc: int | None = None):
+def _nbr_lits(ts, ti, values, c, info, r0: int = 0, rc: int | None = None):
     """Gather + literal-ize the NEIGHBOR slots of tier ``ts``, color ``c``,
     rows ``r0 .. r0+rc`` (all rows by default): (nbr_lit [rc, D, A-1, NC]
     bool, pos [rc, D, A], eq [rc, D, A] or None on all-boolean graphs, the
@@ -296,7 +288,7 @@ def _nbr_lits(ts, ti, values, c, info, modes, r0: int = 0,
         return (torch.zeros((rc, D, 0, values.shape[-1]), dtype=torch.bool,
                             device=values.device), pos, eq, None)
     vals = _gather_nbr(ts, ti, values, _tc(ts.cs_nbr, c, (B, D, A1))[rows],
-                       c, modes, r0)
+                       c, info, r0)
     if eq is None:
         return (vals == 1) == pos[..., :A1, None], pos, eq, vals
     nbr_lit = (vals == eq[..., :A1, None].to(values.dtype)) \
@@ -304,14 +296,14 @@ def _nbr_lits(ts, ti, values, c, info, modes, r0: int = 0,
     return nbr_lit, pos, eq, vals
 
 
-def color_delta_bool(ts, ti, values, weights, c, info, modes=("off", "off")):
+def color_delta_bool(ts, ti, values, weights, c, info):
     """Boolean path: logit(v=1) − logit(v=0), [B, NC], from literal counts.
 
     The candidate's contribution at its own slots reduces to compile-time
     literal counts (k=1 → own literal == ispos; k=0 → == ¬ispos), so
     φ(1) − φ(0) needs one [B, D, NC] evaluation."""
     B, D, A = tier_geom(ts, ti, info.n_colors)
-    nbr_lit, pos, _, _ = _nbr_lits(ts, ti, values, c, info, modes)
+    nbr_lit, pos, _, _ = _nbr_lits(ts, ti, values, c, info)
     msk = _tc(ts.cs_mask, c, (B, D, A))
     ismine = _tc(ts.cs_ismine, c, (B, D, A))
     A1 = nbr_lit.shape[-2]
@@ -342,31 +334,7 @@ def color_delta_bool(ts, ti, values, weights, c, info, modes=("off", "off")):
     return (wf * (phi1 - phi0)).sum(dim=1)                      # [B, NC]
 
 
-def color_delta_multilin(ts, ti, values, c, info, folded_t, modes):
-    """Boolean log-odds from the compile-time multilinear φ fold:
-    delta[b] = base[b] + Σ_d (b1·n1 + b2·n2 + bx·n1·n2), with
-    (base, b1, b2, bx) = fold_deltam's weight-scaled streams.  Exact in
-    exact arithmetic; differs from color_delta_bool only in rounding.
-    The eager route of a deltam tier with the fused mode off (the JAX
-    package's arithmetic, pass by pass); with it on, dm_gather_draw."""
-    B, D, A = tier_geom(ts, ti, info.n_colors)
-    A1 = A - 1
-    base_f, b1_f, b2_f, bx_f = folded_t
-    vals = _gather_nbr(ts, ti, values, _tc(ts.cs_nbr, c, (B, D, A1)), c,
-                       modes)
-    f32 = torch.float32
-    base = _tc(base_f, c, (B,))[:, None]
-    n1 = vals[:, :, 0, :].to(f32)
-    contrib = _tc(b1_f, c, (B, D))[..., None] * n1
-    if A1 >= 2 and b2_f is not None:
-        n2 = vals[:, :, 1, :].to(f32)
-        contrib = (contrib + _tc(b2_f, c, (B, D))[..., None] * n2
-                   + _tc(bx_f, c, (B, D))[..., None] * (n1 * n2))
-    return base + contrib.sum(dim=1)                            # [B, NC]
-
-
-def color_logits_mc(dg, ts, ti, values, weights, c, info,
-                    modes=("off", "off"), r0: int = 0,
+def color_logits_mc(dg, ts, ti, values, weights, c, info, r0: int = 0,
                     rc: int | None = None) -> torch.Tensor:
     """Conditional log-potentials [rc, K, NC] of the candidates
     k = 0 .. K-1 for rows ``r0 .. r0+rc`` (all rows by default) of tier
@@ -386,8 +354,7 @@ def color_logits_mc(dg, ts, ti, values, weights, c, info,
     rows = slice(r0, r0 + rc)
     A1 = A - 1
     NC = values.shape[-1]
-    nbr_lit, pos, eq, vals_raw = _nbr_lits(ts, ti, values, c, info, modes,
-                                           r0, rc)
+    nbr_lit, pos, eq, vals_raw = _nbr_lits(ts, ti, values, c, info, r0, rc)
     ks = torch.arange(K, device=values.device)[None, None, :, None]
     cand = ks == 1 if eq is None else ks == eq[:, :, None, :]
     cand_lit = cand == pos[:, :, None, :]                       # [rc,D,K,A]
@@ -443,10 +410,10 @@ def _table_wid(dg, m: torch.Tensor) -> torch.Tensor:
 
 
 def _row_chunk(ti, B: int, D: int, A: int, NC: int) -> int:
-    """Rows per sub-block of the chunked gradient and of the unfused
-    categorical draw: bounds their [rows, D, A, NC] temporaries (A is K·A
-    for the draw's candidates) to ~64 Mi elements however large the color
-    block is.  Banded gathers need the chunk tile-aligned."""
+    """Rows per sub-block of the eager categorical draw and of a
+    categorical hub's chunks: bounds their [rows, D, A, NC] temporaries
+    (A is K·A for the candidates) to ~64 Mi elements however large the
+    color block is.  Banded gathers need the chunk tile-aligned."""
     target = 1 << 26
     step = ti.band_tb if ti.band_w else 1
     rc = max(1, target // max(D * A * NC, 1))
@@ -465,9 +432,9 @@ def _gumbel(shape, generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def color_draw_categorical(dg, ts, ti, values, weights, generator, c, info,
-                           modes=("off", "off")) -> torch.Tensor:
-    """Unfused categorical draw of one tier, color ``c``: Gumbel-argmax
+def color_draw_categorical(dg, ts, ti, values, weights, generator, c,
+                           info) -> torch.Tensor:
+    """Eager categorical draw of one tier, color ``c``: Gumbel-argmax
     over color_logits_mc + cm_kmask, a block of rows at a time so the
     logits' temporaries stay bounded (~64 Mi literals a block)."""
     B, D, A = tier_geom(ts, ti, info.n_colors)
@@ -477,7 +444,7 @@ def color_draw_categorical(dg, ts, ti, values, weights, generator, c, info,
     out = torch.empty((B, NC), dtype=values.dtype, device=values.device)
     rc = _row_chunk(ti, B, D, K * A, NC)
     for r0 in range(0, B, rc):
-        logits = color_logits_mc(dg, ts, ti, values, weights, c, info, modes,
+        logits = color_logits_mc(dg, ts, ti, values, weights, c, info,
                                  r0, rc) + kmask[r0:r0 + rc, :, None]
         logits += _gumbel(logits.shape, generator, values.device)
         out[r0:r0 + rc] = logits.argmax(dim=1).to(values.dtype)
@@ -491,47 +458,44 @@ class Folded(tuple):
 
 
 @spanned("engine.fold")
-def prepare_fold(dg, weights, info, modes, plan: bool = True):
-    """Per-tier folded coefficient streams (None for tiers no folded path
-    covers), as a Folded tuple, or None when nothing folds: with the fused
-    mode on, fold_affine for affine2 tiers, fold_affine_cat for affinek
-    tiers and fold_deltam_tiles (the kernel's tile layout) for fusedm
-    tiers; fold_deltam for the other deltam tiers.
-    color_draw_tier routes a tier to a fused draw under the same
-    condition, so a layout never reaches the wrong path.  With ``plan``
-    (an unsharded graph) the Folded also carries dm_gather_draw's plan
-    (``dm``).  Called once per weights value, outside the sweep loop."""
-    use_fused = modes[1] != "off" and (info.affine2 or info.affinek
-                                       or info.fusedm)
-    if not (use_fused or any(ti.deltam for ti in info.tiers)):
-        return None
+def prepare_fold(dg, weights, info, sharded: bool = False):
+    """Per-tier folded coefficient streams, as a Folded tuple: the fold
+    that the tier's ``route`` draw reads (fold_affine, fold_affine_cat,
+    fold_deltam_tiles, the kernel's tile layout of fusedm tiers, and
+    fold_deltam, which a deltam hub's ``hub_color_draw`` reads too); None
+    for the other tiers.  None when nothing folds.  Unsharded, the Folded
+    also carries dm_gather_draw's plan (``dm``).  Called once per weights
+    value, outside the sweep loop."""
     w = weights.to(torch.float32)
     C = info.n_colors
 
     def fold_one(ts, ti):
-        if ti.affine2 and use_fused:
+        draw = route(ti, info, sharded).draw
+        if draw == "color":
             return fold_affine(ts, ti, C, w)
-        if ti.affinek and use_fused:
+        if draw == "cat":
             return fold_affine_cat(ts, ti, C, w)
-        if ti.fusedm and use_fused:
+        if draw == "dm":
             return fold_deltam_tiles(ts, ti, C, w)
-        if ti.deltam:
+        if ti.deltam and draw in ("gather", "hub"):
             return fold_deltam(ts, ti, C, w)
         return None
 
     folded = Folded(fold_one(ts, ti) for ts, ti in zip(dg.tiers, info.tiers))
-    if plan and modes[1] != "off":
-        dm = _DmPlan(dg, info, folded, modes)
+    if all(f is None for f in folded):
+        return None
+    if not sharded:
+        dm = _DmPlan(dg, info, folded)
         folded.dm = dm if dm.tiers else None
     return folded
 
 
-def hub_partial(dg, ts, ti, values, weights, c, info, modes=("off", "off"),
+def hub_partial(dg, ts, ti, values, weights, c, info,
                 folded_t=None) -> torch.Tensor:
     """The chunk sums of a chunked-CSR hub tier of color ``c`` on its rows:
     its [M, G, A] chunk streams are evaluated with the dense tiers' code
-    (a chunk is a row of D = G records; a deltam tier's with the fused
-    mode on by dm_gather_draw's delta mode), and the chunks' deltas
+    (a chunk is a row of D = G records; a deltam tier's, given its fold,
+    by dm_gather_draw's delta mode), and the chunks' deltas
     [M, NC] (boolean) or logits [M, K, NC] (categorical) are summed onto
     their rows with ``index_add_`` into [B_t + 1, ...]: the pad chunks, whose
     ``hb_row`` is B_t, land in the extra row, which is dropped.  Under
@@ -542,18 +506,11 @@ def hub_partial(dg, ts, ti, values, weights, c, info, modes=("off", "off"),
     dev = values.device
     row = ts.hb_row[c].to(torch.int64)                          # [M]
     if info.all_boolean and info.max_card == 2:
-        fused = tier_modes(ti, modes)[1]
-        if ti.deltam and folded_t is not None and fused != "off":
-            delta_of = (dm_gather_draw if fused == "cuda"
-                        else dm_gather_draw_plain)
-            dchunk = delta_of(values, *_dm_streams(ts, ti, c, info,
-                                                   folded_t), None)
-        elif ti.deltam and folded_t is not None:
-            dchunk = color_delta_multilin(ts, ti, values, c, info, folded_t,
-                                          modes)
+        if folded_t is not None:
+            dchunk = dm_gather_draw(values, *_dm_streams(ts, ti, c, info,
+                                                         folded_t), None)
         else:
-            dchunk = color_delta_bool(ts, ti, values, weights, c, info,
-                                      modes)
+            dchunk = color_delta_bool(ts, ti, values, weights, c, info)
         delta = torch.zeros((Bh + 1, NC), dtype=dchunk.dtype, device=dev)
         return delta.index_add_(0, row, dchunk)[:Bh]
     K = info.max_card
@@ -563,18 +520,17 @@ def hub_partial(dg, ts, ti, values, weights, c, info, modes=("off", "off"),
     for r0 in range(0, M, rc):
         logits.index_add_(0, row[r0:r0 + rc],
                           color_logits_mc(dg, ts, ti, values, weights, c,
-                                          info, modes, r0, rc))
+                                          info, r0, rc))
     return logits[:Bh]
 
 
 def hub_color_draw(dg, ts, ti, values, weights, generator, c, info,
-                   modes=("off", "off"), folded_t=None,
-                   psum=None) -> torch.Tensor:
+                   folded_t=None, psum=None) -> torch.Tensor:
     """Draw new values [B_t, NC] for a chunked-CSR hub tier of color ``c``:
     ``hub_partial``'s sums, then the Bernoulli or Gumbel-argmax draw, as
-    on the unfused dense tiers.  The color step takes it for a hub tier
-    that dm_gather_draw does not draw: the categorical hubs, the fused
-    mode off, and under graph sharding.
+    on the eager dense tiers.  The color step takes it for a hub tier
+    that dm_gather_draw does not draw: a hub without multilinear
+    coefficients, a hub under graph sharding, and without a fold.
 
     Under graph sharding ``psum`` sums a tensor over the graph group in
     place: the ranks' partial sums are combined, and each rank draws the
@@ -583,7 +539,7 @@ def hub_color_draw(dg, ts, ti, values, weights, generator, c, info,
     rebuilt from var_card (as the JAX package does)."""
     Bh = ti.block
     dev = values.device
-    sums = hub_partial(dg, ts, ti, values, weights, c, info, modes, folded_t)
+    sums = hub_partial(dg, ts, ti, values, weights, c, info, folded_t)
     if psum is not None:
         psum(sums)
     if sums.dim() == 2:
@@ -601,19 +557,6 @@ def hub_color_draw(dg, ts, ti, values, weights, generator, c, info,
     masked = sums + kmask[:, :, None]
     masked += _gumbel(masked.shape, generator, dev)
     return masked.argmax(dim=1).to(values.dtype)
-
-
-def _fused(ti, folded_t, modes) -> bool:
-    """A tier that draws in a fused kernel (or its plain version)."""
-    return (not ti.hub and folded_t is not None
-            and tier_modes(ti, modes)[1] != "off")
-
-
-def _dm_tier(ti, folded_t, modes) -> bool:
-    """A tier that dm_gather_draw draws: a deltam tier without a banded
-    plan (the hub tier too) with its fold and the fused mode on."""
-    return (ti.deltam and not (ti.affine2 or ti.fusedm)
-            and folded_t is not None and tier_modes(ti, modes)[1] != "off")
 
 
 # derived device arrays of a graph, built once: keyed by the stream they
@@ -701,30 +644,36 @@ def _dm_tables(dg, info, tiers, folded) -> tuple:
 
 class _DmPlan:
     """dm_gather_draw's launches a color step, built by prepare_fold: the
-    tiers it draws (``_dm_tier``: the KBC class's dense tiers and its hub
-    tier), at most DM_MAX_TIERS a launch, each drawing into the world under
-    its resample mask or, in the sample-evidence mode, the other one.  On
-    the card their launch tables (``_dm_tables``), holding the fold's
-    coefficient streams and the graph's streams the tables point into; on
-    the CPU the DmTier lists of each (color, mode) for the plain version.
-    It holds no Folded, so it adds no reference cycle."""
+    tiers it draws (``route`` "gather": the KBC class's dense tiers and its
+    hub tier), at most DM_MAX_TIERS a launch, each drawing into the world
+    under its resample mask or, in the sample-evidence mode, the other
+    one.  On the card their launch tables (``_dm_tables``), holding the
+    fold's coefficient streams and the graph's streams the tables point
+    into; on the CPU the DmTier lists of each (color, mode) for the plain
+    version.  It holds no Folded, so it adds no reference cycle."""
 
-    def __init__(self, dg, info, folded, modes):
-        self.tiers = [t for t, (ti, f) in enumerate(zip(info.tiers, folded))
-                      if _dm_tier(ti, f, modes)]
+    def __init__(self, dg, info, folded):
+        self.tiers = [t for t, ti in enumerate(info.tiers)
+                      if route(ti, info).draw == "gather"]
         self.tables = self.lists = None
         self.nc = -1            # the chain count self.packed counts for
         if not self.tiers:
             return
-        if modes[1] == "cuda":
-            self.tables, graph, self.counts = _dm_tables(dg, info,
-                                                         self.tiers, folded)
-            self.streams = (graph, [folded[t] for t in self.tiers])
+        if dg.var_card.device.type == "cuda":
+            self.use_tables(dg, info, folded)
         else:
             self.lists = {(c, ev): _dm_tier_list(dg, info, self.tiers, folded,
                                                  c, ev)
                           for c in range(info.n_colors)
                           for ev in (False, True)}
+
+    def use_tables(self, dg, info, folded) -> None:
+        """Draw through launch tables, as on the card (built off the card
+        too, where a draw needs dm_gather_draw_table replaced)."""
+        self.tables, graph, self.counts = _dm_tables(dg, info, self.tiers,
+                                                     folded)
+        self.streams = (graph, [folded[t] for t in self.tiers])
+        self.lists = None
 
     def draw(self, values, c: int, sample_evidence: bool, generator):
         """Draw color ``c`` of every planned tier into ``values``: two
@@ -776,56 +725,48 @@ def _dm_streams(ts, ti, c, info, folded_t) -> tuple:
             _tc(b1, c, (B, D)), *cross)
 
 
-def color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
-                    folded_t=None, modes=("off", "off"), write=None,
-                    psum=None):
-    """Draw new values [B_t, NC] for one tier of color ``c``.  A fused tier
-    given ``write = (row0, mask)`` draws straight into the world's block
-    instead (the kernels' world-write mode) and returns ``values``.
-    ``psum`` goes to a hub tier's draw (graph sharding)."""
-    if ti.hub:
+def color_draw_tier(dg, ts, ti, values, weights, generator, c, info, draw,
+                    folded_t=None, write=None, psum=None):
+    """Draw new values [B_t, NC] for one tier of color ``c`` on the
+    ``route`` draw ``draw``.  A fused tier given ``write = (row0, mask)``
+    draws straight into the world's block instead (the kernels'
+    world-write mode) and returns ``values``.  ``psum`` goes to a hub
+    tier's draw (graph sharding)."""
+    if draw == "hub":
         return hub_color_draw(dg, ts, ti, values, weights, generator, c,
-                              info, modes, folded_t, psum)
-    if _fused(ti, folded_t, modes):
+                              info, folded_t, psum)
+    if draw != "eager":
         seed = torch.randint(-(1 << 31), 1 << 31, (2,), generator=generator,
                              device=values.device, dtype=torch.int32)
-        cuda = modes[1] == "cuda"
-        if ti.affine2:
-            draw = fused_color_draw if cuda else fused_color_draw_plain
-            return draw(values, ts.bd_nbr, ts.bd_start[c], folded_t[0],
-                        folded_t[1], c, seed, ti.band_w, ti.band_tb,
-                        ti.degree, write=write)
-        if ti.affinek:
-            av, bv, kmask = folded_t         # fold_affine_cat layout
-            draw = fused_cat_draw if cuda else fused_cat_draw_plain
-            return draw(values, ts.bd_nbr, ts.bd_start[c], ts.bd_eqo,
-                        ts.bd_eqn, av, bv, kmask, c, seed, ti.band_w,
-                        ti.band_tb, ti.degree, info.max_card, write=write)
-        if not ti.fusedm:                    # a deltam tier, no band plan
-            draw = dm_gather_draw if cuda else dm_gather_draw_plain
-            return draw(values, *_dm_streams(ts, ti, c, info, folded_t),
-                        seed, write=write)
+    if draw == "color":
+        return fused_color_draw(values, ts.bd_nbr, ts.bd_start[c],
+                                folded_t[0], folded_t[1], c, seed, ti.band_w,
+                                ti.band_tb, ti.degree, write=write)
+    if draw == "cat":
+        av, bv, kmask = folded_t             # fold_affine_cat layout
+        return fused_cat_draw(values, ts.bd_nbr, ts.bd_start[c], ts.bd_eqo,
+                              ts.bd_eqn, av, bv, kmask, c, seed, ti.band_w,
+                              ti.band_tb, ti.degree, info.max_card,
+                              write=write)
+    if draw == "gather":                     # a dense deltam tier
+        return dm_gather_draw(values, *_dm_streams(ts, ti, c, info, folded_t),
+                              seed, write=write)
+    if draw == "dm":
         base, b1, b2, bx = folded_t          # fold_deltam_tiles layout
-        draw = fused_dm_draw if cuda else fused_dm_draw_plain
-        return draw(values, ts.bd_dmnbr, ts.bd_start[c], base, b1, b2, bx,
-                    c, seed, ti.band_w, ti.band_tb, ti.degree, ti.arity - 1,
-                    ti.band_k, write=write)
+        return fused_dm_draw(values, ts.bd_dmnbr, ts.bd_start[c], base, b1,
+                             b2, bx, c, seed, ti.band_w, ti.band_tb,
+                             ti.degree, ti.arity - 1, ti.band_k, write=write)
     if not (info.all_boolean and info.max_card == 2):
         return color_draw_categorical(dg, ts, ti, values, weights, generator,
-                                      c, info, modes)
-    if ti.deltam and folded_t is not None:
-        delta = color_delta_multilin(ts, ti, values, c, info, folded_t,
-                                     modes)
-    else:
-        delta = color_delta_bool(ts, ti, values, weights, c, info, modes)
+                                      c, info)
+    delta = color_delta_bool(ts, ti, values, weights, c, info)
     u = torch.rand(delta.shape, generator=generator, device=delta.device,
                    dtype=delta.dtype)
     return (u < torch.sigmoid(delta)).to(values.dtype)
 
 
 def color_step_mc(dg, values, weights, generator, c, sample_evidence: bool,
-                  info, folded=None, modes=("off", "off"),
-                  shard=None) -> torch.Tensor:
+                  info, folded=None, shard=None) -> torch.Tensor:
     """Resample color ``c`` in all chains, writing into ``values`` in place
     (tiers of one color share no factor, so tier by tier is the
     simultaneous block update); returns ``values``.  A fused tier's kernel
@@ -843,24 +784,28 @@ def color_step_mc(dg, values, weights, generator, c, sample_evidence: bool,
     B = info.block_size
     n, g = (1, 0) if shard is None else (shard.n_graph, shard.g)
     psum = None if shard is None else shard.psum
+    # a plan's launches address the whole graph's rows: a shard draws a
+    # tier at a time, whatever fold it is given
     plan = None if shard is not None else getattr(folded, "dm", None)
     if plan is not None:
         plan.draw(values, c, sample_evidence, generator)
-    if folded is None:
+    fold = folded is not None
+    if not fold:
         folded = (None,) * len(dg.tiers)
     for t, (ts, ti) in enumerate(zip(dg.tiers, info.tiers)):
         if plan is not None and t in plan.tiers:
             continue
+        draw = route(ti, info, shard is not None, fold).draw
         resample = (ts.cm_resample_ev[c] if sample_evidence
                     else ts.cm_resample[c])
         Bl = ti.block // n
         start = c * B + ti.off + g * Bl
-        if _fused(ti, folded[t], modes):
+        if draw not in ("hub", "eager"):
             color_draw_tier(dg, ts, ti, values, weights, generator, c, info,
-                            folded[t], modes, write=(start, resample))
+                            draw, folded[t], write=(start, resample))
         else:
             drawn = color_draw_tier(dg, ts, ti, values, weights, generator,
-                                    c, info, folded[t], modes, psum=psum)
+                                    c, info, draw, folded[t], psum=psum)
             if ti.hub and n > 1:
                 drawn = drawn[g * Bl:(g + 1) * Bl]
             old = values[start:start + Bl]
@@ -872,56 +817,47 @@ def color_step_mc(dg, values, weights, generator, c, sample_evidence: bool,
 
 @spanned("engine.sweep")
 def sweep_mc(dg, values, weights, generator, sample_evidence: bool, info,
-             folded=None, modes=("off", "off"), shard=None) -> torch.Tensor:
+             folded=None, shard=None) -> torch.Tensor:
     """One sweep over the colors, in place; returns ``values``.  ``shard``:
     as in color_step_mc."""
     for c in range(info.n_colors):
         color_step_mc(dg, values, weights, generator, c, sample_evidence,
-                      info, folded, modes, shard)
+                      info, folded, shard)
     return values
 
 
 @spanned("engine.run_sweeps")
 def run_sweeps_mc(dg, values, weights, generator, n_sweeps: int,
-                  sample_evidence: bool, info, modes=None,
-                  device="cuda") -> torch.Tensor:
+                  sample_evidence: bool, info, device="cuda") -> torch.Tensor:
     """``n_sweeps`` sweeps from ``values`` (not modified); returns the new
     worlds [P, NC]."""
-    modes, w = _setup(dg, values, weights, device, info, modes)
+    w = _setup(dg, values, weights, device)
     values = values.clone()
-    folded = prepare_fold(dg, w, info, modes)
+    folded = prepare_fold(dg, w, info)
     for _ in range(n_sweeps):
-        sweep_mc(dg, values, w, generator, sample_evidence, info, folded,
-                 modes)
+        sweep_mc(dg, values, w, generator, sample_evidence, info, folded)
     return values
 
 
 def tally(counts: torch.Tensor, values: torch.Tensor) -> None:
     """Add each position's count of every value k over the chains to
-    ``counts`` [K, P] int32, in place: the CUDA kernel (ops.tally) for a
-    world on the card, its plain version, in bincount blocks of about
-    INIT_CHUNK_ELEMS entries above 16 values, on the CPU."""
-    if values.device.type == "cpu":
-        tally_plain(counts, values, INIT_CHUNK_ELEMS)
-    else:
-        tally_counts(counts, values)
+    ``counts`` [K, P] int32, in place (``ops.tally.tally_counts``)."""
+    tally_counts(counts, values)
 
 
 @spanned("engine.run_inference")
 def run_inference_mc(dg, values, weights, generator, n_sweeps: int,
-                     sample_evidence: bool, info, modes=None,
-                     device="cuda") -> tuple:
+                     sample_evidence: bool, info, device="cuda") -> tuple:
     """Returns (values [P, NC], counts int32 flat [K*P] = row-major [K, P],
     pooled over chains and sweeps).  ``values`` is not modified."""
-    modes, w = _setup(dg, values, weights, device, info, modes)
+    w = _setup(dg, values, weights, device)
     values = values.clone()
     K = info.max_card
     counts = torch.zeros((K, values.shape[0]), dtype=torch.int32,
                          device=values.device)
-    folded = prepare_fold(dg, w, info, modes)
+    folded = prepare_fold(dg, w, info)
     for _ in range(n_sweeps):
-        sweep_mc(dg, values, w, generator, sample_evidence, info, folded,
-                 modes)
+        sweep_mc(dg, values, w, generator, sample_evidence, info, folded)
         tally(counts, values)
     return values, counts.reshape(-1)
 
@@ -929,7 +865,7 @@ def run_inference_mc(dg, values, weights, generator, n_sweeps: int,
 @spanned("engine.infer")
 def infer_mc(dg, weights, generator, n_burn: int, n_sweeps: int, info,
              n_chains: int, sample_evidence: bool = False,
-             random_init: bool = True, modes=None, device="cuda") -> tuple:
+             random_init: bool = True, device="cuda") -> tuple:
     """Chains-last inference; returns (marginals [V, K] float32 numpy,
     values [P, NC]).
 
@@ -937,13 +873,13 @@ def infer_mc(dg, weights, generator, n_burn: int, n_sweeps: int, info,
     torch.Generator on ``device``.  With the default ``device="cuda"`` and
     no card present this raises; pass ``device="cpu"`` for the plain
     versions."""
-    modes, w = _setup(dg, None, weights, device, info, modes)
+    w = _setup(dg, None, weights, device)
     values = init_values_mc(dg, generator, n_chains, info, random_init)
     if n_burn:
         values = run_sweeps_mc(dg, values, w, generator, n_burn,
-                               sample_evidence, info, modes, device)
+                               sample_evidence, info, device)
     values, counts = run_inference_mc(dg, values, w, generator, n_sweeps,
-                                      sample_evidence, info, modes, device)
+                                      sample_evidence, info, device)
     K = info.max_card
     with span("engine.marginals"):
         cnt = counts.cpu().numpy().reshape(K, -1).T
@@ -1019,45 +955,6 @@ def factor_gradient(dg, v_ev, v_free, learn_non_evidence: bool, present,
     return grad
 
 
-def _rows(arr, C: int, c: int, r0: int, rc: int, *tail) -> torch.Tensor:
-    """Rows ``r0 .. r0+rc`` of color ``c`` of a flat tier stream whose
-    logical shape is [C, rows, *tail]."""
-    n = 1
-    for x in tail:
-        n *= x
-    B = arr.numel() // (C * n)
-    base = (c * B + r0) * n
-    return arr[base:base + rc * n].view((rc,) + tail)
-
-
-def _phi_streams(values, ownv, ts, ti, c, r0, rc, present, modes,
-                 all_boolean: bool = True) -> tuple:
-    """(φ [rc, D, NC], gathered neighbour values [rc, D, A-1, NC] or None on
-    a unary tier) of rows ``r0 .. r0+rc`` of one tier's color ``c`` at the
-    current ``values``, with the variable's own value ``ownv`` [rc, NC] as
-    the candidate.  Neighbour values come through the same gather as the
-    draw (``_gather_nbr``); the sparse-weight gradient reuses them for its
-    table lookup.  φ is ``ops.grad.record_phi``, the math of
-    ``grad_records_plain``."""
-    C = ts.bd_start.shape[0]
-    _, D, A = tier_geom(ts, ti, C)
-    A1 = A - 1
-
-    def rows(arr, *tail):
-        return _rows(arr, C, c, r0, rc, *tail)
-
-    vals = None
-    if A1 > 0:
-        vals = _gather_nbr(ts, ti, values, rows(ts.cs_nbr, D, A1), c, modes,
-                           r0)
-    eq = None if all_boolean else rows(ts.cs_eq, D, A)
-    phi = record_phi(ownv, vals, rows(ts.cs_pos, D, A),
-                     rows(ts.cs_ismine, D, A), rows(ts.cs_mask, D, A),
-                     rows(ts.cs_hmask, D, A), eq, rows(ts.cs_arity, D),
-                     rows(ts.cs_type, D), present, all_boolean)
-    return phi, vals
-
-
 def _record_streams(ts, ti, C: int, gB: int, gsrc, n_graph: int, g: int,
                     all_boolean: bool) -> tuple:
     """The arguments of ``grad_records`` (and the first of a RecordTier) for
@@ -1086,58 +983,22 @@ def _record_streams(ts, ti, C: int, gB: int, gsrc, n_graph: int, g: int,
             rows(gsrc, D), own_base, gB, own_idx)
 
 
-def gradient_route(ti, info, modes, W: int, row_chunk: int | None = None,
-                   n_graph: int = 1) -> tuple:
-    """(route, mechanism) of one tier's gradient under ``modes``:
-
-      * ("pair", band): an affine2 tier with W <= GRAD_W_MAX, its band
-        mode on, no ``row_chunk`` and no graph sharding (as in the JAX
-        package) takes ``grad_pair_tile``;
-      * ("records", fused): with the fused mode on, every other tier takes
-        ``grad_records_sum`` ("cuda") or ``grad_records_sum_plain``
-        ("plain"), all such tiers in one call; on a graph with sparse
-        per-combination weights its dense owner records, the sparse ones
-        going to ``_sparse_grad_records`` beside it;
-      * ("chunked", "off"): with the fused mode off, the chunked route."""
-    band, fused = modes
-    tband = tier_modes(ti, modes)[0]
-    if (ti.affine2 and W <= GRAD_W_MAX and tband != "off"
-            and row_chunk is None and n_graph == 1):
-        return "pair", tband
-    if fused != "off":
-        return "records", fused
-    return "chunked", "off"
-
-
 def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
-                          modes=("off", "off"),
-                          row_chunk: int | None = None, n_graph: int = 1,
-                          g: int = 0) -> torch.Tensor:
+                          n_graph: int = 1, g: int = 0) -> torch.Tensor:
     """Weight gradient [W] on the cs streams: each factor counted once via
     its compile-time owner record (cs_gowner, or cs_gtouch unless
     ``learn_non_evidence``), averaged over the NC chains.  Each tier takes
-    its ``gradient_route``:
+    its ``route`` gradient:
 
-      * "pair": ``grad_pair_tile`` (the kernel, or its plain version), one
-        call a color;
+      * "pair": ``grad_pair_tile``, one call a color;
       * "records": every such tier in one call of ``grad_records_sum``
-        (the kernels: the owner records' terms, all tiers in one launch,
-        then their float64 sums by weight, rounded once) or of
-        ``grad_records_sum_plain`` (``grad_records_plain`` a tier, in
-        chunks of ``row_chunk`` rows, then one ``segment_reduce``), over
-        the tiers' plan (``_record_plan``, built once a graph and owner
-        mask).  On a graph with sparse per-combination weights the plan
-        holds the dense owner records (``_sparse_owners``), and the
-        sparse ones take ``_sparse_grad_records``: the table lookup of
-        each world's combination over a list of those records, one pass
-        a tier;
-      * "chunked": both worlds side by side on the chain axis, rows in
-        chunks of ``row_chunk`` (default ``_row_chunk``), φ from
-        ``_phi_streams`` (the same ``record_phi``) and ``records_diff``,
-        then the segment sum.  A sparse factor's owner record adds +feat
-        at the table weight of its evidence world's combination and -feat
-        at its free world's, the draw's table lookup with the own value as
-        the candidate.
+        (the owner records' terms, all tiers in one launch, then their
+        float64 sums by weight, rounded once) over the tiers' plan
+        (``_record_plan``, built once a graph and owner mask).  On a graph
+        with sparse per-combination weights the plan holds the dense owner
+        records (``_sparse_owners``), and the sparse ones take
+        ``_sparse_grad_records``: the table lookup of each world's
+        combination over a list of those records, one pass a tier.
 
     A hub tier's stream rows are its chunks, each with its row's own
     value.  Under graph sharding ``dg`` holds rank ``g``'s stream slices
@@ -1151,74 +1012,32 @@ def mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence: bool, info,
     gB = info.block_size
     C = info.n_colors
     grad = torch.zeros(W, dtype=torch.float32, device=v_ev.device)
-    v_both = None
-    records, rec_mech = [], None
+    records = []
     for t, (ts, ti) in enumerate(zip(dg.tiers, info.tiers)):
-        Bl, D, A = tier_geom(ts, ti, C)
-        route, mech = gradient_route(ti, info, modes, W, row_chunk, n_graph)
-        if route == "pair":
-            kernel = grad_pair_tile if mech == "cuda" else grad_pair_tile_plain
+        if route(ti, info, n_graph > 1).grad == "pair":
+            D = tier_geom(ts, ti, C)[1]
             coef = ts.gd_cown if learn_non_evidence else ts.gd_ctch
             for c in range(C):
-                parts = kernel(v_ev, v_free, ts.bd_nbr, ts.bd_start[c],
-                               ts.gd_wid, coef, ts.gd_ao, ts.gd_an,
-                               ts.gd_ax, c, c * gB + ti.off, ti.band_w,
-                               ti.band_tb, D, W)
+                parts = grad_pair_tile(v_ev, v_free, ts.bd_nbr,
+                                       ts.bd_start[c], ts.gd_wid, coef,
+                                       ts.gd_ao, ts.gd_an, ts.gd_ax, c,
+                                       c * gB + ti.off, ti.band_w,
+                                       ti.band_tb, D, W)
                 grad = grad + (parts.sum(dim=0, dtype=torch.float64)
                                / NC).to(torch.float32)
             continue
-        present = ti.present_funcs or info.present_funcs
-        gsrc = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
-        if route == "records":
-            records.append(t)
-            rec_mech = mech
-            if info.has_sparse_cw:
-                sparse = _sparse_owners(ts, gsrc)[1]
-                if sparse.numel():
-                    grad = grad + _sparse_grad_records(
-                        dg, ts, ti, C, gB, v_ev, v_free, sparse,
-                        ti.off + g * (ti.block // n_graph), W)
-            continue
-        if v_both is None:
-            # one gather a chunk serves both worlds
-            v_both = torch.cat([v_ev, v_free], dim=-1)
-        band = tier_modes(ti, modes)[0]
-        rc = min(row_chunk or _row_chunk(ti, Bl, D, A, 2 * NC), Bl)
-        if Bl % rc or (ti.band_w and band != "off" and rc % ti.band_tb):
-            raise ValueError(f"row_chunk {rc} must divide tier block {Bl}"
-                             " (and be a multiple of its band tile)")
-        for c in range(C):
-            for r0 in range(0, Bl, rc):
-                if ti.hub:
-                    # stream rows are chunks: a chunk's own value is its
-                    # row's (a pad chunk's, row ti.block, is masked by gsrc)
-                    hrow = ts.hb_row[c, r0:r0 + rc].clamp(max=ti.block - 1)
-                    own = v_both.index_select(
-                        0, c * gB + ti.off + hrow.to(torch.int64))
-                else:
-                    start = c * gB + ti.off + g * (ti.block // n_graph) + r0
-                    own = v_both[start:start + rc]
-                phi, nbrv = _phi_streams(v_both, own, ts, ti, c, r0, rc,
-                                         present, modes, info.all_boolean)
-                sl = slice((c * Bl + r0) * D, (c * Bl + r0 + rc) * D)
-                feat = ts.cs_feat[sl].view(rc, D)
-                gm = gsrc[sl].view(rc, D)
-                if info.has_sparse_cw:
-                    issp = ts.cs_issparse[sl].view(rc, D)
-                    diff = records_diff(phi, feat, gm & ~issp)
-                else:
-                    diff = records_diff(phi, feat, gm)
-                grad = grad + segment_reduce(diff, ts.cs_wid[sl], W)
-                if info.has_sparse_cw:
-                    grad = grad + _sparse_grad_rows(
-                        dg, ts, C, c, r0, rc, D, A, own, nbrv,
-                        torch.where(gm & issp, feat, 0.0) / NC, W)
+        records.append(t)
+        if info.has_sparse_cw:
+            gsrc = ts.cs_gowner if learn_non_evidence else ts.cs_gtouch
+            sparse = _sparse_owners(ts, gsrc)[1]
+            if sparse.numel():
+                grad = grad + _sparse_grad_records(
+                    dg, ts, ti, C, gB, v_ev, v_free, sparse,
+                    ti.off + g * (ti.block // n_graph), W)
     if records:
         plan = _record_plan(dg, info, records, learn_non_evidence, n_graph,
                             g)
-        grad = grad + (grad_records_sum(v_ev, v_free, plan)
-                       if rec_mech == "cuda" else grad_records_sum_plain(
-                           v_ev, v_free, plan, row_chunk=row_chunk))
+        grad = grad + grad_records_sum(v_ev, v_free, plan)
     if info.has_sparse_cw:
         grad[W - 1] = 0.0               # keep the reserved slot inert
     return grad
@@ -1299,39 +1118,16 @@ def _sparse_grad_records(dg, ts, ti, C, gB, v_ev, v_free, rec, own0: int,
                           torch.cat(wids, dim=-1), W)
 
 
-def _sparse_grad_rows(dg, ts, C, c, r0, rc, D, A, own, nbrv, sel, W):
-    """The sparse factors' gradient of one row chunk, both worlds side by
-    side on the chain axis of ``own`` [rc, 2NC] and ``nbrv``
-    [rc, D, A-1, 2NC]: ``sel`` [rc, D] (feat / NC on sparse owner records,
-    else 0) at the evidence world's table weights and -sel at the free
-    world's."""
-    NC2 = own.shape[-1]
-    NC = NC2 // 2
-    stride = _rows(ts.cs_cwstride, C, c, r0, rc, D, A)
-    ismine = _rows(ts.cs_ismine, C, c, r0, rc, D, A)
-    s_own = torch.where(ismine, stride, 0).sum(dim=-1, dtype=torch.int32)
-    m = (_rows(ts.cs_cwbase, C, c, r0, rc, D)[..., None]
-         + _stride_sum(stride, nbrv, A - 1, NC2)
-         + s_own[..., None] * own[:, None, :].to(torch.int32))
-    sel = sel[..., None].expand(rc, D, NC)
-    return segment_reduce(torch.cat([sel, -sel], dim=-1), _table_wid(dg, m),
-                          W)
-
-
 @spanned("engine.gradient")
-def mc_weight_gradient(dg, v_ev, v_free, learn_non_evidence: bool, info,
-                       modes=None) -> torch.Tensor:
-    """The cs-stream gradient when modes are given; the per-factor route
-    (the modes-free reference) when they are None."""
-    if modes is not None:
-        return mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence,
-                                     info, modes)
-    return _mc_weight_gradient_factors(dg, v_ev, v_free, learn_non_evidence,
-                                       info)
+def mc_weight_gradient(dg, v_ev, v_free, learn_non_evidence: bool,
+                       info) -> torch.Tensor:
+    """The learning step's gradient: ``mc_weight_gradient_cs`` on an
+    unsharded graph."""
+    return mc_weight_gradient_cs(dg, v_ev, v_free, learn_non_evidence, info)
 
 
 def _learn_mc_from(dg, weights, v_ev, v_free, alpha, generator, cfg, info,
-                   modes=None, device="cuda") -> tuple:
+                   device="cuda") -> tuple:
     """Multi-chain contrastive SGD from explicit worlds and step size: per
     epoch the weights are refolded, both worlds take
     ``cfg.n_sweeps_per_epoch`` sweeps in turn (the evidence world with
@@ -1340,7 +1136,7 @@ def _learn_mc_from(dg, weights, v_ev, v_free, alpha, generator, cfg, info,
     modified.  Returns (weights, v_ev, v_free, alpha), so a run resumes at
     epoch granularity by passing the last three back in with the same
     generator."""
-    modes, w = _setup(dg, v_ev, weights, device, info, modes)
+    w = _setup(dg, v_ev, weights, device)
     if not _on(v_free, v_ev.device):
         raise ValueError(f"v_free is on {v_free.device}, v_ev on "
                          f"{v_ev.device}")
@@ -1349,12 +1145,12 @@ def _learn_mc_from(dg, weights, v_ev, v_free, alpha, generator, cfg, info,
     diminish = np.float32(cfg.diminish)
     for _ in range(cfg.n_epochs):
         with span("engine.epoch"):
-            folded = prepare_fold(dg, w, info, modes)
+            folded = prepare_fold(dg, w, info)
             for _ in range(cfg.n_sweeps_per_epoch):
-                sweep_mc(dg, v_ev, w, generator, False, info, folded, modes)
-                sweep_mc(dg, v_free, w, generator, True, info, folded, modes)
+                sweep_mc(dg, v_ev, w, generator, False, info, folded)
+                sweep_mc(dg, v_free, w, generator, True, info, folded)
             grad = mc_weight_gradient(dg, v_ev, v_free,
-                                      cfg.learn_non_evidence, info, modes)
+                                      cfg.learn_non_evidence, info)
             w = apply_update(w, grad, dg.w_fixed, float(alpha),
                              cfg.regularization, cfg.reg_param)
         alpha = alpha * diminish
@@ -1362,15 +1158,15 @@ def _learn_mc_from(dg, weights, v_ev, v_free, alpha, generator, cfg, info,
 
 
 @spanned("engine.learn")
-def learn_mc(dg, weights, generator, cfg, info, n_chains: int, modes=None,
-             v_ev=None, v_free=None, alpha=None, device="cuda") -> tuple:
+def learn_mc(dg, weights, generator, cfg, info, n_chains: int, v_ev=None,
+             v_free=None, alpha=None, device="cuda") -> tuple:
     """Multi-chain learning; returns (weights [W] float32, v_ev, v_free).
 
     Fresh worlds of ``n_chains`` chains come from ``generator`` (evidence
     world first); pass (v_ev, v_free, alpha) to continue a checkpointed
     run instead.  With the default ``device="cuda"`` and no card present
     this raises; pass ``device="cpu"`` for the plain versions."""
-    modes = _setup(dg, v_ev, weights, device, info, modes)[0]
+    _setup(dg, v_ev, weights, device)
     if v_ev is None:
         v_ev = init_values_mc(dg, generator, n_chains, info)
     if v_free is None:
@@ -1378,5 +1174,5 @@ def learn_mc(dg, weights, generator, cfg, info, n_chains: int, modes=None,
     if alpha is None:
         alpha = cfg.stepsize
     w, v_ev, v_free, _ = _learn_mc_from(dg, weights, v_ev, v_free, alpha,
-                                        generator, cfg, info, modes, device)
+                                        generator, cfg, info, device)
     return w, v_ev, v_free

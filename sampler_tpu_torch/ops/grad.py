@@ -7,7 +7,7 @@ row-chunk body of the JAX package's mc_weight_gradient_cs, which XLA
 fuses; csrc/grad_records.cu).  ``grad_records``, a tier's per-record
 contributions (zero off the owner mask), is the route before
 ``grad_records_sum``; its plain version is the per-record math that
-``grad_records_sum_plain`` and the chunked route share.
+``grad_records_sum_plain`` runs a tier at a time.
 
 ``grad_pair_tile``:
 
@@ -314,8 +314,8 @@ def grad_records_plain(v_ev, v_free, nbr, pos, ismine, mask, hmask, eq, typ,
                        own_idx, present, all_boolean: bool,
                        row_chunk: int | None = None,
                        out=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`grad_records`: the chunked
-    gradient's per-record math (``record_phi``, then ``records_diff``) a
+    """Plain PyTorch version of :func:`grad_records`: the per-record
+    math (``record_phi``, then ``records_diff``) a
     color at a time, over chunks of ``row_chunk`` rows (default:
     ~RECORD_CHUNK_ELEMS elements of the [rows, D, A, 2NC] temporaries),
     the neighbour and own values gathered from each world by position."""
@@ -605,16 +605,14 @@ def record_launches(plan: RecordPlan) -> int:
     return -(-len(plan.tiers) // RECORD_MAX_TIERS) + 2
 
 
-def grad_records_sum_plain(v_ev, v_free, plan: RecordPlan,
-                           row_chunk: int | None = None) -> torch.Tensor:
+def grad_records_sum_plain(v_ev, v_free, plan: RecordPlan) -> torch.Tensor:
     """Plain PyTorch version of :func:`grad_records_sum`: each tier's
     per-record terms (``grad_records_plain``, zero off the owner mask) and
     one float64 sum of all of them by weight id (``segment_reduce``),
     rounded to float32 once."""
     vals, wids = [], []
     for t in plan.tiers:
-        out = grad_records_plain(v_ev, v_free, *t[:14], plan.all_boolean,
-                                 row_chunk=row_chunk)
+        out = grad_records_plain(v_ev, v_free, *t[:14], plan.all_boolean)
         vals.append(out.reshape(-1))
         wids.append(t.wid.reshape(-1))
     return segment_reduce(torch.cat(vals), torch.cat(wids), plan.W)

@@ -22,9 +22,8 @@ import torch
 
 from ..compile import to_device
 from ..engine.learn import apply_update
-from ..engine.multichain import (check_modes, init_values_mc,
-                                 mc_weight_gradient_cs, prepare_fold,
-                                 resolve_modes, run_inference_mc,
+from ..engine.multichain import (init_values_mc, mc_weight_gradient_cs,
+                                 prepare_fold, run_inference_mc,
                                  run_sweeps_mc, sweep_mc)
 from ..engine.rng import chunk_generator
 from . import launch
@@ -53,11 +52,9 @@ def learn_alpha(cfg, epoch: int) -> float:
     return float(np.float32(cfg.stepsize * cfg.diminish ** epoch))
 
 
-def _rank_setup(comm, host, weights, info, modes):
+def _rank_setup(comm, host, weights):
     d = to_device_graph(host, comm.device)
-    modes = (resolve_modes(info, comm.device) if modes is None
-             else check_modes(modes, comm.device))
-    return d, weights.to(comm.device, torch.float32), modes
+    return d, weights.to(comm.device, torch.float32)
 
 
 def to_device_graph(dg, device):
@@ -70,17 +67,17 @@ def to_device_graph(dg, device):
 
 
 def _infer_rank(comm, host, weights, seed, n_burn, n_sweeps, info,
-                n_chains, sample_evidence, modes):
+                n_chains, sample_evidence):
     """One rank of infer_sharded: (marginals [V, K], this rank's world)."""
-    d, w, modes = _rank_setup(comm, host, weights, info, modes)
+    d, w = _rank_setup(comm, host, weights)
     dev = comm.device
     gen = chunk_generator(seed, "infer", 0, dev, comm.row)
     values = init_values_mc(d, gen, n_chains, info)
     if n_burn:
         values = run_sweeps_mc(d, values, w, gen, n_burn, sample_evidence,
-                               info, modes, dev)
+                               info, dev)
     values, counts = run_inference_mc(d, values, w, gen, n_sweeps,
-                                      sample_evidence, info, modes, dev)
+                                      sample_evidence, info, dev)
     counts = comm.sum_(counts.to(torch.int64), "chains")
     K = info.max_card
     cnt = counts.cpu().numpy().reshape(K, -1).T
@@ -91,65 +88,63 @@ def _infer_rank(comm, host, weights, seed, n_burn, n_sweeps, info,
 
 def infer_sharded(dg, weights, seed: int, n_burn: int, n_sweeps: int, info,
                   mesh, chains_per_device: int,
-                  sample_evidence: bool = False, modes=None) -> tuple:
+                  sample_evidence: bool = False) -> tuple:
     """Chain-parallel inference on a mesh (``comm.Mesh`` or open
     ``launch.Ranks``) of one graph column: every rank runs
     ``chains_per_device`` chains of the whole graph.  Returns (marginals
     [V, K] float32, rank 0's world [P, chains_per_device])."""
-    _chains_mesh(mesh, modes)
+    _chains_mesh(mesh)
     return launch.run(mesh, _infer_rank, host_graph(dg),
                       torch.as_tensor(weights).cpu(), seed, n_burn, n_sweeps,
-                      info, chains_per_device, sample_evidence, modes)
+                      info, chains_per_device, sample_evidence)
 
 
-def _chains_mesh(mesh, modes):
+def _chains_mesh(mesh):
     """The mesh of ``mesh`` (a Mesh or Ranks), checked to be one graph
-    column and to run ``modes``."""
+    column."""
     m = mesh.mesh if isinstance(mesh, launch.Ranks) else mesh
     if m.n_graph != 1:
         raise ValueError(f"a chains mesh has one graph column, not "
                          f"{m.n_graph}: shard the graph with "
                          "parallel.graph_shard")
-    if modes is not None:
-        check_modes(modes, m.devices[0])
     return m
 
 
 def learn_step_sharded(comm, d, w, v_ev, v_free, generator, alpha: float,
-                       cfg, info, modes, shard=None) -> torch.Tensor:
+                       cfg, info, shard=None) -> torch.Tensor:
     """One data-parallel epoch on this rank: the weights folded, both
     worlds (in place) take ``cfg.n_sweeps_per_epoch`` sweeps from
     ``generator``, the gradient of the rank's chains (summed over the graph
     group under graph sharding) is averaged over the chains group, and
     the update applied.  Returns the new weights (the same on every
     rank)."""
-    folded = prepare_fold(d, w, info, modes, plan=shard is None)
+    folded = prepare_fold(d, w, info, sharded=shard is not None)
     for _ in range(cfg.n_sweeps_per_epoch):
-        sweep_mc(d, v_ev, w, generator, False, info, folded, modes, shard)
-        sweep_mc(d, v_free, w, generator, True, info, folded, modes, shard)
+        sweep_mc(d, v_ev, w, generator, False, info, folded, shard)
+        sweep_mc(d, v_free, w, generator, True, info, folded, shard)
     grad = reduced_gradient(comm, d, v_ev, v_free, cfg.learn_non_evidence,
-                            info, modes, shard)
+                            info, shard)
     return apply_update(w, grad, d.w_fixed, alpha, cfg.regularization,
                         cfg.reg_param)
 
 
 def reduced_gradient(comm, d, v_ev, v_free, learn_non_evidence: bool, info,
-                     modes, shard=None) -> torch.Tensor:
+                     shard=None) -> torch.Tensor:
     """The weight gradient of the whole mesh's chains: this rank's, on its
     local streams (its own records under graph sharding), summed over the
     graph group and averaged over the chains group; the gradient of the
     unsharded graph on the chains rows' worlds side by side."""
     n, g = (1, 0) if shard is None else (shard.n_graph, shard.g)
     grad = mc_weight_gradient_cs(d, v_ev, v_free, learn_non_evidence, info,
-                                 modes, n_graph=n, g=g)
+                                 n_graph=n, g=g)
     if shard is not None:
         shard.psum(grad)
     return comm.mean_(grad, "chains")
 
 
-def _learn_rank(comm, host, weights, seed, cfg, info, n_chains, modes):
+def _learn_rank(comm, host, weights, seed, cfg, info, n_chains):
     """One rank of learn_sharded; returns the weights (every rank)."""
-    d, w, modes = _rank_setup(comm, host, weights, info, modes)
+    d, w = _rank_setup(comm, host, weights)
     dev = comm.device
     gen = chunk_generator(seed, "learn_init", 0, dev, comm.row)
     v_ev = init_values_mc(d, gen, n_chains, info)
@@ -158,15 +153,15 @@ def _learn_rank(comm, host, weights, seed, cfg, info, n_chains, modes):
         w = learn_step_sharded(
             comm, d, w, v_ev, v_free,
             chunk_generator(seed, "learn", e, dev, comm.row),
-            learn_alpha(cfg, e), cfg, info, modes)
+            learn_alpha(cfg, e), cfg, info)
     return w.cpu()
 
 
 def learn_sharded(dg, weights, seed: int, cfg, info, mesh,
-                  chains_per_device: int = 1, modes=None) -> torch.Tensor:
+                  chains_per_device: int = 1) -> torch.Tensor:
     """Data-parallel learning on a mesh of one graph column; returns the
     weights [W] float32 (CPU)."""
-    _chains_mesh(mesh, modes)
+    _chains_mesh(mesh)
     return launch.run(mesh, _learn_rank, host_graph(dg),
                       torch.as_tensor(weights).cpu(), seed, cfg, info,
-                      chains_per_device, modes)
+                      chains_per_device)

@@ -32,8 +32,7 @@ import numpy as np
 import torch
 
 from ..compile import FLAT_TIER_FIELDS, TierStreams
-from ..engine.multichain import (check_modes, init_values_mc, prepare_fold,
-                                 resolve_modes, sweep_mc, tally)
+from ..engine.multichain import init_values_mc, prepare_fold, sweep_mc, tally
 from ..engine.rng import chunk_generator
 from ..observe import spanned
 from . import launch
@@ -257,14 +256,10 @@ class Shard:
             self.comm.shift(own, slice_of(g + j), -j, "graph")
 
 
-def _local(comm, host, info, modes):
-    """(the rank's local graph on its device, the modes)."""
-    n = comm.mesh.n_graph
-    dl = shard_device_graph(_strip_factor_records(host), info, n, comm.g,
-                            comm.device)
-    modes = (resolve_modes(info, comm.device) if modes is None
-             else check_modes(modes, comm.device))
-    return dl, modes
+def _local(comm, host, info):
+    """The rank's local graph on its device."""
+    return shard_device_graph(_strip_factor_records(host), info,
+                              comm.mesh.n_graph, comm.g, comm.device)
 
 
 def _canonical(comm, values, info, halo) -> torch.Tensor:
@@ -293,12 +288,12 @@ def _own_cols(world: np.ndarray, comm, n_chains: int, device):
 
 
 def _infer_gs_rank(comm, host, weights, seed, n_burn, n_sweeps, info,
-                   n_chains, sample_evidence, modes, halo, every, resume,
-                   gather, on_checkpoint=None):
+                   n_chains, sample_evidence, halo, every, resume, gather,
+                   on_checkpoint=None):
     """One rank of infer_gs; returns the marginals [V, K] (every rank)."""
     dev = comm.device
     n = comm.mesh.n_graph
-    dl, modes = _local(comm, host, info, modes)
+    dl = _local(comm, host, info)
     shard = Shard(comm, info, halo) if n > 1 else None
     w = weights.to(dev, torch.float32)
     P, K = host.var_card.shape[0], info.max_card
@@ -313,7 +308,7 @@ def _infer_gs_rank(comm, host, weights, seed, n_burn, n_sweeps, info,
             info)
         counts_acc = np.zeros((P, K), np.int64)
     runs = own_runs(info, n, comm.g)
-    folded = prepare_fold(dl, w, info, modes, plan=shard is None)
+    folded = prepare_fold(dl, w, info, sharded=shard is not None)
     n_total = n_burn + n_sweeps
     while done < n_total:
         stop = min(done + (every or n_total), n_total)
@@ -322,7 +317,7 @@ def _infer_gs_rank(comm, host, weights, seed, n_burn, n_sweeps, info,
         for i in range(done, stop):
             gen = chunk_generator(seed, "gs_sweep", i, dev, comm.row, comm.g)
             sweep_mc(dl, values, w, gen, sample_evidence, info, folded,
-                     modes, shard)
+                     shard)
             if i >= n_burn:
                 for (r0, r1), seg in zip(runs, segs):
                     tally(seg, values[r0:r1])
@@ -343,14 +338,12 @@ def _infer_gs_rank(comm, host, weights, seed, n_burn, n_sweeps, info,
     return counts_acc[pos].astype(np.float32) / np.float32(total)
 
 
-def _prepare(dg, info, mesh, modes, halo):
+def _prepare(dg, info, mesh, halo):
     """(host graph, halo plan) of a sharded call, its arguments checked."""
     m = mesh.mesh if isinstance(mesh, launch.Ranks) else mesh
     n_graph = m.n_graph
     check_shardable(info, n_graph)
     host = host_graph(dg)
-    if modes is not None:
-        check_modes(modes, m.devices[0])
     if halo == "auto":
         halo = halo_plan(host, info, n_graph)
     elif halo is not None and n_graph <= 1:
@@ -360,7 +353,7 @@ def _prepare(dg, info, mesh, modes, halo):
 
 def infer_gs(dg, weights, seed: int, n_burn: int, n_sweeps: int, info,
              mesh, chains_per_device: int, sample_evidence: bool = False,
-             modes=None, halo="auto", checkpoint_every: int = 0,
+             halo="auto", checkpoint_every: int = 0,
              on_checkpoint=None, resume_state=None) -> np.ndarray:
     """Marginal inference on a ``(chains, graph)`` mesh (a ``comm.Mesh``
     or open ``launch.Ranks``): streams split over the graph group, each
@@ -376,21 +369,21 @@ def infer_gs(dg, weights, seed: int, n_burn: int, n_sweeps: int, info,
     values, counts)`` receives the world [P, chains_per_device *
     n_chains] (every row fresh) and the int64 tally [P, K] so far.
     ``resume_state=(sweeps_done, values, counts)`` continues one."""
-    host, halo = _prepare(dg, info, mesh, modes, halo)
+    host, halo = _prepare(dg, info, mesh, halo)
     gather = on_checkpoint is not None
     return launch.run(
         mesh, _infer_gs_rank, host, torch.as_tensor(weights).cpu(), seed,
-        n_burn, n_sweeps, info, chains_per_device, sample_evidence, modes,
-        halo, checkpoint_every, resume_state, gather,
+        n_burn, n_sweeps, info, chains_per_device, sample_evidence, halo,
+        checkpoint_every, resume_state, gather,
         rank0_kwargs={"on_checkpoint": on_checkpoint})
 
 
-def _learn_gs_rank(comm, host, weights, seed, cfg, info, n_chains, modes,
-                   halo, every, resume, gather, on_checkpoint=None):
+def _learn_gs_rank(comm, host, weights, seed, cfg, info, n_chains, halo,
+                   every, resume, gather, on_checkpoint=None):
     """One rank of learn_gs; returns the weights (every rank)."""
     dev = comm.device
     n = comm.mesh.n_graph
-    dl, modes = _local(comm, host, info, modes)
+    dl = _local(comm, host, info)
     shard = Shard(comm, info, halo) if n > 1 else None
     if resume is not None:
         done, w, v_ev, v_free = resume
@@ -407,8 +400,7 @@ def _learn_gs_rank(comm, host, weights, seed, cfg, info, n_chains, modes,
         for e in range(done, stop):
             gen = chunk_generator(seed, "gs_learn", e, dev, comm.row, comm.g)
             w = learn_step_sharded(comm, dl, w, v_ev, v_free, gen,
-                                   learn_alpha(cfg, e), cfg, info, modes,
-                                   shard)
+                                   learn_alpha(cfg, e), cfg, info, shard)
         done = stop
         if gather:
             ev = _canonical(comm, v_ev, info, halo)
@@ -420,7 +412,7 @@ def _learn_gs_rank(comm, host, weights, seed, cfg, info, n_chains, modes,
 
 
 def learn_gs(dg, weights, seed: int, cfg, info, mesh,
-             chains_per_device: int, modes=None, halo="auto",
+             chains_per_device: int, halo="auto",
              checkpoint_every: int = 0, on_checkpoint=None,
              resume_state=None) -> torch.Tensor:
     """Contrastive-SGD learning on a ``(chains, graph)`` mesh, for graphs
@@ -438,9 +430,9 @@ def learn_gs(dg, weights, seed: int, cfg, info, mesh,
     ``resume_state=(epochs_done, w, v_ev, v_free)`` continues one.  Epoch
     e steps by stepsize * diminish**e, so chunks and resumes change
     nothing."""
-    host, halo = _prepare(dg, info, mesh, modes, halo)
+    host, halo = _prepare(dg, info, mesh, halo)
     gather = on_checkpoint is not None
     return launch.run(
         mesh, _learn_gs_rank, host, torch.as_tensor(weights).cpu(), seed,
-        cfg, info, chains_per_device, modes, halo, checkpoint_every,
+        cfg, info, chains_per_device, halo, checkpoint_every,
         resume_state, gather, rank0_kwargs={"on_checkpoint": on_checkpoint})

@@ -73,22 +73,22 @@ def group_comm(mesh: Mesh) -> Comm:
 def infer_multihost(dg, weights, seed: int, n_burn: int, n_sweeps: int,
                     info, mesh: Mesh | None = None,
                     chains_per_device: int = 8,
-                    sample_evidence: bool = False, modes=None):
+                    sample_evidence: bool = False):
     """Chain-parallel inference over every rank of the group; returns the
     marginals [V, K] float32 (the same on every process)."""
     if mesh is None:
         mesh = global_chains_mesh()
     return infer_sharded(dg, weights, seed, n_burn, n_sweeps, info, mesh,
-                         chains_per_device, sample_evidence, modes)[0]
+                         chains_per_device, sample_evidence)[0]
 
 
 def learn_multihost(dg, weights, seed: int, cfg, info,
-                    mesh: Mesh | None = None, chains_per_device: int = 1,
-                    modes=None) -> torch.Tensor:
+                    mesh: Mesh | None = None,
+                    chains_per_device: int = 1) -> torch.Tensor:
     """Data-parallel learning over every rank of the group, the gradient
     averaged every epoch; returns the weights [W] (the same on every
     process)."""
     if mesh is None:
         mesh = global_chains_mesh()
     return learn_sharded(dg, weights, seed, cfg, info, mesh,
-                         chains_per_device, modes)
+                         chains_per_device)

@@ -52,7 +52,7 @@ def device_memory(dev) -> dict | None:
 
 def main(argv=None, inspect=None) -> dict:
     """Run the scale point and print its record (returned too).
-    ``inspect(d, info, values, counts, modes)``, when given, is called
+    ``inspect(d, info, values, counts)``, when given, is called
     after the timed runs, with the placed graph, the last worlds and
     counts, before they are freed."""
     ap = argparse.ArgumentParser()
@@ -70,8 +70,7 @@ def main(argv=None, inspect=None) -> dict:
 
     from .benchgraphs import big_ising_grid
     from .compile import compile_graph, resolve_device, to_device
-    from .engine.multichain import (init_values_mc, resolve_modes,
-                                    run_inference_mc)
+    from .engine.multichain import init_values_mc, run_inference_mc
     from .observe import card
     from .scale_demo import memory_budget
 
@@ -89,7 +88,6 @@ def main(argv=None, inspect=None) -> dict:
     del g, colors
     gc.collect()
 
-    modes = resolve_modes(info, dev)
     dg = drop_gradient_streams(dg, info)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -102,14 +100,14 @@ def main(argv=None, inspect=None) -> dict:
 
     t0 = time.perf_counter()
     vals, counts = run_inference_mc(d, vals, d.w_init, gen, args.sweeps,
-                                    False, info, modes, device=dev)
+                                    False, info, device=dev)
     sync()
     t_warm = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     for _ in range(args.outer):
         vals, counts = run_inference_mc(d, vals, d.w_init, gen, args.sweeps,
-                                        False, info, modes, device=dev)
+                                        False, info, device=dev)
     sync()
     t_run = time.perf_counter() - t0
     memory = device_memory(dev)
@@ -128,7 +126,6 @@ def main(argv=None, inspect=None) -> dict:
         "n_factors": info.n_factors,
         "chains": args.chains,
         "sweeps": args.sweeps * args.outer,
-        "modes": list(modes),
         "band_w": info.band_w,
         "gen_s": t_gen,
         "compile_s": t_compile,
@@ -140,7 +137,7 @@ def main(argv=None, inspect=None) -> dict:
         "hbm": memory,
     }
     if inspect is not None:
-        inspect(d, info, vals, counts, modes)
+        inspect(d, info, vals, counts)
     print(json.dumps(out), flush=True)
     return out
 

@@ -28,7 +28,7 @@ WARM_SWEEPS = 2
 
 def main(argv=None, inspect=None) -> dict:
     """Run the scale point and print its record (returned too).
-    ``inspect(d, info, values, modes, generator)``, when given, is called
+    ``inspect(d, info, values, generator)``, when given, is called
     after the timed runs, with the placed graph and the last worlds,
     before they are freed."""
     ap = argparse.ArgumentParser()
@@ -48,8 +48,8 @@ def main(argv=None, inspect=None) -> dict:
     from .coloring import greedy_coloring, rcm_order
     from .compile import compile_graph, iter_arrays, resolve_device, \
         to_device
-    from .engine.multichain import (init_values_mc, resolve_modes,
-                                    run_inference_mc, run_sweeps_mc)
+    from .engine.multichain import (init_values_mc, run_inference_mc,
+                                    run_sweeps_mc)
     from .observe import card
     from .scale_gpu import device_memory
 
@@ -76,7 +76,6 @@ def main(argv=None, inspect=None) -> dict:
     del g, colors, order
     gc.collect()
     graph_bytes = sum(int(a.nbytes) for _, a in iter_arrays(dg))
-    modes = resolve_modes(info, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     d = to_device(dg, dev)
@@ -87,14 +86,14 @@ def main(argv=None, inspect=None) -> dict:
     t0 = time.perf_counter()
     vals = init_values_mc(d, gen, args.chains, info)
     vals = run_sweeps_mc(d, vals, d.w_init, gen, WARM_SWEEPS, False, info,
-                         modes, device=dev)
+                         device=dev)
     sync()
     t_warm = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     for _ in range(args.outer):
         vals, counts = run_inference_mc(d, vals, d.w_init, gen, args.inner,
-                                        False, info, modes, device=dev)
+                                        False, info, device=dev)
     sync()
     t_run = time.perf_counter() - t0
     memory = device_memory(dev)
@@ -114,7 +113,6 @@ def main(argv=None, inspect=None) -> dict:
         "n_colors": info.n_colors, "n_tiers": len(info.tiers),
         "has_hub": info.has_hub, "hub_cap": args.hub_cap,
         "chains": args.chains, "sweeps": args.inner * args.outer,
-        "modes": list(modes),
         "gen_s": t_gen, "host_s": host, "compile_s": t_compile,
         "warm_s": t_warm, "run_s": t_run,
         "updates_per_s": rate,
@@ -124,7 +122,7 @@ def main(argv=None, inspect=None) -> dict:
         "hbm": memory,
     }
     if inspect is not None:
-        inspect(d, info, vals, modes, gen)
+        inspect(d, info, vals, gen)
     print(json.dumps(out), flush=True)
     return out
 

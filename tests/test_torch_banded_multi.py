@@ -134,10 +134,11 @@ def test_compiled_multi_gather_equals_row_gather(name):
 @pytest.mark.parametrize("name", sorted(MW_GRAPHS))
 def test_gather_nbr_multi_window_rows(name):
     """_gather_nbr's multi-window branch, whole color and a tile-aligned
-    row range, equals index_select over cs_nbr (band 'off')."""
+    row range, equals index_select over cs_nbr."""
     dg, info = _compiled(name)
     d = to_device(dg, "cpu")
     ts, ti = d.tiers[0], info.tiers[0]
+    assert tmc.route(ti, info).band and ti.band_k >= 2
     P = dg.var_card.shape[0]
     vals = torch.from_numpy(
         np.random.default_rng(1).integers(0, 2, (P, 8), dtype=np.int8))
@@ -148,9 +149,9 @@ def test_gather_nbr_multi_window_rows(name):
         nbr = tmc._tc(ts.cs_nbr, c, (B, D, A1))
         for r0, rc in ((0, B), (2 * TB, 3 * TB)):
             part = nbr[r0:r0 + rc]
-            got = tmc._gather_nbr(ts, ti, vals, part, c, ("plain", "off"),
-                                  r0)
-            ref = tmc._gather_nbr(ts, ti, vals, part, c, ("off", "off"), r0)
+            got = tmc._gather_nbr(ts, ti, vals, part, c, info, r0)
+            ref = vals.index_select(0, part.reshape(-1)).reshape(
+                got.shape)
             assert torch.equal(got, ref)
 
 

@@ -19,15 +19,18 @@ without a banded plan, against the JAX package and the oracle.
   * the world-write mode changes only the rows its mask selects;
   * one launch a color over every planned tier draws what the tiers drawn
     one by one draw, given the same seeds;
-  * the default modes of a KBC graph route every deltam tier, its hub
-    tier included, to one call a color (no eager color_delta_multilin,
-    no hub_color_draw left), and infer_mc with the fused mode "plain" and
-    "off" both match exact enumeration (|dp| < 0.01; 0.012 on the hub
-    star, whose hub mixes slowly); two runs from one seed write the same
-    bytes;
+  * ``route`` sends every deltam tier of a KBC graph, its hub tier
+    included, to dm_gather_draw: one call a color (no eager
+    color_delta_bool, no hub_color_draw left; the single-chain engine,
+    which folds nothing, the reverse), and infer_mc with the one launch a
+    color and with a tier at a time (the hub through hub_color_draw and
+    the delta mode, as under graph sharding) both match exact enumeration
+    (|dp| < 0.01; 0.012 on the hub star, whose hub mixes slowly); two
+    runs from one seed write the same bytes;
   * KBC learning on the new route is deterministic for a seed;
-  * the "cuda" mode on the CPU raises, and so do shapes that disagree
-    and hub chunk offsets that decrease or leave [0, M];
+  * a run on a device its graph is not on raises, and so do a device with
+    no kernel, shapes that disagree and hub chunk offsets that decrease
+    or leave [0, M];
   * a fold and its plan free their streams without the cycle collector,
     and the plan's launch tables point into the streams of the graph it
     was folded on.
@@ -57,6 +60,7 @@ from sampler_tpu_torch.coloring import greedy_coloring
 from sampler_tpu_torch.compile import compile_graph, to_device
 from sampler_tpu_torch.convert import from_jax
 from sampler_tpu_torch.engine import multichain as tmc
+from sampler_tpu_torch.engine.gibbs import run_sweeps
 from sampler_tpu_torch.engine.learn import LearnConfig
 from sampler_tpu_torch.ops import fused as tfused
 from sampler_tpu_torch.ops.fused import (DM_MAX_TIERS, DM_SEGMENT,
@@ -69,6 +73,7 @@ from sampler_tpu_torch.ops.fused import (DM_MAX_TIERS, DM_SEGMENT,
                                          dm_tier_table, hash_bits, tile_seed, u32,
                                          uniform24)
 from sampler_tpu_torch.parallel import graph_shard as tgs
+from torch_routes import WholeShard, infer_on_route
 
 NC = 24
 TOL = 0.01
@@ -142,17 +147,14 @@ def test_plain_delta_matches_jax_multilin(name):
     jdgd = jax_to_device(jdg)
     jw = jnp.asarray(jdg.w_init)
     jfold = jmc.prepare_fold(jdgd, jw, jinfo, ("off", "off"))
-    modes = tmc.resolve_modes(info, "cpu")
-    assert modes[1] == "plain"
-    fold = tmc.prepare_fold(d, d.w_init, info, modes)
+    fold = tmc.prepare_fold(d, d.w_init, info)
     vals = _world(jdg.var_card.shape[0], NC, 4)
     tv = torch.from_numpy(vals)
     arities = set()
     for t, ti in enumerate(info.tiers):
         if not ti.deltam:
             continue
-        assert not (ti.affine2 or ti.fusedm) and tmc.tier_modes(
-            ti, modes) == ("off", "plain")
+        assert tmc.route(ti, info) == ("gather", False, "records")
         arities.add((ti.arity, ti.hub))
         for c in range(info.n_colors):
             ref = np.asarray(jmc.color_delta_multilin(
@@ -174,9 +176,10 @@ def test_plain_delta_matches_jax_multilin(name):
 @pytest.mark.parametrize("name", ["kbc3000_hub", "kbc_pairwise_hub",
                                   "star_bool"])
 def test_hub_chunk_deltas_match_jax(name):
-    """hub_partial with the fused mode on (dm_gather_draw's delta mode,
-    then index_add_) equals JAX's chunk deltas summed onto their rows, and
-    the port's eager route, within 1e-5."""
+    """hub_partial given the fold (dm_gather_draw's delta mode, then
+    index_add_) equals JAX's chunk deltas summed onto their rows, and the
+    port's eager route without a fold (color_delta_bool, the single-chain
+    engine's), within 1e-5."""
     jdg, jinfo, d, info = _jax_graph(name)
     jdgd = jax_to_device(jdg)
     jfold = jmc.prepare_fold(jdgd, jnp.asarray(jdg.w_init), jinfo,
@@ -184,7 +187,7 @@ def test_hub_chunk_deltas_match_jax(name):
     t = len(info.tiers) - 1
     ti, ts = info.tiers[t], d.tiers[t]
     assert ti.hub and ti.deltam
-    fold = tmc.prepare_fold(d, d.w_init, info, ("off", "plain"))
+    fold = tmc.prepare_fold(d, d.w_init, info)
     vals = _world(jdg.var_card.shape[0], NC, 5)
     tv = torch.from_numpy(vals)
     for c in range(info.n_colors):
@@ -193,10 +196,8 @@ def test_hub_chunk_deltas_match_jax(name):
             jfold[t], ("off", "off")))
         ref = np.zeros((ti.block + 1, NC), np.float32)
         np.add.at(ref, np.asarray(jdg.tiers[t].hb_row[c]), dchunk)
-        got = tmc.hub_partial(d, ts, ti, tv, d.w_init, c, info,
-                              ("off", "plain"), fold[t])
-        eager = tmc.hub_partial(d, ts, ti, tv, d.w_init, c, info,
-                                ("off", "off"), fold[t])
+        got = tmc.hub_partial(d, ts, ti, tv, d.w_init, c, info, fold[t])
+        eager = tmc.hub_partial(d, ts, ti, tv, d.w_init, c, info)
         np.testing.assert_allclose(got.numpy(), ref[:ti.block], rtol=0,
                                    atol=1e-5)
         np.testing.assert_allclose(got.numpy(), eager.numpy(), rtol=0,
@@ -221,15 +222,14 @@ def test_hub_row_sums_match_jax_segment_sum(name, shards):
     t = len(info.tiers) - 1
     ti, ts = info.tiers[t], d.tiers[t]
     assert ti.hub and ti.deltam
-    modes = ("off", "plain")
-    fold = tmc.prepare_fold(d, d.w_init, info, modes)
+    fold = tmc.prepare_fold(d, d.w_init, info)
     vals = _world(jdg.var_card.shape[0], NC, 6)
     tv = torch.from_numpy(vals)
     ranks = []
     for g in range(shards if shards > 1 else 0):
         local = tgs.shard_device_graph(d, info, shards, g, "cpu")
         ranks.append((local, tmc.prepare_fold(local, local.w_init, info,
-                                              modes)))
+                                              sharded=True)))
     deep = 0
     for c in range(info.n_colors):
         dchunk = jmc.color_delta_multilin(
@@ -246,8 +246,8 @@ def test_hub_row_sums_match_jax_segment_sum(name, shards):
         np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
         if ranks:
             parts = sum(tmc.hub_partial(local, local.tiers[t], ti, tv,
-                                        local.w_init, c, info, modes,
-                                        lfold[t]) for local, lfold in ranks)
+                                        local.w_init, c, info, lfold[t])
+                        for local, lfold in ranks)
             np.testing.assert_allclose(parts.numpy(), ref, rtol=0,
                                        atol=1e-5)
     assert deep                     # some row spans several segments
@@ -424,6 +424,27 @@ def _kbc_port(cap=8, chunk=4):
     return g, dg, info
 
 
+def test_a_shard_never_draws_through_the_plan():
+    """A graph shard draws a tier at a time even when its fold carries
+    dm_gather_draw's plan (the plan's launches address the whole graph's
+    rows): sweeps with an unsharded fold and with a sharded one, on a
+    shard that is the whole graph, give the same worlds bit for bit."""
+    _, dg, info = _kbc_port()
+    d = to_device(dg, "cpu")
+    with_plan = tmc.prepare_fold(d, d.w_init, info)
+    assert with_plan.dm is not None
+    worlds = []
+    for fold in (with_plan, tmc.prepare_fold(d, d.w_init, info,
+                                             sharded=True)):
+        gen = torch.Generator().manual_seed(3)
+        v = tmc.init_values_mc(d, gen, 8, info)
+        for _ in range(3):
+            tmc.sweep_mc(d, v, d.w_init, gen, False, info, fold,
+                         WholeShard())
+        worlds.append(v)
+    assert torch.equal(worlds[0], worlds[1])
+
+
 def test_one_launch_a_color_draws_as_tier_by_tier():
     """dm_gather_draw_tiers over every planned tier of a color (the dense
     deltam tiers and the hub, world-write mode, both masks) draws what
@@ -431,8 +452,7 @@ def test_one_launch_a_color_draws_as_tier_by_tier():
     mode what each tier's output mode draws."""
     _, dg, info = _kbc_port()
     d = to_device(dg, "cpu")
-    modes = ("off", "plain")
-    fold = tmc.prepare_fold(d, d.w_init, info, modes)
+    fold = tmc.prepare_fold(d, d.w_init, info)
     plan = fold.dm
     assert plan.tiers == [t for t, ti in enumerate(info.tiers) if ti.deltam]
     assert info.tiers[plan.tiers[-1]].hub
@@ -476,18 +496,27 @@ def test_hub_graph_runs_repeat_bytes():
 
 
 def test_default_modes_route_every_deltam_tier_to_the_kernel(monkeypatch):
-    """On a KBC graph the defaults are ("off", "plain") on the CPU (and
-    ("off", "cuda") on a card); a sweep then calls dm_gather_draw's plain
-    version once a color for every deltam tier, the hub tier included,
-    and never the eager color_delta_multilin nor hub_color_draw (its
-    index_add_); with the fused mode off the reverse: the eager
-    arithmetic once a deltam tier and color, the hub's in hub_color_draw."""
+    """On a KBC graph ``route`` sends every deltam tier, the hub tier
+    included, to dm_gather_draw; a sweep then calls its plain version (on
+    the CPU) once a color for all of them, and the eager color_delta_bool
+    only for the other tiers, never hub_color_draw (its index_add_); the
+    single-chain engine, which folds nothing, the reverse: the eager
+    arithmetic once a tier and color, the hub's in hub_color_draw."""
     _, dg, info = _kbc_port()
     assert info.has_hub and info.band_w == 0
-    assert tmc.resolve_modes(info, "cpu") == ("off", "plain")
+    assert all(tmc.route(ti, info).draw == ("gather" if ti.deltam
+                                            else "eager")
+               for ti in info.tiers)
+    # a graph shard draws the hub in hub_color_draw; without a fold every
+    # tier but the hub draws eagerly
+    assert all(tmc.route(ti, info, sharded=True).draw
+               == ("hub" if ti.hub else "gather" if ti.deltam else "eager")
+               for ti in info.tiers)
+    assert all(tmc.route(ti, info, folded=False).draw
+               == ("hub" if ti.hub else "eager") for ti in info.tiers)
     d = to_device(dg, "cpu")
     calls = {"plain": 0, "eager": 0, "hub": 0}
-    plain, eager = tmc.dm_gather_draw_tiers_plain, tmc.color_delta_multilin
+    plain, eager = tmc.dm_gather_draw_tiers_plain, tmc.color_delta_bool
     hub = tmc.hub_color_draw
 
     def count(key, fn):
@@ -498,19 +527,22 @@ def test_default_modes_route_every_deltam_tier_to_the_kernel(monkeypatch):
 
     monkeypatch.setattr(tmc, "dm_gather_draw_tiers_plain",
                         count("plain", plain))
-    monkeypatch.setattr(tmc, "color_delta_multilin", count("eager", eager))
+    monkeypatch.setattr(tmc, "color_delta_bool", count("eager", eager))
     monkeypatch.setattr(tmc, "hub_color_draw", count("hub", hub))
     n_dm = sum(ti.deltam for ti in info.tiers)
     n_hub = sum(ti.hub for ti in info.tiers)
     assert n_hub == 1
     v = tmc.init_values_mc(d, torch.Generator().manual_seed(0), 8, info)
-    for modes, want in ((None, {"plain": 1, "eager": 0, "hub": 0}),
-                        (("off", "off"), {"plain": 0, "eager": n_dm,
-                                          "hub": n_hub})):
-        calls.update(plain=0, eager=0, hub=0)
-        tmc.run_sweeps_mc(d, v, d.w_init, torch.Generator().manual_seed(1),
-                          2, False, info, modes, device="cpu")
-        assert calls == {k: 2 * info.n_colors * n for k, n in want.items()}
+    tmc.run_sweeps_mc(d, v, d.w_init, torch.Generator().manual_seed(1), 2,
+                      False, info, device="cpu")
+    n_eager = len(info.tiers) - n_dm
+    assert calls == {"plain": 2 * info.n_colors,
+                     "eager": 2 * info.n_colors * n_eager, "hub": 0}
+    calls.update(plain=0, eager=0, hub=0)
+    run_sweeps(d, v[:, 0], d.w_init, torch.Generator().manual_seed(1), 2,
+               False, info, device="cpu")
+    assert calls == {"plain": 0, "eager": 2 * info.n_colors * len(info.tiers),
+                     "hub": 2 * info.n_colors * n_hub}
 
 
 def _labelled(g, n_query, seed):
@@ -536,16 +568,21 @@ ORACLE = {
 
 
 @pytest.mark.parametrize("name", sorted(ORACLE))
-@pytest.mark.parametrize("fused", ["plain", "off"])
+@pytest.mark.parametrize("fused", ["plan", "tiers"])
 def test_infer_mc_kbc_matches_oracle(name, fused):
     make, kw, bound = ORACLE[name]
     g = make()
     dg, info = compile_graph(g, colors=greedy_coloring(g), **kw)
     assert info.has_hub and info.band_w == 0
     d = to_device(dg, "cpu")
-    marg, values = tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(5),
-                                200, 2000, info, 32, modes=("off", fused),
-                                device="cpu")
+    if fused == "plan":
+        marg, values = tmc.infer_mc(d, d.w_init,
+                                    torch.Generator().manual_seed(5), 200,
+                                    2000, info, 32, device="cpu")
+    else:
+        marg, values = infer_on_route(d, info,
+                                      torch.Generator().manual_seed(5), 200,
+                                      2000, 32, "tiers")
     assert bool(((values == 0) | (values == 1)).all())
     exact = oracle.exact_marginals(g, clamp_evidence=True)
     free = g.var_role == fs.ROLE_QUERY
@@ -581,9 +618,9 @@ def test_kbc_learning_is_deterministic_on_the_new_route(monkeypatch):
 def test_cuda_mode_on_the_cpu_raises():
     _, dg, info = _kbc_port()
     d = to_device(dg, "cpu")
-    with pytest.raises(ValueError, match="cuda"):
+    with pytest.raises(ValueError, match="to_device"):
         tmc.infer_mc(d, d.w_init, torch.Generator(), 1, 1, info, 4,
-                     modes=("off", "cuda"), device="cpu")
+                     device="meta")
     s = _streams(10, 3, 2, 50, 16, 1)
     meta = s["values"].to("meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -633,10 +670,12 @@ def test_fold_frees_without_the_cycle_collector():
     MB a fold)."""
     _, dg, info = _kbc_port()
     d = to_device(dg, "cpu")
-    for modes in (("off", "plain"), ("off", "cuda")):
-        fold = tmc.prepare_fold(d, d.w_init, info, modes)
-        assert fold.dm is not None
+    for tables in (False, True):
+        fold = tmc.prepare_fold(d, d.w_init, info)
+        assert fold.dm is not None and fold.dm.lists is not None
         ref = weakref.ref(fold[fold.dm.tiers[0]][1])
+        if tables:                    # as on the card
+            fold.dm.use_tables(d, info, fold)
         gc.disable()
         try:
             del fold
@@ -652,21 +691,21 @@ def test_launch_tables_follow_the_graphs_streams():
     graph the same table but its own coefficients."""
     _, dg, info = _kbc_port()
     d = to_device(dg, "cpu")
-    modes = ("off", "cuda")                 # tables are built off the card
     d2 = d._replace(tiers=tuple(
         ts._replace(cs_nbr=ts.cs_nbr.clone(),
                     cm_resample=ts.cm_resample.clone())
         for ts in d.tiers))
-    folds = [tmc.prepare_fold(x, x.w_init, info, modes) for x in (d, d2, d)]
+    folds = [tmc.prepare_fold(x, x.w_init, info) for x in (d, d2, d)]
     for fold, x in zip(folds, (d, d2, d)):
+        fold.dm.use_tables(x, info, fold)       # as on the card
+    tables = [fold.dm.tables for fold in folds]
+    for fold, tab, x in zip(folds, tables, (d, d2, d)):
         for i, t in enumerate(fold.dm.tiers):
-            assert fold.dm.tables[0, 0, i, 0] == x.tiers[t].cs_nbr.data_ptr()
-            assert (fold.dm.tables[0, 0, i, 8]
-                    == x.tiers[t].cm_resample.data_ptr())
-            assert fold.dm.tables[0, 0, i, 1] == fold[t][1].data_ptr()
+            assert tab[0, 0, i, 0] == x.tiers[t].cs_nbr.data_ptr()
+            assert tab[0, 0, i, 8] == x.tiers[t].cm_resample.data_ptr()
+            assert tab[0, 0, i, 1] == fold[t][1].data_ptr()
     same = [0, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15]
-    assert np.array_equal(folds[0].dm.tables[..., same],
-                          folds[2].dm.tables[..., same])
+    assert np.array_equal(tables[0][..., same], tables[2][..., same])
 
 
 # (records a row, chains, chains a load, lanes a row of the packed layout;
@@ -773,8 +812,7 @@ def test_hub_kernel_matches_plain_on_card(cuda_device):
     but at a few near-ties."""
     _, dg, info = _kbc_port()
     d = to_device(dg, cuda_device)
-    modes = ("off", "cuda")
-    fold = tmc.prepare_fold(d, d.w_init, info, modes)
+    fold = tmc.prepare_fold(d, d.w_init, info)
     v0 = tmc.init_values_mc(d, torch.Generator(cuda_device).manual_seed(3),
                             64, info)
     for c in range(info.n_colors):

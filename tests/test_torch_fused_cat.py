@@ -11,8 +11,9 @@ grids of tests/test_fused_cat.py):
   * its logits are the port's color_logits_mc + cm_kmask up to a
     per-variable shift (the k-independent terms the analysis drops), within
     1e-4;
-  * inference through it, and through the unfused candidate path, matches
-    exact enumeration (|Δp| < 0.01); mixed cardinalities draw only valid
+  * inference through it, and through the eager candidate path (the
+    single-chain engine's draw, at the same chain count), matches exact
+    enumeration (|Δp| < 0.01); mixed cardinalities draw only valid
     categories, and one generator seed gives bitwise-equal marginals;
   * with av = bv = 0 the draw is a softmax draw over the kmask-allowed
     candidates, deterministic per seed.
@@ -37,6 +38,7 @@ from sampler_tpu_torch.engine import multichain as tmc
 from sampler_tpu_torch.ops.fused import (KNUTH, M32, fold_affine_cat,
                                          fused_cat_draw, fused_cat_draw_plain,
                                          hash_bits, tile_seed, u32, uniform24)
+from torch_routes import infer_on_route
 
 NC = 16
 BAND = dict(band_tile=8, band_min_block=1)
@@ -178,8 +180,8 @@ def test_fused_logits_match_color_logits_up_to_shift(name):
                                        ti.band_w, ti.band_tb, ti.degree, K,
                                        return_logits=True)
         kmask = ts.cm_kmask.view(info.n_colors, B, K)[c]
-        lref = tmc.color_logits_mc(d, ts, ti, vals, d.w_init, c, info,
-                                   ("off", "off")) + kmask[:, :, None]
+        lref = tmc.color_logits_mc(d, ts, ti, vals, d.w_init, c,
+                                   info) + kmask[:, :, None]
         card = d.var_card[c * info.block_size:c * info.block_size + B]
         ok = (torch.arange(K)[None, :, None] < card[:, None, None])
         dcat = torch.where(ok, lcat - lcat[:, :1], 0.0)
@@ -198,14 +200,17 @@ def _port_grid(name):
 @pytest.mark.parametrize("fused", [True, False])
 def test_potts_grid_matches_oracle(fused):
     """tests/test_fused_cat.py's oracle grid (card 3, 8 query variables)
-    through the fused draw (the default modes) and the unfused candidate
+    through the fused draw (infer_mc's route) and the eager candidate
     path."""
     g, dg, info, query = _port_grid("card3")
-    assert tmc.resolve_modes(info, "cpu") == ("plain", "plain")
+    assert tmc.route(info.tiers[0], info) == ("cat", True, "records")
     d = to_device(dg, "cpu")
-    marg, values = tmc.infer_mc(
-        d, d.w_init, torch.Generator().manual_seed(0), 150, 1500, info, 32,
-        modes=None if fused else ("plain", "off"), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    if fused:
+        marg, values = tmc.infer_mc(d, d.w_init, gen, 150, 1500, info, 32,
+                                    device="cpu")
+    else:
+        marg, values = infer_on_route(d, info, gen, 150, 1500, 32)
     assert marg.shape == (g.n_vars, 3) and values.dtype == torch.int8
     exact = oracle.exact_marginals(g, clamp_evidence=True)
     err = np.abs(marg[query] - exact[query]).max()
@@ -216,10 +221,10 @@ def test_mixed_cards_valid_and_deterministic():
     g, dg, info, _ = _port_grid("mixed4")
     d = to_device(dg, "cpu")
     card = d.var_card[:, None]
-    for modes in (None, ("plain", "off")):
-        runs = [tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(3),
-                             20, 50, info, 4, modes=modes, device="cpu")
-                for _ in range(2)]
+    for infer in (lambda gen: tmc.infer_mc(d, d.w_init, gen, 20, 50, info,
+                                           4, device="cpu"),
+                  lambda gen: infer_on_route(d, info, gen, 20, 50, 4)):
+        runs = [infer(torch.Generator().manual_seed(3)) for _ in range(2)]
         (m1, v1), (m2, _) = runs
         assert np.array_equal(m1, m2)
         assert bool((v1 < card).all() and (v1 >= 0).all())
@@ -272,16 +277,16 @@ def test_wrapper_on_cpu_is_plain_and_counts_no_launch():
 
 
 def test_cat_routes_count_no_kernel_launch_on_cpu(monkeypatch):
-    """The default modes draw through fused_cat_draw's plain version (one
-    call a color a sweep) and refold with fold_affine_cat once a run; the
-    unfused modes draw through color_logits_mc; the CPU counts no
+    """infer_mc draws through fused_cat_draw (its plain version on the
+    CPU, one call a color a sweep) and refolds with fold_affine_cat once a
+    run; the eager route draws through color_logits_mc; the CPU counts no
     launch."""
     from sampler_tpu_torch.ops.banded import banded_gather
 
     _, dg, info, _ = _port_grid("card4")
     d = to_device(dg, "cpu")
     calls = {"draw": 0, "fold": 0, "logits": 0}
-    for name, key in (("fused_cat_draw_plain", "draw"),
+    for name, key in (("fused_cat_draw", "draw"),
                       ("fold_affine_cat", "fold"),
                       ("color_logits_mc", "logits")):
         orig = getattr(tmc, name)
@@ -296,8 +301,7 @@ def test_cat_routes_count_no_kernel_launch_on_cpu(monkeypatch):
     tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(0), 1, 2, info, 4,
                  device="cpu")
     assert calls == {"draw": 3 * C, "fold": 2, "logits": 0}
-    tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(0), 1, 2, info, 4,
-                 modes=("plain", "off"), device="cpu")
+    infer_on_route(d, info, torch.Generator().manual_seed(0), 1, 2, 4)
     assert calls["draw"] == 3 * C and calls["logits"] >= 3 * C
     assert (fused_cat_draw.launches, banded_gather.launches) == before
 

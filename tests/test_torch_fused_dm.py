@@ -217,10 +217,19 @@ def test_wrapper_on_cpu_is_plain_and_counts_no_launch():
 
 
 def test_prepare_fold_layout_follows_fused_mode():
+    """The fold follows the tier's route: the kernel's tile layout on a
+    fusedm tier, fold_deltam's flat streams on the same grid compiled
+    without a banding plan (dm_gather_draw's tier)."""
     _, _, tdg, tinfo = _compile("triple16_k1")
-    fused = tmc.prepare_fold(tdg, tdg.w_init, tinfo, ("plain", "plain"))
+    assert tmc.route(tinfo.tiers[0], tinfo).draw == "dm"
+    fused = tmc.prepare_fold(tdg, tdg.w_init, tinfo)
     assert fused[0][0].dim() == 3 and fused[0][1].dim() == 3
-    unfused = tmc.prepare_fold(tdg, tdg.w_init, tinfo, ("plain", "off"))
+    g, colors = GRAPHS["triple16_k1"][0]()
+    jdg, jinfo = jax_compile(g, colors=colors)
+    tdg, tinfo = from_jax(jdg, jinfo)
+    tdg = to_device(tdg, "cpu")
+    assert tmc.route(tinfo.tiers[0], tinfo).draw == "gather"
+    unfused = tmc.prepare_fold(tdg, tdg.w_init, tinfo)
     assert unfused[0][0].dim() == 1
 
 

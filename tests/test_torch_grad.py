@@ -10,9 +10,10 @@
     to within its one float32 rounding, and the partials of JAX
     grad_pair_tile in interpret mode on such streams inside the JAX
     kernel's contract (starts on the 256 grid, weight ids in range);
-  * mc_weight_gradient_cs on its kernel route (band "plain"), its chunked
-    route (row_chunk) and its band-"off" route, and the per-factor
-    _mc_weight_gradient_factors, equal JAX _mc_weight_gradient_factors and
+  * mc_weight_gradient_cs (grad_pair_tile on the affine2 tiers that
+    ``route`` sends there), the records route on every tier
+    (grad_records_sum, as under graph sharding) and the per-factor
+    _mc_weight_gradient_factors equal JAX _mc_weight_gradient_factors and
     JAX mc_weight_gradient_cs on its interpret-mode kernel route, on the
     graphs of tests/test_grad_kernel.py and on random arity-3 graphs.
 Tolerance 1e-4 absolute: the routes add the same float32 terms in other
@@ -305,16 +306,11 @@ def test_gradient_routes_match_jax(name, lne):
                                                 jinfo, ("interpret", "off")),
     }
     t_ev, t_free = torch.from_numpy(v_ev), torch.from_numpy(v_free)
-    chunk = max([ti.band_tb for ti in tinfo.tiers] + [1])
-    assert all(ti.block % chunk == 0 for ti in tinfo.tiers)
+    every_tier = tmc._record_plan(tdg, tinfo, range(len(tinfo.tiers)), lne,
+                                  1, 0)
     ours = {
-        "kernel": tmc.mc_weight_gradient_cs(tdg, t_ev, t_free, lne, tinfo,
-                                            ("plain", "off")),
-        "chunked": tmc.mc_weight_gradient_cs(tdg, t_ev, t_free, lne, tinfo,
-                                             ("plain", "off"),
-                                             row_chunk=chunk),
-        "band_off": tmc.mc_weight_gradient_cs(tdg, t_ev, t_free, lne, tinfo,
-                                              ("off", "off")),
+        "kernel": tmc.mc_weight_gradient_cs(tdg, t_ev, t_free, lne, tinfo),
+        "records": tmc.grad_records_sum(t_ev, t_free, every_tier),
         "factors": tmc._mc_weight_gradient_factors(tdg, t_ev, t_free, lne,
                                                    tinfo),
     }
@@ -327,21 +323,22 @@ def test_gradient_routes_match_jax(name, lne):
 
 
 def test_kernel_route_engages_only_where_jax_takes_it(monkeypatch):
-    """The kernel route runs for an affine2 tier with the band on and no
-    row_chunk, and for nothing else."""
+    """The kernel route runs for a banded affine2 tier, which ``route``
+    sends there, one call a color, unsharded, and for nothing else."""
     _, _, tdg, tinfo = _compile("ising")
+    assert [tmc.route(ti, tinfo) for ti in tinfo.tiers] == [
+        ("color", True, "pair")]
+    assert [tmc.route(ti, tinfo, sharded=True) for ti in tinfo.tiers] == [
+        ("color", True, "records")]
     calls = []
-    orig = tmc.grad_pair_tile_plain
-    monkeypatch.setattr(tmc, "grad_pair_tile_plain",
+    orig = tmc.grad_pair_tile
+    monkeypatch.setattr(tmc, "grad_pair_tile",
                         lambda *a: calls.append(1) or orig(*a))
     v = torch.zeros((tdg.var_card.shape[0], 4), dtype=torch.int8)
-    for modes, chunk, n in ((("plain", "off"), None, tinfo.n_colors),
-                            (("plain", "off"), 8, 0),
-                            (("off", "plain"), None, 0)):
+    for n_graph, n in ((1, tinfo.n_colors), (2, 0)):
         calls.clear()
-        tmc.mc_weight_gradient_cs(tdg, v, v, False, tinfo, modes,
-                                  row_chunk=chunk)
-        assert len(calls) == n, (modes, chunk)
+        tmc.mc_weight_gradient_cs(tdg, v, v, False, tinfo, n_graph=n_graph)
+        assert len(calls) == n, n_graph
 
 
 @pytest.fixture
@@ -412,7 +409,6 @@ def test_kernel_matches_plain_on_card(cuda_device, NC):
             torch.cuda.synchronize()
             scale = max(float(ref.abs().max()), 1.0)
             assert float((got - ref).abs().max()) <= 1e-5 * scale
-        g_k = tmc.mc_weight_gradient_cs(tdg, v_ev, v_free, lne, tinfo,
-                                        ("cuda", "off"))
+        g_k = tmc.mc_weight_gradient_cs(tdg, v_ev, v_free, lne, tinfo)
         g_f = tmc._mc_weight_gradient_factors(tdg, v_ev, v_free, lne, tinfo)
         assert float((g_k - g_f).abs().max()) <= ATOL

@@ -1,26 +1,26 @@
-"""The port's per-record gradient (ops.grad.grad_records, the kernel of the
-chunked cs-stream gradient) against the JAX package and the chunked route.
+"""The port's per-record gradient (ops.grad.grad_records, the per-record
+body of the records route) against the JAX package and the per-factor
+gradient.
 
   * on a KBC graph with a hub tier, a triple grid with band_k 2, card-3
     and card-4 Potts grids, an Ising grid with more weights than
     grad_pair_tile takes, mixed_graph, a card-200 graph (int32 worlds) and
     a graph of every boolean factor type (RATIO and LINEAR among them),
-    with learn_non_evidence both ways: the port's gradient with the modes
-    ("plain", "plain") (grad_records_plain on every tier that
-    grad_pair_tile does not take) and with ("off", "off") (the chunked
-    route) equal JAX
-    mc_weight_gradient_cs within 1e-4 (its XLA route, and its
-    grad_pair_tile route in interpret mode where it takes that);
-  * a 2-way graph shard: the two ranks' gradients on the new route add up
-    to the unsharded gradient and JAX's;
-  * grad_records_plain's per-record output equals the chunked route's
-    (records_diff over _phi_streams, through the banded gathers where a
-    tier bands) exactly, on every tier and color of those graphs;
+    with learn_non_evidence both ways: the port's gradient
+    (grad_records_plain on every tier that grad_pair_tile does not take)
+    equals JAX mc_weight_gradient_cs within 1e-4 (its XLA route, and its
+    grad_pair_tile route in interpret mode where it takes that) and the
+    port's per-factor gradient;
+  * a 2-way graph shard: the two ranks' gradients on the records route
+    add up to the unsharded gradient and JAX's;
+  * grad_records_plain's per-record output, in row chunks of any size,
+    equals the JAX package's chunked route's per-record diff (its
+    _phi_streams φ) exactly, on every tier and color of those graphs;
   * the wrapper on CPU tensors runs the plain version and counts no
     launch; out-of-contract inputs raise;
-  * the route engages where the fused mode says (one call a tier of each
-    tier gradient_route sends there), not with the fused mode off, and
-    not on a graph with sparse per-combination weights;
+  * the route engages where ``route`` says (one call a tier of each tier
+    it sends there), on a graph with sparse per-combination weights too
+    (its dense owner records);
   * the port's engine package exports the JAX package's engine names.
 The CUDA kernel is held to its plain version on the card (gpu marker).
 """
@@ -52,8 +52,7 @@ from sampler_tpu_torch.parallel import graph_shard as tgs
 
 ATOL = 1e-4
 NC = 6
-PLAIN = ("plain", "plain")
-OFF = ("off", "off")
+OFF = ("off", "off")            # the JAX package's XLA route
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -188,11 +187,11 @@ def _worlds(dg, info, n, seed, card200=False):
     return one(), one()
 
 
-def _engaged(tinfo, modes, W, n_graph=1):
-    """The tiers that take grad_records under ``modes``."""
+def _engaged(tinfo, n_graph=1):
+    """The tiers that take grad_records (every tier under graph
+    sharding)."""
     return [t for t, ti in enumerate(tinfo.tiers)
-            if tmc.gradient_route(ti, tinfo, modes, W,
-                                  n_graph=n_graph)[0] == "records"]
+            if tmc.route(ti, tinfo, n_graph > 1).grad == "records"]
 
 
 def test_graphs_cover_the_classes():
@@ -202,7 +201,7 @@ def test_graphs_cover_the_classes():
     tier of mixed and card 200, whose tiers have no fused draw."""
     def tiers(name):
         jdg, _, tdg, tinfo = _compiled(name)
-        return tinfo, _engaged(tinfo, PLAIN, tdg.w_init.shape[0])
+        return tinfo, _engaged(tinfo)
 
     info, on = tiers("kbc_hub")
     assert any(info.tiers[t].hub for t in on)
@@ -220,8 +219,8 @@ def test_graphs_cover_the_classes():
     for name in ("mixed", "card200"):
         info, on = tiers(name)
         assert on == list(range(len(info.tiers)))
-        assert not any(tmc.tier_modes(ti, PLAIN)[1] != "off"
-                       for ti in info.tiers)
+        assert all(tmc.route(ti, info).draw == "eager"
+                   for ti in info.tiers)
     assert tiers("card200")[0].max_card == 200
 
 
@@ -240,72 +239,71 @@ def test_gradient_routes_match_jax(name, lne):
         refs["jax_kernel"] = jmc.mc_weight_gradient_cs(
             jd, jv_ev, jv_free, lne, jinfo, ("interpret", "off"))
     t_ev, t_free = torch.from_numpy(v_ev), torch.from_numpy(v_free)
-    ours = {"plain": tmc.mc_weight_gradient_cs(d, t_ev, t_free, lne, tinfo,
-                                               PLAIN),
-            "chunked": tmc.mc_weight_gradient_cs(d, t_ev, t_free, lne, tinfo,
-                                                 OFF)}
+    refs["factors"] = tmc._mc_weight_gradient_factors(d, t_ev, t_free, lne,
+                                                      tinfo).numpy()
+    got = tmc.mc_weight_gradient_cs(d, t_ev, t_free, lne, tinfo)
     assert float(np.abs(np.asarray(refs["jax_xla"])).max()) > 0.01
     for rname, ref in refs.items():
-        for oname, got in ours.items():
-            np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
-                                       atol=ATOL,
-                                       err_msg=f"{oname} vs {rname}")
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                   atol=ATOL, err_msg=f"ours vs {rname}")
 
 
-def _per_record_chunked(monkeypatch, d, tinfo, v_ev, v_free, lne, modes):
-    """The chunked route's records_diff outputs, [B, D] a (tier, color),
-    in the loop's order."""
-    seen = []
-    orig = tmc.records_diff
+def _jax_per_record(jdg, jinfo, t, c, v_ev, v_free, lne):
+    """The JAX package's chunked route's per-record diff [B, D] of tier
+    ``t``, color ``c``, over the whole color block: φ of both worlds from
+    its ``_phi_streams`` (index gathers), then ``records_diff``."""
+    jd = jax_to_device(jdg)
+    ts, ti = jd.tiers[t], jinfo.tiers[t]
+    C, gB = jinfo.n_colors, jinfo.block_size
+    B, D, A = tier_geom(ts, ti, C)
 
-    def spy(phi, feat, gsel):
-        out = orig(phi, feat, gsel)
-        seen.append(out)
-        return out
+    def rows(arr, *tail):
+        n = int(np.prod(tail))
+        return arr[c * B * n:(c + 1) * B * n].reshape((B,) + tail)
 
-    monkeypatch.setattr(tmc, "records_diff", spy)
-    tmc.mc_weight_gradient_cs(d, v_ev, v_free, lne, tinfo, modes)
-    monkeypatch.setattr(tmc, "records_diff", orig)
-    C = tinfo.n_colors
-    got, k = {}, 0
-    for t, (ts, ti) in enumerate(zip(d.tiers, tinfo.tiers)):
-        B, D, A = tier_geom(ts, ti, C)
-        rc = tmc._row_chunk(ti, B, D, A, 2 * v_ev.shape[1])
-        for c in range(C):
-            n = B // rc
-            got[t, c] = torch.cat(seen[k:k + n])
-            k += n
-    assert k == len(seen)
-    return got
+    v_both = jnp.concatenate([jnp.asarray(v_ev), jnp.asarray(v_free)], -1)
+    if ti.hub:
+        own = v_both[c * gB + ti.off
+                     + jnp.minimum(ts.hb_row[c], ti.block - 1)]
+    else:
+        own = v_both[c * gB + ti.off:c * gB + ti.off + B]
+    phi, _ = jmc._phi_streams(
+        v_both, own, rows(ts.cs_nbr, D, A - 1), rows(ts.cs_pos, D, A),
+        None if jinfo.all_boolean else rows(ts.cs_eq, D, A),
+        rows(ts.cs_ismine, D, A), rows(ts.cs_mask, D, A),
+        rows(ts.cs_type, D), rows(ts.cs_arity, D), rows(ts.cs_hmask, D, A),
+        None, None, ti, ti.present_funcs or jinfo.present_funcs, OFF)
+    gsrc = ts.cs_gowner if lne else ts.cs_gtouch
+    return tgrad.records_diff(*(torch.from_numpy(np.array(x)) for x in (
+        phi, rows(ts.cs_feat, D), rows(gsrc, D))))
 
 
 @pytest.mark.parametrize("lne", [False, True])
 @pytest.mark.parametrize("name", sorted(GRAPHS))
-def test_plain_records_equal_chunked_exactly(monkeypatch, name, lne):
-    """grad_records_plain's output equals the chunked route's per-record
-    diff bit for bit, on every tier and color (the chunked route through
-    the banded gathers where a tier bands)."""
-    _, _, tdg, tinfo = _compiled(name)
+def test_plain_records_equal_chunked_exactly(name, lne):
+    """grad_records_plain's output, in row chunks of any size, equals the
+    JAX package's chunked route's per-record diff bit for bit, on every
+    tier and color."""
+    jdg, jinfo, tdg, tinfo = _compiled(name)
     d = to_device(tdg, "cpu")
-    v_ev, v_free = (torch.from_numpy(v) for v in _worlds(
-        tdg, tinfo, NC, 3, card200=name == "card200"))
-    # band "plain": the chunked route gathers as the unfused draw does
-    chunked = _per_record_chunked(monkeypatch, d, tinfo, v_ev, v_free, lne,
-                                  ("plain", "off"))
+    v_ev, v_free = _worlds(tdg, tinfo, NC, 3, card200=name == "card200")
+    t_ev, t_free = torch.from_numpy(v_ev), torch.from_numpy(v_free)
     gB, C = tinfo.block_size, tinfo.n_colors
     nonzero = 0
     for t, (ts, ti) in enumerate(zip(d.tiers, tinfo.tiers)):
         gsrc = ts.cs_gowner if lne else ts.cs_gtouch
         present = ti.present_funcs or tinfo.present_funcs
-        args = (v_ev, v_free, *tmc._record_streams(
+        args = (t_ev, t_free, *tmc._record_streams(
             ts, ti, C, gB, gsrc, 1, 0, tinfo.all_boolean), present,
             tinfo.all_boolean)
+        want = [_jax_per_record(jdg, jinfo, t, c, v_ev, v_free, lne)
+                for c in range(C)]
         for row_chunk in (None, 1):
             out = grad_records_plain(*args, row_chunk=row_chunk)
             assert out.dtype == torch.float32
             for c in range(C):
                 assert torch.equal(out[c].view(torch.int32),
-                                   chunked[t, c].view(torch.int32)), (t, c)
+                                   want[c].view(torch.int32)), (t, c)
         nonzero += int((out != 0).sum())
     assert nonzero > 0
 
@@ -324,15 +322,13 @@ def test_sharded_gradient_sums_to_unsharded(name):
         want = np.asarray(jmc.mc_weight_gradient_cs(
             jax_to_device(jdg), jnp.asarray(v_ev), jnp.asarray(v_free), lne,
             jinfo, OFF))
-        whole = tmc.mc_weight_gradient_cs(d, t_ev, t_free, lne, tinfo,
-                                          PLAIN).numpy()
+        whole = tmc.mc_weight_gradient_cs(d, t_ev, t_free, lne,
+                                          tinfo).numpy()
         total = np.zeros_like(want)
         for g in range(2):
             local = tgs.shard_device_graph(tdg, tinfo, 2, g, "cpu")
-            assert _engaged(tinfo, PLAIN, local.w_init.shape[0], 2)
             total += tmc.mc_weight_gradient_cs(
-                local, t_ev, t_free, lne, tinfo, PLAIN, n_graph=2,
-                g=g).numpy()
+                local, t_ev, t_free, lne, tinfo, n_graph=2, g=g).numpy()
         assert np.abs(want).max() > 0.01
         np.testing.assert_allclose(total, whole, rtol=0, atol=ATOL)
         np.testing.assert_allclose(total, want, rtol=0, atol=ATOL)
@@ -350,62 +346,52 @@ def _count(monkeypatch, name):
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_route_engages_where_the_fused_mode_says(monkeypatch, name):
-    """One grad_records_plain call a tier of each tier that gradient_route
-    sends there while the fused mode is on ("plain"), none with it off;
-    the chunked route's _phi_streams runs only for the tiers it sends
-    there."""
+    """One grad_records_plain call a tier of each tier that ``route``
+    sends to the records route; grad_pair_tile takes the others (banded
+    affine2 tiers of at most GRAD_W_MAX weights), one call a color."""
     _, _, tdg, tinfo = _compiled(name)
     d = to_device(tdg, "cpu")
-    W = d.w_init.shape[0]
     v = torch.zeros((d.var_card.shape[0], 4), dtype=tmc.values_dtype(tinfo))
     calls = _count(monkeypatch, "grad_records_plain")
-    chunks = _count(monkeypatch, "_phi_streams")
-    for modes in (PLAIN, ("off", "plain"), OFF, ("plain", "off")):
-        calls.clear()
-        chunks.clear()
-        tmc.mc_weight_gradient_cs(d, v, v, False, tinfo, modes)
-        on = _engaged(tinfo, modes, W)
-        assert len(calls) == len(on), modes
-        rest = [t for t, ti in enumerate(tinfo.tiers)
-                if tmc.gradient_route(ti, tinfo, modes, W)[0] == "chunked"]
-        assert bool(chunks) == bool(rest), modes
-        if modes[1] == "off":
-            assert not calls
-        else:
-            assert not rest and not chunks, modes
+    pairs = _count(monkeypatch, "grad_pair_tile")
+    tmc.mc_weight_gradient_cs(d, v, v, False, tinfo)
+    on = _engaged(tinfo)
+    assert len(calls) == len(on)
+    rest = [t for t, ti in enumerate(tinfo.tiers) if t not in on]
+    assert all(ti.affine2 and tmc.route(ti, tinfo).band
+               and d.w_init.shape[0] <= GRAD_W_MAX
+               for ti in map(tinfo.tiers.__getitem__, rest))
+    assert len(pairs) == len(rest) * tinfo.n_colors
+    assert (name == "ising_many_weights") == any(
+        ti.affine2 for ti in map(tinfo.tiers.__getitem__, on))
 
 
 def test_route_stays_off_under_sparse_weights(monkeypatch):
-    """On a graph with sparse per-combination weights the chunked route
-    stays only with the fused mode off; with it on every tier takes
-    grad_records on its dense owner records (no row chunk), the sparse
-    ones the table lookup beside it.  Both equal JAX's gradient."""
+    """On a graph with sparse per-combination weights every tier takes
+    grad_records on its dense owner records, the sparse ones the table
+    lookup beside it; the gradient equals JAX's and the per-factor one."""
     g = jfx.sparse_categorical_graph(seed=3, n=6)
     g.var_role[::2] = jfs.ROLE_EVIDENCE
     jdg, jinfo = jax_compile(g)
     tdg, tinfo = from_jax(jdg, jinfo)
     assert tinfo.has_sparse_cw
+    assert all(tmc.route(ti, tinfo) == ("eager", False, "records")
+               for ti in tinfo.tiers)
     d = to_device(tdg, "cpu")
     calls = _count(monkeypatch, "grad_records_plain")
-    chunks = _count(monkeypatch, "_phi_streams")
     v_ev, v_free = _worlds(tdg, tinfo, NC, 13)
-    for modes in (OFF, ("off", "plain")):
-        calls.clear()
-        chunks.clear()
-        for lne in (False, True):
-            got = tmc.mc_weight_gradient_cs(d, torch.from_numpy(v_ev),
-                                            torch.from_numpy(v_free), lne,
-                                            tinfo, modes)
-            ref = jmc.mc_weight_gradient_cs(jax_to_device(jdg),
-                                            jnp.asarray(v_ev),
-                                            jnp.asarray(v_free), lne, jinfo,
-                                            OFF)
-            np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
-                                       atol=ATOL)
-        if modes == OFF:
-            assert not calls and chunks
-        else:
-            assert len(calls) == 2 * len(tinfo.tiers) and not chunks
+    t_ev, t_free = torch.from_numpy(v_ev), torch.from_numpy(v_free)
+    for lne in (False, True):
+        got = tmc.mc_weight_gradient_cs(d, t_ev, t_free, lne, tinfo)
+        ref = jmc.mc_weight_gradient_cs(jax_to_device(jdg),
+                                        jnp.asarray(v_ev),
+                                        jnp.asarray(v_free), lne, jinfo, OFF)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                   atol=ATOL)
+        np.testing.assert_allclose(
+            got.numpy(), tmc._mc_weight_gradient_factors(
+                d, t_ev, t_free, lne, tinfo).numpy(), rtol=0, atol=ATOL)
+    assert len(calls) == 2 * len(tinfo.tiers)
 
 
 def _tier_args(name, t=0):
@@ -491,8 +477,6 @@ def test_out_of_contract_inputs_raise():
     bad(bool_args, eq=bool_args[3].to(torch.int16))   # eq on all-boolean
     bad(bool_args, v_ev=bool_args[0].to(torch.int32),
         v_free=bool_args[1].to(torch.int32))
-    with pytest.raises(ValueError):                   # no kernel on CPU
-        tmc.check_modes(("off", "cuda"), "cpu")
 
 
 def test_engine_exports_equal_jax():
@@ -514,7 +498,7 @@ def _plan(name, lne, d=None, tinfo=None, n_graph=1, g=0):
     if d is None:
         _, _, tdg, tinfo = _compiled(name)
         d = to_device(tdg, "cpu")
-    tiers = _engaged(tinfo, PLAIN, d.w_init.shape[0], n_graph)
+    tiers = _engaged(tinfo, n_graph)
     return d, tinfo, tmc._record_plan(d, tinfo, tiers, lne, n_graph, g)
 
 
@@ -609,7 +593,7 @@ def test_plan_lists_each_owner_record_once(name, lne):
     RECORD_PIECE terms, a weight's pieces consecutive."""
     d, tinfo, plan = _plan(name, lne)
     C, gB = tinfo.n_colors, tinfo.block_size
-    tiers = _engaged(tinfo, PLAIN, d.w_init.shape[0])
+    tiers = _engaged(tinfo)
     assert len(plan.tiers) == len(tiers) > 0
     wids = []
     for t, rt, (head, flags, nbr, eq) in zip(tiers, plan.tiers, plan.packed):
@@ -664,7 +648,7 @@ def test_plan_holds_no_sparse_owner():
     sparse = 0
     for lne in (False, True):
         _, _, plan = _plan(None, lne, d, tinfo)
-        for t, (head, *_) in zip(_engaged(tinfo, PLAIN, d.w_init.shape[0]),
+        for t, (head, *_) in zip(_engaged(tinfo),
                                  plan.packed):
             ts = d.tiers[t]
             gsrc = (ts.cs_gowner if lne else ts.cs_gtouch).reshape(-1)

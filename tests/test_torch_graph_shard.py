@@ -184,10 +184,8 @@ def test_own_rowmask_equals_jax(n_graph):
 
 # --------------------------------------------------------- gradients
 
-GRAD_CASES = [("ising", 2, "plain"), ("ising", 4, "off"),
-              ("triple", 2, "plain"), ("potts", 2, "plain"),
-              ("kbc", 2, "off"), ("sparse", 2, "off"),
-              ("functions", 2, "off")]
+GRAD_CASES = [("ising", 2), ("ising", 4), ("triple", 2), ("potts", 2),
+              ("kbc", 2), ("sparse", 2), ("functions", 2)]
 
 
 def _worlds(dg, info, n_chains: int, seed: int):
@@ -203,8 +201,8 @@ def _worlds(dg, info, n_chains: int, seed: int):
 
 
 @pytest.mark.parametrize("lne", [False, True])
-@pytest.mark.parametrize("name,n_graph,band", GRAD_CASES)
-def test_sharded_gradient_sums_to_jax(name, n_graph, band, lne):
+@pytest.mark.parametrize("name,n_graph", GRAD_CASES)
+def test_sharded_gradient_sums_to_jax(name, n_graph, lne):
     """Owner records are disjoint across the ranks: the ranks' gradients
     on their local streams add up to JAX's unsharded gradient."""
     _, dgj, infoj = _graph(name, n_graph)
@@ -218,7 +216,7 @@ def test_sharded_gradient_sums_to_jax(name, n_graph, band, lne):
         local = tgs.shard_device_graph(dg, info, n_graph, g, "cpu")
         total += tmc.mc_weight_gradient_cs(
             local, torch.from_numpy(v_ev), torch.from_numpy(v_free), lne,
-            info, (band, "off"), n_graph=n_graph, g=g).numpy()
+            info, n_graph=n_graph, g=g).numpy()
     assert np.abs(want).max() > 0.05
     np.testing.assert_allclose(total, want, rtol=0, atol=1e-4)
 
@@ -244,14 +242,14 @@ def test_hub_partial_sums_add_up(name):
     values = torch.from_numpy(v)
     t = len(info.tiers) - 1
     ti = info.tiers[t]
-    folded = tmc.prepare_fold(d, d.w_init, info, ("off", "off"))
+    folded = tmc.prepare_fold(d, d.w_init, info, sharded=True)
     for c in range(info.n_colors):
         whole = tmc.hub_partial(d, d.tiers[t], ti, values, d.w_init, c, info,
                                 folded_t=folded and folded[t])
         parts = 0
         for g in range(n_graph):
             local = tgs.shard_device_graph(dg, info, n_graph, g, "cpu")
-            fl = tmc.prepare_fold(local, local.w_init, info, ("off", "off"))
+            fl = tmc.prepare_fold(local, local.w_init, info, sharded=True)
             parts = parts + tmc.hub_partial(local, local.tiers[t], ti,
                                             values, local.w_init, c, info,
                                             folded_t=fl and fl[t])
@@ -342,8 +340,7 @@ def test_graph_sharded_fused_plain_matches_oracle(ranks):
                              band_tile=8, band_min_block=1)
     dg, info = from_jax(dgj, infoj)
     assert info.affine2
-    marg = tgs.infer_gs(dg, dg.w_init, 3, 100, 1000, info, ranks(2, 2), 8,
-                        modes=("plain", "plain"))
+    marg = tgs.infer_gs(dg, dg.w_init, 3, 100, 1000, info, ranks(2, 2), 8)
     exact = oracle.exact_marginals(g, clamp_evidence=True)
     err = np.abs(marg[query, :2] - exact[query]).max()
     assert err < 0.015, f"max |dp| = {err:.4f}"
@@ -396,21 +393,21 @@ def _reduced_gradient_body(comm, host, info, n_chains, halo):
     from sampler_tpu_torch.parallel import chains
 
     if comm.mesh.n_graph > 1:
-        d, modes = tgs._local(comm, host, info, None)
+        d = tgs._local(comm, host, info)
         shard = tgs.Shard(comm, info, halo)
     else:
-        d, _, modes = chains._rank_setup(comm, host, host.w_init, info, None)
+        d = chains._rank_setup(comm, host, host.w_init)[0]
         shard = None
     gen = chunk_generator(13, "init", 0, comm.device, comm.row)
     v_ev = tmc.init_values_mc(d, gen, n_chains, info)
     v_free = tmc.init_values_mc(d, gen, n_chains, info)
     gen = chunk_generator(13, "sweep", 0, comm.device, comm.row, comm.g)
-    folded = tmc.prepare_fold(d, d.w_init, info, modes)
+    folded = tmc.prepare_fold(d, d.w_init, info,
+                                sharded=shard is not None)
     for _ in range(2):
-        tmc.sweep_mc(d, v_ev, d.w_init, gen, False, info, folded, modes,
-                     shard)
+        tmc.sweep_mc(d, v_ev, d.w_init, gen, False, info, folded, shard)
     grads = [chains.reduced_gradient(comm, d, v_ev, v_free, lne, info,
-                                     modes, shard) for lne in (False, True)]
+                                     shard) for lne in (False, True)]
     return (grads, tgs._canonical(comm, v_ev, info, halo),
             tgs._canonical(comm, v_free, info, halo))
 
@@ -437,8 +434,7 @@ def test_reduced_gradient_equals_unsharded(name, shape, ranks):
     assert ev.shape == (host.var_card.shape[0], 4 * shape[0])
     assert not torch.equal(ev, free)
     for lne, grad in zip((False, True), grads):
-        want = tmc.mc_weight_gradient_cs(host, ev, free, lne, info,
-                                         tmc.resolve_modes(info, "cpu"))
+        want = tmc.mc_weight_gradient_cs(host, ev, free, lne, info)
         assert float(want.abs().max()) > 0
         np.testing.assert_allclose(grad.numpy(), want.numpy(), rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
@@ -447,11 +443,12 @@ def test_reduced_gradient_equals_unsharded(name, shape, ranks):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("modes", [None, ("plain", "off"), ("off", "off")])
-def test_halo_equals_all_gather(ranks, modes):
-    dg, info = _halo_grid(False)
+@pytest.mark.parametrize("case", ["free", "labelled", "sample_evidence"])
+def test_halo_equals_all_gather(ranks, case):
+    dg, info = _halo_grid(case != "free")
     kw = dict(n_burn=2, n_sweeps=30, info=info, mesh=ranks(1, 4),
-              chains_per_device=4, modes=modes)
+              chains_per_device=4,
+              sample_evidence=case == "sample_evidence")
     m_halo = tgs.infer_gs(dg, dg.w_init, 5, halo="auto", **kw)
     m_full = tgs.infer_gs(dg, dg.w_init, 5, halo=None, **kw)
     np.testing.assert_array_equal(m_halo, m_full)

@@ -8,10 +8,13 @@ in tests/test_torch_graph_shard.py):
     package's on the star graphs and on small random_kbc_graphs;
   * rcm_order (scipy's reverse Cuthill-McKee) and its BFS fallback give
     the JAX package's ranks;
-  * inference through hub_color_draw matches exact enumeration: |dp| <
-    0.01 on the boolean star, 0.012 on the card-3 star (JAX's bounds);
-  * the chunked cs-stream gradient over dense and hub tiers equals the
-    per-factor gradient and JAX's mc_weight_gradient_cs within 1e-4;
+  * inference through the hub tier matches exact enumeration: |dp| <
+    0.01 on the boolean star, on infer_mc's route (dm_gather_draw) and on
+    the eager route (hub_color_draw without a fold), 0.012 on the card-3
+    star (hub_color_draw; JAX's bounds);
+  * the cs-stream gradient over dense and hub tiers equals the per-factor
+    gradient and JAX's mc_weight_gradient_cs within 1e-4, and the hub's
+    records give the same gradient in row chunks of one chunk;
   * learning on a hub graph is deterministic under one generator;
   * the padded stream volume stays O(edges);
   * compile_graph takes bench.py's KBC shape (skew 1.1, hub_cap 256) at
@@ -38,8 +41,11 @@ from sampler_tpu_torch.coloring import greedy_coloring, rcm_order
 from sampler_tpu_torch.compile import compile_graph, to_device
 from sampler_tpu_torch.engine import multichain as tmc
 from sampler_tpu_torch.engine.learn import LearnConfig
+from sampler_tpu_torch.ops.grad import grad_records_plain
+from sampler_tpu_torch.ops.weights import segment_reduce
+from torch_routes import infer_on_route
 
-PLAIN = ("off", "off")
+JAX_XLA = ("off", "off")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -139,8 +145,8 @@ def test_bfs_order_equals_jax():
     assert sorted(got.tolist()) == list(range(g.n_vars))
 
 
-@pytest.mark.parametrize("modes", [None, PLAIN], ids=["default", "plain"])
-def test_hub_tier_engages_and_matches_oracle(modes):
+@pytest.mark.parametrize("route", ["plan", "eager"], ids=["default", "plain"])
+def test_hub_tier_engages_and_matches_oracle(route):
     g = _star_graph(n_leaves=14)
     colors = greedy_coloring(g)
     coloring.validate_coloring(g, colors)
@@ -148,8 +154,12 @@ def test_hub_tier_engages_and_matches_oracle(modes):
     assert info.has_hub and info.tiers[-1].hub
     assert info.tiers[-1].chunk_g == 4
     d = to_device(dg, "cpu")
-    marg, _ = tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(0),
-                           200, 4000, info, 8, modes=modes, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    if route == "plan":
+        marg, _ = tmc.infer_mc(d, d.w_init, gen, 200, 4000, info, 8,
+                               device="cpu")
+    else:
+        marg, _ = infer_on_route(d, info, gen, 200, 4000, 8)
     err = np.abs(marg - oracle.exact_marginals(g)).max()
     assert err < 0.01, f"hub marginal error {err}"
 
@@ -159,9 +169,10 @@ def test_hub_tier_categorical_oracle():
     dg, info = compile_graph(g, colors=greedy_coloring(g), hub_cap=5,
                              hub_chunk=4)
     assert info.has_hub and not info.all_boolean
+    assert tmc.route(info.tiers[-1], info).draw == "hub"
     d = to_device(dg, "cpu")
     marg, _ = tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(1),
-                           200, 4000, info, 8, modes=PLAIN, device="cpu")
+                           200, 4000, info, 8, device="cpu")
     err = np.abs(marg - oracle.exact_marginals(g)).max()
     assert err < 0.012, f"hub categorical marginal error {err}"
 
@@ -212,12 +223,12 @@ def test_hub_gradient_matches_per_factor_and_jax(kbc_worlds,
     record lives in a hub chunk) and == JAX's, within 1e-4."""
     d, info, dj, infoj, v_ev, v_free = kbc_worlds
     g_cs = tmc.mc_weight_gradient_cs(d, v_ev, v_free, learn_non_evidence,
-                                     info, PLAIN)
-    g_ref = tmc.mc_weight_gradient(d, v_ev, v_free, learn_non_evidence,
-                                   info, modes=None)
+                                     info)
+    g_ref = tmc._mc_weight_gradient_factors(d, v_ev, v_free,
+                                            learn_non_evidence, info)
     g_jax = jmc.mc_weight_gradient_cs(dj, jnp.asarray(v_ev.numpy()),
                                       jnp.asarray(v_free.numpy()),
-                                      learn_non_evidence, infoj, PLAIN)
+                                      learn_non_evidence, infoj, JAX_XLA)
     assert float(g_cs.abs().max()) > 0.1
     np.testing.assert_allclose(g_cs.numpy(), g_ref.numpy(), rtol=0,
                                atol=1e-4)
@@ -227,11 +238,20 @@ def test_hub_gradient_matches_per_factor_and_jax(kbc_worlds,
 
 def test_hub_gradient_row_chunks_agree(kbc_worlds):
     """The hub tier's chunks give the same gradient in row chunks of one
-    chunk as all at once."""
+    chunk (grad_records_plain a tier, summed by weight) as all at once
+    (the records route)."""
     d, info, _, _, v_ev, v_free = kbc_worlds
-    whole = tmc.mc_weight_gradient_cs(d, v_ev, v_free, False, info, PLAIN)
-    one = tmc.mc_weight_gradient_cs(d, v_ev, v_free, False, info, PLAIN,
-                                    row_chunk=1)
+    whole = tmc.mc_weight_gradient_cs(d, v_ev, v_free, False, info)
+    C, gB, W = info.n_colors, info.block_size, d.w_init.shape[0]
+    assert info.tiers[-1].hub
+    one = torch.zeros(W, dtype=torch.float32)
+    for ts, ti in zip(d.tiers, info.tiers):
+        terms = grad_records_plain(
+            v_ev, v_free, *tmc._record_streams(ts, ti, C, gB, ts.cs_gtouch,
+                                               1, 0, info.all_boolean),
+            ti.present_funcs or info.present_funcs, info.all_boolean,
+            row_chunk=1)
+        one += segment_reduce(terms.reshape(-1), ts.cs_wid, W)
     np.testing.assert_allclose(one.numpy(), whole.numpy(), rtol=0,
                                atol=1e-5)
 
@@ -247,9 +267,9 @@ def test_hub_learning_runs_and_is_deterministic():
     cfg = LearnConfig(n_epochs=8, n_sweeps_per_epoch=2, stepsize=0.05,
                       diminish=0.97)
     w1, _, _ = tmc.learn_mc(d, d.w_init, torch.Generator().manual_seed(0),
-                            cfg, info, 4, modes=PLAIN, device="cpu")
+                            cfg, info, 4, device="cpu")
     w2, _, _ = tmc.learn_mc(d, d.w_init, torch.Generator().manual_seed(0),
-                            cfg, info, 4, modes=PLAIN, device="cpu")
+                            cfg, info, 4, device="cpu")
     assert torch.equal(w1, w2)
     assert not torch.allclose(w1, d.w_init)
 

@@ -1,14 +1,18 @@
 """The port's multi-chain inference against the JAX package and the oracle.
 
-  * color_delta_bool and color_delta_multilin give the JAX package's
-    log-odds (within 1e-5) on the same streams and world;
-  * infer_mc on the CPU, fused and unfused, matches exact enumeration
-    (|Δp| < 0.01) on the biased coin, an Ising chain, every boolean factor
-    function with evidence, and an evidence-clamped banded grid;
-  * with its default modes it also runs the fusedm graphs (arity 3 and
-    multi-window: evidence-clamped triple grids with band_k 1 and 2, and a
-    3-colored Ising grid) and matches exact enumeration within 0.01 on
-    the fused and the unfused route at the same budget;
+  * color_delta_bool, banded or not, and the multilinear log-odds of the
+    route a deltam tier takes (fused_color_draw, fused_dm_draw or
+    dm_gather_draw) give the JAX package's log-odds (color_delta_bool and
+    color_delta_multilin, within 1e-5) on the same streams and world;
+  * infer_mc on the CPU, and the eager route (every tier drawn as the
+    single-chain engine draws it, at the same chain count), match exact
+    enumeration (|Δp| < 0.01) on the biased coin, an Ising chain, every
+    boolean factor function with evidence, and an evidence-clamped banded
+    grid;
+  * infer_mc also runs the fusedm graphs (arity 3 and multi-window:
+    evidence-clamped triple grids with band_k 1 and 2, and a 3-colored
+    Ising grid) and matches exact enumeration within 0.01 on its route
+    and the eager route at the same budget;
   * color_logits_mc gives the JAX package's candidate log-potentials
     (within 1e-5) on categorical, mixed, Potts and card-200 graphs, and
     infer_mc matches exact enumeration on the first, second and last of
@@ -34,10 +38,13 @@ from sampler_tpu_torch.benchgraphs import big_ising_grid, big_triple_grid
 from sampler_tpu_torch.compile import compile_graph, to_device
 from sampler_tpu_torch.convert import from_jax
 from sampler_tpu_torch.engine import multichain as tmc
+from sampler_tpu_torch.ops.fused import (dm_gather_draw, fused_color_draw,
+                                         fused_dm_draw)
+from sampler_tpu_torch.ops.tally import tally_plain
+from torch_routes import infer_on_route
 
 TOL = 0.01
 N_CHAINS = 64
-UNFUSED = ("plain", "off")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -113,21 +120,42 @@ DELTA_GRAPHS = {
 }
 
 
+def _route_delta(ts, ti, values, c, info, fold_t) -> torch.Tensor:
+    """The log-odds [B, NC] of color ``c`` of a deltam tier on its route's
+    draw (the wrapper, so the plain version on the CPU)."""
+    seed = torch.zeros(2, dtype=torch.int32)
+    draw = tmc.route(ti, info).draw
+    if draw == "color":
+        return fused_color_draw(values, ts.bd_nbr, ts.bd_start[c],
+                                fold_t[0], fold_t[1], c, seed, ti.band_w,
+                                ti.band_tb, ti.degree, return_delta=True)[1]
+    if draw == "dm":
+        return fused_dm_draw(values, ts.bd_dmnbr, ts.bd_start[c], *fold_t, c,
+                             seed, ti.band_w, ti.band_tb, ti.degree,
+                             ti.arity - 1, ti.band_k, return_delta=True)[1]
+    assert draw == "gather"
+    return dm_gather_draw(values, *tmc._dm_streams(ts, ti, c, info, fold_t),
+                          None)
+
+
 @pytest.mark.parametrize("name,band", [
     ("evidence_grid", "plain"), ("evidence_grid", "off"),
     ("arity3_chain", "off"), ("all_functions", "off"),
     ("triple_grid_mw", "plain"), ("ising_3color", "plain")])
 def test_color_deltas_match_jax(name, band):
+    """``band`` "off": the graph compiled without a banding plan."""
     make, kw = DELTA_GRAPHS[name]
     g, colors = make()
-    jdg, jinfo = jax_compile(g, colors=colors, **kw)
+    jdg, jinfo = jax_compile(g, colors=colors, **(kw if band == "plain"
+                                                  else {}))
     jdgd = jax_to_device(jdg)
     tdg, tinfo = from_jax(jdg, jinfo)
     tdg = to_device(tdg, "cpu")
-    modes = (band, "off")
+    assert all(tmc.route(ti, tinfo).band == (band == "plain")
+               for ti in tinfo.tiers)
     jw = jnp.asarray(jdg.w_init)
     jfold = jmc.prepare_fold(jdgd, jw, jinfo, ("off", "off"))
-    tfold = tmc.prepare_fold(tdg, tdg.w_init, tinfo, modes)
+    tfold = tmc.prepare_fold(tdg, tdg.w_init, tinfo)
     P = jdg.var_card.shape[0]
     vals = np.random.default_rng(4).integers(0, 2, (P, 5)).astype(np.int8)
     tv = torch.from_numpy(vals)
@@ -138,7 +166,7 @@ def test_color_deltas_match_jax(name, band):
                                        jnp.asarray(vals), jw, c, jinfo,
                                        ("off", "off"))
             out = tmc.color_delta_bool(tdg.tiers[t], ti, tv, tdg.w_init, c,
-                                       tinfo, modes)
+                                       tinfo)
             np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                        atol=1e-5)
             if ti.deltam:
@@ -146,8 +174,7 @@ def test_color_deltas_match_jax(name, band):
                 ref = jmc.color_delta_multilin(
                     jdgd.tiers[t], jinfo.tiers[t], jnp.asarray(vals), c,
                     jinfo, jfold[t], ("off", "off"))
-                out = tmc.color_delta_multilin(tdg.tiers[t], ti, tv, c, tinfo,
-                                               tfold[t], modes)
+                out = _route_delta(tdg.tiers[t], ti, tv, c, tinfo, tfold[t])
                 np.testing.assert_allclose(out.numpy(), np.asarray(ref),
                                            rtol=0, atol=1e-5)
     assert n_multilin > 0
@@ -165,20 +192,26 @@ PARITY_GRAPHS = {
 }
 
 
+def _infer(d, info, gen, n_burn, n_sweeps, fused):
+    """infer_mc, or with ``fused`` False the eager route."""
+    if fused:
+        return tmc.infer_mc(d, d.w_init, gen, n_burn, n_sweeps, info,
+                            N_CHAINS, device="cpu")
+    return infer_on_route(d, info, gen, n_burn, n_sweeps, N_CHAINS)
+
+
 @pytest.mark.parametrize("name", sorted(PARITY_GRAPHS))
 @pytest.mark.parametrize("fused", [True, False])
 def test_infer_mc_matches_oracle(name, fused):
     make, kw, n_sweeps = PARITY_GRAPHS[name]
     g, colors = make()
     dg, info = compile_graph(g, colors=colors, **kw)
-    modes = tmc.resolve_modes(info, "cpu") if fused else UNFUSED
     if name == "evidence_grid":
-        assert info.affine2 and modes == (("plain", "plain") if fused
-                                          else UNFUSED)
+        assert info.affine2 and tmc.route(info.tiers[0], info) == (
+            "color", True, "pair")
     d = to_device(dg, "cpu")
     gen = torch.Generator().manual_seed(11)
-    marg, values = tmc.infer_mc(d, d.w_init, gen, 200, n_sweeps, info,
-                                N_CHAINS, modes=modes, device="cpu")
+    marg, values = _infer(d, info, gen, 200, n_sweeps, fused)
     assert values.shape == (dg.var_card.shape[0], N_CHAINS)
     exact = oracle.exact_marginals(g, clamp_evidence=True)
     free = g.var_role == fs.ROLE_QUERY
@@ -206,12 +239,10 @@ def test_infer_mc_fusedm_matches_oracle(name, fused):
     ti = info.tiers[0]
     assert len(info.tiers) == 1 and ti.fusedm and not ti.affine2
     assert (ti.band_k, ti.arity) == (band_k, arity)
-    assert tmc.resolve_modes(info, "cpu") == ("plain", "plain")
+    assert tmc.route(ti, info)[:2] == ("dm", True)
     d = to_device(dg, "cpu")
     gen = torch.Generator().manual_seed(3)
-    marg, values = tmc.infer_mc(d, d.w_init, gen, 200, FUSEDM_SWEEPS, info,
-                                N_CHAINS, modes=None if fused else UNFUSED,
-                                device="cpu")
+    marg, values = _infer(d, info, gen, 200, FUSEDM_SWEEPS, fused)
     assert values.shape == (dg.var_card.shape[0], N_CHAINS)
     exact = oracle.exact_marginals(g, clamp_evidence=True)
     free = g.var_role == fs.ROLE_QUERY
@@ -220,9 +251,9 @@ def test_infer_mc_fusedm_matches_oracle(name, fused):
 
 
 def test_fusedm_routes_count_no_kernel_launch_on_cpu(monkeypatch):
-    """The default modes draw through fused_dm_draw's plain version, the
-    unfused modes gather through banded_gather_multi's; the CPU counts no
-    launch."""
+    """infer_mc draws through fused_dm_draw, the eager route gathers
+    through banded_gather_multi; on the CPU they run their plain versions
+    and count no launch."""
     from sampler_tpu_torch.ops.banded import banded_gather_multi
     from sampler_tpu_torch.ops.fused import fused_dm_draw
 
@@ -231,8 +262,8 @@ def test_fusedm_routes_count_no_kernel_launch_on_cpu(monkeypatch):
     dg, info = compile_graph(g, colors=colors, **kw)
     d = to_device(dg, "cpu")
     calls = {"draw": 0, "gather": 0}
-    for name, key in (("fused_dm_draw_plain", "draw"),
-                      ("banded_gather_multi_plain", "gather")):
+    for name, key in (("fused_dm_draw", "draw"),
+                      ("banded_gather_multi", "gather")):
         orig = getattr(tmc, name)
 
         def counted(*a, _orig=orig, _key=key, **k):
@@ -245,8 +276,7 @@ def test_fusedm_routes_count_no_kernel_launch_on_cpu(monkeypatch):
     tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(0), 1, 2, info, 4,
                  device="cpu")
     assert calls == {"draw": 3 * C, "gather": 0}
-    tmc.infer_mc(d, d.w_init, torch.Generator().manual_seed(0), 1, 2, info, 4,
-                 modes=UNFUSED, device="cpu")
+    infer_on_route(d, info, torch.Generator().manual_seed(0), 1, 2, 4)
     assert calls == {"draw": 3 * C, "gather": 3 * C}
     assert (fused_dm_draw.launches, banded_gather_multi.launches) == before
 
@@ -289,9 +319,12 @@ def test_cuda_mode_on_cpu_raises():
     g, colors = _evidence_grid()
     dg, info = compile_graph(g, colors=colors, band_tile=8, band_min_block=1)
     d = to_device(dg, "cpu")
-    with pytest.raises(ValueError, match="CUDA"):
-        tmc.infer_mc(d, d.w_init, torch.Generator(), 1, 1, info, 4,
-                     modes=("cuda", "cuda"), device="cpu")
+    # a run on another device than its graph's: the card where there is
+    # one, and the meta device everywhere
+    for device in ["meta"] + ["cuda"] * torch.cuda.is_available():
+        with pytest.raises(ValueError, match="to_device"):
+            tmc.infer_mc(d, d.w_init, torch.Generator(), 1, 1, info, 4,
+                         device=device)
 
 
 @pytest.mark.parametrize("make", [
@@ -388,8 +421,8 @@ def test_color_logits_match_jax(name):
     tdg, tinfo = from_jax(jdg, jinfo)
     tdg = to_device(tdg, "cpu")
     assert not tinfo.all_boolean
-    modes = (tmc.resolve_modes(tinfo, "cpu")[0], "off")
-    assert modes[0] == ("plain" if name == "potts_grid" else "off")
+    assert all(tmc.route(ti, tinfo).band == (name == "potts_grid")
+               for ti in tinfo.tiers)
     card = np.asarray(jdg.var_card)
     vals = (np.random.default_rng(6).integers(0, 1 << 20, (card.shape[0], 5))
             % np.maximum(card, 1)[:, None])
@@ -403,15 +436,14 @@ def test_color_logits_match_jax(name):
             ref = jmc.color_logits_mc(jdgd, jdgd.tiers[t], jinfo.tiers[t], jv,
                                       jw, c, jinfo, ("off", "off"))
             out = tmc.color_logits_mc(tdg, tdg.tiers[t], ti, tv, tdg.w_init,
-                                      c, tinfo, modes)
+                                      c, tinfo)
             assert out.shape == ref.shape == (ti.block, tinfo.max_card, 5)
             np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                        atol=1e-5)
             # a row range gives the same rows
             half = ti.block // 2
             part = tmc.color_logits_mc(tdg, tdg.tiers[t], ti, tv, tdg.w_init,
-                                       c, tinfo, modes, half,
-                                       ti.block - half)
+                                       c, tinfo, half, ti.block - half)
             assert torch.equal(part, out[half:])
 
 
@@ -428,17 +460,14 @@ CAT_PARITY = {
 @pytest.mark.parametrize("fused", [True, False])
 def test_infer_mc_categorical_matches_oracle(name, fused):
     """The general candidate path on the CPU (these graphs do not band,
-    so the default modes and fused off take it alike)."""
+    so infer_mc and the eager route take it alike)."""
     make, n_sweeps = CAT_PARITY[name]
     g, colors = make()
     dg, info = compile_graph(g, colors=colors)
-    modes = tmc.resolve_modes(info, "cpu") if fused else UNFUSED
     assert not info.affinek
     d = to_device(dg, "cpu")
-    marg, values = tmc.infer_mc(d, d.w_init,
-                                torch.Generator().manual_seed(2), 200,
-                                n_sweeps, info, N_CHAINS, modes=modes,
-                                device="cpu")
+    marg, values = _infer(d, info, torch.Generator().manual_seed(2), 200,
+                          n_sweeps, fused)
     K = info.max_card
     assert marg.shape == (g.n_vars, K)
     assert values.dtype == (torch.int32 if K > 127 else torch.int8)
@@ -456,7 +485,7 @@ def test_card200_worlds_are_int32_and_band_off():
     dg, info = compile_graph(g)
     assert info.max_card == 200
     assert tmc.values_dtype(info) == torch.int32
-    assert tmc.resolve_modes(info, "cpu") == ("off", "plain")
+    assert not any(tmc.route(ti, info).band for ti in info.tiers)
     d = to_device(dg, "cpu")
     v = tmc.init_values_mc(d, torch.Generator().manual_seed(0), 512, info)
     assert v.dtype == torch.int32
@@ -465,8 +494,7 @@ def test_card200_worlds_are_int32_and_band_off():
 
 
 @pytest.mark.parametrize("K,NC", [(3, 5), (16, 7), (17, 3), (200, 9)])
-def test_tally_counts_every_value(monkeypatch, K, NC):
-    monkeypatch.setattr(tmc, "INIT_CHUNK_ELEMS", 40)        # many blocks
+def test_tally_counts_every_value(K, NC):
     gen = torch.Generator().manual_seed(K)
     v = torch.randint(0, K, (53, NC), generator=gen,
                       dtype=torch.int8 if K <= 127 else torch.int32)
@@ -474,3 +502,6 @@ def test_tally_counts_every_value(monkeypatch, K, NC):
     tmc.tally(counts, v)
     ref = torch.stack([(v == k).sum(dim=1) for k in range(K)]).to(torch.int32)
     assert torch.equal(counts, ref + 1)
+    blocks = torch.ones((K, 53), dtype=torch.int32)
+    tally_plain(blocks, v, chunk_elems=40)              # many blocks
+    assert torch.equal(blocks, ref + 1)

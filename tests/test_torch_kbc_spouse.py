@@ -63,7 +63,7 @@ def port_logodds(d, info, weights, world_pos) -> torch.Tensor:
     """Each position's conditional log-odds [P, NC] from the fold and
     dm_gather_draw's delta mode, color by color, tier by tier."""
     w = torch.as_tensor(weights, dtype=torch.float32)
-    folded = mc.prepare_fold(d, w, info, ("off", "plain"), plan=False)
+    folded = mc.prepare_fold(d, w, info, sharded=True)
     out = torch.zeros(world_pos.shape, dtype=torch.float32)
     for c in range(info.n_colors):
         for t, (ts, ti) in enumerate(zip(d.tiers, info.tiers)):
@@ -168,7 +168,9 @@ def test_plan_counts_the_packed_rows_of_each_launch(monkeypatch, n_chains,
     plan counts a launch table's packed rows once and hands each launch
     its count (its tables are built off the card too)."""
     _, _, _, info, d = compiled(spouse(300))
-    plan = mc.prepare_fold(d, d.w_init, info, ("off", "cuda")).dm
+    fold = mc.prepare_fold(d, d.w_init, info)
+    plan = fold.dm
+    plan.use_tables(d, info, fold)
     assert plan.tiers == list(range(len(info.tiers)))
     calls = []
     monkeypatch.setattr(mc, "dm_gather_draw_table",

@@ -6,18 +6,20 @@ package and closed-form fixed points.
   * learn_mc on the CPU recovers a labelled coin's log-odds, separates two
     coin populations, and leaves a fixed weight alone (the fixed points of
     tests/test_learning.py);
-  * on one generator seed the kernel route of the gradient and the
-    chunked index_select route learn the same weights (the sweeps are the
-    same draws; the gradients differ only in float order);
+  * on one generator seed the kernel route of the gradient
+    (grad_pair_tile) and the records route (grad_records_sum, which an
+    affine2 tier takes past GRAD_W_MAX weights) learn the same weights
+    (the sweeps are the same draws; the gradients differ only in float
+    order);
   * ten epochs of _learn_mc_from equal two chained five-epoch calls;
   * on an evidence-clamped triple grid (fusedm, arity 3) learning through
-    the fused draw and through the unfused draw reaches the same weights
+    the fused draw and through the eager draw reaches the same weights
     (mirrors tests/test_fused_dm.py's fold-refresh test), and on
-    multi-window graphs (band_k 2) the chunked gradient through the
-    multi-window gather equals the per-factor gradient and the JAX one;
-  * on categorical, mixed, Potts and card-200 graphs the chunked
-    cs-stream gradient (its categorical branch) and the per-factor gradient
-    equal JAX mc_weight_gradient_cs within 1e-4, and learn_mc on an
+    multi-window graphs (band_k 2) the records gradient equals the
+    per-factor gradient and the JAX one;
+  * on categorical, mixed, Potts and card-200 graphs the cs-stream
+    gradient (the records route's categorical branch) and the per-factor
+    gradient equal JAX mc_weight_gradient_cs within 1e-4, and learn_mc on an
     evidence Potts grid refolds fold_affine_cat every epoch and moves the
     weights (mirrors tests/test_fused_cat.py's learning test).
 """
@@ -43,6 +45,7 @@ from sampler_tpu_torch.compile import to_device
 from sampler_tpu_torch.convert import from_jax
 from sampler_tpu_torch.engine.learn import LearnConfig, apply_update
 from sampler_tpu_torch.engine import multichain as tmc
+from torch_routes import learn_on_route
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -55,11 +58,11 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _learn(g, cfg, n_chains=8, seed=0, modes=None, colors=None, **kw):
+def _learn(g, cfg, n_chains=8, seed=0, colors=None, **kw):
     dg, info = compile_graph(g, colors=colors, **kw)
     d = to_device(dg, "cpu")
     w, _, _ = tmc.learn_mc(d, d.w_init, torch.Generator().manual_seed(seed),
-                           cfg, info, n_chains, modes=modes, device="cpu")
+                           cfg, info, n_chains, device="cpu")
     return w.numpy()
 
 
@@ -134,13 +137,14 @@ def test_kernel_and_chunked_routes_learn_the_same_weights(monkeypatch):
     g, colors = _banded_grid()
     kw = dict(colors=colors, band_tile=8, band_min_block=1)
     calls = []
-    orig = tmc.grad_pair_tile_plain
-    monkeypatch.setattr(tmc, "grad_pair_tile_plain",
+    orig = tmc.grad_pair_tile
+    monkeypatch.setattr(tmc, "grad_pair_tile",
                         lambda *a: calls.append(1) or orig(*a))
-    wk = _learn(g, GRID_CFG, 4, seed=1, modes=("plain", "plain"), **kw)
+    wk = _learn(g, GRID_CFG, 4, seed=1, **kw)
     assert len(calls) == 2 * GRID_CFG.n_epochs        # one a color an epoch
     calls.clear()
-    wx = _learn(g, GRID_CFG, 4, seed=1, modes=("off", "plain"), **kw)
+    monkeypatch.setattr(tmc, "GRAD_W_MAX", 0)        # past the kernel's W
+    wx = _learn(g, GRID_CFG, 4, seed=1, **kw)
     assert not calls
     np.testing.assert_allclose(wk, wx, rtol=0, atol=1e-4)
     assert np.abs(wk[:g.n_weights] - g.w_init).max() > 1e-3   # they moved
@@ -213,12 +217,11 @@ def test_fusedm_learning_fused_and_unfused_agree():
     d = to_device(dg, "cpu")
     cfg = LearnConfig(n_epochs=150, stepsize=1e-3, diminish=0.99,
                       regularization="none")
-    out = {}
-    for label, modes in (("fused", ("plain", "plain")),
-                         ("unfused", ("plain", "off"))):
-        w, _, _ = tmc.learn_mc(d, d.w_init, torch.Generator().manual_seed(0),
-                               cfg, info, 8, modes=modes, device="cpu")
-        out[label] = w.numpy()
+    out = {"fused": tmc.learn_mc(d, d.w_init,
+                                 torch.Generator().manual_seed(0), cfg, info,
+                                 8, device="cpu")[0].numpy(),
+           "unfused": learn_on_route(d, info, torch.Generator().manual_seed(0),
+                                     cfg, 8).numpy()}
     np.testing.assert_allclose(out["fused"], out["unfused"], atol=0.15)
     assert np.abs(out["fused"][:g.n_weights]).max() > 0.05   # they moved
 
@@ -257,12 +260,9 @@ def test_multi_window_chunked_gradient_matches_factors(make, lne):
                     for _ in range(2))
     tv_ev, tv_free = torch.from_numpy(v_ev), torch.from_numpy(v_free)
     factors = tmc._mc_weight_gradient_factors(d, tv_ev, tv_free, lne, tinfo)
-    for row_chunk in (None, 2 * ti.band_tb):
-        got = tmc.mc_weight_gradient_cs(d, tv_ev, tv_free, lne, tinfo,
-                                        ("plain", "plain"),
-                                        row_chunk=row_chunk)
-        np.testing.assert_allclose(got.numpy(), factors.numpy(), rtol=0,
-                                   atol=1e-4)
+    got = tmc.mc_weight_gradient_cs(d, tv_ev, tv_free, lne, tinfo)
+    np.testing.assert_allclose(got.numpy(), factors.numpy(), rtol=0,
+                               atol=1e-4)
     ref = jmc._mc_weight_gradient_factors(jax_to_device(jdg),
                                           jnp.asarray(v_ev),
                                           jnp.asarray(v_free), lne, jinfo)
@@ -329,14 +329,9 @@ def test_categorical_gradient_matches_jax(name, lne):
                                     jnp.asarray(v_ev.numpy()),
                                     jnp.asarray(v_free.numpy()), lne, jinfo,
                                     ("off", "off"))
-    modes = tmc.resolve_modes(tinfo, "cpu")
-    ti = tinfo.tiers[0]
-    chunks = [None, 2 * ti.band_tb] if ti.band_w else [None, 1]
-    for row_chunk in chunks:
-        got = tmc.mc_weight_gradient_cs(d, v_ev, v_free, lne, tinfo, modes,
-                                        row_chunk=row_chunk)
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
-                                   atol=1e-4)
+    got = tmc.mc_weight_gradient_cs(d, v_ev, v_free, lne, tinfo)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-4)
     factors = tmc._mc_weight_gradient_factors(d, v_ev, v_free, lne, tinfo)
     np.testing.assert_allclose(factors.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-4)

@@ -5,13 +5,11 @@ oracle (mirrors tests/test_sparse_weights.py).
     log-potentials (within 1e-6) on the sparse fixtures;
   * sparse_comb_wids equals JAX's exactly, for one world and for NC
     chains;
-  * the cs-stream gradient on its default route (grad_records on the dense
-    owner records, the sparse ones' table lookup beside it), the chunked
-    route (the fused mode off; whole tiers and one row a chunk) and the
+  * the cs-stream gradient (grad_records on the dense owner records, one
+    call a tier, the sparse ones' table lookup beside it) and the
     per-factor gradient equal JAX mc_weight_gradient_cs within 1e-4, with
-    the reserved zero slot's gradient 0; the default route runs no row
-    chunk of the chunked route, and under graph sharding the ranks'
-    gradients sum to JAX's;
+    the reserved zero slot's gradient 0, and under graph sharding the
+    ranks' gradients sum to JAX's;
   * infer_mc on the sparse fixtures matches exact enumeration within 0.01;
   * learn_mc and the single-chain learn recover per-category log-odds
     (atol 0.15, tests/test_sparse_weights.py's bound) and leave the
@@ -120,10 +118,8 @@ def _worlds(d, dt, n, seed):
 @pytest.mark.parametrize("name", sorted(SPARSE_GRAPHS))
 def test_color_logits_sparse_match_jax(name):
     jd, jinfo, d, info = _both(name)
-    modes = tmc.resolve_modes(info, "cpu")
-    assert modes == ("off", "plain")
-    assert not any(tmc.tier_modes(ti, modes)[1] != "off"
-                   for ti in info.tiers)        # every draw stays eager
+    assert all(tmc.route(ti, info).draw == "eager"
+               for ti in info.tiers)            # every draw stays eager
     tv = _worlds(d, tmc.values_dtype(info), 5, 6)[0]
     jv, jw = jnp.asarray(tv.numpy()), jnp.asarray(d.w_init.numpy())
     for t, ti in enumerate(info.tiers):
@@ -131,7 +127,7 @@ def test_color_logits_sparse_match_jax(name):
             ref = jmc.color_logits_mc(jd, jd.tiers[t], jinfo.tiers[t], jv, jw,
                                       c, jinfo, ("off", "off"))
             out = tmc.color_logits_mc(d, d.tiers[t], ti, tv, d.w_init, c,
-                                      info, modes)
+                                      info)
             assert out.shape == ref.shape
             np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                        atol=1e-6)
@@ -157,16 +153,10 @@ def test_sparse_gradient_matches_jax(name, lne):
         jd, jnp.asarray(v_ev.numpy()), jnp.asarray(v_free.numpy()), lne,
         jinfo, ("off", "off")))
     assert ref[-1] == 0.0
-    modes = tmc.resolve_modes(info, "cpu")
-    W = d.w_init.shape[0]
-    assert all(tmc.gradient_route(ti, info, modes, W) == ("records", "plain")
-               for ti in info.tiers)
-    for m in (modes, ("off", "off")):
-        for row_chunk in (None, 1):
-            got = tmc.mc_weight_gradient_cs(d, v_ev, v_free, lne, info, m,
-                                            row_chunk=row_chunk)
-            np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4)
-            assert float(got[-1]) == 0.0
+    assert all(tmc.route(ti, info).grad == "records" for ti in info.tiers)
+    got = tmc.mc_weight_gradient_cs(d, v_ev, v_free, lne, info)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4)
+    assert float(got[-1]) == 0.0
     factors = tmc._mc_weight_gradient_factors(d, v_ev, v_free, lne, info)
     np.testing.assert_allclose(factors.numpy(), ref, rtol=0, atol=1e-4)
     jfactors = np.asarray(jmc._mc_weight_gradient_factors(
@@ -189,25 +179,18 @@ def _count(monkeypatch, name):
 
 @pytest.mark.parametrize("name", sorted(SPARSE_GRAPHS))
 def test_sparse_gradient_runs_no_row_chunk(monkeypatch, name):
-    """With the fused mode on, a sparse-weight graph's gradient calls
-    grad_records_plain once a tier and _phi_streams (the chunked route's
-    row chunks) never; the sparse owner records go to the table lookup
-    once a tier that has them; with it off, the reverse."""
+    """A sparse-weight graph's gradient calls grad_records_plain once a
+    tier (its dense owner records, through grad_records_sum) and the
+    table lookup once a tier that has sparse owner records."""
     _, _, d, info = _both(name)
     v_ev, v_free = _worlds(d, tmc.values_dtype(info), 4, 3)
     records = _count(monkeypatch, "grad_records_plain")
-    chunks = _count(monkeypatch, "_phi_streams")
     lookups = _count(monkeypatch, "_sparse_grad_records")
     has_sparse = sum(bool((ts.cs_issparse & ts.cs_gowner).any())
                      for ts in d.tiers)
     assert has_sparse
-    for modes, want in ((("off", "plain"), (len(info.tiers), 0, has_sparse)),
-                        (("off", "off"), (0, None, 0))):
-        for calls in (records, chunks, lookups):
-            calls.clear()
-        tmc.mc_weight_gradient_cs(d, v_ev, v_free, True, info, modes)
-        assert len(records) == want[0] and len(lookups) == want[2]
-        assert (len(chunks) == 0) if want[1] == 0 else len(chunks) > 0
+    tmc.mc_weight_gradient_cs(d, v_ev, v_free, True, info)
+    assert len(records) == len(info.tiers) and len(lookups) == has_sparse
 
 
 @pytest.mark.parametrize("name", ["sparse_categorical", "mixed_sparse_dense",
@@ -227,13 +210,11 @@ def test_sharded_sparse_gradient_sums_to_jax(name, lne):
     ref = np.asarray(jmc.mc_weight_gradient_cs(
         jax_to_device(jdg), jnp.asarray(v_ev.numpy()),
         jnp.asarray(v_free.numpy()), lne, jinfo, ("off", "off")))
-    modes = tmc.resolve_modes(info, "cpu")
     total = np.zeros_like(ref)
     for g in range(n_graph):
         local = tgs.shard_device_graph(d, info, n_graph, g, "cpu")
         total += tmc.mc_weight_gradient_cs(local, v_ev, v_free, lne, info,
-                                           modes, n_graph=n_graph,
-                                           g=g).numpy()
+                                           n_graph=n_graph, g=g).numpy()
     if lne:
         assert np.abs(ref).max() > 0.05
     np.testing.assert_allclose(total, ref, rtol=0, atol=1e-4)
